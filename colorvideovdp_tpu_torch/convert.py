@@ -1,0 +1,36 @@
+"""Carry calibrated parameters from a JAX ``cvvdp`` instance to the port.
+
+``params_from_jax(metric)`` reads the metric's attributes with ``getattr``
+and ``np.asarray`` only (no jax import) and returns plain floats and numpy
+arrays; ``colorvideovdp_tpu_torch.cvvdp.load_parameters`` applies them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# Numeric attributes set by the JAX package's cvvdp.load_config.
+_SCALARS = ("mask_p", "mask_c", "pu_dilate", "beta", "beta_t", "beta_tch", "beta_sch",
+            "csf_sigma", "sensitivity_correction", "jod_a", "jod_exp", "image_int",
+            "ch_chrom_w", "ch_trans_w", "mask_q_sust", "mask_q_trans", "d_max")
+_ARRAYS = ("mask_q", "xcm_weights", "ch_weights", "sigma_tf", "beta_tf", "baseband_weight")
+_DISPLAY = ("Y_peak", "contrast", "E_ambient", "k_refl", "exposure")
+
+
+def params_from_jax(metric) -> dict:
+    """Calibrated constants plus display photometry and geometry of a JAX
+    ``colorvideovdp_tpu.cvvdp`` instance."""
+    out = {}
+    for name in _SCALARS:
+        if hasattr(metric, name):
+            v = np.asarray(getattr(metric, name))
+            out[name] = float(v) if v.ndim == 0 else v.astype(np.float32)
+    for name in _ARRAYS:
+        if hasattr(metric, name):
+            out[name] = np.asarray(getattr(metric, name), np.float32)
+    dm = metric.display_photometry
+    for name in _DISPLAY:
+        out["display_" + name] = float(np.asarray(getattr(dm, name)))
+    out["display_rgb2xyz"] = np.asarray(dm.rgb2xyz, np.float32)
+    out["pix_per_deg"] = float(metric.pix_per_deg)
+    return out

@@ -1,0 +1,241 @@
+// Video front end: raw frames -> float -> display EOTF -> DKL -> temporal FIR.
+//
+// Replaces colorvideovdp_tpu/ops/kernels/ingest.py `make_ingest_fn`
+// (`_ingest_kernel`) in its "tail" mode: the fl-1 carried DKL frames come in
+// as a tail, the blk new frames as raw planes (uint8, uint16 bits, float16 or
+// float32; 3 colour channels, or 1 luminance channel broadcast to all three
+// DKL channels). Any batch size: blockIdx.z is the batch item.
+//
+// One thread per pixel and source (blockIdx.y: 0 = test, 1 = reference).
+// The thread walks the fl-1+blk buffer slots in time order and converts each
+// slot to DKL exactly once: tail slots are read from the tail, new slots go
+// through the dtype ladder (true division by 255 / 65535: the PQ curve
+// amplifies a last-ulp error about 6x), the EOTF with black level,
+// reflection and exposure, and the fused RGB->DKL 3x3. The last fl DKL
+// triplets sit in a per-thread ring in shared memory; once a slot completes a
+// window, the four FIR channels of that output frame are summed in tap order
+// and written to out[:, 2*c_out + src, fo] (c_out = 3 re-filters Y). Slots
+// blk.. fl-2+blk are also written out as the next tail.
+//
+// All math is float32 with the plain version's roundings: every product and
+// sum that the plain PyTorch chain rounds separately is rounded separately
+// here (__fmul_rn / __fadd_rn keep nvcc from contracting them into FMAs).
+// That matters for PQ: near the display peak the curve amplifies a last-ulp
+// difference in C2 - C3 * im_t about 500x, so its two powers are also taken
+// in float64 and rounded once, as the plain version does.
+//
+// Bound on the H100: memory. Per pixel and block it reads 2*3*blk source
+// bytes (uint8; twice that for uint16) plus 2*3*(fl-1)*4 tail bytes, and
+// writes (8*blk + 6*(fl-1))*4 bytes; every read and write is coalesced
+// across the warp and nothing is read twice. The EOTF's pow/exp per new
+// sample is the only heavy arithmetic and is hidden behind the traffic.
+
+#include <cuda_fp16.h>
+
+#include "common.cuh"
+
+#define INGEST_MAX_FL 64
+#define INGEST_THREADS 128
+
+enum Eotf { EOTF_SRGB = 0, EOTF_PQ = 1, EOTF_LINEAR = 2, EOTF_HLG = 3, EOTF_GAMMA = 4 };
+enum SrcType { SRC_U8 = 0, SRC_U16 = 1, SRC_F16 = 2, SRC_F32 = 3 };
+
+struct IngestParams {
+  int eotf, channels;
+  // Display constants, each rounded once from the host's double value:
+  // Y_peak - Y_black, Y_black, Y_refl, exposure, Y_peak, max(0.005, Y_black),
+  // gamma, hlg_gamma - 1, HLG b, HLG c.
+  float span, Y_black, Y_refl, exposure, Y_peak, lin_floor, gamma, hlg_g1, hlg_b, hlg_c;
+  float M[9];                      // RGB -> DKLd65, row-major
+  float filt[4 * INGEST_MAX_FL];   // time-reversed taps, (4, fl)
+  int fl, blk;
+  long long hw;
+};
+
+// The dtype ladder of ops/kernels/ingest.py:raw_to_float.
+__device__ __forceinline__ float to_float(uint8_t v) { return __fdiv_rn((float)v, 255.0f); }
+__device__ __forceinline__ float to_float(uint16_t v) { return __fdiv_rn((float)v, 65535.0f); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+__device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+
+// float32 x ** y taken in float64 and rounded once (ops/colorspace.py:_pow_rn).
+__device__ __forceinline__ float pow_rn(float x, float y) {
+  return (float)pow((double)x, (double)y);
+}
+
+// (Y_peak - Y_black) * lin + Y_black + Y_refl, rounded step by step.
+__device__ __forceinline__ float gog(const IngestParams& P, float lin) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(P.span, lin), P.Y_black), P.Y_refl);
+}
+
+__device__ __forceinline__ float expose01(const IngestParams& P, float lin) {
+  return P.exposure != 1.0f ? clamp01(__fmul_rn(lin, P.exposure)) : lin;
+}
+
+// Mirrors display.vvdp_display_photo_eotf.forward for the n (1 or 3)
+// channels of one pixel.
+__device__ void eotf(const IngestParams& P, const float* V, float* L, int n) {
+  if (P.eotf == EOTF_HLG) {
+    const float a = 0.17883277f;
+    float s[3];
+    for (int k = 0; k < n; ++k) {
+      const float v = clamp01(V[k]);
+      s[k] = v <= 0.5f ? __fdiv_rn(__fmul_rn(v, v), 3.0f)
+                       : __fdiv_rn(__fadd_rn(expf(__fdiv_rn(__fsub_rn(v, P.hlg_c), a)), P.hlg_b),
+                                   12.0f);
+    }
+    // Y_s = sum of the weighted channels; luminance content weighs its one
+    // channel three times, as the plain version's broadcast does.
+    const float s1 = n == 3 ? s[1] : s[0], s2 = n == 3 ? s[2] : s[0];
+    const float Ys = __fadd_rn(__fadd_rn(__fmul_rn(s[0], 0.2627f), __fmul_rn(s1, 0.6780f)),
+                               __fmul_rn(s2, 0.0593f));
+    const float oo = powf(Ys, P.hlg_g1);
+    for (int k = 0; k < n; ++k) L[k] = gog(P, expose01(P, __fmul_rn(oo, s[k])));
+    return;
+  }
+  for (int k = 0; k < n; ++k) {
+    const float v = V[k];
+    if (P.eotf == EOTF_SRGB) {
+      const float u = clamp01(v);
+      const float lin = u > 0.04045f ? powf(__fdiv_rn(__fadd_rn(u, 0.055f), 1.055f), 2.4f)
+                                     : __fdiv_rn(u, 12.92f);
+      L[k] = gog(P, expose01(P, lin));
+    } else if (P.eotf == EOTF_PQ) {
+      // ops/colorspace.py:pq2lin: float32 as the JAX package computes it,
+      // with both powers correctly rounded (pow_rn).
+      const float im_t = pow_rn(clamp01(v), (float)(1.0 / 78.84375));
+      const float num = fmaxf(__fsub_rn(im_t, 0.8359375f), 0.0f);
+      const float den = __fsub_rn(18.8515625f, __fmul_rn(18.6875f, im_t));
+      const float lin = __fmul_rn(10000.0f, pow_rn(__fdiv_rn(num, den),
+                                                   (float)(1.0 / 0.1593017578125)));
+      L[k] = __fadd_rn(__fadd_rn(fminf(fmaxf(__fmul_rn(lin, P.exposure), 0.005f), P.Y_peak),
+                                 P.Y_black), P.Y_refl);
+    } else if (P.eotf == EOTF_LINEAR) {
+      L[k] = __fadd_rn(fminf(fmaxf(__fmul_rn(v, P.exposure), P.lin_floor), P.Y_peak), P.Y_refl);
+    } else {  // numeric gamma
+      L[k] = gog(P, clamp01(__fmul_rn(powf(clamp01(v), P.gamma), P.exposure)));
+    }
+  }
+}
+
+template <typename T>
+__global__ void ingest_kernel(const float* __restrict__ tail_t,
+                              const float* __restrict__ tail_r,
+                              const T* __restrict__ raw_t,
+                              const T* __restrict__ raw_r,
+                              float* __restrict__ out,
+                              float* __restrict__ ntail_t,
+                              float* __restrict__ ntail_r, IngestParams P) {
+  extern __shared__ float ring[];  // [fl][3][blockDim.x]
+  __shared__ float s_filt[4 * INGEST_MAX_FL];
+  const int fl = P.fl, blk = P.blk, nc = P.channels;
+  for (int k = threadIdx.x; k < 4 * fl; k += blockDim.x) s_filt[k] = P.filt[k];
+  __syncthreads();
+
+  const long long hw = P.hw;
+  const long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= hw) return;
+  const int src = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long tail_off = b * 3 * (fl - 1) * hw;
+  const float* tail = (src == 0 ? tail_t : tail_r) + tail_off;
+  const T* raw = (src == 0 ? raw_t : raw_r) + b * blk * nc * hw;
+  float* ntail = (src == 0 ? ntail_t : ntail_r) + tail_off;
+  float* outb = out + b * 8 * blk * hw;
+  const int bd = blockDim.x, tid = threadIdx.x;
+
+  for (int s = 0; s < fl - 1 + blk; ++s) {
+    float dkl[3];
+    if (s < fl - 1) {
+      for (int c = 0; c < 3; ++c) dkl[c] = tail[((long long)c * (fl - 1) + s) * hw + pix];
+    } else {
+      const long long fr = s - (fl - 1);
+      float V[3], L[3];
+      for (int c = 0; c < nc; ++c) V[c] = to_float(raw[(fr * nc + c) * hw + pix]);
+      eotf(P, V, L, nc);
+      if (nc == 3) {
+        for (int c = 0; c < 3; ++c)
+          dkl[c] = __fadd_rn(__fadd_rn(__fmul_rn(L[0], P.M[3 * c]), __fmul_rn(L[1], P.M[3 * c + 1])),
+                             __fmul_rn(L[2], P.M[3 * c + 2]));
+      } else {  // luminance-only content bypasses the colour transform
+        for (int c = 0; c < 3; ++c) dkl[c] = L[0];
+      }
+    }
+    const int slot = s % fl;
+    for (int c = 0; c < 3; ++c) ring[(slot * 3 + c) * bd + tid] = dkl[c];
+    if (s >= blk) {
+      for (int c = 0; c < 3; ++c)
+        ntail[((long long)c * (fl - 1) + (s - blk)) * hw + pix] = dkl[c];
+    }
+    if (s >= fl - 1) {
+      const int fo = s - (fl - 1);
+      for (int co = 0; co < 4; ++co) {
+        const int ci = co < 3 ? co : 0;
+        float acc = 0.0f;
+        for (int t = 0; t < fl; ++t)
+          acc = __fadd_rn(acc, __fmul_rn(ring[(((fo + t) % fl) * 3 + ci) * bd + tid],
+                                         s_filt[co * fl + t]));
+        outb[((long long)(2 * co + src) * blk + fo) * hw + pix] = acc;
+      }
+    }
+  }
+}
+
+template <typename T>
+static void launch(dim3 grid, size_t smem, cudaStream_t st, const float* tail_t,
+                   const float* tail_r, const void* raw_t, const void* raw_r, float* out,
+                   float* ntail_t, float* ntail_r, const IngestParams& P) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(ingest_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  ingest_kernel<T><<<grid, INGEST_THREADS, smem, st>>>(
+      tail_t, tail_r, (const T*)raw_t, (const T*)raw_r, out, ntail_t, ntail_r, P);
+}
+
+// tails: (B, 3, fl-1, H, W) float32; raws: (B, blk, channels, H, W) of
+// src_type (SrcType); out: (B, 8, blk, H, W); new tails: (B, 3, fl-1, H, W).
+// consts: the 10 display constants of IngestParams in order; M: 9 floats;
+// filt: (4, fl) floats.
+CVVDP_API int cvvdp_ingest(const float* tail_t, const float* tail_r,
+                           const void* raw_t, const void* raw_r, float* out,
+                           float* ntail_t, float* ntail_r, int batch, int blk, int channels,
+                           int fl, long long hw, int src_type, int eotf_code,
+                           const float* consts, const float* M,
+                           const float* filt, void* stream) {
+  if (fl < 2 || fl > INGEST_MAX_FL || blk < 1 || batch < 1 || batch > 65535 ||
+      (channels != 1 && channels != 3) || eotf_code < EOTF_SRGB || eotf_code > EOTF_GAMMA)
+    return (int)cudaErrorInvalidValue;
+  IngestParams P;
+  P.eotf = eotf_code;
+  P.channels = channels;
+  float* dst[10] = {&P.span, &P.Y_black, &P.Y_refl, &P.exposure, &P.Y_peak,
+                    &P.lin_floor, &P.gamma, &P.hlg_g1, &P.hlg_b, &P.hlg_c};
+  for (int k = 0; k < 10; ++k) *dst[k] = consts[k];
+  for (int k = 0; k < 9; ++k) P.M[k] = M[k];
+  for (int k = 0; k < 4 * fl; ++k) P.filt[k] = filt[k];
+  P.fl = fl;
+  P.blk = blk;
+  P.hw = hw;
+  const size_t smem = (size_t)fl * 3 * INGEST_THREADS * sizeof(float);
+  dim3 grid(ceil_div_u(hw, INGEST_THREADS), 2, batch);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (src_type) {
+    case SRC_U8:
+      launch<uint8_t>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      break;
+    case SRC_U16:
+      launch<uint16_t>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      break;
+    case SRC_F16:
+      launch<__half>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      break;
+    case SRC_F32:
+      launch<float>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,349 @@
+"""ColorVideoVDP metric on PyTorch, with hand-written CUDA kernels.
+
+Counterpart of ``colorvideovdp_tpu/metrics/cvvdp.py`` for the calibrated
+default configuration (weber_g1 contrast, mult-mutual masking, soft clamp):
+``predict`` -> ``video_source_array`` -> ``predict_video_source``, which
+streams frame blocks through the ingest kernel (carrying the fl-1 DKL frames
+between blocks as tails), builds the pyramid with the reduce kernel and
+scores every band with the band-masking kernel and the baseband with the CSF
+LUT kernel. The output is the pooled JOD plus ``stats["Q_per_ch"]``.
+
+With ``enable_fused_kernels = False`` every kernel is replaced by its plain
+PyTorch version on the same device (the reference the kernels are held to).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops import masking as mk
+from ..ops.csf import CastleCSF
+from ..ops.kernels import ingest as ing
+from ..ops.kernels import masking_fused as bm
+from ..ops.pyramid import WeberContrastPyramid, gausspyr_expand
+from ..ops.temporal import get_temporal_filters
+from ..utils.config import config_files, json2dict
+from .base import vq_metric
+
+# Host memory budget (bytes) for the block-size model on the CPU when
+# ``gpu_mem`` is unset (the reference metric assumes the same 4 GB).
+HOST_MEM_BUDGET = 4e9
+
+
+class cvvdp(vq_metric):
+    """Full-reference perceptual image/video quality metric (JOD units)."""
+
+    def __init__(self, display_name="standard_4k", display_photometry=None,
+                 display_geometry=None, config_paths=None, heatmap=None, quiet=False,
+                 device="cuda", temp_padding="replicate", use_checkpoints=False,
+                 dump_channels=None, gpu_mem=None, temp_resample=False):
+        if heatmap not in (None, "none"):
+            raise NotImplementedError("heatmaps are not ported yet")
+        if dump_channels:
+            raise NotImplementedError("dump_channels is not ported yet")
+        if temp_resample:
+            raise NotImplementedError("temp_resample is not ported yet")
+        if use_checkpoints:
+            raise NotImplementedError("use_checkpoints is not ported yet")
+        if temp_padding not in ("replicate", "symmetric"):
+            raise RuntimeError(f'Unknown padding method "{temp_padding}"')
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("device 'cuda' requested but CUDA is not available")
+            # The plain reduce/blur/mix must stay in full float32 on the card.
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        elif self.device.type != "cpu":
+            raise ValueError(f"unsupported device {self.device}")
+        self.quiet = quiet
+        self.temp_padding = temp_padding
+        self.gpu_mem = gpu_mem
+        self.set_display_model(display_name, display_photometry=display_photometry,
+                               display_geometry=display_geometry,
+                               config_paths=config_paths)
+        self.load_config(config_paths)
+
+    # ------------------------------------------------------------------
+    # Configuration
+
+    def set_display_model(self, display_name="standard_4k", display_photometry=None,
+                          display_geometry=None, config_paths=None):
+        super().set_display_model(display_name, display_photometry=display_photometry,
+                                  display_geometry=display_geometry,
+                                  config_paths=config_paths)
+        self.lpyr = None
+        self._cache = {}
+
+    def load_config(self, config_paths=None):
+        """Parse cvvdp_parameters.json (the attributes of the JAX package's
+        ``load_config``)."""
+        self.parameters_file = config_files.find("cvvdp_parameters.json", config_paths or [])
+        p = json2dict(self.parameters_file)
+        self.mask_p = float(p["mask_p"])
+        self.mask_c = float(p["mask_c"])
+        self.pu_dilate = p["pu_dilate"]
+        self.beta = float(p["beta"])
+        self.beta_t = float(p["beta_t"])
+        self.beta_tch = float(p["beta_tch"])
+        self.beta_sch = float(p["beta_sch"])
+        self.csf_sigma = float(p["csf_sigma"])
+        self.sensitivity_correction = float(p["sensitivity_correction"])
+        self.masking_model = p["masking_model"]
+        self.csf_version = p["csf"]
+        self.local_adapt = p["local_adapt"]
+        self.contrast = p["contrast"]
+        self.jod_a = float(p["jod_a"])
+        self.jod_exp = float(p["jod_exp"])
+        self.temp_filter = p.get("temp_filter", "default")
+        if "mask_q" in p:
+            self.mask_q = np.asarray(p["mask_q"], np.float32)
+        else:
+            self.mask_q_sust = float(p["mask_q_sust"])
+            self.mask_q_trans = float(p["mask_q_trans"])
+        self.filter_len = int(p["filter_len"])
+        self.do_xchannel_masking = p["xchannel_masking"] == "on"
+        self.xcm_weights = np.asarray(p["xcm_weights"], np.float32)
+        self.image_int = float(p["image_int"])
+        if "ch_chrom_w" in p:
+            self.ch_chrom_w = float(p["ch_chrom_w"])
+            self.ch_trans_w = float(p["ch_trans_w"])
+        else:
+            self.ch_weights = np.asarray(p["ch_weights"], np.float32)
+        self.sigma_tf = np.asarray(p["sigma_tf"], np.float32)
+        self.beta_tf = np.asarray(p["beta_tf"], np.float32)
+        self.baseband_weight = np.atleast_1d(np.asarray(p["baseband_weight"], np.float32))
+        self.dclamp_type = p["dclamp_type"]
+        self.d_max = (float(p["d_max"]) if np.isscalar(p["d_max"])
+                      else np.asarray(p["d_max"], np.float32))
+        self.version = p["version"]
+        self.omega = [0, 5]
+        self.csf = CastleCSF(csf_version=self.csf_version, config_paths=config_paths)
+        self.block_channels = (np.asarray(p["block_channels"], bool)
+                               if "block_channels" in p else None)
+        # Kernels on the card when True; their plain versions when False.
+        self.enable_fused_kernels = True
+        self.lpyr = None
+        self._cache = {}
+
+    def load_parameters(self, d: dict):
+        """Apply calibrated values (for example ``convert.params_from_jax``):
+        metric attributes by name, ``display_*`` keys on the photometric
+        model and ``pix_per_deg`` on the geometry."""
+        for key, value in d.items():
+            if key == "pix_per_deg":
+                self.pix_per_deg = float(value)
+            elif key.startswith("display_"):
+                setattr(self.display_photometry, key[len("display_"):], value)
+            else:
+                setattr(self, key, value)
+        self.lpyr = None
+        self._cache = {}
+
+    def get_ch_weights(self, no_channels):
+        if hasattr(self, "ch_chrom_w"):
+            w = np.array([1.0, self.ch_chrom_w, self.ch_chrom_w, self.ch_trans_w], np.float32)
+        else:
+            w = np.asarray(self.ch_weights, np.float32)
+        return w[:no_channels]
+
+    def _masking_params(self) -> mk.MaskingParams:
+        if hasattr(self, "mask_q"):
+            mask_q = np.asarray(self.mask_q, np.float32)
+        else:
+            q_sust = float(np.clip(self.mask_q_sust, 1.0, 7.0))
+            q_trans = float(np.clip(self.mask_q_trans, 1.0, 7.0))
+            mask_q = np.array([q_sust, q_sust, q_sust, q_trans], np.float32)
+        return mk.MaskingParams(
+            masking_model=self.masking_model, mask_p=float(self.mask_p),
+            mask_q=tuple(mask_q.tolist()), mask_c=float(self.mask_c),
+            pu_dilate=self.pu_dilate,
+            xcm_weights=tuple(np.asarray(self.xcm_weights, np.float32).tolist()),
+            do_xchannel_masking=self.do_xchannel_masking, dclamp_type=self.dclamp_type,
+            d_max=self.d_max)
+
+    def loss(self, *args, **kwargs):
+        raise NotImplementedError("loss mode is not ported yet")
+
+    def get_loss_fn(self, *args, **kwargs):
+        raise NotImplementedError("loss mode is not ported yet")
+
+    # ------------------------------------------------------------------
+    # Scoring
+
+    def estimate_block_N(self, pix_cnt, N_frames):
+        """Frames per block from the reference metric's memory model:
+        total = a + pix (N + fl - 1) b + pix N c, a = 1.6e9, b = 16, c = 320."""
+        if self.device.type == "cuda":
+            mem_avail = torch.cuda.mem_get_info(self.device)[0]
+            if self.gpu_mem is not None:
+                mem_avail = min(mem_avail, self.gpu_mem * 1e9)
+        else:
+            mem_avail = HOST_MEM_BUDGET if self.gpu_mem is None else self.gpu_mem * 1e9
+        a, b, c = 1.6e9, 16, 320
+        max_frames = int(math.floor(
+            (mem_avail - a - pix_cnt * (self.filter_len - 1) * b) / (pix_cnt * (b + c))))
+        return max(1, min(max_frames, N_frames))
+
+    def _ensure_pyramids(self, width, height):
+        if self.lpyr is not None and self.lpyr.W == width and self.lpyr.H == height:
+            return
+        if self.contrast != "weber_g1":
+            raise NotImplementedError(f"contrast '{self.contrast}' is not ported yet")
+        self.lpyr = WeberContrastPyramid(width, height, self.pix_per_deg,
+                                         contrast=self.contrast)
+        self._cache = {}
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint16:
+            a = a.view(np.int16)  # uint16 bits; the dtype ladder reads them back
+        return torch.from_numpy(a).to(self.device)
+
+    @staticmethod
+    def _get_symmetric_frame_index(frame_ind, frame_count):
+        """Ping-pong mirror index for symmetric temporal padding."""
+        is_even = (math.floor((abs(frame_ind) - 1) / (frame_count - 1)) % 2) == 0
+        if is_even:
+            return ((abs(frame_ind) - 1) % (frame_count - 1)) + 1
+        return frame_ind % (frame_count - 1)
+
+    def _initial_tails(self, vid_source, dm, raws, N_frames):
+        """The first block's temporal padding as DKL tails (B, 3, fl-1, H, W):
+        frame 0 repeated, or the mirror-indexed head frames."""
+        fl = self.filter_len
+        if self.temp_padding == "replicate":
+            return [ing.raw_to_met(dm, raw[:, 0:1]).expand(-1, -1, fl - 1, -1, -1).contiguous()
+                    for raw in raws]
+        idx = [self._get_symmetric_frame_index(fi, N_frames) for fi in range(-fl + 1, 0)]
+        return [ing.raw_to_met(dm, self._upload(vid_source.get_raw_frame_list(which, idx)))
+                .contiguous() for which in ("test", "reference")]
+
+    def predict_video_source(self, vid_source):
+        """Score a video source; returns (Q_jod, stats)."""
+        h, w, N_frames = vid_source.get_video_size()
+        batch_sz = vid_source.get_batch_size()
+        self._ensure_pyramids(w, h)
+        is_image = N_frames == 1
+        dm = vid_source.dm_photometry
+        use_k = self.enable_fused_kernels
+
+        Q_blocks = []
+        if is_image:
+            raws = [self._upload(vid_source.get_raw_block(s, 0, 1)) for s in ("test", "reference")]
+            T, R = (ing.raw_to_met(dm, raw).expand(batch_sz, -1, -1, -1, -1) for raw in raws)
+            Q_blocks.append(self._process_block(ing.interleave_tr(T, R), temp_ch=1,
+                                                is_image=True))
+        else:
+            fps = vid_source.get_frames_per_second()
+            self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
+            self.filter_len = int(self.F[0].shape[0])
+            filt = np.stack([f[::-1] for f in self.F])
+            block_N = self.estimate_block_N(h * w * batch_sz, N_frames)
+            tails = None
+            for ff in range(0, N_frames, block_N):
+                cur = min(block_N, N_frames - ff)
+                # The source pads a trailing partial block to the full block by
+                # repeating its last frame; the padded frames' scores are trimmed.
+                raws = [self._upload(vid_source.get_raw_block(s, ff, block_N))
+                        for s in ("test", "reference")]
+                if tails is None:
+                    tails = self._initial_tails(vid_source, dm, raws, N_frames)
+                fn = ing.ingest if use_k else ing.ingest_plain
+                R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm, filt)
+                Q = self._process_block(R, temp_ch=2, is_image=False)
+                Q_blocks.append(Q[:, :, :cur])
+
+        Q_per_ch = torch.cat(Q_blocks, dim=2) if len(Q_blocks) > 1 else Q_blocks[0]
+        Q_jod = self.do_pooling_and_jods(Q_per_ch)
+        stats = {
+            "Q_per_ch": Q_per_ch.cpu().numpy(),
+            "rho_band": self.lpyr.get_freqs(),
+            "frames_per_second": vid_source.get_frames_per_second(),
+            "width": w,
+            "height": h,
+            "N_frames": N_frames,
+            "block_N_frames": 1 if is_image else block_N,
+        }
+        return Q_jod, stats
+
+    def _band_tables(self, all_ch):
+        """(BandConsts, LUT rows (interior bands, C, nk) on the device),
+        cached per channel count."""
+        key = ("bands", all_ch)
+        if key not in self._cache:
+            params = self._masking_params()
+            params.check_supported()
+            luts = np.stack([
+                np.stack([self.csf.logS_of_logL(float(rho), self.omega[0 if cc < 3 else 1],
+                                                cc if cc < 3 else 0)
+                          for cc in range(all_ch)])
+                for rho in self.lpyr.get_freqs()[:-1]])
+            x0, x1 = self.csf.lut_range()
+            consts = bm.BandConsts.make(params, all_ch, x0, x1,
+                                        10.0 ** (self.sensitivity_correction / 20.0),
+                                        self.contrast.endswith("ref"), self.beta)
+            self._cache[key] = (consts, torch.as_tensor(luts, device=self.device))
+        return self._cache[key]
+
+    def _process_block(self, R, temp_ch, is_image):
+        """Pyramid -> CSF -> masking -> spatial pooling for one frame block.
+        R: (B, 2 * all_ch, F, H, W) interleaved. Returns (B, all_ch, F, bands)."""
+        all_ch = 2 + temp_ch
+        use_k = self.enable_fused_kernels
+        n_bands = self.lpyr.get_band_count()
+        consts, luts = self._band_tables(all_ch)
+        band_fn = bm.band_masking if use_k else bm.band_masking_plain
+        bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=True, use_kernel=use_k)
+
+        Q_cols = [None] * n_bands
+        B, C2, F = bands[0][0].shape[:3]
+        shapes = [bands[bb][0].shape[-2:] for bb in range(n_bands - 1)]
+        for sel in bm.band_groups(shapes, B, C2 // 2, F):
+            gis = [bands[bb][0] for bb in sel]
+            Es = [gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(sel, gis)]
+            sums = band_fn(gis, Es, luts[sel[0]:sel[-1] + 1],
+                           [1.0 if bb == 0 else 2.0 for bb in sel], consts)
+            del Es
+            for j, bb in enumerate(sel):
+                Q_cols[bb] = bm.pooled_norm(sums[j], *gis[j].shape[-2:], self.beta)
+
+        base = bands[-1]
+        rho_bb = 0.1  # baseband CSF frequency
+        S = self.csf.sensitivity_multi_channel(
+            [rho_bb] * all_ch, [self.omega[0 if cc < 3 else 1] for cc in range(all_ch)],
+            L_bkg_pyr[-1], [cc if cc < 3 else 0 for cc in range(all_ch)], use_kernel=use_k)
+        # (all_ch, B, 1, F, 1, 1) -> (B, all_ch, F, 1, 1)
+        S = S.movedim(0, 1)[:, :, 0] * consts.sens_corr
+        D = torch.abs(base[:, 0::2] - base[:, 1::2]) * S
+        Q_cols[-1] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
+        return torch.stack(Q_cols, dim=-1)
+
+    def do_pooling_and_jods(self, Q_per_ch):
+        """Band/channel/frame pooling and the JOD mapping; Q_per_ch is
+        (B, C, F, bands)."""
+        no_channels, no_frames, no_bands = Q_per_ch.shape[1:]
+        dev = Q_per_ch.device
+        per_ch_w = torch.as_tensor(self.get_ch_weights(no_channels), device=dev).reshape(
+            1, -1, 1, 1)
+        per_sband_w = np.ones((1, no_channels, 1, no_bands), np.float32)
+        per_sband_w[:, :, 0, -1] = self.baseband_weight[:no_channels]
+        per_sband_w = torch.as_tensor(per_sband_w, device=dev)
+        Q_sc = mk.lp_norm(Q_per_ch * per_ch_w * per_sband_w, self.beta_sch, dim=3,
+                          normalize=False)
+        is_image = no_frames == 1
+        if self.block_channels is not None:
+            keep = np.nonzero(self.block_channels[:no_channels])[0]
+            Q_sc = Q_sc[:, torch.as_tensor(keep, device=dev)]
+        Q_tc = mk.lp_norm(Q_sc, self.beta_tch, dim=1, normalize=False)
+        if is_image:
+            Q = Q_tc * self.image_int
+        else:
+            Q = mk.lp_norm(Q_tc, self.beta_t, dim=2, normalize=True)
+        return self.met2jod(torch.squeeze(Q))
+
+    def met2jod(self, Q):
+        return mk.met2jod(Q, self.jod_a, self.jod_exp)
