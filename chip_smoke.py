@@ -7,9 +7,10 @@ Phase 0  card, power limit, torch and CUDA versions; TF32 must be off.
 Phase 1  build the kernel library.
 Phase 2  every kernel against its plain PyTorch version on the card, at the
          shapes the 4K main path gives it (the first block of the 4K clip),
-         on seeded random frames: the worst relative error of any channel
-         against the stated tolerance, kernel and plain times (CUDA events,
-         median of 5).
+         on seeded random frames, and the loss path's CSF LUT, its backward
+         and the blur at the shapes of phase 5: the worst relative error of
+         any channel against the stated tolerance, kernel and plain times
+         (CUDA events, median of 5).
 Phase 3  the 4K HDR clip (3840x2160, 32 frames, 30 fps, seed 7,
          standard_hdr_pq) through ``cvvdp.predict`` with the kernels, then
          with ``enable_fused_kernels = False``. Every kernel must have
@@ -18,9 +19,25 @@ Phase 3  the 4K HDR clip (3840x2160, 32 frames, 30 fps, seed 7,
          the host relayout of the input arrays and the block loop are timed
          apart.
 Phase 4  a 1920x1080 sRGB image pair on standard_fhd (the image step, C = 3).
+Phase 5  a training step at full width: ``get_loss_fn(1080, 1920)`` on
+         standard_fhd with 4 seeded sRGB pairs (seed 11). First the reduce
+         and band masking kernels against their plain versions on every
+         pyramid level and band launch of that batch. Loss and gradient
+         with the kernels, then with ``enable_fused_kernels = False``; every
+         kernel of the loss path (reduce, band masking, CSF LUT forward and
+         backward, blur) must have launched; then three Adam steps on a leaf
+         copy of the test batch must lower the loss. Forward+backward ms per
+         step (median of 5) both ways, and the peak memory.
+
+Every kernel's row also carries its bound: the least time the card could
+take for the same work, the larger of the bytes it must move (each input
+read once, each output written once) over the HBM rate and its float32
+operations (a transcendental counts as one) over the non-tensor float32
+peak, both from the published H100 SXM figures at 700 W.
 
 Any failure raises (non-zero exit). The last line of standard output is a
-JSON object naming the device; the line before it lists the kernels.
+JSON object naming the device; the line before it is the card's name and
+power limit, and the one before that lists the kernels.
 """
 
 from __future__ import annotations
@@ -35,7 +52,12 @@ import numpy as np
 import torch
 
 CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
-TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 1e-5}
+TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 1e-5,
+       "csf_lut_bwd": 1e-5, "blur": 1e-5}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+# Training step bounds (phase 5): kernels against plain on the card.
+LOSS_TOL, GRAD_TOL = 1e-4, 1e-4
 
 
 def log(*args):
@@ -77,6 +99,16 @@ def max_abs(a, b):
     return float((a - b).abs().max())
 
 
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time for the work."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def check(name, err, tol):
     log(f"  {name}: max error {err:.3e} (tolerance {tol:.0e})")
     if not err <= tol:
@@ -89,7 +121,9 @@ def main():
 
     import colorvideovdp_tpu_torch as cvt
     from colorvideovdp_tpu_torch.ops import pyramid as pyr
+    from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
     from colorvideovdp_tpu_torch.ops.kernels import _build, csf_lut, ingest, masking_fused
+    from colorvideovdp_tpu_torch.ops.kernels import blur as blr
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
 
     # ---- phase 0 ------------------------------------------------------------
@@ -136,24 +170,34 @@ def main():
     log(f"phase 2: shapes at blk={blk}, filter_len={m.filter_len}")
     rows = {}
 
-    def record(name, err, abs_err, k_ms, p_ms):
+    def record(name, err, abs_err, k_ms, p_ms, bnd, lib_ms=None):
         check(name, err, TOL[name])
-        log(f"  {name}: max abs error {abs_err:.3e}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        rows[name] = (abs_err, k_ms, p_ms)
+        b_ms, b_by = bnd
+        log(f"  {name}: max abs error {abs_err:.3e}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by}, {100 * b_ms / k_ms:.1f}% of it), library "
+            + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
+        rows[name] = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
 
     args = (tails[0], tails[1], raws[0], raws[1], dm, filt)
     R_k, nt_k, _ = ingest.ingest(*args)
     R_p, nt_p, _ = ingest.ingest_plain(*args)
     err = max(rel_err_per(R_k, R_p, 1), rel_err_per(nt_k, nt_p, 1))
+    # Colour (EOTF + 3x3, ~25 operations) per new source pixel; the temporal
+    # FIR, fl multiply-adds per output element.
+    b_ingest = bound(nbytes(*raws, *tails) + nbytes(R_k) + 2 * nbytes(nt_k),
+                     25 * 2 * raws[0].numel() // 3 + 2 * m.filter_len * R_k.numel())
     record("ingest", err, max_abs(R_k, R_p), time_ms(lambda: ingest.ingest(*args)),
-           time_ms(lambda: ingest.ingest_plain(*args)))
-    del R_p, nt_p, nt_k, tails, raws
+           time_ms(lambda: ingest.ingest_plain(*args)), b_ingest)
+    del R_p, nt_p, nt_k, tails, raws, args
 
     y_k = prd.pyramid_reduce(R_k)
     y_p = pyr.reduce_plain(R_k)
     err = float((y_k - y_p).abs().max()) / max(1.0, float(y_p.abs().max()))
+    # 5 taps vertically over (H/2, W), then 5 over (H/2, W/2): 7.5 H W per plane.
     record("pyramid_reduce", err, max_abs(y_k, y_p), time_ms(lambda: prd.pyramid_reduce(R_k)),
-           time_ms(lambda: pyr.reduce_plain(R_k)))
+           time_ms(lambda: pyr.reduce_plain(R_k)),
+           bound(nbytes(R_k, y_k), 7.5 * R_k.numel()))
     del y_p
 
     m._ensure_pyramids(W, H)
@@ -183,7 +227,11 @@ def main():
         f"error {err_narrow:.3e}, kernel {time_ms(lambda: masking_fused.band_masking(*stack)):.3f} ms, "
         f"plain {time_ms(lambda: masking_fused.band_masking_plain(*stack)):.3f} ms")
     log(f"  band_masking band 0 {tuple(R_k.shape)}: error {err_wide:.3e}")
-    record("band_masking", max(err_wide, err_narrow), abs_wide, k_wide, p_wide)
+    # Per pixel and channel about 95 operations: contrast + LUT ~20, the
+    # 2 x 13-tap blur 52, transducer and pooling ~23.
+    record("band_masking", max(err_wide, err_narrow), abs_wide, k_wide, p_wide,
+           bound(2 * nbytes(R_k) + nbytes(luts[0:1]) + 4 * 4 * blk,
+                 95 * R_k.numel() // 2))
 
     logL = L_bkg[-1].contiguous()  # the baseband's (1, 1, blk, 1, 1) log-luminance
     x0, x1 = m.csf.lut_range()
@@ -192,10 +240,61 @@ def main():
                                       for cc in range(4)]), device=dev)
     c_k = csf_lut.csf_lut(logL, lut_b, x0, x1)
     c_p = csf_lut.csf_lut_plain(logL, lut_b, x0, x1)
-    record("csf_lut", float(((c_k - c_p).abs() / c_p.abs()).max()), max_abs(c_k, c_p),
-           time_ms(lambda: csf_lut.csf_lut(logL, lut_b, x0, x1)),
-           time_ms(lambda: csf_lut.csf_lut_plain(logL, lut_b, x0, x1)))
+    check(f"csf_lut baseband {tuple(logL.shape)}",
+          float(((c_k - c_p).abs() / c_p.abs()).max()), TOL["csf_lut"])
+    log(f"  csf_lut baseband: kernel "
+        f"{time_ms(lambda: csf_lut.csf_lut(logL, lut_b, x0, x1)):.3f} ms, plain "
+        f"{time_ms(lambda: csf_lut.csf_lut_plain(logL, lut_b, x0, x1)):.3f} ms")
     del R_k, bands, L_bkg, gis, Es, stack
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # The loss path's kernels at the shapes of phase 5 (B = 4, C = 3, FHD):
+    # the CSF LUT over band 0's full log-luminance field (the recompute in the
+    # band masking backward), its backward, and the phase-uncertainty blur.
+    field = torch.empty((1, 1, 1080, 1920), device=dev).uniform_(x0 - 0.5, x1 + 0.5,
+                                                                generator=gen)
+    lut3 = lut_b[:3].contiguous()
+    c_k = csf_lut.csf_lut(field, lut3, x0, x1)
+    c_p = csf_lut.csf_lut_plain(field, lut3, x0, x1)
+    n = field.numel()
+    record("csf_lut", float(((c_k - c_p).abs() / c_p.abs()).max()), max_abs(c_k, c_p),
+           time_ms(lambda: csf_lut.csf_lut(field, lut3, x0, x1)),
+           time_ms(lambda: csf_lut.csf_lut_plain(field, lut3, x0, x1)),
+           bound(nbytes(field, c_k, lut3), n * (4 + 5 * 3)))
+    g = torch.randn((3,) + tuple(field.shape), device=dev, generator=gen)
+    d_k = csf_lut.csf_lut_bwd(field, g, lut3, x0, x1)
+    d_p = csf_lut.csf_lut_bwd_plain(field, g, lut3, x0, x1)
+    record("csf_lut_bwd", float((d_k - d_p).abs().max() / d_p.abs().max()), max_abs(d_k, d_p),
+           time_ms(lambda: csf_lut.csf_lut_bwd(field, g, lut3, x0, x1)),
+           time_ms(lambda: csf_lut.csf_lut_bwd_plain(field, g, lut3, x0, x1)),
+           bound(nbytes(field, g, lut3, d_k), n * (6 + 10 * 3)))
+    del field, g, c_k, c_p, d_k, d_p
+    taps = gaussian_kernel1d(13, 3.0)
+    for shape in ((3, 135, 241), (12, 1080, 1920)):
+        xb = torch.rand(shape, device=dev, generator=gen)
+        y_k, y_p = blr.blur(xb, taps), blur_plain(xb, taps)
+        err = float((y_k - y_p).abs().max() / y_p.abs().max())
+        # The library yardstick: a depthwise 13x13 convolution with the
+        # outer-product taps and reflect padding (cuDNN, TF32 off).
+        conv = torch.nn.Conv2d(shape[0], shape[0], 13, groups=shape[0], padding=6,
+                               padding_mode="reflect", bias=False).to(dev)
+        with torch.no_grad():
+            conv.weight.copy_(torch.as_tensor(np.outer(taps, taps), device=dev)
+                              .expand(shape[0], 1, 13, 13))
+            y_l = conv(xb[None])[0]
+            lib_ms = time_ms(lambda: conv(xb[None]))
+        log(f"  blur {shape}: library conv max abs difference {max_abs(y_l, y_p):.3e}")
+        k_ms = time_ms(lambda: blr.blur(xb, taps))
+        p_ms = time_ms(lambda: blur_plain(xb, taps))
+        b = bound(nbytes(xb, y_k), 52 * xb.numel())
+        if shape[0] == 12:
+            record("blur", err, max_abs(y_k, y_p), k_ms, p_ms, b, lib_ms)
+        else:
+            check(f"blur {shape}", err, TOL["blur"])
+            log(f"  blur {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                f"bound {b[0]:.4f} ms, library {lib_ms:.3f} ms")
+        del xb, y_k, y_p, y_l, conv
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -204,7 +303,9 @@ def main():
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
     log(f"phase 3: clip content made in {time.time() - t0:.1f} s")
     counters = {"ingest": ingest.ingest, "pyramid_reduce": prd.pyramid_reduce,
-                "band_masking": masking_fused.band_masking, "csf_lut": csf_lut.csf_lut}
+                "band_masking": masking_fused.band_masking, "csf_lut": csf_lut.csf_lut,
+                "csf_lut_bwd": csf_lut.csf_lut_bwd, "blur": blr.blur}
+    score_path = ("ingest", "pyramid_reduce", "band_masking", "csf_lut")
     results = {}
     for fused in (True, False):
         mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
@@ -226,8 +327,8 @@ def main():
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
     jod_k, launches = results[True]
     jod_p, _ = results[False]
-    for k, v in launches.items():
-        if v <= 0:
+    for k in score_path:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     if not abs(jod_k - jod_p) <= 1e-3:
         raise AssertionError(f"JOD kernels {jod_k} vs plain {jod_p}")
@@ -273,18 +374,123 @@ def main():
         if img_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the image path")
 
+    del mi
+
+    # ---- phase 5 ------------------------------------------------------------
+    train_path = ("pyramid_reduce", "band_masking", "csf_lut", "csf_lut_bwd", "blur")
+    Ht, Wt, Bt = 1080, 1920, 4
+    rng = np.random.RandomState(11)
+    ref_np = rng.rand(Bt, 3, 1, Ht, Wt).astype(np.float32)
+    test_np = np.clip(ref_np + rng.randn(*ref_np.shape).astype(np.float32) * 0.1, 0, 1)
+    ref_t, test_t = torch.from_numpy(ref_np).to(dev), torch.from_numpy(test_np).to(dev)
+    del ref_np, test_np
+    mt = cvt.cvvdp(display_name="standard_fhd", device="cuda", quiet=True)
+    loss_fn = mt.get_loss_fn(Ht, Wt)
+
+    # The reduce and band masking kernels against their plain versions at
+    # the shapes this phase gives them: every pyramid level of the batch and
+    # every band launch (these launches are not counted).
+    with torch.no_grad():
+        dmt = mt.display_photometry
+        Rt = ingest.interleave_tr(dmt.source_2_target_colorspace(test_t, "DKLd65"),
+                                  dmt.source_2_target_colorspace(ref_t, "DKLd65"))
+        bands_t, _ = mt.lpyr.decompose(Rt, raw_pairs=True, use_kernel=False)
+        err = 0.0
+        for gi, g_next in bands_t[:-1]:
+            err = max(err, float((prd.pyramid_reduce(gi) - g_next).abs().max())
+                      / max(1.0, float(g_next.abs().max())))
+        check(f"pyramid_reduce, {len(bands_t) - 1} levels from {tuple(Rt.shape)}", err,
+              TOL["pyramid_reduce"])
+        consts_t, luts_t = mt._band_tables(3)
+        err = 0.0
+        for sel in masking_fused.band_groups([b[0].shape[-2:] for b in bands_t[:-1]],
+                                             Bt, 3, 1):
+            gis = [bands_t[bb][0] for bb in sel]
+            Es = [pyr.gausspyr_expand(bands_t[bb][1], gi.shape[-2:])
+                  for bb, gi in zip(sel, gis)]
+            args = (gis, Es, luts_t[sel[0]:sel[-1] + 1],
+                    [1.0 if bb == 0 else 2.0 for bb in sel], consts_t)
+            sk, sp = masking_fused.band_masking(*args), masking_fused.band_masking_plain(*args)
+            err = max(err, max(rel_err_per(masking_fused.pooled_norm(sk[j], *gi.shape[-2:],
+                                                                     mt.beta),
+                                           masking_fused.pooled_norm(sp[j], *gi.shape[-2:],
+                                                                     mt.beta), 1)
+                               for j, gi in enumerate(gis)))
+        check(f"band_masking, every band of {tuple(Rt.shape)}", err, TOL["band_masking"])
+        del Rt, bands_t, gis, Es, args, sk, sp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def loss_and_grad():
+        x = test_t.clone().requires_grad_()
+        v = loss_fn(x, ref_t)
+        (gx,) = torch.autograd.grad(v, x)
+        return v.detach(), gx
+
+    train = {}
+    for fused in (True, False):
+        mt.enable_fused_kernels = fused
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        v, gx = loss_and_grad()
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        step_ms = time_ms(loss_and_grad)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train[fused] = (float(v), gx, counts)
+        log(f"phase 5: {'kernels' if fused else 'plain  '}: loss {float(v):.6f}, "
+            f"forward+backward {step_ms:.3f} ms per step (B={Bt}, {Ht}x{Wt}), peak memory "
+            f"{peak:.2f} GiB, launches {counts}")
+    (v_k, g_k, train_launches), (v_p, g_p, _) = train[True], train[False]
+    for k in train_path:
+        if train_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the training path")
+    d_loss = abs(v_k - v_p)
+    d_grad = float((g_k - g_p).abs().max() / g_p.abs().max())
+    if not torch.isfinite(g_k).all() or not g_k.abs().max() > 0:
+        raise AssertionError("training gradient is not finite and non-zero")
+    log(f"phase 5: |loss kernels - plain| = {d_loss:.3e} (tolerance {LOSS_TOL:.0e}), "
+        f"max |dgrad| / max |grad| = {d_grad:.3e} (tolerance {GRAD_TOL:.0e})")
+    if not (d_loss <= LOSS_TOL and d_grad <= GRAD_TOL):
+        raise AssertionError("training step: kernels disagree with the plain versions")
+    del g_k, g_p
+    mt.enable_fused_kernels = True
+    x = test_t.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=1e-3)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        v = loss_fn(x, ref_t)
+        v.backward()
+        opt.step()
+        losses.append(float(v.detach()))
+    with torch.no_grad():
+        losses.append(float(loss_fn(x, ref_t)))
+    log(f"phase 5: loss before and after each of three Adam steps (lr 1e-3): {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("three Adam steps did not lower the loss")
+
     src = "colorvideovdp_tpu_torch/csrc/"
-    replaces = {
-        "ingest": "colorvideovdp_tpu/ops/kernels/ingest.py:322",
-        "pyramid_reduce": "colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:195",
-        "band_masking": "colorvideovdp_tpu/ops/kernels/masking_fused.py:440",
-        "csf_lut": "colorvideovdp_tpu/ops/kernels/csf_lut.py:134",
+    kernels = {
+        "ingest": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:322"),
+        "pyramid_reduce": ("pyramid_reduce.cu",
+                           "colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:195"),
+        "band_masking": ("band_masking.cu",
+                         "colorvideovdp_tpu/ops/kernels/masking_fused.py:440"),
+        "csf_lut": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:114"),
+        "csf_lut_bwd": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:156"),
+        "blur": ("blur.cu", "colorvideovdp_tpu/ops/kernels/blur_halo.py:209"),
     }
-    kernels = [{"name": k, "route": "cuda", "source": src + k + ".cu",
-                "replaces": replaces[k], "launches": launches[k],
-                "max_abs_err": rows[k][0], "ms": rows[k][1], "plain_ms": rows[k][2]}
-               for k in ("ingest", "pyramid_reduce", "band_masking", "csf_lut")]
-    print(json.dumps({"kernels": kernels}))
+    line = []
+    for k, (f, rep) in kernels.items():
+        by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k]}
+        line.append({"name": k, "route": "cuda", "source": src + f, "replaces": rep,
+                     "launches": train_launches[k] if k in train_path else launches[k],
+                     "launches_by_path": by_path, **rows[k]})
+    print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@
 //    * gain_c * band_mul; M_pre = min(|T|, |R|); diff = |T - R|.
 //  Stage B (one block per 32x32 output tile): for each channel, the M_pre
 //    tile plus its blur halo goes to shared memory through the exclude-edge
-//    reflect padding of ops/blur.py; vertical then horizontal taps; x 10^mask_c;
+//    reflect padding of ops/blur.py; vertical then horizontal taps (the tile
+//    blur of common.cuh, shared with csrc/blur.cu); x 10^mask_c;
 //    safe_pow(q_c); the 4x4 cross-channel mix accumulates in registers. Then
 //    D = soft_clamp(safe_pow(diff, p) / (1 + mix)) and safe_pow(D, beta) is
 //    summed over the tile's valid pixels into one partial sum per channel.
@@ -107,7 +108,7 @@ __global__ void band_stage_a(BandParams P) {
   const float* lut = P.luts + (long long)bi * C * P.nk;
   const long long out0 = ((long long)b * C * F + f) * hw + pix;
   for (int c = 0; c < C; ++c) {
-    const float S = exp10f(lut_lerp(lut + c * P.nk, P.nk, ind)) * (P.gains[c] * d.mul);
+    const float S = pow10_lut(lut_lerp(lut + c * P.nk, P.nk, ind)) * (P.gains[c] * d.mul);
     const long long it = in0 + (2 * c) * cstride;
     const long long ir = it + cstride;
     const float T = min1000((d.gi[it] - d.E[it]) / lb_t) * S;
@@ -115,12 +116,6 @@ __global__ void band_stage_a(BandParams P) {
     d.mpre[out0 + c * cstride] = fminf(fabsf(T), fabsf(R));
     d.diff[out0 + c * cstride] = fabsf(T - R);
   }
-}
-
-__device__ __forceinline__ int reflect_clamp(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * n - 2 - i;
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -158,11 +153,8 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
   const int b = (int)(l / F), f = (int)(l % F);
 
   const int r = d.blur ? (P.ntaps - 1) / 2 : 0;
-  const int ntap = 2 * r + 1;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
   if (tid < BM_MAX_TAPS) s_taps[tid] = d.blur ? P.taps[tid] : (tid == 0 ? 1.0f : 0.0f);
-  const int SW = BM_TW + 2 * r, SH = BM_TH + 2 * r;
 
   float mix[BM_ROWS_PER_THREAD][BM_MAX_C];
 #pragma unroll
@@ -173,29 +165,14 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
   for (int c = 0; c < C; ++c) {
     const float* m = d.mpre + (((long long)b * C + c) * F + f) * hw;
     __syncthreads();  // previous channel done with sm/tmp; taps visible
-    for (int idx = tid; idx < SH * SW; idx += nthr) {
-      const int yy = idx / SW, xx = idx % SW;
-      const int gy = reflect_clamp(y0 - r + yy, h);
-      const int gx = reflect_clamp(x0 - r + xx, w);
-      sm[idx] = m[(long long)gy * w + gx];
-    }
-    __syncthreads();
-    for (int idx = tid; idx < BM_TH * SW; idx += nthr) {
-      const int y = idx / SW, x = idx % SW;
-      float acc = 0.0f;
-      for (int k = 0; k < ntap; ++k) acc += s_taps[k] * sm[(y + k) * SW + x];
-      tmp[idx] = acc;
-    }
-    __syncthreads();
+    tile_blur_vertical<BM_TH, BM_TW>(m, h, w, y0, x0, r, s_taps, sm, tmp);
     const float q = P.qs[c];
     const float eps_q = powf(BM_EPS, q);
 #pragma unroll
     for (int k = 0; k < BM_ROWS_PER_THREAD; ++k) {
       const int y = threadIdx.y + k * BM_THREADS_Y;
-      const int x = threadIdx.x;
-      float acc = 0.0f;
-      for (int j = 0; j < ntap; ++j) acc += s_taps[j] * tmp[y * SW + x + j];
-      const float mb = acc * P.blur_scale;
+      const float mb =
+          tile_blur_horizontal<BM_TW>(tmp, r, s_taps, y, threadIdx.x) * P.blur_scale;
       const float mq = powf(fabsf(mb) + BM_EPS, q) - eps_q;
 #pragma unroll
       for (int dd = 0; dd < BM_MAX_C; ++dd)

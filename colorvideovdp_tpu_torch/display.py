@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .ops import colorspace as cs
+from .ops.clip import clip
 from .utils.config import config_files, json2dict
 
 
@@ -118,24 +119,24 @@ class vvdp_display_photo_eotf(vvdp_display_photometry):
         Y_black, Y_refl = self.get_black_level()
 
         if self.EOTF == "sRGB":
-            lin = cs.srgb2lin(torch.clamp(V, 0.0, 1.0))
+            lin = cs.srgb2lin(clip(V, 0.0, 1.0))
             if self.exposure != 1:
-                lin = torch.clamp(lin * self.exposure, 0.0, 1.0)
+                lin = clip(lin * self.exposure, 0.0, 1.0)
             return (self.Y_peak - Y_black) * lin + Y_black + Y_refl
         if self.EOTF == "PQ":
-            V = torch.clamp(V, 0.0, 1.0)
-            return (torch.clamp(cs.pq2lin(V) * self.exposure, 0.005, self.Y_peak)
+            V = clip(V, 0.0, 1.0)
+            return (clip(cs.pq2lin(V) * self.exposure, 0.005, self.Y_peak)
                     + Y_black + Y_refl)
         if self.EOTF == "linear":
-            return torch.clamp(V * self.exposure, max(0.005, Y_black), self.Y_peak) + Y_refl
+            return clip(V * self.exposure, max(0.005, Y_black), self.Y_peak) + Y_refl
         if self.EOTF == "HLG":
-            lin = cs.hlg2lin(torch.clamp(V, 0.0, 1.0), self.hlg_gamma())
+            lin = cs.hlg2lin(clip(V, 0.0, 1.0), self.hlg_gamma())
             if self.exposure != 1:
-                lin = torch.clamp(lin * self.exposure, 0.0, 1.0)
+                lin = clip(lin * self.exposure, 0.0, 1.0)
             return (self.Y_peak - Y_black) * lin + Y_black + Y_refl
         if self.EOTF[0].isnumeric():
-            V = torch.clamp(V, 0.0, 1.0)
-            lin = torch.clamp(torch.pow(V, float(self.EOTF)) * self.exposure, 0.0, 1.0)
+            V = clip(V, 0.0, 1.0)
+            lin = clip(torch.pow(V, float(self.EOTF)) * self.exposure, 0.0, 1.0)
             return (self.Y_peak - Y_black) * lin + Y_black + Y_refl
         raise RuntimeError(f"Unknown EOTF '{self.EOTF}'")
 

@@ -8,6 +8,12 @@ between blocks as tails), builds the pyramid with the reduce kernel and
 scores every band with the band-masking kernel and the baseband with the CSF
 LUT kernel. The output is the pooled JOD plus ``stats["Q_per_ch"]``.
 
+``get_loss_fn`` is the training entry point: a differentiable loss over
+display-encoded image pairs. Every kernel on its path is a
+``torch.autograd.Function`` whose backward is the TPU package's rule: the
+adjoint of the plain reduce and blur, the analytic CSF LUT derivative
+(a kernel), and a recompute of the plain band chain for the band masking.
+
 With ``enable_fused_kernels = False`` every kernel is replaced by its plain
 PyTorch version on the same device (the reference the kernels are held to).
 """
@@ -18,6 +24,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import masking as mk
 from ..ops.csf import CastleCSF
@@ -165,11 +172,36 @@ class cvvdp(vq_metric):
             do_xchannel_masking=self.do_xchannel_masking, dclamp_type=self.dclamp_type,
             d_max=self.d_max)
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError("loss mode is not ported yet")
+    def loss(self, test_cont, reference_cont, dim_order="BCFHW", frames_per_second=0):
+        """10 - JOD of ``predict`` (not differentiable, as in the JAX package)."""
+        Q_jod, _ = self.predict(test_cont, reference_cont, dim_order=dim_order,
+                                frames_per_second=frames_per_second)
+        return 10.0 - Q_jod
 
-    def get_loss_fn(self, *args, **kwargs):
-        raise NotImplementedError("loss mode is not ported yet")
+    def get_loss_fn(self, height, width, colorspace="sRGB", remat=True):
+        """A differentiable loss over display-encoded (B, 3, 1, H, W) float32
+        image pairs on the metric's device: fn(test, ref) -> mean(10 - JOD).
+
+        Counterpart of the JAX package's ``get_loss_fn``; ``remat`` wraps the
+        per-block compute in ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint``)
+        to trade a second forward for activation memory. ``colorspace`` is
+        ignored, as in the JAX package."""
+        self._ensure_pyramids(width, height)
+        dm = self.display_photometry
+
+        def block(test, ref):
+            T = dm.source_2_target_colorspace(test, "DKLd65")
+            R = dm.source_2_target_colorspace(ref, "DKLd65")
+            return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)
+
+        def loss_fn(test, ref):
+            if remat:
+                Q_per_ch = checkpoint(block, test, ref, use_reentrant=False)
+            else:
+                Q_per_ch = block(test, ref)
+            return torch.mean(10.0 - self.do_pooling_and_jods(Q_per_ch))
+
+        return loss_fn
 
     # ------------------------------------------------------------------
     # Scoring
@@ -296,7 +328,6 @@ class cvvdp(vq_metric):
         use_k = self.enable_fused_kernels
         n_bands = self.lpyr.get_band_count()
         consts, luts = self._band_tables(all_ch)
-        band_fn = bm.band_masking if use_k else bm.band_masking_plain
         bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=True, use_kernel=use_k)
 
         Q_cols = [None] * n_bands
@@ -305,8 +336,8 @@ class cvvdp(vq_metric):
         for sel in bm.band_groups(shapes, B, C2 // 2, F):
             gis = [bands[bb][0] for bb in sel]
             Es = [gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(sel, gis)]
-            sums = band_fn(gis, Es, luts[sel[0]:sel[-1] + 1],
-                           [1.0 if bb == 0 else 2.0 for bb in sel], consts)
+            sums = bm.band_sums(gis, Es, luts[sel[0]:sel[-1] + 1],
+                                [1.0 if bb == 0 else 2.0 for bb in sel], consts, use_k)
             del Es
             for j, bb in enumerate(sel):
                 Q_cols[bb] = bm.pooled_norm(sums[j], *gis[j].shape[-2:], self.beta)

@@ -11,6 +11,8 @@ import math
 import numpy as np
 import torch
 
+from .clip import clip
+
 XYZ_to_LMS2006 = np.array(
     [
         [0.187596268556126, 0.585168649077728, -0.026384263306304],
@@ -63,7 +65,7 @@ def pq2lin(V: torch.Tensor) -> torch.Tensor:
     the same way."""
     im_t = _pow_rn(V, 1.0 / PQ_M)
     return PQ_LMAX * _pow_rn(
-        torch.clamp(im_t - PQ_C1, min=0.0) / (PQ_C2 - PQ_C3 * im_t), 1.0 / PQ_N)
+        clip(im_t - PQ_C1, 0.0) / (PQ_C2 - PQ_C3 * im_t), 1.0 / PQ_N)
 
 
 def hlg2lin(rgb: torch.Tensor, gamma: float) -> torch.Tensor:

@@ -13,7 +13,7 @@ import torch
 
 from ..utils.config import config_files, json2dict
 from .interp import np_batch_interp1d
-from .kernels.csf_lut import csf_lut, csf_lut_plain
+from .kernels.csf_lut import CsfLut
 
 
 class CastleCSF:
@@ -50,10 +50,9 @@ class CastleCSF:
 
     def sensitivity_multi_channel(self, rho_per_ch, omega_per_ch, logL_bkg: torch.Tensor,
                                   channels, use_kernel: bool = True) -> torch.Tensor:
-        """Sensitivities for several channels sharing one ``logL_bkg`` field.
-        Returns (n_ch, *logL_bkg.shape)."""
+        """Sensitivities for several channels sharing one ``logL_bkg`` field,
+        differentiable in it (``CsfLut``). Returns (n_ch, *logL_bkg.shape)."""
         luts = np.stack([self.logS_of_logL(rho, om, cc)
                          for rho, om, cc in zip(rho_per_ch, omega_per_ch, channels)])
         luts_t = torch.as_tensor(luts, device=logL_bkg.device)
-        lookup = csf_lut if use_kernel else csf_lut_plain
-        return lookup(logL_bkg.contiguous(), luts_t, *self.lut_range())
+        return CsfLut.apply(logL_bkg, luts_t, *self.lut_range(), use_kernel)

@@ -1,11 +1,12 @@
 """Build and load the package's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by one ``nvcc`` call for Hopper
-(``sm_90a``) into ``build/colorvideovdp_tpu_torch/libcvvdp_kernels.so``
-beside the package, at first use (never at import), and rebuilt when the
-hash of the sources or flags changes. The library has a plain C interface
-and is loaded with ctypes; no PyTorch headers are compiled, so a build takes
-seconds. Nothing is downloaded.
+Each ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) by its own
+``nvcc`` process, all started together, and the objects are linked into
+``build/colorvideovdp_tpu_torch/libcvvdp_kernels.so`` beside the package, at
+first use (never at import); the library is rebuilt when the hash of the
+sources or flags changes. It has a plain C interface and is loaded with
+ctypes; no PyTorch headers are compiled, so a build takes seconds. Nothing
+is downloaded.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "colorvideovdp_tpu_
 LIB_NAME = "libcvvdp_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -38,6 +39,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point, in declaration order.
 SIGNATURES = {
     "cvvdp_csf_lut": [_P, _P, _L, _I, _I, _P, _F, _F, _P],
+    "cvvdp_csf_lut_bwd": [_P, _P, _P, _L, _I, _I, _P, _F, _F, _P],
+    "cvvdp_blur": [_P, _P, _I, _I, _I, _P, _I, _P],
     "cvvdp_pyramid_reduce": [_P, _P, _I, _I, _I, _P, _P],
     "cvvdp_ingest": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P],
     "cvvdp_band_masking_tiles": [_I, _I, _I, _P],
@@ -85,16 +88,35 @@ def build() -> str:
                 last_build_seconds = 0.0
                 return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    tmp = f"{lib_path}.{tag}"
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     last_build_seconds = time.time() - t0
     with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        f.write("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
     with open(stamp, "w") as f:
         f.write(digest)

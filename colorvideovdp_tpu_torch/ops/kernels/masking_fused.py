@@ -10,6 +10,13 @@ which bands share a launch. The inputs of a band
 are the raw Gaussian level ``gi`` and the expanded next level ``E``, both
 (B, 2C, F, h, w) with test/reference channels interleaved; the result is
 sum(safe_pow(D, beta)) over each image plane, (n_bands, B, C, F).
+
+``BandMasking`` makes the sums differentiable: its backward recomputes the
+plain chain (``_band_sums_plain``) and returns its vector-Jacobian product,
+as the custom VJPs of the JAX package do (``masking_fused.py:649-661``,
+``band_stack.py:289-304``). With the kernels on, that recompute runs the CSF
+LUT and blur kernels with their own backward rules, as JAX's recompute
+reaches its Pallas LUT and blur.
 """
 
 from __future__ import annotations
@@ -18,12 +25,14 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..blur import gaussian_kernel1d
+from ..clip import clip
 from ..masking import (_EPS, MaskingParams, _pow_static, _safe_pow_static,
                        apply_masking_model)
 from . import _build
-from .csf_lut import csf_lut_plain
+from .csf_lut import CsfLut
 
 MAX_BANDS = 8
 # Consecutive interior bands share one launch while the memory the launch
@@ -71,29 +80,33 @@ class BandConsts:
         )
 
 
-def _band_sums_plain(gi, E, lut, mul, k: BandConsts) -> torch.Tensor:
+def _band_sums_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> torch.Tensor:
     """Weber contrast and CSF of one band as the JAX package's decompose +
-    get_band + CSF chain forms them, then ``masking.apply_masking_model``."""
-    lb_r = torch.clamp(E[:, 1:2], min=0.01)
-    lb_t = lb_r if k.ref_only else torch.clamp(E[:, 0:1], min=0.01)
-    T = torch.clamp((gi[:, 0::2] - E[:, 0::2]) / lb_t, max=1000.0) * mul
-    R = torch.clamp((gi[:, 1::2] - E[:, 1::2]) / lb_r, max=1000.0) * mul
-    S = csf_lut_plain(torch.log10(lb_r[:, 0]), lut, k.x0, k.x1).movedim(0, 1) * k.sens_corr
-    D = apply_masking_model(T, R, S, k.params)
+    get_band + CSF chain forms them, then ``masking.apply_masking_model``.
+    ``use_kernel`` runs the CSF LUT and blur kernels inside the chain."""
+    lb_r = clip(E[:, 1:2], 0.01)
+    lb_t = lb_r if k.ref_only else clip(E[:, 0:1], 0.01)
+    T = clip((gi[:, 0::2] - E[:, 0::2]) / lb_t, hi=1000.0) * mul
+    R = clip((gi[:, 1::2] - E[:, 1::2]) / lb_r, hi=1000.0) * mul
+    S = CsfLut.apply(torch.log10(lb_r[:, 0]), lut, k.x0, k.x1, use_kernel)
+    S = S.movedim(0, 1) * k.sens_corr
+    D = apply_masking_model(T, R, S, k.params, use_kernel)
     return torch.sum(_pow_static(D + _EPS, k.beta) - _EPS ** k.beta, dim=(-2, -1))
+
+
+def _frame_chunks(gi):
+    """Frame slices of one band that bound the plain chain's temporaries."""
+    B, _, F, h, w = gi.shape
+    fc = max(1, _PLAIN_CHUNK_PIXELS // (B * h * w))
+    return [slice(f0, f0 + fc) for f0 in range(0, F, fc)]
 
 
 def band_masking_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
     """Plain PyTorch version: returns (n_bands, B, C, F) pooled sums."""
-    outs = []
-    for i, (gi, E) in enumerate(zip(gi_list, E_list)):
-        B, C2, F, h, w = gi.shape
-        fc = max(1, _PLAIN_CHUNK_PIXELS // (B * h * w))
-        parts = [_band_sums_plain(gi[:, :, f0:f0 + fc], E[:, :, f0:f0 + fc], luts[i],
-                                  muls[i], k)
-                 for f0 in range(0, F, fc)]
-        outs.append(torch.cat(parts, dim=2))
-    return torch.stack(outs)
+    return torch.stack([
+        torch.cat([_band_sums_plain(gi[:, :, fs], E[:, :, fs], luts[i], muls[i], k)
+                   for fs in _frame_chunks(gi)], dim=2)
+        for i, (gi, E) in enumerate(zip(gi_list, E_list))])
 
 
 def band_groups(shapes, B: int, C: int, F: int):
@@ -163,3 +176,42 @@ def band_masking(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
 
 
 band_masking.launches = 0
+
+
+class BandMasking(torch.autograd.Function):
+    """Pooled band sums, differentiable in every gi and E: ``band_masking``
+    (or ``band_masking_plain`` without ``use_kernel``) forward; the backward
+    recomputes ``_band_sums_plain`` per band and frame chunk and returns its
+    vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, luts, muls, k, use_kernel, *gi_and_E):
+        n = len(gi_and_E) // 2
+        ctx.save_for_backward(luts, *gi_and_E)
+        ctx.args = (muls, k, use_kernel)
+        fn = band_masking if use_kernel else band_masking_plain
+        return fn(list(gi_and_E[:n]), list(gi_and_E[n:]), luts, muls, k)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        luts, *gi_and_E = ctx.saved_tensors
+        muls, k, use_kernel = ctx.args
+        n = len(gi_and_E) // 2
+        d_gi, d_E = [], []
+        for i, (gi, E) in enumerate(zip(gi_and_E[:n], gi_and_E[n:])):
+            a, b = torch.zeros_like(gi), torch.zeros_like(E)
+            for fs in _frame_chunks(gi):
+                with torch.enable_grad():
+                    gi_c = gi[:, :, fs].detach().requires_grad_()
+                    E_c = E[:, :, fs].detach().requires_grad_()
+                    s = _band_sums_plain(gi_c, E_c, luts[i], muls[i], k, use_kernel)
+                    a[:, :, fs], b[:, :, fs] = torch.autograd.grad(s, (gi_c, E_c), g[i, :, :, fs])
+            d_gi.append(a)
+            d_E.append(b)
+        return (None, None, None, None, *d_gi, *d_E)
+
+
+def band_sums(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True):
+    """(n_bands, B, C, F) pooled sums through ``BandMasking``."""
+    return BandMasking.apply(luts, muls, k, use_kernel, *gi_list, *E_list)

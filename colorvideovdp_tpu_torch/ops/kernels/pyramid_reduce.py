@@ -1,17 +1,22 @@
 """Gaussian-pyramid reduce: CUDA kernel wrapper beside its plain version.
 
 Replaces ``colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:195``
-(``reduce_tpu``). Kernel: ``csrc/pyramid_reduce.cu``, one thread per output
-with the edge corrections folded into per-index effective weights (both
-passes keyed on H's parity, trap 1). It launches for every level and any
+(``reduce_tpu``). Kernel: ``csrc/pyramid_reduce.cu``, a shared-memory tile
+per block that runs both passes in the plain version's order and rounding
+(both keyed on H's parity, trap 1), so it gives the plain version's bits.
+It launches for every level and any
 size with H, W >= 3: the TPU kernel's shape gate has no counterpart here.
-The plain version is ``ops/pyramid.py:reduce_plain``.
+The plain version is ``ops/pyramid.py:reduce_plain``. ``Reduce`` is the
+kernel with the adjoint of ``reduce_plain`` as its backward (the reduce is
+linear), as ``colorvideovdp_tpu/ops/pyramid.py:140-161`` takes XLA's
+transpose.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..pyramid import K5, reduce_plain
 from . import _build
@@ -41,3 +46,20 @@ def pyramid_reduce(x: torch.Tensor) -> torch.Tensor:
 
 
 pyramid_reduce.launches = 0
+
+
+class Reduce(torch.autograd.Function):
+    """``pyramid_reduce`` forward; the adjoint of ``reduce_plain`` backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return pyramid_reduce(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        with torch.enable_grad():
+            x0 = g.new_zeros(ctx.shape, requires_grad=True)
+            (dx,) = torch.autograd.grad(reduce_plain(x0), x0, g)
+        return dx

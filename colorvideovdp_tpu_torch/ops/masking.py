@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .blur import gaussian_blur
+from .clip import clip
 
 _EPS = 1e-5
 
@@ -117,12 +118,14 @@ def mask_pool(C: torch.Tensor, params: MaskingParams) -> torch.Tensor:
     return torch.cat(out, dim=-4)
 
 
-def phase_uncertainty(M: torch.Tensor, params: MaskingParams) -> torch.Tensor:
+def phase_uncertainty(M: torch.Tensor, params: MaskingParams,
+                      use_kernel: bool = False) -> torch.Tensor:
     """Gaussian dilation of the masking signal x 10^mask_c; the blur is
-    skipped for bands not larger than the pad size (a shape-based decision)."""
+    skipped for bands not larger than the pad size (a shape-based decision).
+    ``use_kernel`` takes the blur kernel (see ``ops/blur.py``)."""
     scale = 10.0 ** params.mask_c
     if params.blurs(M.shape[-2], M.shape[-1]):
-        return gaussian_blur(M, params.pu_kernel_size, params.pu_dilate) * scale
+        return gaussian_blur(M, params.pu_kernel_size, params.pu_dilate, use_kernel) * scale
     return M * scale
 
 
@@ -136,16 +139,17 @@ def clamp_diffs(D: torch.Tensor, params: MaskingParams) -> torch.Tensor:
 
 
 def apply_masking_model(T: torch.Tensor, R: torch.Tensor, S: torch.Tensor,
-                        params: MaskingParams) -> torch.Tensor:
+                        params: MaskingParams, use_kernel: bool = False) -> torch.Tensor:
     """Per-band distortion map for ``mult-mutual`` from (B, C, F, H, W)
-    contrasts and sensitivity."""
+    contrasts and sensitivity; ``use_kernel`` reaches ``phase_uncertainty``."""
     params.check_supported()
     num_ch = T.shape[-4]
     ch_gain = torch.as_tensor(np.array([1.0, 1.45, 1.0, 1.0], np.float32)[:num_ch],
                               device=T.device).reshape(1, num_ch, 1, 1, 1)
     T_p = T * S * ch_gain
     R_p = R * S * ch_gain
-    M_mm = phase_uncertainty(torch.minimum(torch.abs(T_p), torch.abs(R_p)), params)
+    M_mm = phase_uncertainty(torch.minimum(torch.abs(T_p), torch.abs(R_p)), params,
+                             use_kernel)
     q = torch.as_tensor(np.asarray(params.mask_q, np.float32)[:num_ch],
                         device=T.device).reshape(num_ch, 1, 1, 1)
     M = mask_pool(safe_pow(torch.abs(M_mm), q), params)
@@ -158,4 +162,4 @@ def met2jod(Q, jod_a: float, jod_exp: float):
     Q_t = 0.1
     jod_a_p = jod_a * Q_t ** (jod_exp - 1.0)
     return torch.where(Q <= Q_t, 10.0 - jod_a_p * Q,
-                       10.0 - jod_a * torch.clamp(Q, min=Q_t) ** jod_exp)
+                       10.0 - jod_a * clip(Q, Q_t) ** jod_exp)

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .clip import clip
+
 KERNEL_A = 0.4
 K5 = np.array([0.25 - KERNEL_A / 2, 0.25, KERNEL_A, 0.25, 0.25 - KERNEL_A / 2],
               dtype=np.float32)
@@ -77,10 +79,12 @@ def reduce_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def gausspyr_reduce(x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+    """The reduce kernel (differentiable, ``kernels.pyramid_reduce.Reduce``)
+    or the plain version under native autograd."""
     if use_kernel:
-        from .kernels.pyramid_reduce import pyramid_reduce
+        from .kernels.pyramid_reduce import Reduce
 
-        return pyramid_reduce(x)
+        return Reduce.apply(x)
     return reduce_plain(x)
 
 
@@ -160,10 +164,9 @@ class WeberContrastPyramid(LaplacianPyramid):
         L_bkg_pyr = [None] * (len(gpyr) - 1)
         layer = gpyr[-1]
         # weber_g1 baseband: sustained channels adapt to the image mean.
-        L_bkg = torch.mean(torch.clamp(layer[..., 0:2, :, :, :], min=0.01),
-                           dim=(-1, -2), keepdim=True)
-        t = torch.clamp(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], max=1000.0)
-        r = torch.clamp(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], max=1000.0)
+        L_bkg = torch.mean(clip(layer[..., 0:2, :, :, :], 0.01), dim=(-1, -2), keepdim=True)
+        t = clip(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], hi=1000.0)
+        r = clip(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], hi=1000.0)
         lpyr.append(torch.stack([t, r], dim=-4).reshape(layer.shape))
         L_bkg_pyr.append(torch.log10(L_bkg[..., 1:2, :, :, :]))
         return lpyr, L_bkg_pyr

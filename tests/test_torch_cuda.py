@@ -11,6 +11,8 @@ import torch
 
 import colorvideovdp_tpu_torch as ct
 from colorvideovdp_tpu_torch.ops import pyramid as pyr
+from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
+from colorvideovdp_tpu_torch.ops.kernels import blur as bl
 from colorvideovdp_tpu_torch.ops.kernels import csf_lut as lut
 from colorvideovdp_tpu_torch.ops.kernels import ingest as ing
 from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
@@ -44,7 +46,8 @@ def test_reduce_kernel(dev, shape):
     y = pyramid_reduce(x)
     ref = pyr.reduce_plain(x)
     assert y.shape == ref.shape
-    assert float((y - ref).abs().max()) <= 1e-6 * max(1.0, float(ref.abs().max()))
+    # The kernel rounds as the plain version does (csrc/common.cuh).
+    assert torch.equal(y, ref)
 
 
 @pytest.mark.parametrize("display,dtype", [("standard_4k", np.uint8),
@@ -110,7 +113,54 @@ def test_csf_lut_kernel(dev):
     logL = torch.linspace(x0 - 1, x1 + 1, 100003, device=dev).reshape(1, 1, -1, 1, 1)
     a = lut.csf_lut(logL, luts, x0, x1)
     b = lut.csf_lut_plain(logL, luts, x0, x1)
-    assert float(((a - b).abs() / b).max()) <= 1e-5
+    assert torch.equal(a, b)
+
+
+def test_csf_lut_bwd_kernel(dev):
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    x0, x1 = m.csf.lut_range()
+    luts = torch.as_tensor(np.stack([m.csf.logS_of_logL(2.0, 0, c) for c in range(3)]),
+                           device=dev)
+    logL = torch.linspace(x0 - 1, x1 + 1, 100003, device=dev).reshape(1, -1, 1)
+    g = torch.randn(3, *logL.shape, device=dev)
+    before = lut.csf_lut_bwd.launches
+    a = lut.csf_lut_bwd(logL, g, luts, x0, x1)
+    b = lut.csf_lut_bwd_plain(logL, g, luts, x0, x1)
+    assert lut.csf_lut_bwd.launches == before + 1
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(12, 270, 481), (3, 135, 241), (2, 17, 129),
+                                   (1, 4, 2, 33, 40)])
+def test_blur_kernel(dev, shape):
+    taps = gaussian_kernel1d(13, 3.0)
+    x = torch.rand(shape, device=dev)
+    before = bl.blur.launches
+    y = bl.blur(x, taps)
+    assert bl.blur.launches == before + 1
+    assert torch.equal(y, blur_plain(x, taps))
+    with pytest.raises(ValueError):
+        bl.blur(x[..., :6, :], taps)  # H <= radius: one reflection is not enough
+
+
+def test_loss_kernels_match_plain(dev):
+    rng = np.random.RandomState(4)
+    ref = rng.rand(2, 3, 1, 96, 320).astype(np.float32)
+    test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
+    counters = [pyramid_reduce, bm.band_masking, lut.csf_lut, lut.csf_lut_bwd, bl.blur]
+    out = []
+    for fused in (True, False):
+        m = ct.cvvdp(display_name="standard_4k", device="cuda")
+        m.enable_fused_kernels = fused
+        x = torch.from_numpy(test).to(dev).requires_grad_()
+        before = [f.launches for f in counters]
+        v = m.get_loss_fn(96, 320)(x, torch.from_numpy(ref).to(dev))
+        (g,) = torch.autograd.grad(v, x)
+        grew = [f.launches > b for f, b in zip(counters, before)]
+        assert all(grew) if fused else not any(grew)
+        out.append((float(v.detach()), g))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4
+    assert _rel(out[0][1], out[1][1]) <= 1e-4
 
 
 @pytest.mark.parametrize("case", ["uint8", "batch2-float32"])
