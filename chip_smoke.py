@@ -28,6 +28,19 @@ Phase 5  a training step at full width: ``get_loss_fn(1080, 1920)`` on
          backward, blur) must have launched; then three Adam steps on a leaf
          copy of the test batch must lower the loss. Forward+backward ms per
          step (median of 5) both ways, and the peak memory.
+Phase 6  the heatmap. First the D mode of the band kernel against its plain
+         version at the shapes of the runs below: 4K band 0 at the block
+         length, the launch that takes the smallest 4K bands together (C = 4),
+         and band 0 and the 6-row band of a 1280x720 image (C = 3; the 6-row
+         band takes no masking blur, the band_masking_d_noblur launch). Then
+         ``predict`` with heatmap="raw" and "supra-threshold" on 12 frames of
+         the phase-3 content (3840x2160, standard_hdr_pq; 32 frames cut to 12
+         to fit the time limit) with ``gpu_mem`` set for 8-frame blocks, so
+         that the clip runs as one full and one trailing partial block, and
+         with heatmap="threshold" on the 1280x720 image (standard_4k). Each
+         with the kernels, then plain: equal block lengths, heatmaps within
+         1.1e-3 (one float16 quantum and a rounding), JODs within 1e-3, and
+         the 4K JOD with a heatmap within 1e-4 of the pooled-only JOD.
 
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
@@ -53,11 +66,14 @@ import torch
 
 CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 1e-5,
-       "csf_lut_bwd": 1e-5, "blur": 1e-5}
+       "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # Training step bounds (phase 5): kernels against plain on the card.
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-4
+# Heatmap bounds (phase 6): float16 heatmaps kernels against plain, and the
+# JOD with a heatmap against the pooled-only JOD.
+HEATMAP_TOL, HEATMAP_JOD_TOL = 1.1e-3, 1e-4
 
 
 def log(*args):
@@ -113,6 +129,190 @@ def check(name, err, tol):
     log(f"  {name}: max error {err:.3e} (tolerance {tol:.0e})")
     if not err <= tol:
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
+
+
+# The kernels the heatmap path launches (phase 6).
+HEAT_PATH = ("ingest", "pyramid_reduce", "csf_lut", "band_masking_d", "band_masking_d_noblur")
+
+
+def phase_heatmap(m, fps, rows, record, counters, gen):
+    """Phase 6; returns the kernels' launch counts of the heatmap run."""
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch.ops import pyramid as pyr
+    from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
+    from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
+    from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
+
+    dev = torch.device("cuda")
+    H, W, N, blk = 2160, 3840, 12, 8
+    Hi, Wi = 720, 1280
+    t_phase = time.time()
+    # gpu_mem for 8-frame blocks under the port's block model (estimate_block_N:
+    # a = 1.6e9, b = 16, c = 320 bytes per pixel).
+    pix = H * W
+    gpu_mem = (1.6e9 + pix * (m.filter_len - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
+    probe = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                      gpu_mem=gpu_mem)
+    probe.filter_len = m.filter_len
+    if probe.estimate_block_N(pix, N) != blk:
+        raise AssertionError(f"gpu_mem {gpu_mem} does not give {blk}-frame blocks")
+
+    # The D mode against its plain version (these launches are not counted).
+    def hold_d(name, fn, args, shape_note):
+        D_k = fn(*args)
+        D_p = masking_fused.band_masking_d_plain(*args)
+        err = max(rel_err_per(a, b, 1) for a, b in zip(D_k, D_p))
+        abs_err = max(max_abs(a, b) for a, b in zip(D_k, D_p))
+        check(f"{name} {shape_note}", err, TOL[name])
+        return D_k, err, abs_err
+
+    dm = m.display_photometry
+    F_taps, _ = get_temporal_filters(fps, m.sigma_tf, m.beta_tf, m.temp_filter)
+    filt = np.stack([f[::-1] for f in F_taps])
+    raws = [torch.randint(0, 256, (1, blk, 3, H, W), dtype=torch.uint8, device=dev,
+                          generator=gen) for _ in range(2)]
+    tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, m.filter_len - 1, -1, -1)
+             .contiguous() for r in raws]
+    R = ingest.ingest(tails[0], tails[1], raws[0], raws[1], dm, filt)[0]
+    del raws, tails
+    m._ensure_pyramids(W, H)
+    consts, luts = m._band_tables(4)
+    E0 = pyr.gausspyr_expand(prd.pyramid_reduce(R), (H, W))
+    band0 = ([R], [E0], luts[0:1], [1.0], consts)
+    D_k, err_wide, abs_wide = hold_d("band_masking_d", masking_fused.band_masking_d, band0,
+                                     f"4K band 0 {tuple(R.shape)}")
+    k_wide = time_ms(lambda: masking_fused.band_masking_d(*band0))
+    p_wide = time_ms(lambda: masking_fused.band_masking_d_plain(*band0))
+    # Per pixel and channel about 90 operations: contrast + LUT ~20, the
+    # 2 x 13-tap blur 52, the transducer ~18.
+    b_wide = bound(nbytes(R, E0, luts[0:1]) + nbytes(*D_k), 90 * R.numel() // 2)
+    del D_k, E0, band0
+    bands, _ = m.lpyr.decompose(R, raw_pairs=True, use_kernel=False)
+    shapes = [b[0].shape[-2:] for b in bands[:-1]]
+    blurs = [consts.params.blurs(int(h), int(w)) for h, w in shapes]
+    groups = masking_fused.band_groups(shapes, 1, 4, blk, blurs)
+    log(f"phase 6: band_masking_d launches per 4K block: {groups}")
+    stacked = groups[-1]
+    gis = [bands[bb][0] for bb in stacked]
+    Es = [pyr.gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(stacked, gis)]
+    stack = (gis, Es, luts[stacked[0]:stacked[-1] + 1], [2.0] * len(stacked), consts)
+    _, err_stack, _ = hold_d("band_masking_d", masking_fused.band_masking_d, stack,
+                             f"4K bands {stacked} {[tuple(g.shape[-2:]) for g in gis]}")
+    b_stack = bound(nbytes(*gis, *Es, stack[2]) + nbytes(*gis) // 2,
+                    90 * sum(g.numel() for g in gis) // 2)
+    log(f"  band_masking_d 4K stacked launch: kernel "
+        f"{time_ms(lambda: masking_fused.band_masking_d(*stack)):.3f} ms, plain "
+        f"{time_ms(lambda: masking_fused.band_masking_d_plain(*stack)):.3f} ms, "
+        f"bound {b_stack[0]:.4f} ms ({b_stack[1]})")
+    del R, bands, gis, Es, stack
+
+    # C = 3: a seeded 1280x720 image pair on standard_4k, as the image step forms it.
+    rng = np.random.RandomState(17)
+    I_ref = (rng.rand(Hi, Wi, 3) * 255).astype(np.uint8)
+    I_test = np.clip(I_ref.astype(np.int16) + (rng.randn(Hi, Wi, 3) * 6).astype(np.int16),
+                     0, 255).astype(np.uint8)
+    mi = cvt.cvvdp(display_name="standard_4k", device="cuda", quiet=True)
+    mi._ensure_pyramids(Wi, Hi)
+    dmi = mi.display_photometry
+    Ri = ingest.interleave_tr(
+        *(ingest.raw_to_met(dmi, mi._upload(np.ascontiguousarray(a.transpose(2, 0, 1))
+                                            [None, None])) for a in (I_test, I_ref)))
+    bands_i, _ = mi.lpyr.decompose(Ri, raw_pairs=True, use_kernel=False)
+    consts_i, luts_i = mi._band_tables(3)
+    shapes_i = [b[0].shape[-2:] for b in bands_i[:-1]]
+    noblur = [bb for bb, (h, w) in enumerate(shapes_i)
+              if not consts_i.params.blurs(int(h), int(w))]
+    if not noblur:
+        raise AssertionError(f"no band without the blur in {shapes_i}")
+
+    def band_args(bb):
+        gi = bands_i[bb][0]
+        return ([gi], [pyr.gausspyr_expand(bands_i[bb][1], gi.shape[-2:])],
+                luts_i[bb:bb + 1], [1.0 if bb == 0 else 2.0], consts_i)
+
+    a0 = band_args(0)
+    _, err_i0, _ = hold_d("band_masking_d", masking_fused.band_masking_d, a0,
+                          f"720p band 0 {tuple(a0[0][0].shape)}")
+    record("band_masking_d", max(err_wide, err_stack, err_i0), abs_wide, k_wide, p_wide,
+           b_wide)
+    an = band_args(noblur[0])
+    D_n, err_n, abs_n = hold_d("band_masking_d_noblur", masking_fused.band_masking_d_noblur,
+                               an, f"720p band {noblur[0]} {tuple(an[0][0].shape)}")
+    # The same ~90 operations less the blur's 52.
+    record("band_masking_d_noblur", err_n, abs_n,
+           time_ms(lambda: masking_fused.band_masking_d_noblur(*an)),
+           time_ms(lambda: masking_fused.band_masking_d_plain(*an)),
+           bound(nbytes(*an[0], *an[1], an[2]) + nbytes(*D_n), 38 * an[0][0].numel() // 2))
+    del Ri, bands_i, a0, an, D_n
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # The heatmap path. The clip goes in as (1, F, 3, H, W) "BFCHW", the
+    # layout the source keeps its blocks in, so no host relayout is timed.
+    t0 = time.time()
+    V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
+    V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
+    log(f"phase 6: clip content made in {time.time() - t0:.1f} s")
+    runs = [("raw", "standard_hdr_pq", V_test, V_ref, dict(dim_order="BFCHW",
+                                                          frames_per_second=fps)),
+            ("supra-threshold", "standard_hdr_pq", V_test, V_ref,
+             dict(dim_order="BFCHW", frames_per_second=fps)),
+            ("threshold", "standard_4k", I_test, I_ref, dict(dim_order="HWC"))]
+    out = {}
+    heat_launches = None
+    for fused in (True, False):
+        for fn in counters.values():
+            fn.launches = 0
+        for hm_type, disp, t_in, r_in, kw in runs:
+            mv = cvt.cvvdp(display_name=disp, device="cuda", quiet=True, heatmap=hm_type,
+                           gpu_mem=gpu_mem)
+            mv.enable_fused_kernels = fused
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            Q, st = mv.predict(t_in, r_in, **kw)
+            jod = float(Q)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            hm = st["heatmap"]
+            if hm.dtype != np.float16 or not np.isfinite(hm).all() or hm.min() < 0:
+                raise AssertionError(f"heatmap {hm_type}: not finite non-negative float16")
+            out[(fused, hm_type)] = (jod, hm, st["block_N_frames"])
+            log(f"phase 6: {'kernels' if fused else 'plain  '} heatmap {hm_type} "
+                f"{tuple(hm.shape)}: JOD {jod:.6f}, blk {st['block_N_frames']}, {dt:.3f} s, "
+                f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if fused:
+            heat_launches = {k: fn.launches for k, fn in counters.items()}
+            log(f"phase 6: launches {heat_launches}")
+    for k in HEAT_PATH:
+        if heat_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the heatmap path")
+    for hm_type, *_ in runs:
+        (jk, hk, bk), (jp, hp, bp) = out[(True, hm_type)], out[(False, hm_type)]
+        d_hm = float(np.abs(hk.astype(np.float32) - hp.astype(np.float32)).max())
+        log(f"phase 6: heatmap {hm_type}: blk kernels {bk} plain {bp}, max |kernels - plain| "
+            f"{d_hm:.3e} (tolerance {HEATMAP_TOL:.1e}), |JOD kernels - plain| {abs(jk - jp):.2e}")
+        if bk != bp:
+            raise AssertionError(f"heatmap {hm_type}: block lengths {bk} and {bp} differ")
+        if not (d_hm <= HEATMAP_TOL and abs(jk - jp) <= 1e-3):
+            raise AssertionError(f"heatmap {hm_type}: kernels disagree with plain")
+    if out[(True, "raw")][2] != blk:
+        raise AssertionError(f"4K blocks of {out[(True, 'raw')][2]} frames, not {blk}")
+    mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True, gpu_mem=gpu_mem)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    jod_pooled = float(mv.predict(V_test, V_ref, dim_order="BFCHW", frames_per_second=fps)[0])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    d_jod = max(abs(out[(True, t)][0] - jod_pooled) for t in ("raw", "supra-threshold"))
+    log(f"phase 6: 4K JOD pooled-only {jod_pooled:.6f} ({dt:.3f} s with the kernels), with a "
+        f"heatmap {out[(True, 'raw')][0]:.6f}: |difference| {d_jod:.2e} (tolerance "
+        f"{HEATMAP_JOD_TOL:.0e})")
+    if not d_jod <= HEATMAP_JOD_TOL:
+        raise AssertionError("the JOD with a heatmap differs from the pooled-only JOD")
+    log(f"phase 6: {time.time() - t_phase:.1f} s")
+    return heat_launches
 
 
 def main():
@@ -223,9 +423,12 @@ def main():
     err_narrow = max(rel_err_per(masking_fused.pooled_norm(sk[j], *gi.shape[-2:], m.beta),
                                  masking_fused.pooled_norm(sp[j], *gi.shape[-2:], m.beta), 1)
                      for j, gi in enumerate(gis))
+    b_stack = bound(nbytes(*gis, *Es, stack[2]) + 4 * 4 * blk * len(gis),
+                    95 * sum(g.numel() for g in gis) // 2)
     log(f"  band_masking stacked launch: bands {[tuple(g.shape[-2:]) for g in gis]}, "
         f"error {err_narrow:.3e}, kernel {time_ms(lambda: masking_fused.band_masking(*stack)):.3f} ms, "
-        f"plain {time_ms(lambda: masking_fused.band_masking_plain(*stack)):.3f} ms")
+        f"plain {time_ms(lambda: masking_fused.band_masking_plain(*stack)):.3f} ms, "
+        f"bound {b_stack[0]:.4f} ms ({b_stack[1]})")
     log(f"  band_masking band 0 {tuple(R_k.shape)}: error {err_wide:.3e}")
     # Per pixel and channel about 95 operations: contrast + LUT ~20, the
     # 2 x 13-tap blur 52, transducer and pooling ~23.
@@ -304,7 +507,9 @@ def main():
     log(f"phase 3: clip content made in {time.time() - t0:.1f} s")
     counters = {"ingest": ingest.ingest, "pyramid_reduce": prd.pyramid_reduce,
                 "band_masking": masking_fused.band_masking, "csf_lut": csf_lut.csf_lut,
-                "csf_lut_bwd": csf_lut.csf_lut_bwd, "blur": blr.blur}
+                "csf_lut_bwd": csf_lut.csf_lut_bwd, "blur": blr.blur,
+                "band_masking_d": masking_fused.band_masking_d,
+                "band_masking_d_noblur": masking_fused.band_masking_d_noblur}
     score_path = ("ingest", "pyramid_reduce", "band_masking", "csf_lut")
     results = {}
     for fused in (True, False):
@@ -473,6 +678,12 @@ def main():
     if not losses[-1] < losses[0]:
         raise AssertionError("three Adam steps did not lower the loss")
 
+    del test_t, ref_t, x, opt, loss_fn, mt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    heat_launches = phase_heatmap(m, fps, rows, record, counters, gen)
+
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
         "ingest": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:322"),
@@ -483,13 +694,19 @@ def main():
         "csf_lut": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:114"),
         "csf_lut_bwd": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:156"),
         "blur": ("blur.cu", "colorvideovdp_tpu/ops/kernels/blur_halo.py:209"),
+        "band_masking_d": ("band_masking.cu",
+                           "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
+        "band_masking_d_noblur": ("band_masking.cu",
+                                  "colorvideovdp_tpu/ops/kernels/masking_fused.py:463"),
     }
     line = []
     for k, (f, rep) in kernels.items():
-        by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k]}
+        by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k],
+                   "heatmap_4k_video_720p_image": heat_launches[k]}
+        main = (heat_launches if k.startswith("band_masking_d") else
+                train_launches if k in train_path else launches)
         line.append({"name": k, "route": "cuda", "source": src + f, "replaces": rep,
-                     "launches": train_launches[k] if k in train_path else launches[k],
-                     "launches_by_path": by_path, **rows[k]})
+                     "launches": main[k], "launches_by_path": by_path, **rows[k]})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,14 @@
-// Per-band CSF + contrast masking + pooled score for the calibrated default
-// (weber_g1 raw pairs, mult-mutual masking, cross-channel mix, soft clamp).
+// Per-band CSF + contrast masking for the calibrated default (weber_g1 raw
+// pairs, mult-mutual masking, cross-channel mix, soft clamp): pooled scores,
+// or the per-pixel distortion map D for the heatmap.
 //
-// Replaces three TPU kernels of colorvideovdp_tpu/ops/kernels/:
+// Replaces four TPU kernels of colorvideovdp_tpu/ops/kernels/:
 //   masking_fused.py `fused_csf_contrast_raw` (`_kernel_a_raw`),
-//   masking_fused.py `fused_blur_transducer` (`_blur_b_kernel`, pooled), and
+//   masking_fused.py `fused_blur_transducer` (`_blur_b_kernel`), pooled and
+//     in its D-output mode (`pool_beta=None`),
+//   masking_fused.py `fused_masking_transducer` (`_kernel_b`, the transducer
+//     on a band whose blur is skipped: here the same stage B with a unit
+//     tap), and
 //   band_stack.py `make_band_stack` (`_stack_kernel`, all narrow bands).
 // One launch handles a list of up to BM_MAX_BANDS bands of any sizes (per-band
 // LUT rows, sizes and gains come from the band table, so one build serves
@@ -19,18 +24,20 @@
 //    reflect padding of ops/blur.py; vertical then horizontal taps (the tile
 //    blur of common.cuh, shared with csrc/blur.cu); x 10^mask_c;
 //    safe_pow(q_c); the 4x4 cross-channel mix accumulates in registers. Then
-//    D = soft_clamp(safe_pow(diff, p) / (1 + mix)) and safe_pow(D, beta) is
-//    summed over the tile's valid pixels into one partial sum per channel.
+//    D = soft_clamp(safe_pow(diff, p) / (1 + mix)). Pooled mode sums
+//    safe_pow(D, beta) over the tile's valid pixels into one partial sum per
+//    channel; D mode writes D, (B, C, F, h, w) per band, and stops there.
 //    Bands whose blur phase_uncertainty skips (h or w <= pu_padsize) use a
 //    single unit tap, an exact identity.
-//  Stage C (one block per (band, image plane)): the tile partials of the
-//    plane are summed in a fixed order. No float atomics, so the result is
-//    deterministic.
+//  Stage C (pooled mode only; one block per (band, image plane)): the tile
+//    partials of the plane are summed in a fixed order. No float atomics, so
+//    the result is deterministic.
 //
 // Bound on the H100: memory. Stage A reads 16 floats per pixel (C = 4) and
 // writes 8; stage B reads the 8 again (halo re-reads of M_pre hit L2) and
-// writes C floats per tile. The blur is 2 * 13 multiply-adds per channel and
-// pixel out of shared memory. D never reaches device memory.
+// writes C floats per tile, or C per pixel in D mode. The blur is 2 * 13
+// multiply-adds per channel and pixel out of shared memory. In pooled mode D
+// never reaches device memory.
 
 #include "common.cuh"
 
@@ -50,6 +57,7 @@ struct BandDesc {
   const float* E;
   float* mpre;
   float* diff;
+  float* D;  // D mode: (B, C, F, h, w) output
   int h, w;
   float mul;
   int blur;
@@ -132,6 +140,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;  // valid in thread 0
 }
 
+template <bool D_OUT>
 __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
     band_stage_b(BandParams P, float* __restrict__ partials) {
   __shared__ float sm[(BM_TH + 2 * BM_R_MAX) * (BM_TW + 2 * BM_R_MAX)];
@@ -181,6 +190,22 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
   }
 
   const float eps_p = powf(BM_EPS, P.p);
+  if (D_OUT) {
+#pragma unroll
+    for (int k = 0; k < BM_ROWS_PER_THREAD; ++k) {
+      const int gy = y0 + threadIdx.y + k * BM_THREADS_Y;
+      const int gx = x0 + threadIdx.x;
+      if (gy >= h || gx >= w) continue;
+#pragma unroll
+      for (int dd = 0; dd < BM_MAX_C; ++dd) {
+        if (dd >= C) continue;
+        const long long o = (((long long)b * C + dd) * F + f) * hw + (long long)gy * w + gx;
+        const float du = (powf(d.diff[o] + BM_EPS, P.p) - eps_p) / (1.0f + mix[k][dd]);
+        d.D[o] = P.max_v * du / (P.max_v + du);
+      }
+    }
+    return;
+  }
   const float eps_b = pow_static(BM_EPS, P.beta);
   float part[BM_MAX_C];
 #pragma unroll
@@ -260,17 +285,19 @@ CVVDP_API long long cvvdp_band_masking_tiles(int n_bands, int B, int F,
   return t;
 }
 
-// ptrs: n_bands x {gi, E, mpre, diff} device pointers; dims: n_bands x {h, w};
-// muls, blur: per band; luts: device (n_bands, C, nk); gains, qs: C floats;
-// xcm: C x C floats; taps: ntaps floats. partials: (tiles, C) scratch;
-// out: (n_bands, B, C, F) pooled sums of safe_pow(D, beta).
+// ptrs: n_bands x {gi, E, mpre, diff, D} device pointers (D unused in pooled
+// mode); dims: n_bands x {h, w}; muls, blur: per band; luts: device
+// (n_bands, C, nk); gains, qs: C floats; xcm: C x C floats; taps: ntaps
+// floats. d_out = 0: partials is (tiles, C) scratch and out receives the
+// (n_bands, B, C, F) pooled sums of safe_pow(D, beta). d_out = 1: each band's
+// D is written to its D pointer; partials and out are not touched.
 CVVDP_API int cvvdp_band_masking(
     int n_bands, int B, int C, int F, int nk, const long long* ptrs,
     const int* dims, const float* muls, const int* blur, const float* luts,
     float x0, float lut_scale, const float* gains, int ref_only,
     const float* qs, float p, const float* xcm, float max_v, float blur_scale,
-    const float* taps, int ntaps, float beta, float* partials, float* out,
-    void* stream) {
+    const float* taps, int ntaps, float beta, int d_out, float* partials,
+    float* out, void* stream) {
   if (n_bands < 1 || n_bands > BM_MAX_BANDS || C < 1 || C > BM_MAX_C ||
       ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1)
     return (int)cudaErrorInvalidValue;
@@ -282,10 +309,11 @@ CVVDP_API int cvvdp_band_masking(
   P.nk = nk;
   for (int k = 0; k < n_bands; ++k) {
     BandDesc& d = P.band[k];
-    d.gi = (const float*)ptrs[4 * k];
-    d.E = (const float*)ptrs[4 * k + 1];
-    d.mpre = (float*)ptrs[4 * k + 2];
-    d.diff = (float*)ptrs[4 * k + 3];
+    d.gi = (const float*)ptrs[5 * k];
+    d.E = (const float*)ptrs[5 * k + 1];
+    d.mpre = (float*)ptrs[5 * k + 2];
+    d.diff = (float*)ptrs[5 * k + 3];
+    d.D = (float*)ptrs[5 * k + 4];
     d.mul = muls[k];
     d.blur = blur[k];
   }
@@ -314,7 +342,12 @@ CVVDP_API int cvvdp_band_masking(
   band_stage_a<<<(unsigned int)n_a, 256, 0, st>>>(P);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  band_stage_b<<<(unsigned int)n_t, dim3(BM_THREADS_X, BM_THREADS_Y), 0, st>>>(P, partials);
+  const dim3 threads_b(BM_THREADS_X, BM_THREADS_Y);
+  if (d_out) {
+    band_stage_b<true><<<(unsigned int)n_t, threads_b, 0, st>>>(P, nullptr);
+    return (int)cudaGetLastError();
+  }
+  band_stage_b<false><<<(unsigned int)n_t, threads_b, 0, st>>>(P, partials);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   band_stage_c<<<(unsigned int)n_p, 256, 0, st>>>(P, partials, out);

@@ -6,6 +6,10 @@ from ..display import vvdp_display_geometry, vvdp_display_photometry
 from ..io.video_source import video_source_array
 
 
+class vq_exception(Exception):
+    """User-facing metric error (reference: vq_metric.py:7-9)."""
+
+
 class vq_metric:
     """Abstract video-quality metric."""
 

@@ -8,6 +8,12 @@ between blocks as tails), builds the pyramid with the reduce kernel and
 scores every band with the band-masking kernel and the baseband with the CSF
 LUT kernel. The output is the pooled JOD plus ``stats["Q_per_ch"]``.
 
+``heatmap`` ("raw", "threshold" or "supra-threshold") adds the per-pixel
+distortion map ``stats["heatmap"]``: every interior band takes the band
+kernel's D-output mode, the per-band maps are pooled over channels and
+collapsed by the Laplacian reconstruct, and the colour maps are drawn block by
+block on the device (``viz.py``). That path is forward-only.
+
 ``get_loss_fn`` is the training entry point: a differentiable loss over
 display-encoded image pairs. Every kernel on its path is a
 ``torch.autograd.Function`` whose backward is the TPU package's rule: the
@@ -30,10 +36,10 @@ from ..ops import masking as mk
 from ..ops.csf import CastleCSF
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import masking_fused as bm
-from ..ops.pyramid import WeberContrastPyramid, gausspyr_expand
+from ..ops.pyramid import LaplacianPyramid, WeberContrastPyramid, gausspyr_expand
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import config_files, json2dict
-from .base import vq_metric
+from .base import vq_exception, vq_metric
 
 # Host memory budget (bytes) for the block-size model on the CPU when
 # ``gpu_mem`` is unset (the reference metric assumes the same 4 GB).
@@ -47,8 +53,10 @@ class cvvdp(vq_metric):
                  display_geometry=None, config_paths=None, heatmap=None, quiet=False,
                  device="cuda", temp_padding="replicate", use_checkpoints=False,
                  dump_channels=None, gpu_mem=None, temp_resample=False):
-        if heatmap not in (None, "none"):
-            raise NotImplementedError("heatmaps are not ported yet")
+        if heatmap not in ("threshold", "supra-threshold", "raw", "none", None):
+            raise AssertionError("Unknown heatmap type")
+        self.heatmap = heatmap
+        self.do_heatmap = heatmap is not None and heatmap != "none"
         if dump_channels:
             raise NotImplementedError("dump_channels is not ported yet")
         if temp_resample:
@@ -192,7 +200,7 @@ class cvvdp(vq_metric):
         def block(test, ref):
             T = dm.source_2_target_colorspace(test, "DKLd65")
             R = dm.source_2_target_colorspace(ref, "DKLd65")
-            return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)
+            return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)[0]
 
         def loss_fn(test, ref):
             if remat:
@@ -227,6 +235,8 @@ class cvvdp(vq_metric):
             raise NotImplementedError(f"contrast '{self.contrast}' is not ported yet")
         self.lpyr = WeberContrastPyramid(width, height, self.pix_per_deg,
                                          contrast=self.contrast)
+        if self.do_heatmap:
+            self.heatmap_pyr = LaplacianPyramid(width, height, self.pix_per_deg)
         self._cache = {}
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -258,17 +268,27 @@ class cvvdp(vq_metric):
         """Score a video source; returns (Q_jod, stats)."""
         h, w, N_frames = vid_source.get_video_size()
         batch_sz = vid_source.get_batch_size()
+        if batch_sz > 1 and self.do_heatmap:
+            raise vq_exception("Heatmaps not supported when batches are used")
         self._ensure_pyramids(w, h)
         is_image = N_frames == 1
         dm = vid_source.dm_photometry
         use_k = self.enable_fused_kernels
+        heatmap = None
+        if self.do_heatmap:
+            dmap_channels = 1 if self.heatmap == "raw" else 3
+            heatmap = np.zeros((1, dmap_channels, N_frames, h, w), dtype=np.float16)
 
         Q_blocks = []
         if is_image:
+            block_N = 1
             raws = [self._upload(vid_source.get_raw_block(s, 0, 1)) for s in ("test", "reference")]
             T, R = (ing.raw_to_met(dm, raw).expand(batch_sz, -1, -1, -1, -1) for raw in raws)
-            Q_blocks.append(self._process_block(ing.interleave_tr(T, R), temp_ch=1,
-                                                is_image=True))
+            Q, hm, context = self._process_block(ing.interleave_tr(T, R), temp_ch=1,
+                                                 is_image=True, heatmap=self.do_heatmap)
+            Q_blocks.append(Q)
+            if heatmap is not None:
+                heatmap[:, :, 0:1] = self._heatmap_frames(hm, context)
         else:
             fps = vid_source.get_frames_per_second()
             self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
@@ -279,15 +299,20 @@ class cvvdp(vq_metric):
             for ff in range(0, N_frames, block_N):
                 cur = min(block_N, N_frames - ff)
                 # The source pads a trailing partial block to the full block by
-                # repeating its last frame; the padded frames' scores are trimmed.
+                # repeating its last frame; the padded frames' outputs are trimmed.
                 raws = [self._upload(vid_source.get_raw_block(s, ff, block_N))
                         for s in ("test", "reference")]
                 if tails is None:
                     tails = self._initial_tails(vid_source, dm, raws, N_frames)
                 fn = ing.ingest if use_k else ing.ingest_plain
                 R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm, filt)
-                Q = self._process_block(R, temp_ch=2, is_image=False)
+                Q, hm, context = self._process_block(R, temp_ch=2, is_image=False,
+                                                     heatmap=self.do_heatmap)
+                del R
                 Q_blocks.append(Q[:, :, :cur])
+                if heatmap is not None:
+                    heatmap[:, :, ff:ff + cur] = self._heatmap_frames(
+                        hm[:, :, :cur], context[:, :cur])
 
         Q_per_ch = torch.cat(Q_blocks, dim=2) if len(Q_blocks) > 1 else Q_blocks[0]
         Q_jod = self.do_pooling_and_jods(Q_per_ch)
@@ -298,9 +323,22 @@ class cvvdp(vq_metric):
             "width": w,
             "height": h,
             "N_frames": N_frames,
-            "block_N_frames": 1 if is_image else block_N,
+            "block_N_frames": block_N,
         }
+        if heatmap is not None:
+            stats["heatmap"] = heatmap
         return Q_jod, stats
+
+    def _heatmap_frames(self, hm, context) -> np.ndarray:
+        """One block's heatmap as the host's float16 frames: the raw map
+        (1, 1, F, H, W), or the colour map (3, F, H, W) drawn on the device
+        against the block's context (test sustained achromatic channel)."""
+        if self.heatmap == "raw":
+            return hm.to(torch.float16).cpu().numpy()
+        from ..viz import visualize_diff_map
+
+        return visualize_diff_map(hm, context_image=context,
+                                  colormap_type=self.heatmap).to(torch.float16).cpu().numpy()
 
     def _band_tables(self, all_ch):
         """(BandConsts, LUT rows (interior bands, C, nk) on the device),
@@ -321,9 +359,12 @@ class cvvdp(vq_metric):
             self._cache[key] = (consts, torch.as_tensor(luts, device=self.device))
         return self._cache[key]
 
-    def _process_block(self, R, temp_ch, is_image):
+    def _process_block(self, R, temp_ch, is_image, heatmap=False):
         """Pyramid -> CSF -> masking -> spatial pooling for one frame block.
-        R: (B, 2 * all_ch, F, H, W) interleaved. Returns (B, all_ch, F, bands)."""
+        R: (B, 2 * all_ch, F, H, W) interleaved. Returns (Q_per_ch
+        (B, all_ch, F, bands), heatmap block, context); with ``heatmap`` the
+        heatmap block is 1 - JOD / 10 of the reconstructed distortion map,
+        (B, 1, F, H, W), and the context is R[:, 0], else both are None."""
         all_ch = 2 + temp_ch
         use_k = self.enable_fused_kernels
         n_bands = self.lpyr.get_band_count()
@@ -331,13 +372,34 @@ class cvvdp(vq_metric):
         bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=True, use_kernel=use_k)
 
         Q_cols = [None] * n_bands
+        hm_bands = [None] * n_bands
         B, C2, F = bands[0][0].shape[:3]
         shapes = [bands[bb][0].shape[-2:] for bb in range(n_bands - 1)]
-        for sel in bm.band_groups(shapes, B, C2 // 2, F):
+        if heatmap:
+            dev = R.device
+            w_ch = torch.as_tensor(self.get_ch_weights(all_ch), device=dev).reshape(
+                -1, 1, 1, 1) * (self.image_int if is_image else 1.0)
+            w_bb = w_ch * torch.as_tensor(self.baseband_weight[:all_ch], device=dev).reshape(
+                -1, 1, 1, 1)
+            d_blurs = [consts.params.blurs(int(hh), int(ww)) for hh, ww in shapes]
+        else:
+            d_blurs = None
+        for sel in bm.band_groups(shapes, B, C2 // 2, F, d_blurs):
             gis = [bands[bb][0] for bb in sel]
             Es = [gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(sel, gis)]
-            sums = bm.band_sums(gis, Es, luts[sel[0]:sel[-1] + 1],
-                                [1.0 if bb == 0 else 2.0 for bb in sel], consts, use_k)
+            muls = [1.0 if bb == 0 else 2.0 for bb in sel]
+            if heatmap:
+                Ds = bm.band_D(gis, Es, luts[sel[0]:sel[-1] + 1], muls, consts, use_k)
+                del Es
+                for bb, D, mul in zip(sel, Ds, muls):
+                    Q_cols[bb] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True,
+                                            keepdim=False)
+                    # Interior bands are stored at half gain (lpyr_dec.py:308-314).
+                    hm_bands[bb] = mk.lp_norm(D * w_ch, self.beta_tch, dim=-4,
+                                              normalize=False) / mul
+                del Ds
+                continue
+            sums = bm.band_sums(gis, Es, luts[sel[0]:sel[-1] + 1], muls, consts, use_k)
             del Es
             for j, bb in enumerate(sel):
                 Q_cols[bb] = bm.pooled_norm(sums[j], *gis[j].shape[-2:], self.beta)
@@ -351,7 +413,14 @@ class cvvdp(vq_metric):
         S = S.movedim(0, 1)[:, :, 0] * consts.sens_corr
         D = torch.abs(base[:, 0::2] - base[:, 1::2]) * S
         Q_cols[-1] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
-        return torch.stack(Q_cols, dim=-1)
+        Q = torch.stack(Q_cols, dim=-1)
+        if not heatmap:
+            return Q, None, None
+        hm_bands[-1] = mk.lp_norm(D * w_bb, self.beta_tch, dim=-4, normalize=False)
+        del bands
+        recon = self.heatmap_pyr.reconstruct(hm_bands)
+        # A copy, so that the caller can free the block's R before drawing.
+        return Q, 1.0 - self.met2jod(recon) / 10.0, R[:, 0].clone()
 
     def do_pooling_and_jods(self, Q_per_ch):
         """Band/channel/frame pooling and the JOD mapping; Q_per_ch is
@@ -378,3 +447,10 @@ class cvvdp(vq_metric):
 
     def met2jod(self, Q):
         return mk.met2jod(Q, self.jod_a, self.jod_exp)
+
+    def export_distogram(self, stats, fname, jod_max=None, base_size=6):
+        """Plot ``stats["Q_per_ch"]`` per channel, band and frame to ``fname``
+        (needs matplotlib)."""
+        from ..viz import export_distogram
+
+        export_distogram(self, stats, fname, jod_max=jod_max, base_size=base_size)

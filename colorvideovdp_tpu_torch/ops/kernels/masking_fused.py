@@ -1,22 +1,34 @@
-"""Band masking: CSF + Weber contrast + mutual masking + pooled score.
+"""Band masking: CSF + Weber contrast + mutual masking, pooled or per pixel.
 
-Replaces three TPU kernels: ``colorvideovdp_tpu/ops/kernels/masking_fused.py``
+Replaces four TPU kernels: ``colorvideovdp_tpu/ops/kernels/masking_fused.py``
 ``fused_csf_contrast_raw`` (:440) and ``fused_blur_transducer`` (:352), run
-per wide band, and ``band_stack.py`` ``make_band_stack`` (:253), which takes
-all narrow bands in one launch. Here one kernel takes any 1..8 bands. Kernel: ``csrc/band_masking.cu`` (stage A
-elementwise contrast + LUT, stage B tiled blur + transducer + tile sums,
-stage C fixed-order reduction); it is bound by memory. ``band_groups`` picks
-which bands share a launch. The inputs of a band
-are the raw Gaussian level ``gi`` and the expanded next level ``E``, both
-(B, 2C, F, h, w) with test/reference channels interleaved; the result is
-sum(safe_pow(D, beta)) over each image plane, (n_bands, B, C, F).
+per wide band, ``fused_masking_transducer`` (:463), the transducer on a band
+whose blur is skipped, and ``band_stack.py`` ``make_band_stack`` (:253), which
+takes all narrow bands in one launch. Here one kernel takes any 1..8 bands.
+Kernel: ``csrc/band_masking.cu`` (stage A elementwise contrast + LUT, stage B
+tiled blur + transducer, then either tile sums and stage C's fixed-order
+reduction, or the per-pixel D map); it is bound by memory. ``band_groups``
+picks which bands share a launch. The inputs of a band are the raw Gaussian
+level ``gi`` and the expanded next level ``E``, both (B, 2C, F, h, w) with
+test/reference channels interleaved.
 
-``BandMasking`` makes the sums differentiable: its backward recomputes the
-plain chain (``_band_sums_plain``) and returns its vector-Jacobian product,
-as the custom VJPs of the JAX package do (``masking_fused.py:649-661``,
-``band_stack.py:289-304``). With the kernels on, that recompute runs the CSF
-LUT and blur kernels with their own backward rules, as JAX's recompute
-reaches its Pallas LUT and blur.
+Two modes share stages A and B and one plain chain (``_band_D_plain``):
+
+* pooled, ``band_masking``: sum(safe_pow(D, beta)) over each image plane,
+  (n_bands, B, C, F); D never reaches memory. ``BandMasking`` makes it
+  differentiable: its backward recomputes the plain chain
+  (``_band_sums_plain``) and returns its vector-Jacobian product, as the
+  custom VJPs of the JAX package do (``masking_fused.py:649-661``,
+  ``band_stack.py:289-304``). With the kernels on, that recompute runs the
+  CSF LUT and blur kernels with their own backward rules, as JAX's
+  recompute reaches its Pallas LUT and blur.
+* D, ``band_masking_d`` and ``band_masking_d_noblur``: the distortion map D,
+  (B, C, F, h, w) per band, for the heatmap (forward only). The JAX package
+  runs ``fused_blur_transducer(pool_beta=None)`` on bands its fused blur
+  takes and ``blur_fn`` + ``fused_masking_transducer`` on the rest; the
+  port's stage B blurs in-kernel at every size, so the second kernel is the
+  same launch on bands whose blur ``phase_uncertainty`` skips (h or w <=
+  ``pu_padsize``), which ``band_groups`` keeps apart.
 """
 
 from __future__ import annotations
@@ -80,17 +92,23 @@ class BandConsts:
         )
 
 
-def _band_sums_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> torch.Tensor:
-    """Weber contrast and CSF of one band as the JAX package's decompose +
-    get_band + CSF chain forms them, then ``masking.apply_masking_model``.
-    ``use_kernel`` runs the CSF LUT and blur kernels inside the chain."""
+def _band_D_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> torch.Tensor:
+    """D (B, C, F, h, w) of one band: the Weber contrast and CSF as the JAX
+    package's decompose + get_band + CSF chain forms them, then
+    ``masking.apply_masking_model``. ``use_kernel`` runs the CSF LUT and blur
+    kernels inside the chain."""
     lb_r = clip(E[:, 1:2], 0.01)
     lb_t = lb_r if k.ref_only else clip(E[:, 0:1], 0.01)
     T = clip((gi[:, 0::2] - E[:, 0::2]) / lb_t, hi=1000.0) * mul
     R = clip((gi[:, 1::2] - E[:, 1::2]) / lb_r, hi=1000.0) * mul
     S = CsfLut.apply(torch.log10(lb_r[:, 0]), lut, k.x0, k.x1, use_kernel)
     S = S.movedim(0, 1) * k.sens_corr
-    D = apply_masking_model(T, R, S, k.params, use_kernel)
+    return apply_masking_model(T, R, S, k.params, use_kernel)
+
+
+def _band_sums_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> torch.Tensor:
+    """sum(safe_pow(D, beta)) over each image plane of ``_band_D_plain``."""
+    D = _band_D_plain(gi, E, lut, mul, k, use_kernel)
     return torch.sum(_pow_static(D + _EPS, k.beta) - _EPS ** k.beta, dim=(-2, -1))
 
 
@@ -109,13 +127,25 @@ def band_masking_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts)
         for i, (gi, E) in enumerate(zip(gi_list, E_list))])
 
 
-def band_groups(shapes, B: int, C: int, F: int):
+def band_masking_d_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
+    """Plain PyTorch version of the D mode: a list of D (B, C, F, h, w)."""
+    return [torch.cat([_band_D_plain(gi[:, :, fs], E[:, :, fs], luts[i], muls[i], k)
+                       for fs in _frame_chunks(gi)], dim=2)
+            for i, (gi, E) in enumerate(zip(gi_list, E_list))]
+
+
+def band_groups(shapes, B: int, C: int, F: int, d_blurs=None):
     """Split the interior bands, given by their (h, w), into launches:
-    lists of consecutive band indices."""
+    lists of consecutive band indices. ``d_blurs``, the bands' blur flags,
+    asks for the D mode: each band then also holds its D output (C planes),
+    and a band whose flag differs from the previous band's starts a new
+    launch, so that a band without blur runs as ``band_masking_d_noblur``."""
+    planes = 4 if d_blurs is None else 5
     groups, cur, used = [], [], 0
     for i, (h, w) in enumerate(shapes):
-        need = 4 * C * B * F * int(h) * int(w) * 4
-        if cur and (used + need > GROUP_BYTES or len(cur) == MAX_BANDS):
+        need = planes * C * B * F * int(h) * int(w) * 4
+        split = d_blurs is not None and cur and d_blurs[i] != d_blurs[cur[-1]]
+        if cur and (split or used + need > GROUP_BYTES or len(cur) == MAX_BANDS):
             groups.append(cur)
             cur, used = [], 0
         cur.append(i)
@@ -128,11 +158,9 @@ def pooled_norm(sums: torch.Tensor, h: int, w: int, beta: float) -> torch.Tensor
     return _safe_pow_static(sums / float(h * w), 1.0 / float(beta))
 
 
-def band_masking(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
-    """CPU tensors take ``band_masking_plain``; CUDA tensors launch the
-    kernel over all the given bands at once."""
-    if gi_list[0].device.type == "cpu":
-        return band_masking_plain(gi_list, E_list, luts, muls, k)
+def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool):
+    """One ``cvvdp_band_masking`` launch over the given bands on the card:
+    the (n_bands, B, C, F) pooled sums, or with ``d_out`` the list of D."""
     n = len(gi_list)
     if not 1 <= n <= MAX_BANDS or len(E_list) != n or len(muls) != n:
         raise ValueError(f"band_masking: 1..{MAX_BANDS} bands, got {n}")
@@ -151,15 +179,20 @@ def band_masking(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     mpre = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
     diff = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
+    Ds = ([torch.empty((B, C, F, int(h), int(w)), dtype=torch.float32, device=dev)
+           for h, w in dims] if d_out else [None] * n)
     ptrs = np.array([[gi.data_ptr(), E.data_ptr(), mpre.data_ptr() + 4 * int(o),
-                      diff.data_ptr() + 4 * int(o)]
-                     for gi, E, o in zip(gi_list, E_list, offs[:-1])], np.int64)
+                      diff.data_ptr() + 4 * int(o), 0 if D is None else D.data_ptr()]
+                     for gi, E, o, D in zip(gi_list, E_list, offs[:-1], Ds)], np.int64)
     blur = np.array([int(k.params.blurs(int(h), int(w))) for h, w in dims], np.int32)
     muls_a = np.asarray(muls, np.float32)
     lib = _build.library()
-    n_tiles = lib.cvvdp_band_masking_tiles(n, B, F, dims.ctypes.data)
-    partials = torch.empty(n_tiles * C, dtype=torch.float32, device=dev)
-    out = torch.empty((n, B, C, F), dtype=torch.float32, device=dev)
+    if d_out:
+        partials = out = None
+    else:
+        n_tiles = lib.cvvdp_band_masking_tiles(n, B, F, dims.ctypes.data)
+        partials = torch.empty(n_tiles * C, dtype=torch.float32, device=dev)
+        out = torch.empty((n, B, C, F), dtype=torch.float32, device=dev)
     gains = np.ascontiguousarray(k.gains, np.float32)
     qs = np.ascontiguousarray(k.qs, np.float32)
     xcm = np.ascontiguousarray(k.xcm, np.float32)
@@ -168,14 +201,69 @@ def band_masking(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
         n, B, C, F, luts.shape[2], ptrs.ctypes.data, dims.ctypes.data, muls_a.ctypes.data,
         blur.ctypes.data, luts.data_ptr(), k.x0, (luts.shape[2] - 1) / (k.x1 - k.x0),
         gains.ctypes.data, int(k.ref_only), qs.ctypes.data, k.p, xcm.ctypes.data, k.max_v,
-        k.blur_scale, taps.ctypes.data, len(taps), k.beta, partials.data_ptr(),
-        out.data_ptr(), _build.stream_handle(dev))
+        k.blur_scale, taps.ctypes.data, len(taps), k.beta, int(d_out),
+        None if partials is None else partials.data_ptr(),
+        None if out is None else out.data_ptr(), _build.stream_handle(dev))
     _build.check_cuda(rc, "cvvdp_band_masking")
+    return Ds if d_out else out
+
+
+def band_masking(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
+    """CPU tensors take ``band_masking_plain``; CUDA tensors launch the
+    kernel over all the given bands at once: (n_bands, B, C, F) pooled sums."""
+    if gi_list[0].device.type == "cpu":
+        return band_masking_plain(gi_list, E_list, luts, muls, k)
+    out = _launch(gi_list, E_list, luts, muls, k, d_out=False)
     band_masking.launches += 1
     return out
 
 
 band_masking.launches = 0
+
+
+def _check_blur(name, gi_list, k: BandConsts, want: bool):
+    if any(k.params.blurs(*gi.shape[-2:]) != want for gi in gi_list):
+        raise ValueError(f"{name}: every band must {'' if want else 'not '}take the blur")
+
+
+def band_masking_d(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
+    """The D mode on bands that take the masking blur (the JAX package's
+    ``fused_blur_transducer`` with ``pool_beta=None``): a list of D
+    (B, C, F, h, w). CPU tensors take ``band_masking_d_plain``."""
+    if gi_list[0].device.type == "cpu":
+        return band_masking_d_plain(gi_list, E_list, luts, muls, k)
+    _check_blur("band_masking_d", gi_list, k, True)
+    Ds = _launch(gi_list, E_list, luts, muls, k, d_out=True)
+    band_masking_d.launches += 1
+    return Ds
+
+
+band_masking_d.launches = 0
+
+
+def band_masking_d_noblur(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
+    """The D mode on bands whose blur ``phase_uncertainty`` skips (the JAX
+    package's ``fused_masking_transducer`` on M x 10^mask_c): a list of D.
+    CPU tensors take ``band_masking_d_plain``."""
+    if gi_list[0].device.type == "cpu":
+        return band_masking_d_plain(gi_list, E_list, luts, muls, k)
+    _check_blur("band_masking_d_noblur", gi_list, k, False)
+    Ds = _launch(gi_list, E_list, luts, muls, k, d_out=True)
+    band_masking_d_noblur.launches += 1
+    return Ds
+
+
+band_masking_d_noblur.launches = 0
+
+
+def band_D(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True):
+    """D of one ``band_groups`` launch (all its bands share the blur flag):
+    the kernel that fits the group, or the plain version without
+    ``use_kernel``. Forward only."""
+    if not use_kernel:
+        return band_masking_d_plain(gi_list, E_list, luts, muls, k)
+    fn = band_masking_d if k.params.blurs(*gi_list[0].shape[-2:]) else band_masking_d_noblur
+    return fn(gi_list, E_list, luts, muls, k)
 
 
 class BandMasking(torch.autograd.Function):

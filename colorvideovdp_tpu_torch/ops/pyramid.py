@@ -11,6 +11,8 @@ Counterpart of ``colorvideovdp_tpu/ops/pyramid.py``. Parity notes:
   with the 1-sample edge pad (bit-equal to the JAX package's regrouping).
 * Interior bands are scored at double gain (the reference stores them at
   half gain and doubles them on read).
+* ``LaplacianPyramid.reconstruct`` collapses the per-band heatmap maps; it
+  is XLA in the JAX package too, not a kernel.
 """
 
 from __future__ import annotations
@@ -135,6 +137,24 @@ class LaplacianPyramid:
 
     def get_band_count(self) -> int:
         return self.height + 1
+
+    @staticmethod
+    def get_band(bands, band):
+        """A band at full gain: interior bands are stored at half gain."""
+        mul = 1.0 if band == 0 or band == len(bands) - 1 else 2.0
+        return bands[band] * mul
+
+    @staticmethod
+    def set_band(bands, band, data):
+        mul = 1.0 if band == 0 or band == len(bands) - 1 else 2.0
+        bands[band] = data / mul
+
+    def reconstruct(self, bands):
+        """Collapse the pyramid: expand from the baseband up, adding each band."""
+        img = bands[-1]
+        for i in reversed(range(len(bands) - 1)):
+            img = gausspyr_expand(img, bands[i].shape[-2:]) + bands[i]
+        return img
 
     def gaussian_pyramid(self, image, levels: int, use_kernel: bool = True):
         res = [image]

@@ -105,6 +105,35 @@ def test_band_masking_kernel(dev, C):
         assert _rel(bm.band_masking(*args), bm.band_masking_plain(*args)) <= 1e-4
 
 
+@pytest.mark.parametrize("C", [4, 3])
+def test_band_masking_d_kernel(dev, C):
+    """The D mode against its plain version at unaligned sizes: one wide band,
+    a multi-band group and a band of 4 rows without the masking blur."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(517, 99)
+    consts, _ = m._band_tables(C)
+    shapes = [(99, 517), (50, 259), (25, 130), (13, 65), (7, 33), (4, 17)]
+    luts = torch.as_tensor(np.stack([
+        np.stack([m.csf.logS_of_logL(rho, m.omega[0 if cc < 3 else 1], cc if cc < 3 else 0)
+                  for cc in range(C)]) for rho in (8.0, 4.0, 2.0, 1.0, 0.5, 0.25)]), device=dev)
+    gis = [torch.rand(1, 2 * C, 3, h, w, device=dev) * 20 + 30 for h, w in shapes]
+    Es = [g + torch.randn_like(g) for g in gis]
+    for sel, fn in (([0], bm.band_masking_d), ([1, 2, 3, 4], bm.band_masking_d),
+                    ([5], bm.band_masking_d_noblur)):
+        args = ([gis[i] for i in sel], [Es[i] for i in sel], luts[sel[0]:sel[-1] + 1],
+                [1.0 if i == 0 else 2.0 for i in sel], consts)
+        before = fn.launches
+        Ds = fn(*args)
+        assert fn.launches == before + 1
+        for D, P in zip(Ds, bm.band_masking_d_plain(*args)):
+            assert D.shape == P.shape
+            assert _rel_planes(D, P) <= 1e-5
+    with pytest.raises(ValueError):
+        bm.band_masking_d_noblur([gis[0]], [Es[0]], luts[:1], [1.0], consts)
+    with pytest.raises(ValueError):
+        bm.band_masking_d([gis[5]], [Es[5]], luts[5:6], [2.0], consts)
+
+
 def test_csf_lut_kernel(dev):
     m = ct.cvvdp(display_name="standard_4k", device="cuda")
     x0, x1 = m.csf.lut_range()
@@ -183,3 +212,33 @@ def test_metric_kernels_match_plain(dev, case):
         assert (ing.ingest.launches > before) == fused
         jods.append(Q.double().cpu().numpy())
     assert np.abs(jods[0] - jods[1]).max() <= 1e-4, jods
+
+
+@pytest.mark.parametrize("hm_type", ["raw", "supra-threshold", "threshold-image"])
+def test_heatmap_kernels_match_plain(dev, hm_type):
+    """predict with a heatmap, kernels against plain: 7 frames in blocks of 5
+    and 2, or one image; at 96 rows band 4 has 6 rows and takes no blur."""
+    rng = np.random.RandomState(5)
+    ref = (rng.rand(96, 320, 3, 7) * 255).astype(np.uint8)
+    test = np.clip(ref.astype(np.int16) + (rng.randn(*ref.shape) * 10).astype(np.int16),
+                   0, 255).astype(np.uint8)
+    kw = dict(dim_order="HWCF", frames_per_second=30)
+    if hm_type == "threshold-image":
+        hm_type, test, ref, kw = "threshold", test[..., 0], ref[..., 0], dict(dim_order="HWC")
+    pix = 96 * 320
+    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 5.5) / 1e9  # 5-frame blocks
+    out = []
+    for fused in (True, False):
+        m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=hm_type,
+                     gpu_mem=gpu_mem)
+        m.enable_fused_kernels = fused
+        before = bm.band_masking_d.launches, bm.band_masking_d_noblur.launches
+        Q, st = m.predict(test, ref, **kw)
+        after = bm.band_masking_d.launches, bm.band_masking_d_noblur.launches
+        assert all((a > b) == fused for a, b in zip(after, before))
+        out.append((float(Q), st["heatmap"].astype(np.float32), st["block_N_frames"]))
+    (q_k, hm_k, blk_k), (q_p, hm_p, blk_p) = out
+    assert blk_k == blk_p == (1 if test.ndim == 3 else 5)
+    assert hm_k.shape == hm_p.shape
+    assert np.abs(hm_k - hm_p).max() <= 1.1e-3
+    assert abs(q_k - q_p) <= 1e-4
