@@ -41,6 +41,22 @@ Phase 6  the heatmap. First the D mode of the band kernel against its plain
          with the kernels, then plain: equal block lengths, heatmaps within
          1.1e-3 (one float16 quantum and a rounding), JODs within 1e-3, and
          the 4K JOD with a heatmap within 1e-4 of the pooled-only JOD.
+Phase 7  the non-default configurations, each a copy of the default
+         cvvdp_parameters.json with one or two keys changed, written to a
+         temporary directory and passed as ``config_paths``. First the
+         contrast-band mode of the band kernel against its plain version,
+         pooled and D, at 4K band 0 (1, 8, 8, 2160, 3840) of the weber_g0_ref
+         decomposition and at the launch that takes its smallest bands; the
+         log-LMS mode of the ingest kernel at 8 frames of 4K; the blur kernel
+         at the texture models' 33 taps on (3, 1080, 1920). Then ``predict``
+         on 12 frames of the phase-3 content (BFCHW, 8-frame blocks) with
+         contrast weber_g0_ref and with log, kernels then plain (JODs within
+         1e-3; ingest, reduce, the contrast mode and the CSF LUT must have
+         launched); a log-contrast "raw" heatmap of the 720p image of phase 6
+         (the D mode on contrast bands); a FHD image with
+         mult-transducer-texture (the generic chain: CSF LUT and 33-tap blur
+         kernels); and a ``get_loss_fn(1080, 1920)`` step of 2 pairs with
+         weber_g0_ref: loss within 1e-4, gradient within 1e-4 of max|g|.
 
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
@@ -66,7 +82,8 @@ import torch
 
 CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 1e-5,
-       "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5}
+       "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
+       "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # Training step bounds (phase 5): kernels against plain on the card.
@@ -315,6 +332,253 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     return heat_launches
 
 
+def phase_configs(m, fps, record, counters, gen):
+    """Phase 7; returns the kernels' launch counts per path."""
+    import shutil
+    import tempfile
+
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
+    from colorvideovdp_tpu_torch.ops.kernels import blur as blr
+    from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
+    from colorvideovdp_tpu_torch.ops.pyramid import LaplacianPyramid
+    from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
+    from colorvideovdp_tpu_torch.utils.config import write_parameters
+
+    dev = torch.device("cuda")
+    H, W, N, blk = 2160, 3840, 12, 8
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="cvvdp_configs_")
+    try:
+        cfg = {name: write_parameters(f"{tmp}/{name}", **over) for name, over in (
+            ("weber_g0_ref", dict(contrast="weber_g0_ref")), ("log", dict(contrast="log")),
+            ("texture", dict(masking_model="mult-transducer-texture")))}
+        pix = H * W
+        gpu_mem = (1.6e9 + pix * (m.filter_len - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
+        launches = {}
+
+        # The contrast-band mode against its plain version at the 4K shapes of
+        # the weber_g0_ref decomposition (these launches are not counted).
+        mg = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                       config_paths=cfg["weber_g0_ref"])
+        dm = mg.display_photometry
+        F_taps, _ = get_temporal_filters(fps, mg.sigma_tf, mg.beta_tf, mg.temp_filter)
+        filt = np.stack([f[::-1] for f in F_taps])
+        fl = filt.shape[1]
+        raws = [torch.randint(0, 256, (1, blk, 3, H, W), dtype=torch.uint8, device=dev,
+                              generator=gen) for _ in range(2)]
+        log_tails = [ingest.raw_to_met(dm, r[:, :1], "logLMS_DKLd65")
+                     .expand(-1, -1, fl - 1, -1, -1).contiguous() for r in raws]
+        args = (*log_tails, *raws, dm, filt, "logLMS_DKLd65")
+        out_k = ingest.ingest(*args)
+        out_p = ingest.ingest_plain(*args)
+        err = max(rel_err_per(a, b, 1) for a, b in zip(out_k, out_p))
+        check(f"ingest log-LMS mode {tuple(out_k[0].shape)}", err, TOL["ingest"])
+        # As phase 2's ingest bound, with ~18 more operations per new source
+        # pixel for the three log10 and the second 3x3.
+        b_log = bound(nbytes(*raws, *log_tails) + nbytes(out_k[0]) + 2 * nbytes(out_k[1]),
+                      43 * 2 * raws[0].numel() // 3 + 2 * fl * out_k[0].numel())
+        k_log = time_ms(lambda: ingest.ingest(*args))
+        log(f"  ingest log-LMS mode: max abs error {max_abs(out_k[0], out_p[0]):.3e}, kernel "
+            f"{k_log:.3f} ms, plain {time_ms(lambda: ingest.ingest_plain(*args)):.3f} ms, bound "
+            f"{b_log[0]:.3f} ms ({b_log[1]}, {100 * b_log[0] / k_log:.1f}% of it)")
+        del out_k, out_p, args, log_tails
+        tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, fl - 1, -1, -1).contiguous()
+                 for r in raws]
+        R = ingest.ingest(*tails, *raws, dm, filt)[0]
+        del raws, tails
+        mg._ensure_pyramids(W, H)
+        consts, luts = mg._band_tables(4)
+        bands, L_bkg = mg.lpyr.decompose(R, raw_pairs=False, use_kernel=False)
+        del R
+
+        def contrast_args(sel):
+            return ([LaplacianPyramid.get_band(bands, bb) for bb in sel],
+                    [L_bkg[bb] for bb in sel], luts[sel[0]:sel[-1] + 1], consts)
+
+        def hold(sel):
+            a = contrast_args(sel)
+            ones = [1.0] * len(sel)
+            s_k = masking_fused.band_masking_contrast(*a)
+            s_p = masking_fused.band_masking_plain(*a[:3], ones, consts, True)
+            q_k, q_p = ([masking_fused.pooled_norm(s[j], *x.shape[-2:], mg.beta)
+                         for j, x in enumerate(a[0])] for s in (s_k, s_p))
+            err_s = max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_p))
+            D_k = masking_fused.band_masking_contrast_d(*a)
+            D_p = masking_fused.band_masking_d_plain(*a[:3], ones, consts, True)
+            err_d = max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_p))
+            abs_s = max(max_abs(x, y) for x, y in zip(q_k, q_p))
+            abs_d = max(max_abs(x, y) for x, y in zip(D_k, D_p))
+            note = f"bands {sel} {[tuple(x.shape[-2:]) for x in a[0]]}"
+            check(f"band_masking_contrast {note}", err_s, TOL["band_masking_contrast"])
+            check(f"band_masking_contrast_d {note}", err_d, TOL["band_masking_contrast_d"])
+            return a, D_k, err_s, err_d, abs_s, abs_d
+
+        shapes = [b.shape[-2:] for b in bands[:-1]]
+        groups = masking_fused.band_groups(shapes, 1, 4, blk, contrast=True)
+        log(f"phase 7: contrast-band launches per 4K block: {groups}")
+        a_s, _, err_ss, err_ds, _, _ = hold(groups[-1])
+        n_s = sum(x.numel() for x in a_s[0]) // 2
+        b_s = bound(nbytes(*a_s[0], *a_s[1], a_s[2]) + 4 * 4 * blk * len(a_s[0]), 90 * n_s)
+        ones = [1.0] * len(a_s[0])
+        log(f"  band_masking_contrast smallest-bands launch: kernel "
+            f"{time_ms(lambda: masking_fused.band_masking_contrast(*a_s)):.3f} ms, plain "
+            f"{time_ms(lambda: masking_fused.band_masking_plain(*a_s[:3], ones, consts, True)):.3f}"
+            f" ms, bound {b_s[0]:.4f} ms ({b_s[1]})")
+        del a_s
+        a0, D0, err_s0, err_d0, abs_s0, abs_d0 = hold([0])
+        # Per pixel and channel about 90 operations: contrast + LUT ~16, the
+        # 2 x 13-tap blur 52, transducer and pooling ~22.
+        n0 = a0[0][0].numel() // 2
+        record("band_masking_contrast", max(err_s0, err_ss), abs_s0,
+               time_ms(lambda: masking_fused.band_masking_contrast(*a0)),
+               time_ms(lambda: masking_fused.band_masking_plain(*a0[:3], [1.0], consts, True)),
+               bound(nbytes(*a0[0], *a0[1], a0[2]) + 4 * 4 * blk, 90 * n0))
+        record("band_masking_contrast_d", max(err_d0, err_ds), abs_d0,
+               time_ms(lambda: masking_fused.band_masking_contrast_d(*a0)),
+               time_ms(lambda: masking_fused.band_masking_d_plain(*a0[:3], [1.0], consts, True)),
+               bound(nbytes(*a0[0], *a0[1], a0[2]) + nbytes(*D0), 90 * n0))
+        del a0, D0, bands, L_bkg
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        # The texture models' blur: 33 taps, radius 16.
+        taps33 = gaussian_kernel1d(33, 8.0)
+        xb = torch.rand((3, 1080, 1920), device=dev, generator=gen)
+        y_k, y_p = blr.blur(xb, taps33), blur_plain(xb, taps33)
+        check("blur 33 taps (3, 1080, 1920)", float((y_k - y_p).abs().max() / y_p.abs().max()),
+              TOL["blur"])
+        b33 = bound(nbytes(xb, y_k), 132 * xb.numel())
+        k33 = time_ms(lambda: blr.blur(xb, taps33))
+        log(f"  blur 33 taps (3, 1080, 1920): max abs error {max_abs(y_k, y_p):.3e}, kernel "
+            f"{k33:.3f} ms, plain {time_ms(lambda: blur_plain(xb, taps33)):.3f} ms, bound "
+            f"{b33[0]:.4f} ms ({b33[1]}, {100 * b33[0] / k33:.1f}% of it)")
+        del xb, y_k, y_p
+
+        # predict with the two contrasts on the contrast-band route.
+        V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
+        V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None])
+                         for v in (V_test, V_ref))
+        contrast_path = ("ingest", "pyramid_reduce", "band_masking_contrast", "csf_lut")
+        for name in ("weber_g0_ref", "log"):
+            jods = {}
+            for fused in (True, False):
+                mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                               gpu_mem=gpu_mem, config_paths=cfg[name])
+                mv.enable_fused_kernels = fused
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.time()
+                Q, st = mv.predict(V_test, V_ref, dim_order="BFCHW", frames_per_second=fps)
+                jods[fused] = float(Q)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+                counts = {k: fn.launches for k, fn in counters.items()}
+                if fused:
+                    launches[f"{name}_4k_video"] = counts
+                log(f"phase 7: {name} {'kernels' if fused else 'plain  '}: JOD {jods[fused]:.6f}, "
+                    f"blk {st['block_N_frames']}, {dt:.3f} s, launches "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+            if not all(math.isfinite(j) for j in jods.values()):
+                raise AssertionError(f"{name}: JOD is not finite")
+            if not abs(jods[True] - jods[False]) <= 1e-3:
+                raise AssertionError(f"{name}: JOD kernels {jods[True]} vs plain {jods[False]}")
+            for k in contrast_path:
+                if launches[f"{name}_4k_video"][k] <= 0:
+                    raise AssertionError(f"kernel {k} was not launched on the {name} path")
+        del V_test, V_ref
+
+        # A log-contrast raw heatmap of a 720p image: the D mode on contrast
+        # bands, including the 6-row band without the masking blur.
+        rng = np.random.RandomState(17)
+        I_ref = (rng.rand(720, 1280, 3) * 255).astype(np.uint8)
+        I_test = np.clip(I_ref.astype(np.int16) + (rng.randn(720, 1280, 3) * 6).astype(np.int16),
+                         0, 255).astype(np.uint8)
+        hms = {}
+        for fused in (True, False):
+            mv = cvt.cvvdp(display_name="standard_4k", device="cuda", quiet=True, heatmap="raw",
+                           config_paths=cfg["log"])
+            mv.enable_fused_kernels = fused
+            for fn in counters.values():
+                fn.launches = 0
+            Q, st = mv.predict(I_test, I_ref, dim_order="HWC")
+            hms[fused] = (float(Q), st["heatmap"].astype(np.float32))
+            if fused:
+                launches["log_heatmap_720p_image"] = {k: fn.launches for k, fn in counters.items()}
+        d_hm = float(np.abs(hms[True][1] - hms[False][1]).max())
+        log(f"phase 7: log heatmap 720p: max |kernels - plain| {d_hm:.3e} (tolerance "
+            f"{HEATMAP_TOL:.1e}), JOD {hms[True][0]:.6f} vs {hms[False][0]:.6f}, launches "
+            f"{ {k: v for k, v in launches['log_heatmap_720p_image'].items() if v} }")
+        if not (d_hm <= HEATMAP_TOL and abs(hms[True][0] - hms[False][0]) <= 1e-3):
+            raise AssertionError("log heatmap: kernels disagree with plain")
+        if launches["log_heatmap_720p_image"]["band_masking_contrast_d"] <= 0:
+            raise AssertionError("band_masking_contrast_d was not launched on the heatmap path")
+
+        # The generic chain: a FHD image with mult-transducer-texture.
+        rng = np.random.RandomState(5)
+        I_ref = (rng.rand(1080, 1920, 3) * 255).astype(np.uint8)
+        I_test = np.clip(I_ref.astype(np.int16) + (rng.randn(1080, 1920, 3) * 6).astype(np.int16),
+                         0, 255).astype(np.uint8)
+        jods = {}
+        for fused in (True, False):
+            mv = cvt.cvvdp(display_name="standard_fhd", device="cuda", quiet=True,
+                           config_paths=cfg["texture"])
+            mv.enable_fused_kernels = fused
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            jods[fused] = float(mv.predict(I_test, I_ref, dim_order="HWC")[0])
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            if fused:
+                launches["texture_fhd_image"] = {k: fn.launches for k, fn in counters.items()}
+            log(f"phase 7: mult-transducer-texture FHD image {'kernels' if fused else 'plain  '}: "
+                f"JOD {jods[fused]:.6f}, {dt:.3f} s")
+        tex = launches["texture_fhd_image"]
+        log(f"phase 7: texture launches { {k: v for k, v in tex.items() if v} }")
+        if not abs(jods[True] - jods[False]) <= 1e-3 * max(1.0, abs(10.0 - jods[False])):
+            raise AssertionError(f"texture: JOD kernels {jods[True]} vs plain {jods[False]}")
+        if tex["csf_lut"] <= 0 or tex["blur"] <= 0:
+            raise AssertionError("the generic chain did not launch the CSF LUT and blur kernels")
+
+        # A training step with weber_g0_ref.
+        rng = np.random.RandomState(11)
+        ref_np = rng.rand(2, 3, 1, 1080, 1920).astype(np.float32)
+        test_np = np.clip(ref_np + rng.randn(*ref_np.shape).astype(np.float32) * 0.1, 0, 1)
+        ref_t, test_t = torch.from_numpy(ref_np).to(dev), torch.from_numpy(test_np).to(dev)
+        mt = cvt.cvvdp(display_name="standard_fhd", device="cuda", quiet=True,
+                       config_paths=cfg["weber_g0_ref"])
+        loss_fn = mt.get_loss_fn(1080, 1920)
+        res = {}
+        for fused in (True, False):
+            mt.enable_fused_kernels = fused
+            for fn in counters.values():
+                fn.launches = 0
+            x = test_t.clone().requires_grad_()
+            v = loss_fn(x, ref_t)
+            (gx,) = torch.autograd.grad(v, x)
+            torch.cuda.synchronize()
+            res[fused] = (float(v.detach()), gx)
+            if fused:
+                launches["train_fhd_weber_g0_ref"] = {k: fn.launches for k, fn in counters.items()}
+        d_loss = abs(res[True][0] - res[False][0])
+        d_grad = float((res[True][1] - res[False][1]).abs().max() / res[False][1].abs().max())
+        log(f"phase 7: weber_g0_ref training step: loss {res[True][0]:.6f}, |dloss| {d_loss:.3e}, "
+            f"max |dgrad| / max |grad| {d_grad:.3e}, launches "
+            f"{ {k: v for k, v in launches['train_fhd_weber_g0_ref'].items() if v} }")
+        if not (d_loss <= LOSS_TOL and d_grad <= GRAD_TOL and res[True][1].abs().max() > 0):
+            raise AssertionError("weber_g0_ref training step: kernels disagree with plain")
+        if launches["train_fhd_weber_g0_ref"]["band_masking_contrast"] <= 0:
+            raise AssertionError("band_masking_contrast was not launched on the training path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 7: {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -509,7 +773,9 @@ def main():
                 "band_masking": masking_fused.band_masking, "csf_lut": csf_lut.csf_lut,
                 "csf_lut_bwd": csf_lut.csf_lut_bwd, "blur": blr.blur,
                 "band_masking_d": masking_fused.band_masking_d,
-                "band_masking_d_noblur": masking_fused.band_masking_d_noblur}
+                "band_masking_d_noblur": masking_fused.band_masking_d_noblur,
+                "band_masking_contrast": masking_fused.band_masking_contrast,
+                "band_masking_contrast_d": masking_fused.band_masking_contrast_d}
     score_path = ("ingest", "pyramid_reduce", "band_masking", "csf_lut")
     results = {}
     for fused in (True, False):
@@ -683,6 +949,9 @@ def main():
     torch.cuda.empty_cache()
 
     heat_launches = phase_heatmap(m, fps, rows, record, counters, gen)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    config_launches = phase_configs(m, fps, record, counters, gen)
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -698,15 +967,26 @@ def main():
                            "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
         "band_masking_d_noblur": ("band_masking.cu",
                                   "colorvideovdp_tpu/ops/kernels/masking_fused.py:463"),
+        "band_masking_contrast": ("band_masking.cu",
+                                  "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
+        "band_masking_contrast_d": ("band_masking.cu",
+                                    "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
     }
     line = []
     for k, (f, rep) in kernels.items():
         by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k],
-                   "heatmap_4k_video_720p_image": heat_launches[k]}
-        main = (heat_launches if k.startswith("band_masking_d") else
-                train_launches if k in train_path else launches)
+                   "heatmap_4k_video_720p_image": heat_launches[k],
+                   **{p: c[k] for p, c in config_launches.items()}}
+        if k == "band_masking_contrast":
+            n_main = (config_launches["weber_g0_ref_4k_video"][k]
+                      + config_launches["log_4k_video"][k])
+        elif k == "band_masking_contrast_d":
+            n_main = config_launches["log_heatmap_720p_image"][k]
+        else:
+            n_main = (heat_launches if k.startswith("band_masking_d") else
+                      train_launches if k in train_path else launches)[k]
         line.append({"name": k, "route": "cuda", "source": src + f, "replaces": rep,
-                     "launches": main[k], "launches_by_path": by_path, **rows[k]})
+                     "launches": n_main, "launches_by_path": by_path, **rows[k]})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

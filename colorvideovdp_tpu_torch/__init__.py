@@ -2,7 +2,9 @@
 
 A port of ``colorvideovdp_tpu`` (the JAX package, kept as the reference):
 ``cvvdp(display_name=..., device="cuda").predict(test, ref, ...)`` scores an
-image or video pair with the calibrated default configuration. This package
+image or video pair with the calibrated default configuration, or with any
+contrast coding, masking model or clamp of the JAX package given through
+``config_paths`` (``utils.config.write_parameters`` writes one). This package
 never imports jax; it reads the calibration files of the JAX package by path.
 """
 

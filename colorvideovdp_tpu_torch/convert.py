@@ -1,8 +1,10 @@
 """Carry calibrated parameters from a JAX ``cvvdp`` instance to the port.
 
 ``params_from_jax(metric)`` reads the metric's attributes with ``getattr``
-and ``np.asarray`` only (no jax import) and returns plain floats and numpy
-arrays; ``colorvideovdp_tpu_torch.cvvdp.load_parameters`` applies them.
+and ``np.asarray`` only (no jax import) and returns plain floats, numpy
+arrays, the configuration strings and flags; ``colorvideovdp_tpu_torch.cvvdp.
+load_parameters`` applies them, so that the port reproduces a JAX metric
+built from any contrast coding, masking model or clamp.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ _SCALARS = ("mask_p", "mask_c", "pu_dilate", "beta", "beta_t", "beta_tch", "beta
             "csf_sigma", "sensitivity_correction", "jod_a", "jod_exp", "image_int",
             "ch_chrom_w", "ch_trans_w", "mask_q_sust", "mask_q_trans", "d_max")
 _ARRAYS = ("mask_q", "xcm_weights", "ch_weights", "sigma_tf", "beta_tf", "baseband_weight")
+# Set only when the configuration has them (None otherwise).
+_OPTIONAL = ("ce_g", "k_c")
+_CONFIG = ("contrast", "masking_model", "dclamp_type")
 _DISPLAY = ("Y_peak", "contrast", "E_ambient", "k_refl", "exposure")
 
 
@@ -28,6 +33,12 @@ def params_from_jax(metric) -> dict:
     for name in _ARRAYS:
         if hasattr(metric, name):
             out[name] = np.asarray(getattr(metric, name), np.float32)
+    for name in _OPTIONAL:
+        if getattr(metric, name, None) is not None:
+            out[name] = float(getattr(metric, name))
+    for name in _CONFIG:
+        out[name] = str(getattr(metric, name))
+    out["do_xchannel_masking"] = bool(metric.do_xchannel_masking)
     dm = metric.display_photometry
     for name in _DISPLAY:
         out["display_" + name] = float(np.asarray(getattr(dm, name)))

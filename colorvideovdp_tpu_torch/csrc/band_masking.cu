@@ -1,9 +1,13 @@
-// Per-band CSF + contrast masking for the calibrated default (weber_g1 raw
-// pairs, mult-mutual masking, cross-channel mix, soft clamp): pooled scores,
-// or the per-pixel distortion map D for the heatmap.
+// Per-band CSF + contrast masking for the band-kernel configuration
+// (mult-mutual masking, cross-channel mix, soft clamp): pooled scores, or the
+// per-pixel distortion map D for the heatmap.
 //
-// Replaces four TPU kernels of colorvideovdp_tpu/ops/kernels/:
-//   masking_fused.py `fused_csf_contrast_raw` (`_kernel_a_raw`),
+// Replaces five TPU kernels of colorvideovdp_tpu/ops/kernels/:
+//   masking_fused.py `fused_csf_contrast_raw` (`_kernel_a_raw`, stage A on
+//     raw pairs, weber_g1 / weber_g1_ref),
+//   masking_fused.py `fused_csf_contrast` (`_kernel_a`, stage A on
+//     pre-formed contrast bands: weber_g0_ref, log, or any contrast off the
+//     raw-pair route),
 //   masking_fused.py `fused_blur_transducer` (`_blur_b_kernel`), pooled and
 //     in its D-output mode (`pool_beta=None`),
 //   masking_fused.py `fused_masking_transducer` (`_kernel_b`, the transducer
@@ -14,11 +18,21 @@
 // LUT rows, sizes and gains come from the band table, so one build serves
 // every band); ops/kernels/masking_fused.py `band_groups` picks the lists.
 //
-// Inputs per band: gi (B, 2C, F, h, w), the Gaussian level with test/
-// reference channels interleaved, and E, the expanded next level, same shape.
-//  Stage A (elementwise, one thread per pixel, all C channels):
+// Two input modes for stage A (BandParams.contrast):
+//  raw pairs (contrast = 0): per band gi (B, 2C, F, h, w), the Gaussian level
+//    with test/reference channels interleaved, and E, the expanded next
+//    level, same shape.
 //    lb = max(E_Y, 0.01); T/R = min((gi - E) / lb, 1000) * 10^lut(log10 lb_R)
-//    * gain_c * band_mul; M_pre = min(|T|, |R|); diff = |T - R|.
+//    * gain_c * band_mul.
+//  contrast bands (contrast = 1): per band the contrast band (B, 2C, F, h, w)
+//    as the non-raw decomposition gives it, test/reference interleaved and
+//    already at full band gain, and logL (B, 1, F, h, w), the CSF's
+//    adaptation field, in the slots of gi and E.
+//    S_c = 10^lut_c(logL) * sens_corr; T_p = T * S_c * g_c, R_p likewise,
+//    each product rounded as the plain chain (masking.apply_masking_model)
+//    rounds it, so that stage A gives the plain version's bits.
+//  Both: M_pre = min(|T|, |R|); diff = |T - R|, one thread per pixel, all C
+//  channels.
 //  Stage B (one block per 32x32 output tile): for each channel, the M_pre
 //    tile plus its blur halo goes to shared memory through the exclude-edge
 //    reflect padding of ops/blur.py; vertical then horizontal taps (the tile
@@ -34,10 +48,10 @@
 //    the result is deterministic.
 //
 // Bound on the H100: memory. Stage A reads 16 floats per pixel (C = 4) and
-// writes 8; stage B reads the 8 again (halo re-reads of M_pre hit L2) and
-// writes C floats per tile, or C per pixel in D mode. The blur is 2 * 13
-// multiply-adds per channel and pixel out of shared memory. In pooled mode D
-// never reaches device memory.
+// writes 8 (raw pairs; contrast bands read 9); stage B reads the 8 again
+// (halo re-reads of M_pre hit L2) and writes C floats per tile, or C per
+// pixel in D mode. The blur is 2 * 13 multiply-adds per channel and pixel out
+// of shared memory. In pooled mode D never reaches device memory.
 
 #include "common.cuh"
 
@@ -72,8 +86,11 @@ struct BandParams {
   BandDesc band[BM_MAX_BANDS];
   const float* luts;  // (n_bands, C, nk)
   float x0, lut_scale;
-  float gains[BM_MAX_C];  // channel gain x sensitivity correction
+  float ch_gain[BM_MAX_C];  // channel gain
+  float sens_corr;          // sensitivity correction
+  float gains[BM_MAX_C];    // raw pairs: ch_gain x sens_corr, rounded once
   int ref_only;
+  int contrast;             // stage A input: 0 raw pairs, 1 contrast bands
   float qs[BM_MAX_C];
   float p;
   float xcm[BM_MAX_C * BM_MAX_C];  // 2^xcm_weights, [c][d]
@@ -109,12 +126,25 @@ __global__ void band_stage_a(BandParams P) {
   const int b = (int)(bf / F);
   const long long in0 = ((long long)b * 2 * C * F + f) * hw + pix;  // channel 0
   const long long cstride = (long long)F * hw;
+  const float* lut = P.luts + (long long)bi * C * P.nk;
+  const long long out0 = ((long long)b * C * F + f) * hw + pix;
 
+  if (P.contrast) {
+    // gi holds the contrast band, E the (B, 1, F, h, w) adaptation field.
+    const float ind = lut_index(d.E[i], P.x0, P.lut_scale, P.nk);
+    for (int c = 0; c < C; ++c) {
+      const float S = __fmul_rn(pow10_lut(lut_lerp(lut + c * P.nk, P.nk, ind)), P.sens_corr);
+      const long long it = in0 + (2 * c) * cstride;
+      const float T = __fmul_rn(__fmul_rn(d.gi[it], S), P.ch_gain[c]);
+      const float R = __fmul_rn(__fmul_rn(d.gi[it + cstride], S), P.ch_gain[c]);
+      d.mpre[out0 + c * cstride] = fminf(fabsf(T), fabsf(R));
+      d.diff[out0 + c * cstride] = fabsf(__fsub_rn(T, R));
+    }
+    return;
+  }
   const float lb_r = fmaxf(d.E[in0 + cstride], 0.01f);
   const float lb_t = P.ref_only ? lb_r : fmaxf(d.E[in0], 0.01f);
   const float ind = lut_index(log10f(lb_r), P.x0, P.lut_scale, P.nk);
-  const float* lut = P.luts + (long long)bi * C * P.nk;
-  const long long out0 = ((long long)b * C * F + f) * hw + pix;
   for (int c = 0; c < C; ++c) {
     const float S = pow10_lut(lut_lerp(lut + c * P.nk, P.nk, ind)) * (P.gains[c] * d.mul);
     const long long it = in0 + (2 * c) * cstride;
@@ -286,18 +316,20 @@ CVVDP_API long long cvvdp_band_masking_tiles(int n_bands, int B, int F,
 }
 
 // ptrs: n_bands x {gi, E, mpre, diff, D} device pointers (D unused in pooled
-// mode); dims: n_bands x {h, w}; muls, blur: per band; luts: device
-// (n_bands, C, nk); gains, qs: C floats; xcm: C x C floats; taps: ntaps
-// floats. d_out = 0: partials is (tiles, C) scratch and out receives the
-// (n_bands, B, C, F) pooled sums of safe_pow(D, beta). d_out = 1: each band's
-// D is written to its D pointer; partials and out are not touched.
+// mode; with contrast = 1 gi is the contrast band and E the logL field);
+// dims: n_bands x {h, w}; muls, blur: per band (muls unused with contrast =
+// 1); luts: device (n_bands, C, nk); ch_gain, qs: C floats; xcm: C x C
+// floats; taps: ntaps floats. d_out = 0: partials is (tiles, C) scratch and
+// out receives the (n_bands, B, C, F) pooled sums of safe_pow(D, beta).
+// d_out = 1: each band's D is written to its D pointer; partials and out are
+// not touched.
 CVVDP_API int cvvdp_band_masking(
     int n_bands, int B, int C, int F, int nk, const long long* ptrs,
     const int* dims, const float* muls, const int* blur, const float* luts,
-    float x0, float lut_scale, const float* gains, int ref_only,
-    const float* qs, float p, const float* xcm, float max_v, float blur_scale,
-    const float* taps, int ntaps, float beta, int d_out, float* partials,
-    float* out, void* stream) {
+    float x0, float lut_scale, const float* ch_gain, float sens_corr, int ref_only,
+    int contrast, const float* qs, float p, const float* xcm, float max_v, float blur_scale,
+    const float* taps, int ntaps, float beta, int d_out, float* partials, float* out,
+    void* stream) {
   if (n_bands < 1 || n_bands > BM_MAX_BANDS || C < 1 || C > BM_MAX_C ||
       ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1)
     return (int)cudaErrorInvalidValue;
@@ -323,8 +355,11 @@ CVVDP_API int cvvdp_band_masking(
   P.x0 = x0;
   P.lut_scale = lut_scale;
   P.ref_only = ref_only;
+  P.contrast = contrast;
+  P.sens_corr = sens_corr;
   for (int c = 0; c < BM_MAX_C; ++c) {
-    P.gains[c] = c < C ? gains[c] : 0.0f;
+    P.ch_gain[c] = c < C ? ch_gain[c] : 0.0f;
+    P.gains[c] = P.ch_gain[c] * sens_corr;
     P.qs[c] = c < C ? qs[c] : 1.0f;
     for (int e = 0; e < BM_MAX_C; ++e)
       P.xcm[c * BM_MAX_C + e] = (c < C && e < C) ? xcm[c * C + e] : 0.0f;

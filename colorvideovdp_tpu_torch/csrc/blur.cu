@@ -1,10 +1,13 @@
 // Separable blur of (P, H, W) float32 planes with an odd kernel of radius
-// <= 8 and the edge-excluded reflect padding of ops/blur.py, vertical pass
+// <= 16 and the edge-excluded reflect padding of ops/blur.py, vertical pass
 // first, taps summed in order.
 //
 // Replaces colorvideovdp_tpu/ops/kernels/blur_halo.py `blur_tpu`
 // (`_blur_kernel`, `apply_blur_tile`): the standalone phase-uncertainty blur
-// that the masking model's gradient recompute runs.
+// (13 taps at the calibrated pu_dilate = 3) that the masking model's gradient
+// recompute and the non-default masking models run, and the 33-tap texture
+// blur (sigma 8) of the *-transducer-texture models. The TPU kernel stops at
+// radius 8 (`can_blur_tpu`); this one takes radius 16 in the same tile code.
 //
 // Design: the TPU kernel DMAs 8-row-aligned halo slabs into VMEM and patches
 // the reflect as masked corrections. Here one block owns a 32x32 output tile
@@ -15,16 +18,17 @@
 // band_masking.cu. Threads are (32, 8): each owns one column and four rows.
 //
 // Bound on the H100: memory. Per element it must read 4 bytes and write 4
-// (the halo, (48 x 48) / (32 x 32) = 2.25 reads per element at r = 8, comes
-// mostly from L2); the 2 x 13 multiply-adds per element at r = 6 are about
-// 6.5 operations per byte, far below the card's ~20 float32 operations per
-// byte of HBM bandwidth.
+// (the halo, (44 x 44) / (32 x 32) = 1.9 reads per element at r = 6 and
+// (64 x 64) / (32 x 32) = 4 at r = 16, comes mostly from L2); the 2 x 13
+// multiply-adds per element at r = 6 are about 6.5 operations per byte and
+// the 2 x 33 at r = 16 about 16.5, below the card's ~20 float32 operations
+// per byte of HBM bandwidth.
 
 #include "common.cuh"
 
 #define BL_TH 32
 #define BL_TW 32
-#define BL_MAX_TAPS 17
+#define BL_MAX_TAPS 33
 #define BL_R_MAX ((BL_MAX_TAPS - 1) / 2)
 #define BL_THREADS_X 32
 #define BL_THREADS_Y 8
@@ -63,7 +67,7 @@ __global__ void __launch_bounds__(BL_THREADS_X* BL_THREADS_Y)
   }
 }
 
-// x, y: (P, H, W) device arrays; taps: ntaps host floats (odd, <= 17), and
+// x, y: (P, H, W) device arrays; taps: ntaps host floats (odd, <= 33), and
 // H, W must exceed the radius (one reflection).
 CVVDP_API int cvvdp_blur(const float* x, float* y, int P, int H, int W,
                          const float* taps, int ntaps, void* stream) {

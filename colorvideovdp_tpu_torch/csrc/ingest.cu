@@ -1,4 +1,5 @@
-// Video front end: raw frames -> float -> display EOTF -> DKL -> temporal FIR.
+// Video front end: raw frames -> float -> display EOTF -> DKL (or log-LMS
+// DKL) -> temporal FIR.
 //
 // Replaces colorvideovdp_tpu/ops/kernels/ingest.py `make_ingest_fn`
 // (`_ingest_kernel`) in its "tail" mode: the fl-1 carried DKL frames come in
@@ -11,7 +12,10 @@
 // slot to DKL exactly once: tail slots are read from the tail, new slots go
 // through the dtype ladder (true division by 255 / 65535: the PQ curve
 // amplifies a last-ulp error about 6x), the EOTF with black level,
-// reflection and exposure, and the fused RGB->DKL 3x3. The last fl DKL
+// reflection and exposure, and the fused RGB->DKL 3x3; or, for the log
+// contrast's metric colour space logLMS_DKLd65, the RGB->LMS2006 3x3, log10
+// of each cone response (taken in float64 and rounded once, as
+// ops/colorspace.py:log10_rn does) and the LMS->DKL 3x3. The last fl DKL
 // triplets sit in a per-thread ring in shared memory; once a slot completes a
 // window, the four FIR channels of that output frame are summed in tap order
 // and written to out[:, 2*c_out + src, fo] (c_out = 3 re-filters Y). Slots
@@ -46,7 +50,9 @@ struct IngestParams {
   // Y_peak - Y_black, Y_black, Y_refl, exposure, Y_peak, max(0.005, Y_black),
   // gamma, hlg_gamma - 1, HLG b, HLG c.
   float span, Y_black, Y_refl, exposure, Y_peak, lin_floor, gamma, hlg_g1, hlg_b, hlg_c;
-  float M[9];                      // RGB -> DKLd65, row-major
+  float M[9];                      // RGB -> DKLd65 (RGB -> LMS2006 with log_lms)
+  float M2[9];                     // log_lms: LMS2006 -> DKLd65
+  int log_lms;
   float filt[4 * INGEST_MAX_FL];   // time-reversed taps, (4, fl)
   int fl, blk;
   long long hw;
@@ -120,6 +126,13 @@ __device__ void eotf(const IngestParams& P, const float* V, float* L, int n) {
   }
 }
 
+// y = M x with the plain version's order: (x0 m0 + x1 m1) + x2 m2 per row.
+__device__ __forceinline__ void mat3(const float* M, const float* x, float* y) {
+  for (int c = 0; c < 3; ++c)
+    y[c] = __fadd_rn(__fadd_rn(__fmul_rn(x[0], M[3 * c]), __fmul_rn(x[1], M[3 * c + 1])),
+                     __fmul_rn(x[2], M[3 * c + 2]));
+}
+
 template <typename T>
 __global__ void ingest_kernel(const float* __restrict__ tail_t,
                               const float* __restrict__ tail_r,
@@ -156,9 +169,12 @@ __global__ void ingest_kernel(const float* __restrict__ tail_t,
       for (int c = 0; c < nc; ++c) V[c] = to_float(raw[(fr * nc + c) * hw + pix]);
       eotf(P, V, L, nc);
       if (nc == 3) {
-        for (int c = 0; c < 3; ++c)
-          dkl[c] = __fadd_rn(__fadd_rn(__fmul_rn(L[0], P.M[3 * c]), __fmul_rn(L[1], P.M[3 * c + 1])),
-                             __fmul_rn(L[2], P.M[3 * c + 2]));
+        mat3(P.M, L, dkl);
+        if (P.log_lms) {
+          float lg[3];
+          for (int c = 0; c < 3; ++c) lg[c] = (float)log10((double)dkl[c]);
+          mat3(P.M2, lg, dkl);
+        }
       } else {  // luminance-only content bypasses the colour transform
         for (int c = 0; c < 3; ++c) dkl[c] = L[0];
       }
@@ -197,13 +213,14 @@ static void launch(dim3 grid, size_t smem, cudaStream_t st, const float* tail_t,
 // tails: (B, 3, fl-1, H, W) float32; raws: (B, blk, channels, H, W) of
 // src_type (SrcType); out: (B, 8, blk, H, W); new tails: (B, 3, fl-1, H, W).
 // consts: the 10 display constants of IngestParams in order; M: 9 floats;
-// filt: (4, fl) floats.
+// log_lms: 0 for DKLd65 (M is RGB -> DKL), 1 for logLMS_DKLd65 (M is RGB ->
+// LMS2006 and M2, 9 floats, LMS2006 -> DKL); filt: (4, fl) floats.
 CVVDP_API int cvvdp_ingest(const float* tail_t, const float* tail_r,
                            const void* raw_t, const void* raw_r, float* out,
                            float* ntail_t, float* ntail_r, int batch, int blk, int channels,
                            int fl, long long hw, int src_type, int eotf_code,
-                           const float* consts, const float* M,
-                           const float* filt, void* stream) {
+                           const float* consts, const float* M, int log_lms,
+                           const float* M2, const float* filt, void* stream) {
   if (fl < 2 || fl > INGEST_MAX_FL || blk < 1 || batch < 1 || batch > 65535 ||
       (channels != 1 && channels != 3) || eotf_code < EOTF_SRGB || eotf_code > EOTF_GAMMA)
     return (int)cudaErrorInvalidValue;
@@ -214,6 +231,8 @@ CVVDP_API int cvvdp_ingest(const float* tail_t, const float* tail_r,
                     &P.lin_floor, &P.gamma, &P.hlg_g1, &P.hlg_b, &P.hlg_c};
   for (int k = 0; k < 10; ++k) *dst[k] = consts[k];
   for (int k = 0; k < 9; ++k) P.M[k] = M[k];
+  P.log_lms = log_lms;
+  for (int k = 0; k < 9; ++k) P.M2[k] = log_lms ? M2[k] : 0.0f;
   for (int k = 0; k < 4 * fl; ++k) P.filt[k] = filt[k];
   P.fl = fl;
   P.blk = blk;

@@ -78,16 +78,23 @@ class vvdp_display_photometry:
         return I_lin
 
     def linear_2_target_colorspace(self, RGB_lin: torch.Tensor, target_colorspace):
-        """Display-native linear RGB -> DKLd65 via one fused 3x3 matrix."""
-        if target_colorspace != "DKLd65":
-            raise NotImplementedError(
-                f"colorspace '{target_colorspace}' is not ported yet")
-        return cs.apply_color_matrix(RGB_lin, self.rgb2dkl())
+        """Display-native linear RGB -> DKLd65 via one fused 3x3 matrix, or
+        -> logLMS_DKLd65: LMS2006, log10 (``cs.log10_rn``), then LMS -> DKL."""
+        if target_colorspace == "DKLd65":
+            return cs.apply_color_matrix(RGB_lin, self.rgb2dkl())
+        if target_colorspace == "logLMS_DKLd65":
+            LMS = cs.apply_color_matrix(RGB_lin, self.rgb2lms())
+            return cs.lms2006_to_dkld65(cs.log10_rn(LMS))
+        raise NotImplementedError(f"colorspace '{target_colorspace}' is not ported yet")
 
     def rgb2dkl(self) -> np.ndarray:
         """The fused RGB -> DKLd65 3x3 of the display's primaries."""
         return (cs.LMS2006_to_DKLd65 @ cs.XYZ_to_LMS2006
                 @ np.asarray(self.rgb2xyz, np.float32)).astype(np.float32)
+
+    def rgb2lms(self) -> np.ndarray:
+        """The RGB -> LMS2006 3x3 of the display's primaries."""
+        return (cs.XYZ_to_LMS2006 @ np.asarray(self.rgb2xyz, np.float32)).astype(np.float32)
 
 
 class vvdp_display_photo_eotf(vvdp_display_photometry):

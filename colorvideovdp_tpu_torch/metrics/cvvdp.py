@@ -1,12 +1,20 @@
 """ColorVideoVDP metric on PyTorch, with hand-written CUDA kernels.
 
-Counterpart of ``colorvideovdp_tpu/metrics/cvvdp.py`` for the calibrated
-default configuration (weber_g1 contrast, mult-mutual masking, soft clamp):
-``predict`` -> ``video_source_array`` -> ``predict_video_source``, which
-streams frame blocks through the ingest kernel (carrying the fl-1 DKL frames
-between blocks as tails), builds the pyramid with the reduce kernel and
-scores every band with the band-masking kernel and the baseband with the CSF
-LUT kernel. The output is the pooled JOD plus ``stats["Q_per_ch"]``.
+Counterpart of ``colorvideovdp_tpu/metrics/cvvdp.py``: ``predict`` ->
+``video_source_array`` -> ``predict_video_source``, which streams frame
+blocks through the ingest kernel (carrying the fl-1 frames of the metric
+colour space between blocks as tails), builds the pyramid with the reduce
+kernel and scores every band with the band-masking kernel or the generic
+masking chain, and the baseband with the CSF LUT kernel. The output is the
+pooled JOD plus ``stats["Q_per_ch"]``.
+
+Every contrast coding (weber_g1, weber_g1_ref, weber_g0_ref, log) and
+masking model of the JAX package runs. The band route follows the JAX
+package's configuration gate (``_process_block``): the band kernel on raw
+pairs for the calibrated default; the band kernel on contrast bands for the
+other contrasts with the default masking; the generic chain (CSF LUT kernel,
+then ``masking.apply_masking_model`` with the blur kernel) for every other
+masking model, clamp or with the cross-channel mix off.
 
 ``heatmap`` ("raw", "threshold" or "supra-threshold") adds the per-pixel
 distortion map ``stats["heatmap"]``: every interior band takes the band
@@ -36,7 +44,9 @@ from ..ops import masking as mk
 from ..ops.csf import CastleCSF
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import masking_fused as bm
-from ..ops.pyramid import LaplacianPyramid, WeberContrastPyramid, gausspyr_expand
+from ..ops.kernels.csf_lut import CsfLut
+from ..ops.pyramid import (LaplacianPyramid, LogContrastPyramid, WeberContrastPyramid,
+                           gausspyr_expand)
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import config_files, json2dict
 from .base import vq_exception, vq_metric
@@ -100,6 +110,8 @@ class cvvdp(vq_metric):
         p = json2dict(self.parameters_file)
         self.mask_p = float(p["mask_p"])
         self.mask_c = float(p["mask_c"])
+        self.ce_g = float(p["ce_g"]) if "ce_g" in p else None
+        self.k_c = float(p["k_c"]) if "k_c" in p else None
         self.pu_dilate = p["pu_dilate"]
         self.beta = float(p["beta"])
         self.beta_t = float(p["beta_t"])
@@ -178,7 +190,12 @@ class cvvdp(vq_metric):
             pu_dilate=self.pu_dilate,
             xcm_weights=tuple(np.asarray(self.xcm_weights, np.float32).tolist()),
             do_xchannel_masking=self.do_xchannel_masking, dclamp_type=self.dclamp_type,
-            d_max=self.d_max)
+            d_max=self.d_max, ce_g=self.ce_g, k_c=self.k_c)
+
+    def met_colorspace(self) -> str:
+        """The metric colour space: log-LMS DKL exactly when the contrast is
+        "log" (``_ensure_pyramids`` tests the prefix, as the JAX package does)."""
+        return "logLMS_DKLd65" if self.contrast == "log" else "DKLd65"
 
     def loss(self, test_cont, reference_cont, dim_order="BCFHW", frames_per_second=0):
         """10 - JOD of ``predict`` (not differentiable, as in the JAX package)."""
@@ -196,10 +213,11 @@ class cvvdp(vq_metric):
         ignored, as in the JAX package."""
         self._ensure_pyramids(width, height)
         dm = self.display_photometry
+        met_cs = self.met_colorspace()
 
         def block(test, ref):
-            T = dm.source_2_target_colorspace(test, "DKLd65")
-            R = dm.source_2_target_colorspace(ref, "DKLd65")
+            T = dm.source_2_target_colorspace(test, met_cs)
+            R = dm.source_2_target_colorspace(ref, met_cs)
             return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)[0]
 
         def loss_fn(test, ref):
@@ -231,10 +249,13 @@ class cvvdp(vq_metric):
     def _ensure_pyramids(self, width, height):
         if self.lpyr is not None and self.lpyr.W == width and self.lpyr.H == height:
             return
-        if self.contrast != "weber_g1":
-            raise NotImplementedError(f"contrast '{self.contrast}' is not ported yet")
-        self.lpyr = WeberContrastPyramid(width, height, self.pix_per_deg,
-                                         contrast=self.contrast)
+        if self.contrast.startswith("weber"):
+            self.lpyr = WeberContrastPyramid(width, height, self.pix_per_deg,
+                                             contrast=self.contrast)
+        elif self.contrast.startswith("log"):
+            self.lpyr = LogContrastPyramid(width, height, self.pix_per_deg)
+        else:
+            raise RuntimeError(f"Unknown contrast {self.contrast}")
         if self.do_heatmap:
             self.heatmap_pyr = LaplacianPyramid(width, height, self.pix_per_deg)
         self._cache = {}
@@ -253,16 +274,17 @@ class cvvdp(vq_metric):
             return ((abs(frame_ind) - 1) % (frame_count - 1)) + 1
         return frame_ind % (frame_count - 1)
 
-    def _initial_tails(self, vid_source, dm, raws, N_frames):
-        """The first block's temporal padding as DKL tails (B, 3, fl-1, H, W):
-        frame 0 repeated, or the mirror-indexed head frames."""
+    def _initial_tails(self, vid_source, dm, raws, N_frames, met_cs):
+        """The first block's temporal padding as tails (B, 3, fl-1, H, W) in
+        the metric colour space: frame 0 repeated, or the mirror-indexed head
+        frames."""
         fl = self.filter_len
         if self.temp_padding == "replicate":
-            return [ing.raw_to_met(dm, raw[:, 0:1]).expand(-1, -1, fl - 1, -1, -1).contiguous()
-                    for raw in raws]
+            return [ing.raw_to_met(dm, raw[:, 0:1], met_cs).expand(-1, -1, fl - 1, -1, -1)
+                    .contiguous() for raw in raws]
         idx = [self._get_symmetric_frame_index(fi, N_frames) for fi in range(-fl + 1, 0)]
-        return [ing.raw_to_met(dm, self._upload(vid_source.get_raw_frame_list(which, idx)))
-                .contiguous() for which in ("test", "reference")]
+        return [ing.raw_to_met(dm, self._upload(vid_source.get_raw_frame_list(which, idx)),
+                               met_cs).contiguous() for which in ("test", "reference")]
 
     def predict_video_source(self, vid_source):
         """Score a video source; returns (Q_jod, stats)."""
@@ -273,6 +295,7 @@ class cvvdp(vq_metric):
         self._ensure_pyramids(w, h)
         is_image = N_frames == 1
         dm = vid_source.dm_photometry
+        met_cs = self.met_colorspace()
         use_k = self.enable_fused_kernels
         heatmap = None
         if self.do_heatmap:
@@ -283,7 +306,8 @@ class cvvdp(vq_metric):
         if is_image:
             block_N = 1
             raws = [self._upload(vid_source.get_raw_block(s, 0, 1)) for s in ("test", "reference")]
-            T, R = (ing.raw_to_met(dm, raw).expand(batch_sz, -1, -1, -1, -1) for raw in raws)
+            T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
+                    for raw in raws)
             Q, hm, context = self._process_block(ing.interleave_tr(T, R), temp_ch=1,
                                                  is_image=True, heatmap=self.do_heatmap)
             Q_blocks.append(Q)
@@ -303,9 +327,10 @@ class cvvdp(vq_metric):
                 raws = [self._upload(vid_source.get_raw_block(s, ff, block_N))
                         for s in ("test", "reference")]
                 if tails is None:
-                    tails = self._initial_tails(vid_source, dm, raws, N_frames)
+                    tails = self._initial_tails(vid_source, dm, raws, N_frames, met_cs)
                 fn = ing.ingest if use_k else ing.ingest_plain
-                R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm, filt)
+                R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm, filt,
+                                           met_cs)
                 Q, hm, context = self._process_block(R, temp_ch=2, is_image=False,
                                                      heatmap=self.do_heatmap)
                 del R
@@ -342,20 +367,21 @@ class cvvdp(vq_metric):
 
     def _band_tables(self, all_ch):
         """(BandConsts, LUT rows (interior bands, C, nk) on the device),
-        cached per channel count."""
+        cached per channel count. BandConsts is None where the band kernel
+        does not take the configuration (``MaskingParams.fusable``)."""
         key = ("bands", all_ch)
         if key not in self._cache:
             params = self._masking_params()
-            params.check_supported()
             luts = np.stack([
                 np.stack([self.csf.logS_of_logL(float(rho), self.omega[0 if cc < 3 else 1],
                                                 cc if cc < 3 else 0)
                           for cc in range(all_ch)])
                 for rho in self.lpyr.get_freqs()[:-1]])
             x0, x1 = self.csf.lut_range()
-            consts = bm.BandConsts.make(params, all_ch, x0, x1,
-                                        10.0 ** (self.sensitivity_correction / 20.0),
-                                        self.contrast.endswith("ref"), self.beta)
+            consts = (bm.BandConsts.make(params, all_ch, x0, x1,
+                                         10.0 ** (self.sensitivity_correction / 20.0),
+                                         self.contrast.endswith("ref"), self.beta)
+                      if params.fusable() else None)
             self._cache[key] = (consts, torch.as_tensor(luts, device=self.device))
         return self._cache[key]
 
@@ -364,53 +390,77 @@ class cvvdp(vq_metric):
         R: (B, 2 * all_ch, F, H, W) interleaved. Returns (Q_per_ch
         (B, all_ch, F, bands), heatmap block, context); with ``heatmap`` the
         heatmap block is 1 - JOD / 10 of the reconstructed distortion map,
-        (B, 1, F, H, W), and the context is R[:, 0], else both are None."""
+        (B, 1, F, H, W), and the context is R[:, 0], else both are None.
+
+        Interior bands take the JAX package's routes (its
+        ``metrics/cvvdp.py:1224-1246``, ``:1487-1519``): with the band
+        kernel's configuration, raw pairs for weber_g1 and weber_g1_ref and
+        contrast bands otherwise, both through ``band_masking.cu``; with any
+        other configuration the generic chain, the CSF LUT then
+        ``apply_masking_model``."""
         all_ch = 2 + temp_ch
         use_k = self.enable_fused_kernels
         n_bands = self.lpyr.get_band_count()
+        params = self._masking_params()
         consts, luts = self._band_tables(all_ch)
-        bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=True, use_kernel=use_k)
+        sens_corr = 10.0 ** (self.sensitivity_correction / 20.0)
+        raw_pairs = consts is not None and self.contrast in ("weber_g1", "weber_g1_ref")
+        bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=raw_pairs, use_kernel=use_k)
 
         Q_cols = [None] * n_bands
         hm_bands = [None] * n_bands
-        B, C2, F = bands[0][0].shape[:3]
-        shapes = [bands[bb][0].shape[-2:] for bb in range(n_bands - 1)]
+        B, _, F = bands[-1].shape[:3]
+        shapes = [(bands[bb][0] if raw_pairs else bands[bb]).shape[-2:]
+                  for bb in range(n_bands - 1)]
+        muls = [1.0 if bb == 0 else 2.0 for bb in range(n_bands - 1)]
         if heatmap:
             dev = R.device
             w_ch = torch.as_tensor(self.get_ch_weights(all_ch), device=dev).reshape(
                 -1, 1, 1, 1) * (self.image_int if is_image else 1.0)
             w_bb = w_ch * torch.as_tensor(self.baseband_weight[:all_ch], device=dev).reshape(
                 -1, 1, 1, 1)
-            d_blurs = [consts.params.blurs(int(hh), int(ww)) for hh, ww in shapes]
-        else:
-            d_blurs = None
-        for sel in bm.band_groups(shapes, B, C2 // 2, F, d_blurs):
-            gis = [bands[bb][0] for bb in sel]
-            Es = [gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(sel, gis)]
-            muls = [1.0 if bb == 0 else 2.0 for bb in sel]
+
+        def put_D(bb, D):
+            Q_cols[bb] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
             if heatmap:
-                Ds = bm.band_D(gis, Es, luts[sel[0]:sel[-1] + 1], muls, consts, use_k)
-                del Es
-                for bb, D, mul in zip(sel, Ds, muls):
-                    Q_cols[bb] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True,
-                                            keepdim=False)
-                    # Interior bands are stored at half gain (lpyr_dec.py:308-314).
-                    hm_bands[bb] = mk.lp_norm(D * w_ch, self.beta_tch, dim=-4,
-                                              normalize=False) / mul
-                del Ds
-                continue
-            sums = bm.band_sums(gis, Es, luts[sel[0]:sel[-1] + 1], muls, consts, use_k)
-            del Es
-            for j, bb in enumerate(sel):
-                Q_cols[bb] = bm.pooled_norm(sums[j], *gis[j].shape[-2:], self.beta)
+                # Interior bands are stored at half gain (lpyr_dec.py:308-314).
+                hm_bands[bb] = mk.lp_norm(D * w_ch, self.beta_tch, dim=-4,
+                                          normalize=False) / muls[bb]
+
+        if consts is None:
+            x0, x1 = self.csf.lut_range()
+            for bb in range(n_bands - 1):
+                band = LaplacianPyramid.get_band(bands, bb)
+                # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w)
+                S = CsfLut.apply(L_bkg_pyr[bb], luts[bb], x0, x1, use_k).movedim(0, 1)[:, :, 0]
+                put_D(bb, mk.apply_masking_model(band[:, 0::2], band[:, 1::2], S * sens_corr,
+                                                 params, use_k))
+        else:
+            d_blurs = [params.blurs(int(h), int(w)) for h, w in shapes] if heatmap else None
+            for sel in bm.band_groups(shapes, B, all_ch, F, d_blurs, contrast=not raw_pairs):
+                if raw_pairs:
+                    xs = [bands[bb][0] for bb in sel]
+                    ys = [gausspyr_expand(bands[bb][1], x.shape[-2:]) for bb, x in zip(sel, xs)]
+                else:
+                    xs = [LaplacianPyramid.get_band(bands, bb) for bb in sel]
+                    ys = [L_bkg_pyr[bb] for bb in sel]
+                args = (xs, ys, luts[sel[0]:sel[-1] + 1], [muls[bb] for bb in sel], consts, use_k)
+                if heatmap:
+                    for bb, D in zip(sel, bm.band_D(*args, contrast=not raw_pairs)):
+                        put_D(bb, D)
+                else:
+                    sums = bm.band_sums(*args, contrast=not raw_pairs)
+                    for j, bb in enumerate(sel):
+                        Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
+                del xs, ys, args
 
         base = bands[-1]
         rho_bb = 0.1  # baseband CSF frequency
         S = self.csf.sensitivity_multi_channel(
             [rho_bb] * all_ch, [self.omega[0 if cc < 3 else 1] for cc in range(all_ch)],
             L_bkg_pyr[-1], [cc if cc < 3 else 0 for cc in range(all_ch)], use_kernel=use_k)
-        # (all_ch, B, 1, F, 1, 1) -> (B, all_ch, F, 1, 1)
-        S = S.movedim(0, 1)[:, :, 0] * consts.sens_corr
+        # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w); h = w = 1 for weber_g1
+        S = S.movedim(0, 1)[:, :, 0] * sens_corr
         D = torch.abs(base[:, 0::2] - base[:, 1::2]) * S
         Q_cols[-1] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
         Q = torch.stack(Q_cols, dim=-1)

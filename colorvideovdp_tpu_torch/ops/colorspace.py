@@ -1,6 +1,6 @@
 """Colour-space primitives: EOTF curves and opponent-colour matrices.
 
-PyTorch counterpart of ``colorvideovdp_tpu/ops/colorspace.py:18-127``.
+PyTorch counterpart of ``colorvideovdp_tpu/ops/colorspace.py:18-128``.
 Frames are BCFHW with the colour axis at ``-4``; all math is float32.
 """
 
@@ -87,3 +87,14 @@ def apply_color_matrix(img: torch.Tensor, M: np.ndarray) -> torch.Tensor:
         w = torch.as_tensor(M[cc], dtype=img.dtype, device=img.device)
         rows.append(torch.sum(img * w.reshape(3, 1, 1, 1), dim=-4, keepdim=True))
     return torch.cat(rows, dim=-4)
+
+
+def lms2006_to_dkld65(img: torch.Tensor) -> torch.Tensor:
+    return apply_color_matrix(img, LMS2006_to_DKLd65)
+
+
+def log10_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 log10, taken in float64 and rounded once: correctly rounded in
+    all but rare cases, so the CPU, the card and the ingest kernel's log-LMS
+    mode give the same bits."""
+    return torch.log10(x.to(torch.float64)).to(torch.float32)

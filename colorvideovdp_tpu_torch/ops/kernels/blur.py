@@ -2,14 +2,16 @@
 
 Replaces ``colorvideovdp_tpu/ops/kernels/blur_halo.py:209`` (``blur_tpu``,
 ``_blur_kernel`` :136 and ``apply_blur_tile`` :35), the standalone blur that
-``phase_uncertainty`` runs when the masking model is differentiated. Kernel:
+``phase_uncertainty`` runs when the masking model is differentiated or the
+band takes the generic masking chain, and the 33-tap texture blur of the
+``*-transducer-texture`` models (the TPU kernel stops at 17 taps). Kernel:
 ``csrc/blur.cu``: one block per 32x32 output tile of one image plane loads
 the tile plus its r-halo into shared memory through the edge-excluded
 reflect, runs the vertical taps into a second shared buffer, then the
 horizontal taps, and writes each output once. It shares that tile code with
 stage B of ``csrc/band_masking.cu`` (``csrc/common.cuh``). Bound on the H100:
 memory, 4 bytes read (plus the halo, from L2) and 4 written per element; the
-2 x 13 multiply-adds per element are far below the card's rate.
+2 x 13 (2 x 33) multiply-adds per element are below the card's rate.
 
 The plain version is ``ops/blur.py:blur_plain``. ``Blur``'s backward is the
 adjoint of that plain chain (the blur is linear), as the JAX package takes
@@ -25,7 +27,7 @@ from torch.autograd.function import once_differentiable
 from ..blur import blur_plain
 from . import _build
 
-MAX_TAPS = 17
+MAX_TAPS = 33
 
 
 def blur(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:

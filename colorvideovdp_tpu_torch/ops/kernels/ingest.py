@@ -2,7 +2,9 @@
 
 Replaces ``colorvideovdp_tpu/ops/kernels/ingest.py:322`` (``make_ingest_fn``
 in "tail" mode). Kernel: ``csrc/ingest.cu``, one thread per pixel and
-source and batch item; it converts every buffer slot to DKL once and is
+source and batch item; it converts every buffer slot to the metric colour
+space once (DKLd65, or logLMS_DKLd65 for the log contrast, which the JAX
+package computes in XLA rather than in its Pallas kernel) and is
 bound by memory (raw bytes and the carried tail in, the (B, 8, blk, H, W)
 block and the next tail out). Both the kernel and ``ingest_plain``, the same
 chain in plain PyTorch, take any batch, uint8 / uint16 / float16 / float32
@@ -20,6 +22,8 @@ from ..temporal import apply_temporal_filters
 from . import _build
 
 _EOTF_CODES = {"sRGB": 0, "PQ": 1, "linear": 2, "HLG": 3, "gamma": 4}
+# Metric colour space -> the kernel's log_lms flag.
+_COLORSPACES = {"DKLd65": 0, "logLMS_DKLd65": 1}
 # Source dtype -> the kernel's SrcType (int16 carries uint16 bits).
 _SRC_TYPES = {torch.uint8: 0, torch.int16: 1, torch.uint16: 1, torch.float16: 2,
               torch.float32: 3}
@@ -88,7 +92,7 @@ def ingest(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
     raise where it does not apply."""
     if raw_t.device.type == "cpu":
         return ingest_plain(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace)
-    if colorspace != "DKLd65" or not isinstance(dm, vvdp_display_photo_eotf) \
+    if colorspace not in _COLORSPACES or not isinstance(dm, vvdp_display_photo_eotf) \
             or _eotf_name(dm) not in _EOTF_CODES:
         raise ValueError(f"ingest: no kernel for colour space {colorspace} "
                          f"and display {type(dm).__name__} (EOTF {dm.EOTF})")
@@ -104,7 +108,9 @@ def ingest(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
             or tuple(tail_r.shape) != (B, 3, fl - 1, H, W) or filt.shape[0] != 4:
         raise ValueError("ingest: shape mismatch between raws, tails and taps")
     eotf, consts = _display_consts(dm)
-    M = np.ascontiguousarray(dm.rgb2dkl())
+    log_lms = _COLORSPACES[colorspace]
+    M = np.ascontiguousarray(dm.rgb2lms() if log_lms else dm.rgb2dkl())
+    M2 = np.ascontiguousarray(cs.LMS2006_to_DKLd65, np.float32)
     dev = raw_t.device
     out = torch.empty((B, 8, blk, H, W), dtype=torch.float32, device=dev)
     new_t = torch.empty_like(tail_t)
@@ -114,7 +120,8 @@ def ingest(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
         tail_t.data_ptr(), tail_r.data_ptr(), raw_t.data_ptr(), raw_r.data_ptr(),
         out.data_ptr(), new_t.data_ptr(), new_r.data_ptr(), B, blk, C, fl, H * W,
         _SRC_TYPES[raw_t.dtype], _EOTF_CODES[eotf],
-        consts.ctypes.data, M.ctypes.data, filt.ctypes.data, _build.stream_handle(dev))
+        consts.ctypes.data, M.ctypes.data, log_lms, M2.ctypes.data, filt.ctypes.data,
+        _build.stream_handle(dev))
     _build.check_cuda(rc, "cvvdp_ingest")
     ingest.launches += 1
     return out, new_t, new_r

@@ -1,34 +1,48 @@
-"""Band masking: CSF + Weber contrast + mutual masking, pooled or per pixel.
+"""Band masking: CSF + contrast + mutual masking, pooled or per pixel.
 
-Replaces four TPU kernels: ``colorvideovdp_tpu/ops/kernels/masking_fused.py``
+Replaces five TPU kernels: ``colorvideovdp_tpu/ops/kernels/masking_fused.py``
 ``fused_csf_contrast_raw`` (:440) and ``fused_blur_transducer`` (:352), run
-per wide band, ``fused_masking_transducer`` (:463), the transducer on a band
-whose blur is skipped, and ``band_stack.py`` ``make_band_stack`` (:253), which
-takes all narrow bands in one launch. Here one kernel takes any 1..8 bands.
-Kernel: ``csrc/band_masking.cu`` (stage A elementwise contrast + LUT, stage B
-tiled blur + transducer, then either tile sums and stage C's fixed-order
-reduction, or the per-pixel D map); it is bound by memory. ``band_groups``
-picks which bands share a launch. The inputs of a band are the raw Gaussian
-level ``gi`` and the expanded next level ``E``, both (B, 2C, F, h, w) with
-test/reference channels interleaved.
+per wide band, ``fused_csf_contrast`` (:403), the same stage on contrast
+bands the decomposition has already formed, ``fused_masking_transducer``
+(:463), the transducer on a band whose blur is skipped, and ``band_stack.py``
+``make_band_stack`` (:253), which takes all narrow bands in one launch. Here
+one kernel takes any 1..8 bands. Kernel: ``csrc/band_masking.cu`` (stage A
+elementwise contrast + LUT, stage B tiled blur + transducer, then either tile
+sums and stage C's fixed-order reduction, or the per-pixel D map); it is
+bound by memory. ``band_groups`` picks which bands share a launch. It takes
+the band-kernel configuration only (``MaskingParams.fusable``).
 
-Two modes share stages A and B and one plain chain (``_band_D_plain``):
+Stage A has two input modes:
 
-* pooled, ``band_masking``: sum(safe_pow(D, beta)) over each image plane,
-  (n_bands, B, C, F); D never reaches memory. ``BandMasking`` makes it
-  differentiable: its backward recomputes the plain chain
-  (``_band_sums_plain``) and returns its vector-Jacobian product, as the
-  custom VJPs of the JAX package do (``masking_fused.py:649-661``,
-  ``band_stack.py:289-304``). With the kernels on, that recompute runs the
-  CSF LUT and blur kernels with their own backward rules, as JAX's
-  recompute reaches its Pallas LUT and blur.
-* D, ``band_masking_d`` and ``band_masking_d_noblur``: the distortion map D,
-  (B, C, F, h, w) per band, for the heatmap (forward only). The JAX package
-  runs ``fused_blur_transducer(pool_beta=None)`` on bands its fused blur
-  takes and ``blur_fn`` + ``fused_masking_transducer`` on the rest; the
-  port's stage B blurs in-kernel at every size, so the second kernel is the
-  same launch on bands whose blur ``phase_uncertainty`` skips (h or w <=
-  ``pu_padsize``), which ``band_groups`` keeps apart.
+* raw pairs (``band_masking``, ``band_masking_d``, ``band_masking_d_noblur``):
+  the raw Gaussian level ``gi`` and the expanded next level ``E``, both
+  (B, 2C, F, h, w) with test/reference channels interleaved; the Weber
+  contrast (weber_g1, weber_g1_ref) is formed in the kernel.
+* contrast bands (``band_masking_contrast``, ``band_masking_contrast_d``): the
+  band (B, 2C, F, h, w) as the non-raw decomposition gives it, interleaved and
+  at full band gain, and its adaptation field ``logL`` (B, 1, F, h, w). The
+  JAX package takes this route (``make_fused_mult_mutual``) for every
+  interior band off the raw-pair route: the weber_g0_ref and log contrasts.
+
+Two output modes share stages A and B and one plain chain per input mode
+(``_band_D_plain``, ``_band_D_contrast_plain``):
+
+* pooled: sum(safe_pow(D, beta)) over each image plane, (n_bands, B, C, F);
+  D never reaches memory. ``BandMasking`` makes it differentiable: its
+  backward recomputes the plain chain and returns its vector-Jacobian
+  product, as the custom VJPs of the JAX package do
+  (``masking_fused.py:649-661``, ``:745-757``, ``band_stack.py:289-304``).
+  With the kernels on, that recompute runs the CSF LUT and blur kernels with
+  their own backward rules, as JAX's recompute reaches its Pallas LUT and
+  blur.
+* D: the distortion map D, (B, C, F, h, w) per band, for the heatmap
+  (forward only). The JAX package runs ``fused_blur_transducer(pool_beta=
+  None)`` on bands its fused blur takes and ``blur_fn`` +
+  ``fused_masking_transducer`` on the rest; the port's stage B blurs
+  in-kernel at every size, so on raw pairs the second kernel is the same
+  launch on bands whose blur ``phase_uncertainty`` skips (h or w <=
+  ``pu_padsize``, ``band_masking_d_noblur``), which ``band_groups`` keeps
+  apart. ``band_masking_contrast_d`` takes either kind, one kind per launch.
 """
 
 from __future__ import annotations
@@ -49,7 +63,8 @@ from .csf_lut import CsfLut
 MAX_BANDS = 8
 # Consecutive interior bands share one launch while the memory the launch
 # holds stays within this budget: per band the expanded next level E (2C
-# planes) and the kernel's M_pre and diff scratch (C planes each), float32.
+# planes; a contrast band's logL, 1 plane) and the kernel's M_pre and diff
+# scratch (C planes each), float32.
 # Small bands then share a launch (their time is launch latency), and a band
 # whose share alone exceeds the budget runs by itself.
 GROUP_BYTES = 1 << 28
@@ -65,7 +80,7 @@ class BandConsts:
     x0: float
     x1: float
     sens_corr: float
-    gains: np.ndarray  # (C,) channel gain x sensitivity correction
+    ch_gain: np.ndarray  # (C,) channel gain
     ref_only: bool
     qs: np.ndarray  # (C,)
     p: float
@@ -80,10 +95,9 @@ class BandConsts:
     def make(cls, params: MaskingParams, C: int, x0: float, x1: float, sens_corr: float,
              ref_only: bool, beta: float):
         params.check_supported()
-        gains = np.array([1.0, 1.45, 1.0, 1.0], np.float32)[:C] * np.float32(sens_corr)
         return cls(
             x0=float(x0), x1=float(x1), sens_corr=float(sens_corr),
-            gains=gains.astype(np.float32), ref_only=bool(ref_only),
+            ch_gain=np.array([1.0, 1.45, 1.0, 1.0], np.float32)[:C], ref_only=bool(ref_only),
             qs=np.asarray(params.mask_q, np.float32)[:C].copy(), p=float(params.mask_p),
             xcm=params.xcm(C), max_v=float(10.0 ** float(params.d_max)),
             blur_scale=float(10.0 ** params.mask_c),
@@ -106,9 +120,37 @@ def _band_D_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> t
     return apply_masking_model(T, R, S, k.params, use_kernel)
 
 
-def _band_sums_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> torch.Tensor:
-    """sum(safe_pow(D, beta)) over each image plane of ``_band_D_plain``."""
-    D = _band_D_plain(gi, E, lut, mul, k, use_kernel)
+def csf_contrast_plain(band, logL, lut, k: BandConsts):
+    """Stage A on contrast bands, the JAX package's ``fused_csf_contrast``:
+    (M_pre, diff), each (B, C, F, h, w), from the band (B, 2C, F, h, w) and
+    its logL (B, 1, F, h, w), with the products rounded as
+    ``masking.apply_masking_model`` rounds them."""
+    S = CsfLut.apply(logL[:, 0], lut, k.x0, k.x1, False).movedim(0, 1) * k.sens_corr
+    g = torch.as_tensor(k.ch_gain, device=band.device).reshape(1, -1, 1, 1, 1)
+    T_p = band[:, 0::2] * S * g
+    R_p = band[:, 1::2] * S * g
+    return torch.minimum(torch.abs(T_p), torch.abs(R_p)), torch.abs(T_p - R_p)
+
+
+def _band_D_contrast_plain(band, logL, lut, k: BandConsts,
+                           use_kernel: bool = False) -> torch.Tensor:
+    """D (B, C, F, h, w) of one contrast band: the JAX package's
+    ``make_fused_mult_mutual.jnp_impl``, the CSF of logL then
+    ``masking.apply_masking_model``."""
+    S = CsfLut.apply(logL[:, 0], lut, k.x0, k.x1, use_kernel).movedim(0, 1) * k.sens_corr
+    return apply_masking_model(band[:, 0::2], band[:, 1::2], S, k.params, use_kernel)
+
+
+def _band_D_any(x, y, lut, mul, k: BandConsts, contrast: bool, use_kernel: bool = False):
+    if contrast:
+        return _band_D_contrast_plain(x, y, lut, k, use_kernel)
+    return _band_D_plain(x, y, lut, mul, k, use_kernel)
+
+
+def _band_sums_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False,
+                     contrast: bool = False) -> torch.Tensor:
+    """sum(safe_pow(D, beta)) over each image plane of the band's plain D."""
+    D = _band_D_any(gi, E, lut, mul, k, contrast, use_kernel)
     return torch.sum(_pow_static(D + _EPS, k.beta) - _EPS ** k.beta, dim=(-2, -1))
 
 
@@ -119,31 +161,37 @@ def _frame_chunks(gi):
     return [slice(f0, f0 + fc) for f0 in range(0, F, fc)]
 
 
-def band_masking_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
-    """Plain PyTorch version: returns (n_bands, B, C, F) pooled sums."""
+def band_masking_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts,
+                       contrast: bool = False):
+    """Plain PyTorch version: returns (n_bands, B, C, F) pooled sums. With
+    ``contrast`` the lists hold contrast bands and their logL."""
     return torch.stack([
-        torch.cat([_band_sums_plain(gi[:, :, fs], E[:, :, fs], luts[i], muls[i], k)
+        torch.cat([_band_sums_plain(gi[:, :, fs], E[:, :, fs], luts[i], muls[i], k,
+                                    contrast=contrast)
                    for fs in _frame_chunks(gi)], dim=2)
         for i, (gi, E) in enumerate(zip(gi_list, E_list))])
 
 
-def band_masking_d_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
+def band_masking_d_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts,
+                         contrast: bool = False):
     """Plain PyTorch version of the D mode: a list of D (B, C, F, h, w)."""
-    return [torch.cat([_band_D_plain(gi[:, :, fs], E[:, :, fs], luts[i], muls[i], k)
+    return [torch.cat([_band_D_any(gi[:, :, fs], E[:, :, fs], luts[i], muls[i], k, contrast)
                        for fs in _frame_chunks(gi)], dim=2)
             for i, (gi, E) in enumerate(zip(gi_list, E_list))]
 
 
-def band_groups(shapes, B: int, C: int, F: int, d_blurs=None):
+def band_groups(shapes, B: int, C: int, F: int, d_blurs=None, contrast: bool = False):
     """Split the interior bands, given by their (h, w), into launches:
     lists of consecutive band indices. ``d_blurs``, the bands' blur flags,
     asks for the D mode: each band then also holds its D output (C planes),
     and a band whose flag differs from the previous band's starts a new
-    launch, so that a band without blur runs as ``band_masking_d_noblur``."""
-    planes = 4 if d_blurs is None else 5
+    launch, so that a band without blur runs as ``band_masking_d_noblur``.
+    ``contrast``: the bands are contrast bands, which hold one logL plane in
+    place of E's 2C planes."""
+    planes = 2 * C + (1 if contrast else 2 * C) + (0 if d_blurs is None else C)
     groups, cur, used = [], [], 0
     for i, (h, w) in enumerate(shapes):
-        need = planes * C * B * F * int(h) * int(w) * 4
+        need = planes * B * F * int(h) * int(w) * 4
         split = d_blurs is not None and cur and d_blurs[i] != d_blurs[cur[-1]]
         if cur and (split or used + need > GROUP_BYTES or len(cur) == MAX_BANDS):
             groups.append(cur)
@@ -158,9 +206,11 @@ def pooled_norm(sums: torch.Tensor, h: int, w: int, beta: float) -> torch.Tensor
     return _safe_pow_static(sums / float(h * w), 1.0 / float(beta))
 
 
-def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool):
+def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool,
+            contrast: bool = False):
     """One ``cvvdp_band_masking`` launch over the given bands on the card:
-    the (n_bands, B, C, F) pooled sums, or with ``d_out`` the list of D."""
+    the (n_bands, B, C, F) pooled sums, or with ``d_out`` the list of D.
+    ``contrast``: the lists hold contrast bands and their logL."""
     n = len(gi_list)
     if not 1 <= n <= MAX_BANDS or len(E_list) != n or len(muls) != n:
         raise ValueError(f"band_masking: 1..{MAX_BANDS} bands, got {n}")
@@ -171,8 +221,9 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
         raise ValueError("band_masking: table or channel count mismatch")
     dims = np.zeros((n, 2), np.int32)
     for i, (gi, E) in enumerate(zip(gi_list, E_list)):
-        if gi.shape != E.shape or tuple(gi.shape[:3]) != (B, C2, F):
-            raise ValueError("band_masking: gi/E shape mismatch")
+        e_shape = (B, 1, F) + tuple(gi.shape[-2:]) if contrast else gi.shape
+        if tuple(E.shape) != tuple(e_shape) or tuple(gi.shape[:3]) != (B, C2, F):
+            raise ValueError("band_masking: band/second input shape mismatch")
         dims[i] = gi.shape[-2:]
     dev = gi_list[0].device
     sizes = [B * C * F * int(h) * int(w) for h, w in dims]
@@ -193,15 +244,15 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
         n_tiles = lib.cvvdp_band_masking_tiles(n, B, F, dims.ctypes.data)
         partials = torch.empty(n_tiles * C, dtype=torch.float32, device=dev)
         out = torch.empty((n, B, C, F), dtype=torch.float32, device=dev)
-    gains = np.ascontiguousarray(k.gains, np.float32)
+    ch_gain = np.ascontiguousarray(k.ch_gain, np.float32)
     qs = np.ascontiguousarray(k.qs, np.float32)
     xcm = np.ascontiguousarray(k.xcm, np.float32)
     taps = np.ascontiguousarray(k.taps, np.float32)
     rc = lib.cvvdp_band_masking(
         n, B, C, F, luts.shape[2], ptrs.ctypes.data, dims.ctypes.data, muls_a.ctypes.data,
         blur.ctypes.data, luts.data_ptr(), k.x0, (luts.shape[2] - 1) / (k.x1 - k.x0),
-        gains.ctypes.data, int(k.ref_only), qs.ctypes.data, k.p, xcm.ctypes.data, k.max_v,
-        k.blur_scale, taps.ctypes.data, len(taps), k.beta, int(d_out),
+        ch_gain.ctypes.data, k.sens_corr, int(k.ref_only), int(contrast), qs.ctypes.data, k.p,
+        xcm.ctypes.data, k.max_v, k.blur_scale, taps.ctypes.data, len(taps), k.beta, int(d_out),
         None if partials is None else partials.data_ptr(),
         None if out is None else out.data_ptr(), _build.stream_handle(dev))
     _build.check_cuda(rc, "cvvdp_band_masking")
@@ -256,35 +307,74 @@ def band_masking_d_noblur(gi_list, E_list, luts: torch.Tensor, muls, k: BandCons
 band_masking_d_noblur.launches = 0
 
 
-def band_D(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True):
+def band_masking_contrast(bands, logLs, luts: torch.Tensor, k: BandConsts):
+    """Pooled sums (n_bands, B, C, F) of contrast bands (the JAX package's
+    ``fused_csf_contrast`` + ``fused_blur_transducer``). CPU tensors take
+    ``band_masking_plain(..., contrast=True)``."""
+    ones = [1.0] * len(bands)
+    if bands[0].device.type == "cpu":
+        return band_masking_plain(bands, logLs, luts, ones, k, contrast=True)
+    out = _launch(bands, logLs, luts, ones, k, d_out=False, contrast=True)
+    band_masking_contrast.launches += 1
+    return out
+
+
+band_masking_contrast.launches = 0
+
+
+def band_masking_contrast_d(bands, logLs, luts: torch.Tensor, k: BandConsts):
+    """D of contrast bands that share one blur flag (the JAX package's
+    ``make_fused_mult_mutual``: ``fused_csf_contrast``, then the blur and
+    ``fused_masking_transducer``): a list of D (B, C, F, h, w). CPU tensors
+    take ``band_masking_d_plain(..., contrast=True)``."""
+    ones = [1.0] * len(bands)
+    if bands[0].device.type == "cpu":
+        return band_masking_d_plain(bands, logLs, luts, ones, k, contrast=True)
+    _check_blur("band_masking_contrast_d", bands, k, k.params.blurs(*bands[0].shape[-2:]))
+    Ds = _launch(bands, logLs, luts, ones, k, d_out=True, contrast=True)
+    band_masking_contrast_d.launches += 1
+    return Ds
+
+
+band_masking_contrast_d.launches = 0
+
+
+def band_D(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True,
+           contrast: bool = False):
     """D of one ``band_groups`` launch (all its bands share the blur flag):
     the kernel that fits the group, or the plain version without
     ``use_kernel``. Forward only."""
     if not use_kernel:
-        return band_masking_d_plain(gi_list, E_list, luts, muls, k)
+        return band_masking_d_plain(gi_list, E_list, luts, muls, k, contrast)
+    if contrast:
+        return band_masking_contrast_d(gi_list, E_list, luts, k)
     fn = band_masking_d if k.params.blurs(*gi_list[0].shape[-2:]) else band_masking_d_noblur
     return fn(gi_list, E_list, luts, muls, k)
 
 
 class BandMasking(torch.autograd.Function):
-    """Pooled band sums, differentiable in every gi and E: ``band_masking``
-    (or ``band_masking_plain`` without ``use_kernel``) forward; the backward
-    recomputes ``_band_sums_plain`` per band and frame chunk and returns its
-    vector-Jacobian product."""
+    """Pooled band sums, differentiable in every input: ``band_masking`` or
+    ``band_masking_contrast`` (or the plain version without ``use_kernel``)
+    forward; the backward recomputes the band's plain chain per band and frame
+    chunk and returns its vector-Jacobian product."""
 
     @staticmethod
-    def forward(ctx, luts, muls, k, use_kernel, *gi_and_E):
+    def forward(ctx, luts, muls, k, use_kernel, contrast, *gi_and_E):
         n = len(gi_and_E) // 2
         ctx.save_for_backward(luts, *gi_and_E)
-        ctx.args = (muls, k, use_kernel)
-        fn = band_masking if use_kernel else band_masking_plain
-        return fn(list(gi_and_E[:n]), list(gi_and_E[n:]), luts, muls, k)
+        ctx.args = (muls, k, use_kernel, contrast)
+        x, y = list(gi_and_E[:n]), list(gi_and_E[n:])
+        if not use_kernel:
+            return band_masking_plain(x, y, luts, muls, k, contrast)
+        if contrast:
+            return band_masking_contrast(x, y, luts, k)
+        return band_masking(x, y, luts, muls, k)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         luts, *gi_and_E = ctx.saved_tensors
-        muls, k, use_kernel = ctx.args
+        muls, k, use_kernel, contrast = ctx.args
         n = len(gi_and_E) // 2
         d_gi, d_E = [], []
         for i, (gi, E) in enumerate(zip(gi_and_E[:n], gi_and_E[n:])):
@@ -293,13 +383,15 @@ class BandMasking(torch.autograd.Function):
                 with torch.enable_grad():
                     gi_c = gi[:, :, fs].detach().requires_grad_()
                     E_c = E[:, :, fs].detach().requires_grad_()
-                    s = _band_sums_plain(gi_c, E_c, luts[i], muls[i], k, use_kernel)
+                    s = _band_sums_plain(gi_c, E_c, luts[i], muls[i], k, use_kernel, contrast)
                     a[:, :, fs], b[:, :, fs] = torch.autograd.grad(s, (gi_c, E_c), g[i, :, :, fs])
             d_gi.append(a)
             d_E.append(b)
-        return (None, None, None, None, *d_gi, *d_E)
+        return (None, None, None, None, None, *d_gi, *d_E)
 
 
-def band_sums(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True):
-    """(n_bands, B, C, F) pooled sums through ``BandMasking``."""
-    return BandMasking.apply(luts, muls, k, use_kernel, *gi_list, *E_list)
+def band_sums(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True,
+              contrast: bool = False):
+    """(n_bands, B, C, F) pooled sums through ``BandMasking``; ``contrast``:
+    the lists hold contrast bands and their logL (``muls`` unused)."""
+    return BandMasking.apply(luts, muls, k, use_kernel, contrast, *gi_list, *E_list)

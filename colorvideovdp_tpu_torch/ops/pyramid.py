@@ -11,11 +11,16 @@ Counterpart of ``colorvideovdp_tpu/ops/pyramid.py``. Parity notes:
   with the 1-sample edge pad (bit-equal to the JAX package's regrouping).
 * Interior bands are scored at double gain (the reference stores them at
   half gain and doubles them on read).
+* ``WeberContrastPyramid`` and ``LogContrastPyramid`` form the contrast
+  bands and the CSF's adaptation field for every contrast coding of the
+  JAX package (``ops/pyramid.py:473-579``).
 * ``LaplacianPyramid.reconstruct`` collapses the per-band heatmap maps; it
   is XLA in the JAX package too, not a kernel.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -165,28 +170,91 @@ class LaplacianPyramid:
 
 class WeberContrastPyramid(LaplacianPyramid):
     """Pyramid + Weber contrast for interleaved test/reference channels at
-    axis -4 (test even, reference odd)."""
+    axis -4 (test even, reference odd), for the contrasts ``weber_g1``,
+    ``weber_g1_ref`` and ``weber_g0_ref``."""
+
+    CONTRASTS = ("weber_g1", "weber_g1_ref", "weber_g0_ref")
 
     def __init__(self, W, H, ppd, contrast: str = "weber_g1"):
         super().__init__(W, H, ppd)
-        if contrast != "weber_g1":
-            raise NotImplementedError(f"contrast '{contrast}' is not ported yet")
+        if contrast not in self.CONTRASTS:
+            raise RuntimeError(f"Contrast {contrast} not supported")
         self.contrast = contrast
 
-    def decompose(self, image, raw_pairs=True, use_kernel: bool = True):
-        """Interior levels come back as raw ``(G_i, G_{i+1})`` pairs (the
-        Weber contrast is formed inside the band kernel); the baseband as
-        its contrast tensor with the reference log-luminance (B, 1, F, 1, 1)."""
-        if not raw_pairs:
-            raise NotImplementedError("only the raw-pair decomposition is ported")
+    def decompose(self, image, raw_pairs=False, use_kernel: bool = True):
+        """``(contrast_bands, log10_L_bkg_bands)``; the log-luminance bands
+        carry one channel, the reference's adaptation field. With
+        ``raw_pairs`` the interior levels come back as raw ``(G_i, G_{i+1})``
+        pairs with ``None`` log-luminance (the Weber contrast is then formed
+        inside the band kernel); the baseband is the same either way.
+
+        Adaptation, as in the JAX package: ``weber_g1_ref`` to the reference
+        Y of the expanded next level, ``weber_g1`` each side to its own
+        expanded Y, ``weber_g0_ref`` to the reference Y of G_i itself."""
         gpyr = self.gaussian_pyramid(image, self.height + 1, use_kernel)
-        lpyr = [(gpyr[i], gpyr[i + 1]) for i in range(len(gpyr) - 1)]
-        L_bkg_pyr = [None] * (len(gpyr) - 1)
-        layer = gpyr[-1]
-        # weber_g1 baseband: sustained channels adapt to the image mean.
-        L_bkg = torch.mean(clip(layer[..., 0:2, :, :, :], 0.01), dim=(-1, -2), keepdim=True)
-        t = clip(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], hi=1000.0)
-        r = clip(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], hi=1000.0)
-        lpyr.append(torch.stack([t, r], dim=-4).reshape(layer.shape))
-        L_bkg_pyr.append(torch.log10(L_bkg[..., 1:2, :, :, :]))
+        lpyr, L_bkg_pyr = [], []
+        for i in range(len(gpyr)):
+            if raw_pairs and i < len(gpyr) - 1:
+                lpyr.append((gpyr[i], gpyr[i + 1]))
+                L_bkg_pyr.append(None)
+                continue
+            if i == len(gpyr) - 1:
+                layer = gpyr[i]
+                if self.contrast.endswith("ref"):
+                    L_bkg = clip(layer[..., 1:2, :, :, :], 0.01)
+                else:
+                    # Sustained channels adapt to the image mean; otherwise the
+                    # baseband would divide by itself.
+                    L_bkg = torch.mean(clip(layer[..., 0:2, :, :, :], 0.01), dim=(-1, -2),
+                                       keepdim=True)
+            else:
+                glayer_ex = gausspyr_expand(gpyr[i + 1], gpyr[i].shape[-2:])
+                layer = gpyr[i] - glayer_ex
+                if self.contrast == "weber_g1_ref":
+                    L_bkg = clip(glayer_ex[..., 1:2, :, :, :], 0.01)
+                elif self.contrast == "weber_g1":
+                    L_bkg = clip(glayer_ex[..., 0:2, :, :, :], 0.01)
+                else:
+                    L_bkg = clip(gpyr[i][..., 1:2, :, :, :], 0.01)
+            if L_bkg.shape[-4] == 2:
+                t = clip(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], hi=1000.0)
+                r = clip(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], hi=1000.0)
+                contrast = torch.stack([t, r], dim=-4).reshape(layer.shape)
+                L_bkg = L_bkg[..., 1:2, :, :, :]
+            else:
+                contrast = clip(layer / L_bkg, hi=1000.0)
+            lpyr.append(contrast)
+            L_bkg_pyr.append(torch.log10(L_bkg))
+        return lpyr, L_bkg_pyr
+
+
+class LogContrastPyramid(LaplacianPyramid):
+    """Log-luminance contrast: bands are G_i - expand(G_{i+1}) of the
+    log-LMS DKL frames, with no division and no clip; the "log-luminance"
+    the CSF reads is a (E_Y - b), with E_Y the reference's expanded Y (G_i
+    itself at the baseband), used as the LUT input without a log10."""
+
+    def __init__(self, W, H, ppd, contrast: str = "log"):
+        super().__init__(W, H, ppd)
+        self.contrast = contrast
+        lms_d65 = [0.7347, 0.3163, 0.0208]
+        self.a = 0.5
+        self.b = (math.log10(lms_d65[0]) - math.log10(lms_d65[1])
+                  + math.log10(lms_d65[0] + lms_d65[1]))
+
+    def decompose(self, image, raw_pairs=False, use_kernel: bool = True):
+        if raw_pairs:
+            raise ValueError("the log contrast has no raw-pair decomposition")
+        gpyr = self.gaussian_pyramid(image, self.height + 1, use_kernel)
+        lpyr, L_bkg_pyr = [], []
+        for i in range(len(gpyr)):
+            if i == len(gpyr) - 1:
+                contrast = gpyr[i]
+                Y = gpyr[i][..., 1:2, :, :, :]
+            else:
+                glayer_ex = gausspyr_expand(gpyr[i + 1], gpyr[i].shape[-2:])
+                contrast = gpyr[i] - glayer_ex
+                Y = glayer_ex[..., 1:2, :, :, :]
+            lpyr.append(contrast)
+            L_bkg_pyr.append(self.a * (Y - self.b))
         return lpyr, L_bkg_pyr

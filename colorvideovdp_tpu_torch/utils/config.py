@@ -62,3 +62,16 @@ class config_files:
             return path
 
         raise RuntimeError(f"The configuration file {fname} not found")
+
+
+def write_parameters(directory: str, **overrides) -> list:
+    """Write the default ``cvvdp_parameters.json`` with ``overrides`` (for
+    example ``contrast="log"`` or ``masking_model="mult-transducer"``) into
+    ``directory``, created if needed, and return ``[directory]``: the
+    ``config_paths`` that scores with that configuration."""
+    params = json2dict(os.path.join(VVDP_DATA, "cvvdp_parameters.json"))
+    params.update(overrides)
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "cvvdp_parameters.json"), "w") as f:
+        json.dump(params, f, indent=4)
+    return [directory]

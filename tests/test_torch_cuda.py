@@ -18,6 +18,7 @@ from colorvideovdp_tpu_torch.ops.kernels import ingest as ing
 from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
 from colorvideovdp_tpu_torch.ops.kernels.pyramid_reduce import pyramid_reduce
 from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
+from colorvideovdp_tpu_torch.utils.config import write_parameters
 
 pytestmark = pytest.mark.cuda
 
@@ -242,3 +243,116 @@ def test_heatmap_kernels_match_plain(dev, hm_type):
     assert hm_k.shape == hm_p.shape
     assert np.abs(hm_k - hm_p).max() <= 1.1e-3
     assert abs(q_k - q_p) <= 1e-4
+
+
+@pytest.mark.parametrize("C", [4, 3])
+def test_band_masking_contrast_kernel(dev, C):
+    """The contrast-band mode (row 7) against its plain version at unaligned
+    sizes, pooled and D: one wide band, a multi-band group and a band of 4
+    rows without the masking blur."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(517, 99)
+    consts, _ = m._band_tables(C)
+    shapes = [(99, 517), (50, 259), (25, 130), (13, 65), (4, 17)]
+    luts = torch.as_tensor(np.stack([
+        np.stack([m.csf.logS_of_logL(rho, m.omega[0 if cc < 3 else 1], cc if cc < 3 else 0)
+                  for cc in range(C)]) for rho in (8.0, 4.0, 2.0, 1.0, 0.25)]), device=dev)
+    bands = [torch.randn(1, 2 * C, 3, h, w, device=dev) * 0.3 for h, w in shapes]
+    logLs = [torch.rand(1, 1, 3, h, w, device=dev) * 4 - 1 for h, w in shapes]
+    for sel in ([0], [1, 2, 3], [4]):
+        args = ([bands[i] for i in sel], [logLs[i] for i in sel], luts[sel[0]:sel[-1] + 1],
+                consts)
+        before = bm.band_masking_contrast.launches, bm.band_masking_contrast_d.launches
+        sums = bm.band_masking_contrast(*args)
+        Ds = bm.band_masking_contrast_d(*args)
+        assert (bm.band_masking_contrast.launches, bm.band_masking_contrast_d.launches) == (
+            before[0] + 1, before[1] + 1)
+        ones = [1.0] * len(sel)
+        assert _rel(sums, bm.band_masking_plain(*args[:3], ones, consts, True)) <= 1e-4
+        for D, P in zip(Ds, bm.band_masking_d_plain(*args[:3], ones, consts, True)):
+            assert D.shape == P.shape
+            assert _rel_planes(D, P) <= 1e-5
+    with pytest.raises(ValueError):
+        bm.band_masking_contrast_d([bands[3], bands[4]], [logLs[3], logLs[4]], luts[3:5], consts)
+
+
+@pytest.mark.parametrize("display", ["standard_4k", "standard_hdr_pq"])
+def test_ingest_kernel_log_lms(dev, display):
+    """The log-LMS mode of the ingest kernel (the log contrast's colour space)."""
+    m = ct.cvvdp(display_name=display, device="cuda")
+    F, _ = get_temporal_filters(30, m.sigma_tf, m.beta_tf)
+    filt = np.stack([f[::-1] for f in F])
+    fl = filt.shape[1]
+    rng = np.random.RandomState(2)
+    raws = [m._upload((rng.rand(1, 5, 3, 67, 300) * 255).astype(np.uint8)) for _ in range(2)]
+    tails = [torch.rand(1, 3, fl - 1, 67, 300, device=dev) * 3 for _ in range(2)]
+    before = ing.ingest.launches
+    out = ing.ingest(*tails, *raws, m.display_photometry, filt, "logLMS_DKLd65")
+    ref = ing.ingest_plain(*tails, *raws, m.display_photometry, filt, "logLMS_DKLd65")
+    assert ing.ingest.launches == before + 1
+    for a, b in zip(out, ref):
+        assert _rel_planes(a, b) <= 1e-5
+
+
+def test_blur_kernel_33_taps(dev):
+    """The texture models' blur (sigma 8, 33 taps), radius 16."""
+    taps = gaussian_kernel1d(33, 8.0)
+    for shape in ((4, 1080, 1920), (2, 17, 130)):
+        x = torch.rand(shape, device=dev)
+        assert torch.equal(bl.blur(x, taps), blur_plain(x, taps))
+    with pytest.raises(ValueError):
+        bl.blur(torch.rand(1, 16, 64, device=dev), taps)
+    with pytest.raises(ValueError):
+        bl.blur(torch.rand(1, 40, 64, device=dev), gaussian_kernel1d(35, 8.0))
+
+
+@pytest.mark.parametrize("over", [dict(contrast="weber_g0_ref"), dict(contrast="log"),
+                                  dict(masking_model="mult-transducer-texture"),
+                                  dict(xchannel_masking="off")],
+                         ids=["weber_g0_ref", "log", "texture", "xchannel-off"])
+def test_configurations_kernels_match_plain(dev, tmp_path, over):
+    """predict on a non-default configuration, kernels against plain: a video
+    in blocks of 5 + 2 and an image. The contrasts take the contrast-band
+    mode of the band kernel, the other two the generic chain (CSF LUT and
+    blur kernels)."""
+    cp = write_parameters(str(tmp_path), **over)
+    rng = np.random.RandomState(6)
+    ref = (rng.rand(96, 320, 3, 7) * 255).astype(np.uint8)
+    test = np.clip(ref.astype(np.int16) + (rng.randn(*ref.shape) * 10).astype(np.int16),
+                   0, 255).astype(np.uint8)
+    pix = 96 * 320
+    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 5.5) / 1e9  # 5-frame blocks
+    contrast_mode = "contrast" in over
+    counter = bm.band_masking_contrast if contrast_mode else lut.csf_lut
+    out = []
+    for fused in (True, False):
+        m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp, gpu_mem=gpu_mem)
+        m.enable_fused_kernels = fused
+        before = counter.launches, ing.ingest.launches, bl.blur.launches
+        Qv, _ = m.predict(test, ref, dim_order="HWCF", frames_per_second=30)
+        Qi, _ = m.predict(test[..., 0], ref[..., 0], dim_order="HWC")
+        after = counter.launches, ing.ingest.launches, bl.blur.launches
+        grew = [a > b for a, b in zip(after, before)]
+        # The generic chain blurs with the blur kernel; the band kernel in-kernel.
+        assert grew == ([True, True, not contrast_mode] if fused else [False] * 3)
+        out.append((float(Qv), float(Qi)))
+    assert np.abs(np.subtract(out[0], out[1])).max() <= 1e-4 * max(1.0, abs(10 - out[1][1]))
+
+
+def test_weber_g0_ref_loss_kernels_match_plain(dev, tmp_path):
+    cp = write_parameters(str(tmp_path), contrast="weber_g0_ref")
+    rng = np.random.RandomState(4)
+    ref = rng.rand(2, 3, 1, 96, 320).astype(np.float32)
+    test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
+    out = []
+    for fused in (True, False):
+        m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp)
+        m.enable_fused_kernels = fused
+        x = torch.from_numpy(test).to(dev).requires_grad_()
+        before = bm.band_masking_contrast.launches
+        v = m.get_loss_fn(96, 320)(x, torch.from_numpy(ref).to(dev))
+        (g,) = torch.autograd.grad(v, x)
+        assert (bm.band_masking_contrast.launches > before) == fused
+        out.append((float(v.detach()), g))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4
+    assert _rel(out[0][1], out[1][1]) <= 1e-4

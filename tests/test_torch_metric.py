@@ -90,6 +90,9 @@ def test_perturbed_parameters_carry_over():
     mt = ct.cvvdp(display_name="standard_4k", device="cpu")
     d = params_from_jax(mj)
     assert d["mask_p"] == pytest.approx(mj.mask_p) and d["beta_t"] == 3.0
-    assert all(isinstance(v, (float, np.ndarray)) for v in d.values())
+    # Plain values only: numbers, arrays, the configuration strings and flags.
+    assert all(isinstance(v, (float, np.ndarray, str, bool)) for v in d.values())
+    assert (d["contrast"], d["masking_model"], d["dclamp_type"], d["do_xchannel_masking"]) == (
+        "weber_g1", "mult-mutual", "soft", True)
     mt.load_parameters(d)
     _compare(mj, mt, test, ref, dim_order="HWCF", frames_per_second=FPS)

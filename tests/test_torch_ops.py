@@ -173,8 +173,3 @@ def test_unported_options_raise():
         ct.cvvdp(display_name="standard_4k", device="cpu", temp_resample=True)
     with pytest.raises(NotImplementedError):
         ct.cvvdp(display_name="standard_4k", device="cpu", dump_channels=["difference"])
-    m = ct.cvvdp(display_name="standard_4k", device="cpu")
-    m.masking_model = "mult-transducer"
-    with pytest.raises(NotImplementedError):
-        m.predict(np.zeros((16, 64, 3), np.uint8), np.zeros((16, 64, 3), np.uint8),
-                  dim_order="HWC")
