@@ -58,6 +58,23 @@ Phase 7  the non-default configurations, each a copy of the default
          kernels); and a ``get_loss_fn(1080, 1920)`` step of 2 pairs with
          weber_g0_ref: loss within 1e-4, gradient within 1e-4 of max|g|.
 
+Phase 8  the ColorVideoVDP-ML metrics. First the ingest kernel's first-block
+         modes, "replicate" and "head", against their plain version
+         (``ingest_first_plain``) and against tail mode fed the tails that
+         ``cvvdp`` forms, at (1, 8, 3, 2160, 3840) uint8 on standard_hdr_pq.
+         Then ``predict`` with ``cvvdp_ml_saliency`` and
+         ``cvvdp_ml_transformer`` (dim 256, depth 4, 8 heads) on the phase-6
+         12-frame 4K content (BFCHW, ``gpu_mem`` for 8-frame blocks: a first
+         block and a tail block), with replicate and with symmetric padding,
+         weights from a seeded npz in the published layout
+         (``tools/cvvdp_ml_manifest.json``) written to a temporary directory
+         and found through ``config_paths``; kernels, then plain: JODs within
+         1e-3; the first-block mode, tail ingest, reduce, CSF LUT and blur
+         must have launched. Before them, a 1920x1080 image through
+         ``cvvdp_ml_transformer`` on standard_fhd. Each run prints its wall
+         time, peak memory and the split between trunk, feature pooling and
+         head.
+
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
 read once, each output written once) over the HBM rate and its float32
@@ -83,7 +100,8 @@ import torch
 CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 1e-5,
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
-       "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5}
+       "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
+       "ingest_replicate": 1e-5, "ingest_head": 1e-5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # Training step bounds (phase 5): kernels against plain on the card.
@@ -91,6 +109,8 @@ LOSS_TOL, GRAD_TOL = 1e-4, 1e-4
 # Heatmap bounds (phase 6): float16 heatmaps kernels against plain, and the
 # JOD with a heatmap against the pooled-only JOD.
 HEATMAP_TOL, HEATMAP_JOD_TOL = 1.1e-3, 1e-4
+# ML metrics (phase 8): kernels against plain.
+ML_JOD_TOL = 1e-3
 
 
 def log(*args):
@@ -579,6 +599,175 @@ def phase_configs(m, fps, record, counters, gen):
     return launches
 
 
+def seeded_ml_weights(seed):
+    """Weights with every key and shape of the published checkpoints
+    (``tools/cvvdp_ml_manifest.json``, both ML families): Linear weights
+    uniform in +-1/sqrt(fan_in) (non-negative in the MLPs' last layers, so
+    that the saliency head's two ReLU outputs respond), biases uniform in
+    +-0.3, LayerNorm gains near 1, the class token standard normal."""
+    with open("tools/cvvdp_ml_manifest.json") as f:
+        manifest = json.load(f)
+    shapes = {**manifest["cvvdp_ml_saliency"], **manifest["cvvdp_ml_transformer"]}
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key in sorted(shapes):
+        shape = tuple(shapes[key])
+        if key.endswith("cls_token"):
+            v = rng.randn(*shape)
+        elif len(shape) == 2:
+            b = 1.0 / np.sqrt(shape[1])
+            v = rng.uniform(0.0 if key in ("feature_net.9.weight", "att_net.12.weight") else -b,
+                            b, shape)
+        elif "norm" in key or ".reg_head.0." in key:
+            v = (1.0 if key.endswith("weight") else 0.0) + rng.uniform(-0.1, 0.1, shape)
+        else:
+            v = rng.uniform(-0.3, 0.3, shape)
+        out[key] = v.astype(np.float32)
+    return out
+
+
+# The kernels every ML video run launches besides its first-block mode.
+ML_PATH = ("ingest", "pyramid_reduce", "csf_lut", "blur")
+
+
+def phase_ml(m, fps, record, counters, gen):
+    """Phase 8; returns the kernels' launch counts per path."""
+    import shutil
+    import tempfile
+
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch.metrics import ml
+    from colorvideovdp_tpu_torch.ops.kernels import ingest
+    from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
+
+    dev = torch.device("cuda")
+    H, W, N, blk = 2160, 3840, 12, 8
+    t_phase = time.time()
+    dm = m.display_photometry
+    F_taps, _ = get_temporal_filters(fps, m.sigma_tf, m.beta_tf, m.temp_filter)
+    filt = np.stack([f[::-1] for f in F_taps])
+    fl = filt.shape[1]
+
+    # The first-block modes against their plain version and against tail
+    # mode on the tails cvvdp forms (these launches are not counted).
+    raws = [torch.randint(0, 256, (1, blk, 3, H, W), dtype=torch.uint8, device=dev,
+                          generator=gen) for _ in range(2)]
+    heads = [torch.randint(0, 256, (1, fl - 1, 3, H, W), dtype=torch.uint8, device=dev,
+                           generator=gen) for _ in range(2)]
+    modes = {
+        "ingest_replicate": (lambda: ingest.ingest_replicate(*raws, dm, filt),
+                             lambda: ingest.ingest_first_plain(*raws, dm, filt),
+                             [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, fl - 1, -1, -1)
+                              .contiguous() for r in raws], []),
+        "ingest_head": (lambda: ingest.ingest_head(*heads, *raws, dm, filt),
+                        lambda: ingest.ingest_first_plain(*raws, dm, filt, "DKLd65", *heads),
+                        [ingest.raw_to_met(dm, h).contiguous() for h in heads], heads),
+    }
+    for name, (fn_k, fn_p, tails, pads) in modes.items():
+        out_k, out_p = fn_k(), fn_p()
+        err = max(rel_err_per(a, b, 1) for a, b in zip(out_k, out_p))
+        d_tail = max(max_abs(a, b) for a, b in zip(out_k, ingest.ingest(*tails, *raws, dm, filt)))
+        log(f"  {name} {tuple(out_k[0].shape)}: max |kernel - tail mode on formed tails| "
+            f"{d_tail:.3e}")
+        if not d_tail <= 1e-5 * float(out_p[0].abs().max()):
+            raise AssertionError(f"{name} disagrees with tail mode on the formed tails")
+        # As the tail mode's bound: ~25 operations per converted source pixel
+        # (the new frames, and the heads in head mode), fl multiply-adds per
+        # output element; raws (and raw heads) in, the block and tails out.
+        n_conv = raws[0].numel() + sum(h.numel() for h in pads[:1])
+        bnd = bound(nbytes(*raws, *pads) + nbytes(out_k[0]) + 2 * nbytes(out_k[1]),
+                    25 * 2 * n_conv // 3 + 2 * fl * out_k[0].numel())
+        record(name, err, max(max_abs(x, y) for x, y in zip(out_k, out_p)), time_ms(fn_k),
+               time_ms(fn_p), bnd)
+        del out_k, out_p, tails
+    del raws, heads, modes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # predict with both ML metrics. The split: feature pooling and the head
+    # are timed apart (synchronised), the trunk is the rest of the wall time.
+    split = {"pool": 0.0, "head": 0.0}
+    pool = ml.feature_pooling
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[key] += time.time() - t0
+            return out
+        return run
+
+    pix = H * W
+    gpu_mem = (1.6e9 + pix * (fl - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
+    V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
+    V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
+    rng = np.random.RandomState(5)
+    I_ref = (rng.rand(1080, 1920, 3) * 255).astype(np.uint8)
+    I_test = np.clip(I_ref.astype(np.int16) + (rng.randn(1080, 1920, 3) * 6).astype(np.int16),
+                     0, 255).astype(np.uint8)
+    video = dict(dim_order="BFCHW", frames_per_second=fps)
+    # The FHD image first: its run also warms up the matrix-product library,
+    # so that the 4K runs' head times hold no one-time set-up.
+    runs = [("ml_transformer_fhd_image", cvt.cvvdp_ml_transformer, "standard_fhd",
+             "replicate", I_test, I_ref, dict(dim_order="HWC"))]
+    runs += [(f"ml_{fam}_4k_{pad}", cls, "standard_hdr_pq", pad, V_test, V_ref, video)
+             for fam, cls in (("saliency", cvt.cvvdp_ml_saliency),
+                              ("transformer", cvt.cvvdp_ml_transformer))
+             for pad in ("replicate", "symmetric")]
+    tmp = tempfile.mkdtemp(prefix="cvvdp_ml_")
+    launches = {}
+    ml.feature_pooling = timed(pool, "pool")
+    try:
+        np.savez(f"{tmp}/cvvdp_ml.npz", **seeded_ml_weights(13))
+        for path, cls, disp, pad, t_in, r_in, kw in runs:
+            jods = {}
+            for fused in (True, False):
+                mv = cls(display_name=disp, device="cuda", quiet=True, gpu_mem=gpu_mem,
+                         temp_padding=pad, config_paths=[tmp])
+                mv.enable_fused_kernels = fused
+                mv.do_pooling_and_jods = timed(mv.do_pooling_and_jods, "head")
+                split.update(pool=0.0, head=0.0)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.time()
+                Q, st = mv.predict(t_in, r_in, **kw)
+                jods[fused] = float(Q)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+                counts = {k: fn.launches for k, fn in counters.items()}
+                if fused:
+                    launches[path] = counts
+                log(f"phase 8: {path} {'kernels' if fused else 'plain  '}: JOD {jods[fused]:.6f}, "
+                    f"blk {st['block_N_frames']}, {dt:.3f} s (trunk "
+                    f"{dt - split['pool'] - split['head']:.3f}, feature pooling "
+                    f"{split['pool']:.3f}, head {split['head']:.3f}), peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+                del mv
+            if not (all(math.isfinite(j) for j in jods.values())
+                    and abs(10.0 - jods[True]) > 1e-3):
+                raise AssertionError(f"{path}: JOD {jods[True]} is not finite or does not respond")
+            if not abs(jods[True] - jods[False]) <= ML_JOD_TOL:
+                raise AssertionError(f"{path}: JOD kernels {jods[True]} vs plain {jods[False]}")
+            need = (("pyramid_reduce", "csf_lut", "blur") if path.endswith("image") else
+                    ML_PATH + (("ingest_replicate",) if pad == "replicate" else ("ingest_head",)))
+            for k in need:
+                if launches[path][k] <= 0:
+                    raise AssertionError(f"kernel {k} was not launched on the {path} path")
+            log(f"phase 8: {path}: |JOD kernels - plain| {abs(jods[True] - jods[False]):.2e} "
+                f"(tolerance {ML_JOD_TOL:.0e})")
+    finally:
+        ml.feature_pooling = pool
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 8: {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -775,7 +964,8 @@ def main():
                 "band_masking_d": masking_fused.band_masking_d,
                 "band_masking_d_noblur": masking_fused.band_masking_d_noblur,
                 "band_masking_contrast": masking_fused.band_masking_contrast,
-                "band_masking_contrast_d": masking_fused.band_masking_contrast_d}
+                "band_masking_contrast_d": masking_fused.band_masking_contrast_d,
+                "ingest_replicate": ingest.ingest_replicate, "ingest_head": ingest.ingest_head}
     score_path = ("ingest", "pyramid_reduce", "band_masking", "csf_lut")
     results = {}
     for fused in (True, False):
@@ -952,6 +1142,9 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     config_launches = phase_configs(m, fps, record, counters, gen)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ml_launches = phase_ml(m, fps, record, counters, gen)
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -971,13 +1164,18 @@ def main():
                                   "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
         "band_masking_contrast_d": ("band_masking.cu",
                                     "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
+        "ingest_replicate": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
+        "ingest_head": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
     }
     line = []
     for k, (f, rep) in kernels.items():
         by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k],
                    "heatmap_4k_video_720p_image": heat_launches[k],
-                   **{p: c[k] for p, c in config_launches.items()}}
-        if k == "band_masking_contrast":
+                   **{p: c[k] for p, c in config_launches.items()},
+                   **{p: c[k] for p, c in ml_launches.items()}}
+        if k in ("ingest_replicate", "ingest_head"):
+            n_main = sum(c[k] for c in ml_launches.values())
+        elif k == "band_masking_contrast":
             n_main = (config_launches["weber_g0_ref_4k_video"][k]
                       + config_launches["log_4k_video"][k])
         elif k == "band_masking_contrast_d":

@@ -5,6 +5,8 @@ and ``np.asarray`` only (no jax import) and returns plain floats, numpy
 arrays, the configuration strings and flags; ``colorvideovdp_tpu_torch.cvvdp.
 load_parameters`` applies them, so that the port reproduces a JAX metric
 built from any contrast coding, masking model or clamp.
+``ml_weights_from_jax(metric)`` carries the nets of a JAX ML metric the same
+way, for the port's ``load_weights``.
 """
 
 from __future__ import annotations
@@ -44,4 +46,38 @@ def params_from_jax(metric) -> dict:
         out["display_" + name] = float(np.asarray(getattr(dm, name)))
     out["display_rgb2xyz"] = np.asarray(dm.rgb2xyz, np.float32)
     out["pix_per_deg"] = float(metric.pix_per_deg)
+    return out
+
+
+def _lin(out, key, p):
+    for part in ("weight", "bias"):
+        out[f"{key}.{part}"] = np.asarray(p[part], np.float32)
+
+
+def ml_weights_from_jax(metric) -> dict:
+    """The nets of a JAX ColorVideoVDP-ML instance (``cvvdp_ml_saliency``,
+    ``cvvdp_ml_transformer``) as flat checkpoint-layout arrays
+    ("<net>.<key>", the layout of ``cvvdp_ml.npz``), read from its parameter
+    pytrees with ``np.asarray`` only; ``load_weights`` of the port's metric
+    of the same family takes them. MLP layers get torchvision's indices 0,
+    3, 6, ..."""
+    out = {}
+    for net in metric.get_nets_to_load():
+        params = getattr(metric, net)
+        if isinstance(params, list):
+            for i, p in enumerate(params):
+                _lin(out, f"{net}.{3 * i}", p)
+            continue
+        _lin(out, f"{net}.patch_embed.1", params["patch_embed"])
+        out[f"{net}.cls_token"] = np.asarray(params["cls_token"], np.float32)
+        _lin(out, f"{net}.reg_head.0", params["reg_norm"])
+        _lin(out, f"{net}.reg_head.1", params["reg_linear"])
+        for i, lp in enumerate(params["layers"]):
+            pre = f"{net}.transformer.layers.{i}."
+            att = lp["self_attn"]
+            out[pre + "self_attn.in_proj_weight"] = np.asarray(att["in_proj_weight"], np.float32)
+            out[pre + "self_attn.in_proj_bias"] = np.asarray(att["in_proj_bias"], np.float32)
+            _lin(out, pre + "self_attn.out_proj", att["out_proj"])
+            for name in ("linear1", "linear2", "norm1", "norm2"):
+                _lin(out, pre + name, lp[name])
     return out

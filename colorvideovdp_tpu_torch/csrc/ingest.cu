@@ -2,14 +2,20 @@
 // DKL) -> temporal FIR.
 //
 // Replaces colorvideovdp_tpu/ops/kernels/ingest.py `make_ingest_fn`
-// (`_ingest_kernel`) in its "tail" mode: the fl-1 carried DKL frames come in
-// as a tail, the blk new frames as raw planes (uint8, uint16 bits, float16 or
-// float32; 3 colour channels, or 1 luminance channel broadcast to all three
-// DKL channels). Any batch size: blockIdx.z is the batch item.
+// (`_ingest_kernel`) in its three modes. The blk new frames come in as raw
+// planes (uint8, uint16 bits, float16 or float32; 3 colour channels, or 1
+// luminance channel broadcast to all three DKL channels); the fl-1 slots
+// before them (the temporal padding) come, by mode:
+//   tail       the fl-1 DKL frames carried from the previous block;
+//   replicate  the first new frame, converted once and reused (the first
+//              block with replicate padding);
+//   head       fl-1 raw head frames in the source dtype, converted as the new
+//              frames are (the first block with symmetric padding).
+// Any batch size: blockIdx.z is the batch item.
 //
 // One thread per pixel and source (blockIdx.y: 0 = test, 1 = reference).
 // The thread walks the fl-1+blk buffer slots in time order and converts each
-// slot to DKL exactly once: tail slots are read from the tail, new slots go
+// slot to DKL exactly once: tail slots are read from the tail, raw slots go
 // through the dtype ladder (true division by 255 / 65535: the PQ curve
 // amplifies a last-ulp error about 6x), the EOTF with black level,
 // reflection and exposure, and the fused RGB->DKL 3x3; or, for the log
@@ -26,13 +32,16 @@
 // here (__fmul_rn / __fadd_rn keep nvcc from contracting them into FMAs).
 // That matters for PQ: near the display peak the curve amplifies a last-ulp
 // difference in C2 - C3 * im_t about 500x, so its two powers are also taken
-// in float64 and rounded once, as the plain version does.
+// in float64 and rounded once, as the plain version does. A replicated or
+// head slot goes through the same conversion as a new frame, so the first
+// block's modes give the bits of tail mode fed the plain version's tails.
 //
 // Bound on the H100: memory. Per pixel and block it reads 2*3*blk source
-// bytes (uint8; twice that for uint16) plus 2*3*(fl-1)*4 tail bytes, and
-// writes (8*blk + 6*(fl-1))*4 bytes; every read and write is coalesced
-// across the warp and nothing is read twice. The EOTF's pow/exp per new
-// sample is the only heavy arithmetic and is hidden behind the traffic.
+// bytes (uint8; twice that for uint16), plus 2*3*(fl-1)*4 tail bytes (tail
+// mode) or 2*3*(fl-1) head bytes (head mode), and writes (8*blk + 6*(fl-1))*4
+// bytes; every read and write is coalesced across the warp and nothing is
+// read twice. The EOTF's pow/exp per converted sample is the only heavy
+// arithmetic and is hidden behind the traffic.
 
 #include <cuda_fp16.h>
 
@@ -43,6 +52,7 @@
 
 enum Eotf { EOTF_SRGB = 0, EOTF_PQ = 1, EOTF_LINEAR = 2, EOTF_HLG = 3, EOTF_GAMMA = 4 };
 enum SrcType { SRC_U8 = 0, SRC_U16 = 1, SRC_F16 = 2, SRC_F32 = 3 };
+enum PadMode { MODE_TAIL = 0, MODE_REPLICATE = 1, MODE_HEAD = 2 };
 
 struct IngestParams {
   int eotf, channels;
@@ -54,7 +64,7 @@ struct IngestParams {
   float M2[9];                     // log_lms: LMS2006 -> DKLd65
   int log_lms;
   float filt[4 * INGEST_MAX_FL];   // time-reversed taps, (4, fl)
-  int fl, blk;
+  int fl, blk, mode;
   long long hw;
 };
 
@@ -133,9 +143,34 @@ __device__ __forceinline__ void mat3(const float* M, const float* x, float* y) {
                      __fmul_rn(x[2], M[3 * c + 2]));
 }
 
+// One raw frame's pixel (frame fr of a (blk|fl-1, channels, hw) plane set)
+// -> its metric colour-space triplet.
 template <typename T>
-__global__ void ingest_kernel(const float* __restrict__ tail_t,
-                              const float* __restrict__ tail_r,
+__device__ __forceinline__ void convert(const IngestParams& P, const T* __restrict__ raw,
+                                        long long fr, long long pix, float* dkl) {
+  const int nc = P.channels;
+  const long long hw = P.hw;
+  float V[3], L[3];
+  for (int c = 0; c < nc; ++c) V[c] = to_float(raw[(fr * nc + c) * hw + pix]);
+  eotf(P, V, L, nc);
+  if (nc == 3) {
+    mat3(P.M, L, dkl);
+    if (P.log_lms) {
+      float lg[3];
+      for (int c = 0; c < 3; ++c) lg[c] = (float)log10((double)dkl[c]);
+      mat3(P.M2, lg, dkl);
+    }
+  } else {  // luminance-only content bypasses the colour transform
+    for (int c = 0; c < 3; ++c) dkl[c] = L[0];
+  }
+}
+
+// pad_t / pad_r: the DKL tails (float, (B, 3, fl-1, hw)) in tail mode, the
+// raw head frames (T, (B, fl-1, channels, hw)) in head mode, unused in
+// replicate mode.
+template <typename T>
+__global__ void ingest_kernel(const void* __restrict__ pad_t,
+                              const void* __restrict__ pad_r,
                               const T* __restrict__ raw_t,
                               const T* __restrict__ raw_r,
                               float* __restrict__ out,
@@ -143,7 +178,7 @@ __global__ void ingest_kernel(const float* __restrict__ tail_t,
                               float* __restrict__ ntail_r, IngestParams P) {
   extern __shared__ float ring[];  // [fl][3][blockDim.x]
   __shared__ float s_filt[4 * INGEST_MAX_FL];
-  const int fl = P.fl, blk = P.blk, nc = P.channels;
+  const int fl = P.fl, blk = P.blk, nc = P.channels, mode = P.mode;
   for (int k = threadIdx.x; k < 4 * fl; k += blockDim.x) s_filt[k] = P.filt[k];
   __syncthreads();
 
@@ -153,31 +188,26 @@ __global__ void ingest_kernel(const float* __restrict__ tail_t,
   const int src = blockIdx.y;
   const long long b = blockIdx.z;
   const long long tail_off = b * 3 * (fl - 1) * hw;
-  const float* tail = (src == 0 ? tail_t : tail_r) + tail_off;
+  const void* pad = src == 0 ? pad_t : pad_r;
   const T* raw = (src == 0 ? raw_t : raw_r) + b * blk * nc * hw;
   float* ntail = (src == 0 ? ntail_t : ntail_r) + tail_off;
   float* outb = out + b * 8 * blk * hw;
   const int bd = blockDim.x, tid = threadIdx.x;
 
+  float first[3];  // replicate: frame 0's triplet, converted once
+  if (mode == MODE_REPLICATE) convert(P, raw, 0, pix, first);
+
   for (int s = 0; s < fl - 1 + blk; ++s) {
     float dkl[3];
-    if (s < fl - 1) {
-      for (int c = 0; c < 3; ++c) dkl[c] = tail[((long long)c * (fl - 1) + s) * hw + pix];
+    if (mode == MODE_REPLICATE && s <= fl - 1) {
+      for (int c = 0; c < 3; ++c) dkl[c] = first[c];
+    } else if (s >= fl - 1) {
+      convert(P, raw, s - (fl - 1), pix, dkl);
+    } else if (mode == MODE_HEAD) {
+      convert(P, (const T*)pad + b * (fl - 1) * nc * hw, s, pix, dkl);
     } else {
-      const long long fr = s - (fl - 1);
-      float V[3], L[3];
-      for (int c = 0; c < nc; ++c) V[c] = to_float(raw[(fr * nc + c) * hw + pix]);
-      eotf(P, V, L, nc);
-      if (nc == 3) {
-        mat3(P.M, L, dkl);
-        if (P.log_lms) {
-          float lg[3];
-          for (int c = 0; c < 3; ++c) lg[c] = (float)log10((double)dkl[c]);
-          mat3(P.M2, lg, dkl);
-        }
-      } else {  // luminance-only content bypasses the colour transform
-        for (int c = 0; c < 3; ++c) dkl[c] = L[0];
-      }
+      const float* tail = (const float*)pad + tail_off;
+      for (int c = 0; c < 3; ++c) dkl[c] = tail[((long long)c * (fl - 1) + s) * hw + pix];
     }
     const int slot = s % fl;
     for (int c = 0; c < 3; ++c) ring[(slot * 3 + c) * bd + tid] = dkl[c];
@@ -200,29 +230,32 @@ __global__ void ingest_kernel(const float* __restrict__ tail_t,
 }
 
 template <typename T>
-static void launch(dim3 grid, size_t smem, cudaStream_t st, const float* tail_t,
-                   const float* tail_r, const void* raw_t, const void* raw_r, float* out,
+static void launch(dim3 grid, size_t smem, cudaStream_t st, const void* pad_t,
+                   const void* pad_r, const void* raw_t, const void* raw_r, float* out,
                    float* ntail_t, float* ntail_r, const IngestParams& P) {
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(ingest_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   ingest_kernel<T><<<grid, INGEST_THREADS, smem, st>>>(
-      tail_t, tail_r, (const T*)raw_t, (const T*)raw_r, out, ntail_t, ntail_r, P);
+      pad_t, pad_r, (const T*)raw_t, (const T*)raw_r, out, ntail_t, ntail_r, P);
 }
 
-// tails: (B, 3, fl-1, H, W) float32; raws: (B, blk, channels, H, W) of
-// src_type (SrcType); out: (B, 8, blk, H, W); new tails: (B, 3, fl-1, H, W).
-// consts: the 10 display constants of IngestParams in order; M: 9 floats;
-// log_lms: 0 for DKLd65 (M is RGB -> DKL), 1 for logLMS_DKLd65 (M is RGB ->
-// LMS2006 and M2, 9 floats, LMS2006 -> DKL); filt: (4, fl) floats.
-CVVDP_API int cvvdp_ingest(const float* tail_t, const float* tail_r,
+// mode: PadMode. pad_t / pad_r: tails (B, 3, fl-1, H, W) float32 in tail
+// mode, raw heads (B, fl-1, channels, H, W) of src_type in head mode, null in
+// replicate mode; raws: (B, blk, channels, H, W) of src_type (SrcType); out:
+// (B, 8, blk, H, W); new tails: (B, 3, fl-1, H, W). consts: the 10 display
+// constants of IngestParams in order; M: 9 floats; log_lms: 0 for DKLd65 (M
+// is RGB -> DKL), 1 for logLMS_DKLd65 (M is RGB -> LMS2006 and M2, 9 floats,
+// LMS2006 -> DKL); filt: (4, fl) floats.
+CVVDP_API int cvvdp_ingest(int mode, const void* pad_t, const void* pad_r,
                            const void* raw_t, const void* raw_r, float* out,
                            float* ntail_t, float* ntail_r, int batch, int blk, int channels,
                            int fl, long long hw, int src_type, int eotf_code,
                            const float* consts, const float* M, int log_lms,
                            const float* M2, const float* filt, void* stream) {
   if (fl < 2 || fl > INGEST_MAX_FL || blk < 1 || batch < 1 || batch > 65535 ||
-      (channels != 1 && channels != 3) || eotf_code < EOTF_SRGB || eotf_code > EOTF_GAMMA)
+      (channels != 1 && channels != 3) || eotf_code < EOTF_SRGB || eotf_code > EOTF_GAMMA ||
+      mode < MODE_TAIL || mode > MODE_HEAD || (mode != MODE_REPLICATE && (!pad_t || !pad_r)))
     return (int)cudaErrorInvalidValue;
   IngestParams P;
   P.eotf = eotf_code;
@@ -236,22 +269,23 @@ CVVDP_API int cvvdp_ingest(const float* tail_t, const float* tail_r,
   for (int k = 0; k < 4 * fl; ++k) P.filt[k] = filt[k];
   P.fl = fl;
   P.blk = blk;
+  P.mode = mode;
   P.hw = hw;
   const size_t smem = (size_t)fl * 3 * INGEST_THREADS * sizeof(float);
   dim3 grid(ceil_div_u(hw, INGEST_THREADS), 2, batch);
   cudaStream_t st = (cudaStream_t)stream;
   switch (src_type) {
     case SRC_U8:
-      launch<uint8_t>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      launch<uint8_t>(grid, smem, st, pad_t, pad_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
       break;
     case SRC_U16:
-      launch<uint16_t>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      launch<uint16_t>(grid, smem, st, pad_t, pad_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
       break;
     case SRC_F16:
-      launch<__half>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      launch<__half>(grid, smem, st, pad_t, pad_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
       break;
     case SRC_F32:
-      launch<float>(grid, smem, st, tail_t, tail_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
+      launch<float>(grid, smem, st, pad_t, pad_r, raw_t, raw_r, out, ntail_t, ntail_r, P);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -36,3 +36,12 @@ class vq_metric:
         else:
             self.display_geometry = display_geometry
         self.pix_per_deg = self.display_geometry.get_ppd()
+
+
+# Metric classes by name (the JAX package's registry; the CLI looks metrics up
+# by ``short_name`` with "-" for "_").
+vq_metric_dict = {}
+
+
+def register_metric(metric_class):
+    vq_metric_dict[metric_class.__name__] = metric_class

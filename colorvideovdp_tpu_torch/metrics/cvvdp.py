@@ -49,7 +49,7 @@ from ..ops.pyramid import (LaplacianPyramid, LogContrastPyramid, WeberContrastPy
                            gausspyr_expand)
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import config_files, json2dict
-from .base import vq_exception, vq_metric
+from .base import register_metric, vq_exception, vq_metric
 
 # Host memory budget (bytes) for the block-size model on the CPU when
 # ``gpu_mem`` is unset (the reference metric assumes the same 4 GB).
@@ -504,3 +504,6 @@ class cvvdp(vq_metric):
         from ..viz import export_distogram
 
         export_distogram(self, stats, fname, jod_max=jod_max, base_size=base_size)
+
+
+register_metric(cvvdp)

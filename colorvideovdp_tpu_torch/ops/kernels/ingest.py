@@ -1,14 +1,18 @@
 """Video front end: raw frames -> DKL -> four temporal channels, T/R interleaved.
 
-Replaces ``colorvideovdp_tpu/ops/kernels/ingest.py:322`` (``make_ingest_fn``
-in "tail" mode). Kernel: ``csrc/ingest.cu``, one thread per pixel and
-source and batch item; it converts every buffer slot to the metric colour
-space once (DKLd65, or logLMS_DKLd65 for the log contrast, which the JAX
-package computes in XLA rather than in its Pallas kernel) and is
-bound by memory (raw bytes and the carried tail in, the (B, 8, blk, H, W)
-block and the next tail out). Both the kernel and ``ingest_plain``, the same
-chain in plain PyTorch, take any batch, uint8 / uint16 / float16 / float32
-frames and 3-channel or luminance-only content.
+Replaces ``colorvideovdp_tpu/ops/kernels/ingest.py:322`` (``make_ingest_fn``)
+in its three modes: "tail" (``ingest``: the fl-1 frames of the metric colour
+space carried from the previous block), and the first block's "replicate"
+(``ingest_replicate``: frame 0 repeated) and "head" (``ingest_head``: fl-1
+raw head frames, the symmetric padding). Kernel: ``csrc/ingest.cu``, one
+thread per pixel and source and batch item; it converts every buffer slot to
+the metric colour space once (DKLd65, or logLMS_DKLd65 for the log contrast,
+which the JAX package computes in XLA rather than in its Pallas kernel) and
+is bound by memory (raw bytes and the carried tail or the raw head in, the
+(B, 8, blk, H, W) block and the next tail out). The kernel and the plain
+versions (``ingest_plain``, ``ingest_first_plain``, the same chain in plain
+PyTorch) take any batch, uint8 / uint16 / float16 / float32 frames and
+3-channel or luminance-only content.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from . import _build
 _EOTF_CODES = {"sRGB": 0, "PQ": 1, "linear": 2, "HLG": 3, "gamma": 4}
 # Metric colour space -> the kernel's log_lms flag.
 _COLORSPACES = {"DKLd65": 0, "logLMS_DKLd65": 1}
+# The kernel's PadMode: where the fl-1 slots before the new frames come from.
+_TAIL, _REPLICATE, _HEAD = 0, 1, 2
 # Source dtype -> the kernel's SrcType (int16 carries uint16 bits).
 _SRC_TYPES = {torch.uint8: 0, torch.int16: 1, torch.uint16: 1, torch.float16: 2,
               torch.float32: 3}
@@ -56,16 +62,36 @@ def interleave_tr(T: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return torch.stack([T, R], dim=2).reshape((B, 2 * C) + tuple(T.shape[2:]))
 
 
-def ingest_plain(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
-    """tails (B, 3, fl-1, H, W) DKL; raws (B, blk, C, H, W) source frames.
-    Returns (R (B, 8, blk, H, W), next tail_t, next tail_r)."""
+def _fir(pads, news, filt):
+    """The temporal FIR over [pad, new] per source; returns (R, next tail_t,
+    next tail_r)."""
     outs, tails = [], []
-    for tail, raw in ((tail_t, raw_t), (tail_r, raw_r)):
-        new = raw_to_met(dm, raw, colorspace)
-        buf = torch.cat([tail, new], dim=2)
+    for pad, new in zip(pads, news):
+        buf = torch.cat([pad, new], dim=2)
         outs.append(apply_temporal_filters(buf, filt))
         tails.append(buf[:, :, new.shape[2]:].contiguous())
     return interleave_tr(outs[0], outs[1]), tails[0], tails[1]
+
+
+def ingest_plain(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
+    """tails (B, 3, fl-1, H, W) DKL; raws (B, blk, C, H, W) source frames.
+    Returns (R (B, 8, blk, H, W), next tail_t, next tail_r)."""
+    news = [raw_to_met(dm, raw, colorspace) for raw in (raw_t, raw_r)]
+    return _fir((tail_t, tail_r), news, filt)
+
+
+def ingest_first_plain(raw_t, raw_r, dm, filt, colorspace="DKLd65", head_t=None, head_r=None):
+    """The first block: its fl-1 padding frames are frame 0 repeated
+    ("replicate"), or the raw (B, fl-1, C, H, W) head frames converted as the
+    new ones are ("head", when ``head_t`` and ``head_r`` are given). Returns
+    what ``ingest_plain`` returns."""
+    fl = np.asarray(filt).shape[1]
+    news = [raw_to_met(dm, raw, colorspace) for raw in (raw_t, raw_r)]
+    if head_t is None:
+        pads = [new[:, :, :1].expand(-1, -1, fl - 1, -1, -1) for new in news]
+    else:
+        pads = [raw_to_met(dm, head, colorspace) for head in (head_t, head_r)]
+    return _fir(pads, news, filt)
 
 
 def _eotf_name(dm):
@@ -87,11 +113,9 @@ def _display_consts(dm):
                           np.float32)
 
 
-def ingest(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
-    """CPU tensors take ``ingest_plain``; CUDA tensors launch the kernel, or
-    raise where it does not apply."""
-    if raw_t.device.type == "cpu":
-        return ingest_plain(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace)
+def _launch(mode, pad_t, pad_r, raw_t, raw_r, dm, filt, colorspace):
+    """Check the raws and launch ``cvvdp_ingest`` in ``mode``; the caller has
+    checked the pads. Returns (R, next tail_t, next tail_r)."""
     if colorspace not in _COLORSPACES or not isinstance(dm, vvdp_display_photo_eotf) \
             or _eotf_name(dm) not in _EOTF_CODES:
         raise ValueError(f"ingest: no kernel for colour space {colorspace} "
@@ -99,33 +123,74 @@ def ingest(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
     if raw_t.dtype not in _SRC_TYPES:
         raise ValueError(f"ingest: unsupported frame dtype {raw_t.dtype}")
     _build.require_cuda("ingest", raw_t, raw_r, dtype=raw_t.dtype)
-    _build.require_cuda("ingest", tail_t, tail_r)
     B, blk, C, H, W = raw_t.shape
-    filt = np.ascontiguousarray(filt, np.float32)
     fl = filt.shape[1]
-    if C not in (1, 3) or tuple(raw_r.shape) != tuple(raw_t.shape) \
-            or tuple(tail_t.shape) != (B, 3, fl - 1, H, W) \
-            or tuple(tail_r.shape) != (B, 3, fl - 1, H, W) or filt.shape[0] != 4:
-        raise ValueError("ingest: shape mismatch between raws, tails and taps")
+    if C not in (1, 3) or tuple(raw_r.shape) != tuple(raw_t.shape) or filt.shape[0] != 4:
+        raise ValueError("ingest: shape mismatch between raws and taps")
     eotf, consts = _display_consts(dm)
     log_lms = _COLORSPACES[colorspace]
     M = np.ascontiguousarray(dm.rgb2lms() if log_lms else dm.rgb2dkl())
     M2 = np.ascontiguousarray(cs.LMS2006_to_DKLd65, np.float32)
     dev = raw_t.device
     out = torch.empty((B, 8, blk, H, W), dtype=torch.float32, device=dev)
-    new_t = torch.empty_like(tail_t)
-    new_r = torch.empty_like(tail_r)
+    new_t = torch.empty((B, 3, fl - 1, H, W), dtype=torch.float32, device=dev)
+    new_r = torch.empty_like(new_t)
     lib = _build.library()
     rc = lib.cvvdp_ingest(
-        tail_t.data_ptr(), tail_r.data_ptr(), raw_t.data_ptr(), raw_r.data_ptr(),
+        mode, None if pad_t is None else pad_t.data_ptr(),
+        None if pad_r is None else pad_r.data_ptr(), raw_t.data_ptr(), raw_r.data_ptr(),
         out.data_ptr(), new_t.data_ptr(), new_r.data_ptr(), B, blk, C, fl, H * W,
         _SRC_TYPES[raw_t.dtype], _EOTF_CODES[eotf],
         consts.ctypes.data, M.ctypes.data, log_lms, M2.ctypes.data, filt.ctypes.data,
         _build.stream_handle(dev))
     _build.check_cuda(rc, "cvvdp_ingest")
-    ingest.launches += 1
     return out, new_t, new_r
 
 
-ingest.launches = 0
+def ingest(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
+    """Tail mode. CPU tensors take ``ingest_plain``; CUDA tensors launch the
+    kernel, or raise where it does not apply."""
+    if raw_t.device.type == "cpu":
+        return ingest_plain(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace)
+    filt = np.ascontiguousarray(filt, np.float32)
+    _build.require_cuda("ingest", tail_t, tail_r)
+    B, _, _, H, W = raw_t.shape
+    for tail in (tail_t, tail_r):
+        if tuple(tail.shape) != (B, 3, filt.shape[1] - 1, H, W):
+            raise ValueError("ingest: shape mismatch between raws, tails and taps")
+    out = _launch(_TAIL, tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace)
+    ingest.launches += 1
+    return out
 
+
+def ingest_replicate(raw_t, raw_r, dm, filt, colorspace="DKLd65"):
+    """The first block with replicate padding (frame 0 repeated fl-1 times).
+    CPU tensors take ``ingest_first_plain``; CUDA tensors launch the kernel."""
+    if raw_t.device.type == "cpu":
+        return ingest_first_plain(raw_t, raw_r, dm, filt, colorspace)
+    filt = np.ascontiguousarray(filt, np.float32)
+    out = _launch(_REPLICATE, None, None, raw_t, raw_r, dm, filt, colorspace)
+    ingest_replicate.launches += 1
+    return out
+
+
+def ingest_head(head_t, head_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
+    """The first block with symmetric padding: ``head_t``/``head_r`` are the
+    raw (B, fl-1, C, H, W) head frames in the raws' dtype. CPU tensors take
+    ``ingest_first_plain``; CUDA tensors launch the kernel."""
+    if raw_t.device.type == "cpu":
+        return ingest_first_plain(raw_t, raw_r, dm, filt, colorspace, head_t, head_r)
+    filt = np.ascontiguousarray(filt, np.float32)
+    _build.require_cuda("ingest", head_t, head_r, dtype=raw_t.dtype)
+    B, _, C, H, W = raw_t.shape
+    for head in (head_t, head_r):
+        if tuple(head.shape) != (B, filt.shape[1] - 1, C, H, W):
+            raise ValueError("ingest: shape mismatch between raws, heads and taps")
+    out = _launch(_HEAD, head_t, head_r, raw_t, raw_r, dm, filt, colorspace)
+    ingest_head.launches += 1
+    return out
+
+
+ingest.launches = 0
+ingest_replicate.launches = 0
+ingest_head.launches = 0

@@ -356,3 +356,105 @@ def test_weber_g0_ref_loss_kernels_match_plain(dev, tmp_path):
         out.append((float(v.detach()), g))
     assert abs(out[0][0] - out[1][0]) <= 1e-4
     assert _rel(out[0][1], out[1][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["replicate", "head"])
+@pytest.mark.parametrize("case", ["sdr-uint8", "pq-uint16-batch2", "hlg-luminance",
+                                  "log-lms", "float16"])
+def test_ingest_first_modes_kernel(dev, mode, case):
+    """The first block's replicate and head modes against
+    ``ingest_first_plain`` (1e-5 per plane) and against the kernel's other
+    modes, which convert every frame the same way: replicate gives the bits
+    of head mode fed frame 0 as every head, and a head block split in two
+    (head mode, then tail mode on its tails) gives the bits of one launch."""
+    display, dtype, B, C, cs = {
+        "sdr-uint8": ("standard_4k", np.uint8, 1, 3, "DKLd65"),
+        "pq-uint16-batch2": ("standard_hdr_pq", np.uint16, 2, 3, "DKLd65"),
+        "hlg-luminance": ("standard_hdr_hlg", np.uint16, 1, 1, "DKLd65"),
+        "log-lms": ("standard_4k", np.uint8, 1, 3, "logLMS_DKLd65"),
+        "float16": ("standard_hdr_pq", np.float16, 1, 3, "DKLd65"),
+    }[case]
+    m = ct.cvvdp(display_name=display, device="cuda")
+    dm = m.display_photometry
+    F, _ = get_temporal_filters(30, m.sigma_tf, m.beta_tf)
+    filt = np.stack([f[::-1] for f in F])
+    fl = filt.shape[1]
+    rng = np.random.RandomState(6)
+    top = np.iinfo(dtype).max if dtype != np.float16 else 1.0
+
+    def frames(n):
+        return m._upload((rng.rand(B, n, C, 67, 300) * top).astype(dtype))
+
+    raws, heads = [frames(5) for _ in range(2)], [frames(fl - 1) for _ in range(2)]
+    if mode == "head":
+        counter = ing.ingest_head
+        before = counter.launches
+        out = ing.ingest_head(*heads, *raws, dm, filt, cs)
+        ref = ing.ingest_first_plain(*raws, dm, filt, cs, *heads)
+        R1, *tails = ing.ingest_head(*heads, *[r[:, :2].contiguous() for r in raws], dm, filt, cs)
+        R2, *tails2 = ing.ingest(*tails, *[r[:, 2:].contiguous() for r in raws], dm, filt, cs)
+        same = (torch.cat([R1, R2], dim=2), *tails2)
+    else:
+        counter = ing.ingest_replicate
+        before = counter.launches
+        out = ing.ingest_replicate(*raws, dm, filt, cs)
+        ref = ing.ingest_first_plain(*raws, dm, filt, cs)
+        same = ing.ingest_head(*[r[:, :1].expand(-1, fl - 1, -1, -1, -1).contiguous()
+                                 for r in raws], *raws, dm, filt, cs)
+    assert counter.launches == before + (1 if mode == "replicate" else 2)
+    for a, b, c in zip(out, ref, same):
+        assert a.shape == b.shape
+        assert _rel_planes(a, b) <= 1e-5
+        assert torch.equal(a, c)
+
+
+def _responsive_ml_weights(m, seed):
+    """The metric's random weights with biases shifted and the MLPs' last
+    layers made non-negative, so that both saliency MLPs respond."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, v in m.ml_weights().items():
+        if k in ("feature_net.9.weight", "att_net.12.weight"):
+            v = np.abs(v)
+        elif k.endswith("bias"):
+            v = v + rng.uniform(-0.3, 0.3, v.shape)
+        out[k] = v.astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("family,case", [("saliency", "replicate"),
+                                         ("transformer", "symmetric"),
+                                         ("transformer", "image")])
+def test_ml_metrics_kernels_match_plain(dev, family, case):
+    """predict with the ML metrics, kernels against plain: 7 frames in blocks
+    of 3, 3 and 1(+2), or one image."""
+    cls = {"saliency": ct.cvvdp_ml_saliency, "transformer": ct.cvvdp_ml_transformer}[family]
+    rng = np.random.RandomState(8)
+    ref = (rng.rand(96, 320, 3, 7) * 255).astype(np.uint8)
+    test = np.clip(ref.astype(np.int16) + (rng.randn(*ref.shape) * 10).astype(np.int16),
+                   0, 255).astype(np.uint8)
+    kw = dict(dim_order="HWCF", frames_per_second=30)
+    if case == "image":
+        test, ref, kw = test[..., 0], ref[..., 0], dict(dim_order="HWC")
+    pix = 96 * 320
+    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 3.5) / 1e9  # 3-frame blocks
+    first = ing.ingest_head if case == "symmetric" else ing.ingest_replicate
+    counters = [pyramid_reduce, lut.csf_lut, bl.blur]
+    if case != "image":
+        counters += [first, ing.ingest]
+    weights = None
+    jods = []
+    for fused in (True, False):
+        m = cls(display_name="standard_4k", device="cuda", random_init=True, gpu_mem=gpu_mem,
+                temp_padding="symmetric" if case == "symmetric" else "replicate")
+        weights = weights or _responsive_ml_weights(m, 9)
+        m.load_weights(weights)
+        m.enable_fused_kernels = fused
+        before = [f.launches for f in counters]
+        Q, st = m.predict(test, ref, **kw)
+        grew = [f.launches > b for f, b in zip(counters, before)]
+        assert all(grew) if fused else not any(grew)
+        assert st["block_N_frames"] == (1 if case == "image" else 3)
+        jods.append(float(Q))
+    assert abs(10.0 - jods[1]) > 1e-3
+    assert abs(jods[0] - jods[1]) <= 1e-4 * max(1.0, abs(10.0 - jods[1])), jods

@@ -27,9 +27,13 @@ assert np.isfinite(float(Q)), float(Q)
 _, st = ct.cvvdp(display_name="standard_4k", device="cpu", heatmap="supra-threshold").predict(
     test[..., 0], ref[..., 0], dim_order="HWC")
 assert st["heatmap"].shape == (1, 3, 1, 16, 128)
+Q_ml, _ = ct.cvvdp_ml_transformer(display_name="standard_4k", device="cpu",
+                                  random_init=True).predict(
+    test, ref, dim_order="HWCF", frames_per_second=30)
+assert np.isfinite(float(Q_ml)), float(Q_ml)
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("colorvideovdp_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
-print("JOD", float(Q))
+print("JOD", float(Q), float(Q_ml))
 """
 
 
