@@ -3,7 +3,9 @@
 Run from the repository root with ``python3 chip_smoke.py``. It needs one
 CUDA card and ``nvcc``; it builds the kernels from ``csrc/`` itself.
 
-Phase 0  card, power limit, torch and CUDA versions; TF32 must be off.
+Phase 0  card, power limit, torch and CUDA versions; constructing a metric
+         must leave the TF32 flags as they were, and inside a metric call
+         (``_process_block``) both must be off.
 Phase 1  build the kernel library.
 Phase 2  every kernel against its plain PyTorch version on the card, at the
          shapes the 4K main path gives it (the first block of the 4K clip),
@@ -75,6 +77,28 @@ Phase 8  the ColorVideoVDP-ML metrics. First the ingest kernel's first-block
          time, peak memory and the split between trunk, feature pooling and
          head.
 
+Phase 9  the band mega-kernel route (``use_band_mega``). First the fused
+         mode of the band kernel, pooled (``band_fused``) and D
+         (``band_fused_d``), against its plain version and against the
+         default raw-pair route fed the plain expand, at 4K band 0
+         (1, 8, 8, 2160, 3840) and at an off-grid 1081x1921 band; its time
+         beside the default route's (plain expand + ``band_masking``).
+         Then ``predict`` on the phase-6 12-frame 4K content (BFCHW, 8-frame
+         blocks) with ``use_band_mega``, pooled and with heatmap "raw",
+         kernels then plain, against the default route: JODs within 1e-3
+         (kernels vs plain) and 1e-4 (vs the default route), the heatmap
+         within 1.1e-3; the fused mode must launch once per block (band 0,
+         the one 4K band the gate admits). Then a B = 1
+         ``get_loss_fn(2160, 3840)`` step on standard_4k with
+         ``use_band_mega``: loss within 1e-4 and gradient within 1e-4 of
+         max|g| against plain and against the default route.
+Phase 10 the interleave micro-benchmark
+         (``colorvideovdp_tpu_torch/tools/interleave_bench.py``) at its shape
+         (48, 2160, 3840): interleave, concat and de-interleave bit for bit
+         against their plain versions, then timed against their plain
+         versions, the PyTorch calls that compute them, the copy floor and
+         the bound.
+
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
 read once, each output written once) over the HBM rate and its float32
@@ -101,7 +125,8 @@ CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 1e-5,
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
        "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
-       "ingest_replicate": 1e-5, "ingest_head": 1e-5}
+       "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
+       "interleave": 0.0, "concat": 0.0, "deinterleave": 0.0}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # Training step bounds (phase 5): kernels against plain on the card.
@@ -111,6 +136,8 @@ LOSS_TOL, GRAD_TOL = 1e-4, 1e-4
 HEATMAP_TOL, HEATMAP_JOD_TOL = 1.1e-3, 1e-4
 # ML metrics (phase 8): kernels against plain.
 ML_JOD_TOL = 1e-3
+# The mega-kernel route (phase 9): JOD against the default route.
+MEGA_JOD_TOL = 1e-4
 
 
 def log(*args):
@@ -768,6 +795,214 @@ def phase_ml(m, fps, record, counters, gen):
     return launches
 
 
+def phase_mega(m, fps, record, counters, gen):
+    """Phase 9; returns the kernels' launch counts per path."""
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch.ops import pyramid as pyr
+    from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
+    from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
+    from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
+    from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
+
+    dev = torch.device("cuda")
+    H, W, N, blk = 2160, 3840, 12, 8
+    t_phase = time.time()
+    launches = {}
+
+    # The fused mode against its plain version and against the default
+    # raw-pair route fed the plain expand (these launches are not counted):
+    # 4K band 0 of an 8-frame block, and an off-grid band called directly.
+    dm = m.display_photometry
+    F_taps, _ = get_temporal_filters(fps, m.sigma_tf, m.beta_tf, m.temp_filter)
+    filt = np.stack([f[::-1] for f in F_taps])
+    raws = [torch.randint(0, 256, (1, blk, 3, H, W), dtype=torch.uint8, device=dev,
+                          generator=gen) for _ in range(2)]
+    tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, m.filter_len - 1, -1, -1)
+             .contiguous() for r in raws]
+    gi = ingest.ingest(tails[0], tails[1], raws[0], raws[1], dm, filt)[0]
+    del raws, tails
+    m._ensure_pyramids(W, H)
+    consts, luts = m._band_tables(4)
+    cases = [("4K band 0", gi, prd.pyramid_reduce(gi), luts[0], 1.0)]
+    g_off = torch.rand((1, 8, 2, 1081, 1921), device=dev, generator=gen) * 40 + 10
+    cases.append(("off-grid", g_off, prd.pyramid_reduce(g_off), luts[1], 2.0))
+    errs = {"band_fused": [0.0, 0.0], "band_fused_d": [0.0, 0.0]}
+    for note, g, gn, lut, mul in cases:
+        E = pyr.gausspyr_expand(gn, g.shape[-2:])
+        args = (g, gn, lut, mul, consts)
+        s_k = bf.band_fused(*args)
+        s_r = masking_fused.band_masking([g], [E], lut[None], [mul], consts)[0]
+        s_p = bf.band_fused_plain(*args)
+        h, w = g.shape[-2:]
+        q_k, q_r, q_p = (masking_fused.pooled_norm(x, h, w, m.beta) for x in (s_k, s_r, s_p))
+        D_k = bf.band_fused_d(*args)
+        D_r = masking_fused.band_masking_d([g], [E], lut[None], [mul], consts)[0]
+        D_p = bf.band_fused_d_plain(*args)
+        d_route = (max_abs(q_k, q_r), max_abs(D_k, D_r))
+        log(f"  mega {note} {tuple(g.shape)}: |fused - default route fed plain E| pooled "
+            f"{d_route[0]:.3e}, D {d_route[1]:.3e} (expected 0)")
+        check(f"band_fused {note} vs the default route", max(d_route), 0.0)
+        err_s, err_d = rel_err_per(q_k, q_p, 1), rel_err_per(D_k, D_p, 1)
+        check(f"band_fused {note}", err_s, TOL["band_fused"])
+        check(f"band_fused_d {note}", err_d, TOL["band_fused_d"])
+        for key, e, a in (("band_fused", err_s, max_abs(q_k, q_p)),
+                          ("band_fused_d", err_d, max_abs(D_k, D_p))):
+            errs[key] = [max(errs[key][0], e), max(errs[key][1], a)]
+        if note == "4K band 0":
+            args0, E0, D0 = args, E, D_k
+        del E, s_k, s_r, s_p, D_k, D_r, D_p
+    del cases, g_off
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    g, gn, lut = args0[0], args0[1], args0[2]
+    # Bytes: the 2C planes of gi and the 2C quarter planes of gn read once,
+    # C pooled floats (or the C planes of D) written. Operations per pixel
+    # and channel about 115: the default route's ~95 plus the expand of two
+    # planes (~10 per sample each).
+    n_ops = 115 * g.numel() // 2
+    b_s = bound(nbytes(g, gn, lut) + 4 * 4 * blk, n_ops)
+    b_d = bound(nbytes(g, gn, lut, D0), n_ops)
+    del D0
+    route_s = time_ms(lambda: masking_fused.band_masking(
+        [g], [pyr.gausspyr_expand(gn, (H, W))], lut[None], [1.0], consts))
+    route_d = time_ms(lambda: masking_fused.band_masking_d(
+        [g], [pyr.gausspyr_expand(gn, (H, W))], lut[None], [1.0], consts))
+    k_s = time_ms(lambda: bf.band_fused(*args0))
+    k_d = time_ms(lambda: bf.band_fused_d(*args0))
+    expand_ms = time_ms(lambda: pyr.gausspyr_expand(gn, (H, W)))
+    log(f"phase 9: 4K band 0 {tuple(g.shape)}: fused pooled {k_s:.3f} ms, D {k_d:.3f} ms; "
+        f"default route (plain expand {expand_ms:.3f} ms + band_masking) pooled "
+        f"{route_s:.3f} ms, D {route_d:.3f} ms")
+    record("band_fused", *errs["band_fused"], k_s, time_ms(lambda: bf.band_fused_plain(*args0)),
+           b_s)
+    record("band_fused_d", *errs["band_fused_d"], k_d,
+           time_ms(lambda: bf.band_fused_d_plain(*args0)), b_d)
+    del args0, E0, g, gn, gi
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # predict with the mega route, pooled and with a raw heatmap, against
+    # plain and against the default route.
+    pix = H * W
+    gpu_mem = (1.6e9 + pix * (m.filter_len - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
+    V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
+    V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
+    res = {}
+    for hm in (None, "raw"):
+        for mega, fused in ((True, True), (True, False), (False, True)):
+            mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                           heatmap=hm, gpu_mem=gpu_mem)
+            mv.use_band_mega, mv.enable_fused_kernels = mega, fused
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.time()
+            Q, st = mv.predict(V_test, V_ref, dim_order="BFCHW", frames_per_second=fps)
+            jod = float(Q)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            counts = {k: fn.launches for k, fn in counters.items()}
+            path = f"mega_{'heatmap_' if hm else ''}4k_video"
+            if mega and fused:
+                launches[path] = counts
+            res[(hm, mega, fused)] = (jod, st.get("heatmap"), st["block_N_frames"])
+            log(f"phase 9: {'mega   ' if mega else 'default'} {'kernels' if fused else 'plain  '}"
+                f" heatmap {hm}: JOD {jod:.6f}, blk {st['block_N_frames']}, {dt:.3f} s, peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+        (jk, hk, bk), (jp, hp, _), (jd, hd, _) = (res[(hm, True, True)], res[(hm, True, False)],
+                                                   res[(hm, False, True)])
+        key = "band_fused_d" if hm else "band_fused"
+        n_blocks = -(-N // bk)
+        log(f"phase 9: heatmap {hm}: |JOD mega kernels - plain| {abs(jk - jp):.2e}, "
+            f"|JOD mega - default route| {abs(jk - jd):.2e} (tolerance {MEGA_JOD_TOL:.0e}), "
+            f"{key} launches {launches[path][key]} for {n_blocks} blocks")
+        if not (math.isfinite(jk) and abs(jk - jp) <= 1e-3 and abs(jk - jd) <= MEGA_JOD_TOL):
+            raise AssertionError(f"mega route heatmap {hm}: JODs {jk}, {jp}, {jd} disagree")
+        if launches[path][key] != n_blocks:
+            raise AssertionError(f"{key} launched {launches[path][key]} times for {n_blocks} blocks")
+        if hm:
+            d_hm = max(float(np.abs(hk.astype(np.float32) - h2.astype(np.float32)).max())
+                       for h2 in (hp, hd))
+            log(f"phase 9: mega heatmap max |kernels - plain or default route| {d_hm:.3e} "
+                f"(tolerance {HEATMAP_TOL:.1e})")
+            if not d_hm <= HEATMAP_TOL:
+                raise AssertionError("mega route heatmap disagrees")
+    del V_test, V_ref, res
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # A 4K training step with the mega route.
+    rng = np.random.RandomState(11)
+    ref_np = rng.rand(1, 3, 1, H, W).astype(np.float32)
+    test_np = np.clip(ref_np + rng.randn(*ref_np.shape).astype(np.float32) * 0.1, 0, 1)
+    ref_t, test_t = torch.from_numpy(ref_np).to(dev), torch.from_numpy(test_np).to(dev)
+    del ref_np, test_np
+    out = {}
+    for mega, fused in ((True, True), (True, False), (False, True)):
+        mt = cvt.cvvdp(display_name="standard_4k", device="cuda", quiet=True)
+        mt.use_band_mega, mt.enable_fused_kernels = mega, fused
+        loss_fn = mt.get_loss_fn(H, W)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.time()
+        x = test_t.clone().requires_grad_()
+        v = loss_fn(x, ref_t)
+        (gx,) = torch.autograd.grad(v, x)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        out[(mega, fused)] = (float(v.detach()), gx)
+        if mega and fused:
+            launches["mega_train_4k_image"] = {k: fn.launches for k, fn in counters.items()}
+        log(f"phase 9: 4K training step {'mega   ' if mega else 'default'} "
+            f"{'kernels' if fused else 'plain  '}: loss {float(v.detach()):.6f}, {dt:.3f} s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del loss_fn, mt, x, v
+    (vk, gk) = out[(True, True)]
+    if not (torch.isfinite(gk).all() and gk.abs().max() > 0):
+        raise AssertionError("mega training gradient is not finite and non-zero")
+    for key, name in (((True, False), "plain"), ((False, True), "the default route")):
+        d_loss = abs(vk - out[key][0])
+        d_grad = float((gk - out[key][1]).abs().max() / out[key][1].abs().max())
+        log(f"phase 9: mega training step vs {name}: |dloss| {d_loss:.3e}, max |dgrad| / max "
+            f"|grad| {d_grad:.3e} (tolerances {LOSS_TOL:.0e}, {GRAD_TOL:.0e})")
+        if not (d_loss <= LOSS_TOL and d_grad <= GRAD_TOL):
+            raise AssertionError(f"mega training step disagrees with {name}")
+    # Once in the forward, once in the checkpointed block's recompute.
+    if launches["mega_train_4k_image"]["band_fused"] != 2:
+        raise AssertionError(f"band_fused launched {launches['mega_train_4k_image']['band_fused']}"
+                             " times on the training step, not 2")
+    log(f"phase 9: {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def phase_interleave(record, counters):
+    """Phase 10; returns the kernels' launch counts of the timed run."""
+    from colorvideovdp_tpu_torch.tools import interleave_bench as ib
+
+    t_phase = time.time()
+    ev, od, x = ib.make_inputs(*ib.SHAPE, "cuda")
+    errs = ib.check(ev, od, x)  # raises unless bit-equal (not counted)
+    for fn in counters.values():
+        fn.launches = 0
+    rows_i = ib.measure(ev, od, x)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    for name, r in rows_i.items():
+        log(f"  {name} {ib.SHAPE}: copy floor {r['copy_floor_ms']:.3f} ms, {r['gb_per_s']:.0f} GB/s")
+        record(name, errs[name], errs[name], r["ms"], r["plain_ms"],
+               (r["bound_ms"], r["bound_by"]), r["library_ms"])
+    del ev, od, x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.time() - t_phase:.1f} s")
+    return {"interleave_bench": counts}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -776,7 +1011,9 @@ def main():
     from colorvideovdp_tpu_torch.ops import pyramid as pyr
     from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
     from colorvideovdp_tpu_torch.ops.kernels import _build, csf_lut, ingest, masking_fused
+    from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
+    from colorvideovdp_tpu_torch.ops.kernels import interleave as il
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
 
     # ---- phase 0 ------------------------------------------------------------
@@ -788,9 +1025,27 @@ def main():
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
     H, W, N, fps = 2160, 3840, 32, 30.0
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
-    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
-    log("phase 0: TF32 off for cuDNN and matmul")
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != flags:
+        raise AssertionError("constructing a metric changed the TF32 flags")
+    seen = []
+    mp = cvt.cvvdp(display_name="standard_4k", device="cuda", quiet=True)
+    inner = mp._process_block
+
+    def probe(*a, **kw):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return inner(*a, **kw)
+
+    mp._process_block = probe
+    img = np.full((64, 64, 3), 128, np.uint8)
+    mp.predict(img, img, dim_order="HWC")
+    if seen != [(False, False)]:
+        raise AssertionError(f"TF32 flags inside the metric call: {seen}")
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != flags:
+        raise AssertionError("a metric call left the TF32 flags changed")
+    log(f"phase 0: TF32 flags (cuDNN, matmul) {flags} unchanged by the metric, off inside it")
+    del mp, probe, inner
 
     # ---- phase 1 ------------------------------------------------------------
     t0 = time.time()
@@ -965,7 +1220,10 @@ def main():
                 "band_masking_d_noblur": masking_fused.band_masking_d_noblur,
                 "band_masking_contrast": masking_fused.band_masking_contrast,
                 "band_masking_contrast_d": masking_fused.band_masking_contrast_d,
-                "ingest_replicate": ingest.ingest_replicate, "ingest_head": ingest.ingest_head}
+                "ingest_replicate": ingest.ingest_replicate, "ingest_head": ingest.ingest_head,
+                "band_fused": bf.band_fused, "band_fused_d": bf.band_fused_d,
+                "interleave": il.interleave, "concat": il.concat,
+                "deinterleave": il.deinterleave}
     score_path = ("ingest", "pyramid_reduce", "band_masking", "csf_lut")
     results = {}
     for fused in (True, False):
@@ -1145,6 +1403,12 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ml_launches = phase_ml(m, fps, record, counters, gen)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mega_launches = phase_mega(m, fps, record, counters, gen)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    il_launches = phase_interleave(record, counters)
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -1166,14 +1430,27 @@ def main():
                                     "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
         "ingest_replicate": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
         "ingest_head": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
+        "band_fused": ("band_masking.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
+        "band_fused_d": ("band_masking.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
+        "interleave": ("interleave.cu", "tools/interleave_bench.py:50"),
+        "concat": ("interleave.cu", "tools/interleave_bench.py:77"),
+        "deinterleave": ("interleave.cu", "tools/interleave_bench.py:109"),
     }
     line = []
     for k, (f, rep) in kernels.items():
         by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k],
                    "heatmap_4k_video_720p_image": heat_launches[k],
                    **{p: c[k] for p, c in config_launches.items()},
-                   **{p: c[k] for p, c in ml_launches.items()}}
-        if k in ("ingest_replicate", "ingest_head"):
+                   **{p: c[k] for p, c in ml_launches.items()},
+                   **{p: c[k] for p, c in mega_launches.items()},
+                   **{p: c[k] for p, c in il_launches.items()}}
+        if k in ("interleave", "concat", "deinterleave"):
+            n_main = il_launches["interleave_bench"][k]
+        elif k == "band_fused":
+            n_main = mega_launches["mega_4k_video"][k]
+        elif k == "band_fused_d":
+            n_main = mega_launches["mega_heatmap_4k_video"][k]
+        elif k in ("ingest_replicate", "ingest_head"):
             n_main = sum(c[k] for c in ml_launches.values())
         elif k == "band_masking_contrast":
             n_main = (config_launches["weber_g0_ref_4k_video"][k]

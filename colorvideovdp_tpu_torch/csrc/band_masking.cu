@@ -13,7 +13,10 @@
 //   masking_fused.py `fused_masking_transducer` (`_kernel_b`, the transducer
 //     on a band whose blur is skipped: here the same stage B with a unit
 //     tap), and
-//   band_stack.py `make_band_stack` (`_stack_kernel`, all narrow bands).
+//   band_stack.py `make_band_stack` (`_stack_kernel`, all narrow bands), and
+//   band_fused.py `band_fused_tpu` (:320, `_band_kernel`, the band
+//     mega-kernel: expand + contrast + CSF + masking + pooling or D in one
+//     pass): the fused mode below.
 // One launch handles a list of up to BM_MAX_BANDS bands of any sizes (per-band
 // LUT rows, sizes and gains come from the band table, so one build serves
 // every band); ops/kernels/masking_fused.py `band_groups` picks the lists.
@@ -47,6 +50,22 @@
 //    partials of the plane are summed in a fixed order. No float atomics, so
 //    the result is deterministic.
 //
+// The fused mode (expand = 1; ops/kernels/band_fused.py): raw pairs with the
+//   next Gaussian level gn in place of E. Stage A does not run; each stage-B
+//   block expands gn over its tile's window (the 32 x 32 tile plus the blur
+//   halo, clipped to the band) in shared memory, rows then columns, rounded
+//   as ops/pyramid.py `_expand_1d` rounds each sample, forms stage A's M_pre
+//   for the window into the blur's input and diff for its own pixels in
+//   registers (raw_pair, shared with stage A), then runs stage B and, pooled,
+//   stage C. Neither E, M_pre nor diff reaches device memory, and the result
+//   is the raw-pair route's fed the plain expand, bit for bit.
+//   Bound on the H100: memory. Per pixel it reads the 2C planes of gi and
+//   the 2C quarter planes of gn (40 B at C = 4) and writes C floats per tile
+//   pooled, or C floats per pixel in D mode (56 B). The halo makes each block
+//   recompute E and M_pre on (32 + 2r)^2 / 32^2 of its pixels, 2.25 times at
+//   r = 8 (the default 13 taps, r = 6: 1.89 times), out of about 74 KB of
+//   shared memory a block.
+//
 // Bound on the H100: memory. Stage A reads 16 floats per pixel (C = 4) and
 // writes 8 (raw pairs; contrast bands read 9); stage B reads the 8 again
 // (halo re-reads of M_pre hit L2) and writes C floats per tile, or C per
@@ -68,7 +87,7 @@
 
 struct BandDesc {
   const float* gi;
-  const float* E;
+  const float* E;  // expand mode: gn, (B, 2C, F, ceil(h/2), ceil(w/2))
   float* mpre;
   float* diff;
   float* D;  // D mode: (B, C, F, h, w) output
@@ -91,6 +110,8 @@ struct BandParams {
   float gains[BM_MAX_C];    // raw pairs: ch_gain x sens_corr, rounded once
   int ref_only;
   int contrast;             // stage A input: 0 raw pairs, 1 contrast bands
+  int expand;               // 1: raw pairs with gn in E's slot (fused mode)
+  float ek[5];              // expand taps, 2 * K5
   float qs[BM_MAX_C];
   float p;
   float xcm[BM_MAX_C * BM_MAX_C];  // 2^xcm_weights, [c][d]
@@ -112,6 +133,23 @@ __device__ __forceinline__ int band_of(const BandParams& P, long long idx,
 }
 
 __device__ __forceinline__ float min1000(float x) { return x > 1000.0f ? 1000.0f : x; }
+
+// Stage A on raw pairs at one pixel, shared by stage A and the fused mode so
+// that the two give the same bits; every product and quotient is rounded on
+// its own. S_c = 10^lut_c(ind) * (gain_c * band_mul);
+// T/R = min((gi - E) / lb, 1000) * S_c; M_pre = min(|T|, |R|); diff = |T - R|.
+__device__ __forceinline__ float raw_sensitivity(const float* lut, int nk, float ind,
+                                                 float gain, float mul) {
+  return __fmul_rn(pow10_lut(lut_lerp(lut, nk, ind)), __fmul_rn(gain, mul));
+}
+
+__device__ __forceinline__ void raw_pair(float g_t, float e_t, float g_r, float e_r, float lb_t,
+                                         float lb_r, float S, float& mpre, float& diff) {
+  const float T = __fmul_rn(min1000(__fdiv_rn(__fsub_rn(g_t, e_t), lb_t)), S);
+  const float R = __fmul_rn(min1000(__fdiv_rn(__fsub_rn(g_r, e_r), lb_r)), S);
+  mpre = fminf(fabsf(T), fabsf(R));
+  diff = fabsf(__fsub_rn(T, R));
+}
 
 __global__ void band_stage_a(BandParams P) {
   const int bi = band_of(P, blockIdx.x, 0);
@@ -146,15 +184,70 @@ __global__ void band_stage_a(BandParams P) {
   const float lb_t = P.ref_only ? lb_r : fmaxf(d.E[in0], 0.01f);
   const float ind = lut_index(log10f(lb_r), P.x0, P.lut_scale, P.nk);
   for (int c = 0; c < C; ++c) {
-    const float S = pow10_lut(lut_lerp(lut + c * P.nk, P.nk, ind)) * (P.gains[c] * d.mul);
+    const float S = raw_sensitivity(lut + c * P.nk, P.nk, ind, P.gains[c], d.mul);
     const long long it = in0 + (2 * c) * cstride;
     const long long ir = it + cstride;
-    const float T = min1000((d.gi[it] - d.E[it]) / lb_t) * S;
-    const float R = min1000((d.gi[ir] - d.E[ir]) / lb_r) * S;
-    d.mpre[out0 + c * cstride] = fminf(fabsf(T), fabsf(R));
-    d.diff[out0 + c * cstride] = fabsf(T - R);
+    raw_pair(d.gi[it], d.E[it], d.gi[ir], d.E[ir], lb_t, lb_r, S, d.mpre[out0 + c * cstride],
+             d.diff[out0 + c * cstride]);
   }
 }
+
+// The fused mode's expand: E = gausspyr_expand(gn) of one plane over the
+// window of band rows [wy0, wy0 + eh) and columns [wx0, wx0 + ew), into
+// Ew (eh x BF_EW). Rows first, then columns, each output sample rounded as
+// ops/pyramid.py `_expand_1d` rounds it: even ((k0 a + k2 b) + k4 c), odd
+// (k1 a + k3 b), over the edge-clamped samples of gn (the 1-sample
+// replicate pad); an odd band size ends on an even sample. gnw and rexp are
+// shared scratch. Every thread of the block must call it; it ends with
+// __syncthreads().
+#define BF_EW (BM_TH + 2 * BM_R_MAX)  // window side
+#define BF_GW (BF_EW / 2 + 4)         // gn window side (at most BF_EW / 2 + 3)
+
+__device__ __forceinline__ float expand_tap(const float* ek, const float* s, int stride, int y,
+                                            int n, int base) {
+  const int m = y >> 1;
+  if ((y & 1) == 0) {
+    const float a = s[(max(m - 1, 0) - base) * stride];
+    const float b = s[(m - base) * stride];
+    const float c = s[(min(m + 1, n - 1) - base) * stride];
+    return __fadd_rn(__fadd_rn(__fmul_rn(ek[0], a), __fmul_rn(ek[2], b)), __fmul_rn(ek[4], c));
+  }
+  const float a = s[(m - base) * stride];
+  const float b = s[(min(m + 1, n - 1) - base) * stride];
+  return __fadd_rn(__fmul_rn(ek[1], a), __fmul_rn(ek[3], b));
+}
+
+__device__ void expand_window(const float* __restrict__ gn, int hn, int wn, int wy0, int eh,
+                              int wx0, int ew, const float* ek, float* gnw, float* rexp,
+                              float* Ew) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  const int gr0 = max((wy0 >> 1) - 1, 0), gr1 = min(((wy0 + eh - 1) >> 1) + 1, hn - 1);
+  const int gc0 = max((wx0 >> 1) - 1, 0), gc1 = min(((wx0 + ew - 1) >> 1) + 1, wn - 1);
+  const int gh = gr1 - gr0 + 1, gw = gc1 - gc0 + 1;
+  __syncthreads();  // the previous plane's readers are done with the scratch
+  for (int idx = tid; idx < gh * gw; idx += nthr) {
+    const int i = idx / gw, j = idx % gw;
+    gnw[i * BF_GW + j] = gn[(long long)(gr0 + i) * wn + gc0 + j];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < eh * gw; idx += nthr) {
+    const int yy = idx / gw, j = idx % gw;
+    rexp[yy * BF_GW + j] = expand_tap(ek, gnw + j, BF_GW, wy0 + yy, hn, gr0);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < eh * ew; idx += nthr) {
+    const int yy = idx / ew, xx = idx % ew;
+    Ew[yy * BF_EW + xx] = expand_tap(ek, rexp + yy * BF_GW, 1, wx0 + xx, wn, gc0);
+  }
+  __syncthreads();
+}
+
+// Dynamic shared memory of the fused mode: E of the Y pair and of the
+// current channel's pair over the window, the LUT index over the window,
+// the expand scratch and the tile's diff of the current channel.
+#define BF_SMEM_FLOATS \
+  (5 * BF_EW * BF_EW + BF_GW * BF_GW + BF_EW * BF_GW + BM_TH * BM_TW)
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -170,13 +263,20 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;  // valid in thread 0
 }
 
-template <bool D_OUT>
-__global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
+// FUSED: the fused mode (stages A and B in one pass). The block expands gn
+// over its tile's window in shared memory, forms the LUT index of the window
+// once, then per channel M_pre for the tile and its blur halo into `sm` (the
+// samples stage B would read from M_pre) and the tile's diff, through the
+// same raw_pair as stage A; the blur, transducer and epilogue are stage B's
+// code. Registers are capped for two blocks per SM.
+template <bool D_OUT, bool FUSED>
+__global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
     band_stage_b(BandParams P, float* __restrict__ partials) {
   __shared__ float sm[(BM_TH + 2 * BM_R_MAX) * (BM_TW + 2 * BM_R_MAX)];
   __shared__ float tmp[BM_TH * (BM_TW + 2 * BM_R_MAX)];
   __shared__ float s_taps[BM_MAX_TAPS];
   __shared__ float red[32];
+  extern __shared__ float dyn[];  // FUSED: BF_SMEM_FLOATS
 
   const int bi = band_of(P, blockIdx.x, 1);
   const BandDesc& d = P.band[bi];
@@ -196,15 +296,87 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
   if (tid < BM_MAX_TAPS) s_taps[tid] = d.blur ? P.taps[tid] : (tid == 0 ? 1.0f : 0.0f);
 
   float mix[BM_ROWS_PER_THREAD][BM_MAX_C];
+  float dreg[BM_ROWS_PER_THREAD][BM_MAX_C];  // FUSED: diff of own pixels
 #pragma unroll
   for (int k = 0; k < BM_ROWS_PER_THREAD; ++k)
 #pragma unroll
-    for (int dd = 0; dd < BM_MAX_C; ++dd) mix[k][dd] = 0.0f;
+    for (int dd = 0; dd < BM_MAX_C; ++dd) mix[k][dd] = dreg[k][dd] = 0.0f;
+
+  // FUSED: the window of band pixels the tile and its halo read.
+  const int wy0 = max(y0 - r, 0), wy1 = min(y0 + BM_TH + r, h);
+  const int wx0 = max(x0 - r, 0), wx1 = min(x0 + BM_TW + r, w);
+  const int hn = (h + 1) / 2, wn = (w + 1) / 2;
+  float* EY0 = dyn;
+  float* EY1 = EY0 + BF_EW * BF_EW;
+  float* EC0 = EY1 + BF_EW * BF_EW;
+  float* EC1 = EC0 + BF_EW * BF_EW;
+  float* IND = EC1 + BF_EW * BF_EW;
+  float* gnw = IND + BF_EW * BF_EW;
+  float* rexp = gnw + BF_GW * BF_GW;
+  float* sdiff = rexp + BF_EW * BF_GW;
+  auto gi_plane = [&](int k) {
+    return d.gi + (((long long)b * 2 * C + k) * F + f) * hw;
+  };
+  auto expand = [&](int k, float* Ew) {
+    const long long hwn = (long long)hn * wn;
+    expand_window(d.E + (((long long)b * 2 * C + k) * F + f) * hwn, hn, wn, wy0, wy1 - wy0,
+                  wx0, wx1 - wx0, P.ek, gnw, rexp, Ew);
+  };
+  if (FUSED) {
+    expand(0, EY0);
+    expand(1, EY1);
+    const int ew = wx1 - wx0;
+    for (int idx = tid; idx < (wy1 - wy0) * ew; idx += BM_THREADS_X * BM_THREADS_Y) {
+      const int e = (idx / ew) * BF_EW + idx % ew;
+      IND[e] = lut_index(log10f(fmaxf(EY1[e], 0.01f)), P.x0, P.lut_scale, P.nk);
+    }
+  }
 
   for (int c = 0; c < C; ++c) {
-    const float* m = d.mpre + (((long long)b * C + c) * F + f) * hw;
-    __syncthreads();  // previous channel done with sm/tmp; taps visible
-    tile_blur_vertical<BM_TH, BM_TW>(m, h, w, y0, x0, r, s_taps, sm, tmp);
+    if (FUSED) {
+      if (c > 0) {
+        expand(2 * c, EC0);
+        expand(2 * c + 1, EC1);
+      }
+      const float* Et = c == 0 ? EY0 : EC0;
+      const float* Er = c == 0 ? EY1 : EC1;
+      const float* g_t = gi_plane(2 * c);
+      const float* g_r = gi_plane(2 * c + 1);
+      const float* lut = P.luts + ((long long)bi * C + c) * P.nk;
+      __syncthreads();  // previous channel done with sm/tmp/sdiff; taps visible
+      const int SW = BM_TW + 2 * r, SH = BM_TH + 2 * r;
+      for (int idx = tid; idx < SH * SW; idx += BM_THREADS_X * BM_THREADS_Y) {
+        const int yy = idx / SW, xx = idx % SW;
+        // The reflected sample stage B reads; clamped into the window, which
+        // moves only samples that feed rows or columns past the band's edge.
+        const int gy = min(max(reflect_clamp(y0 - r + yy, h), wy0), wy1 - 1);
+        const int gx = min(max(reflect_clamp(x0 - r + xx, w), wx0), wx1 - 1);
+        const int e = (gy - wy0) * BF_EW + (gx - wx0);
+        const float lb_r = fmaxf(EY1[e], 0.01f);
+        const float lb_t = P.ref_only ? lb_r : fmaxf(EY0[e], 0.01f);
+        const float S = raw_sensitivity(lut, P.nk, IND[e], P.gains[c], d.mul);
+        const long long o = (long long)gy * w + gx;
+        float mp, df;
+        raw_pair(g_t[o], Et[e], g_r[o], Er[e], lb_t, lb_r, S, mp, df);
+        sm[idx] = mp;
+        // Tile pixels inside the band sit unreflected at (yy - r, xx - r).
+        const int ty = yy - r, tx = xx - r;
+        if (ty >= 0 && ty < BM_TH && tx >= 0 && tx < BM_TW) sdiff[ty * BM_TW + tx] = df;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < BM_ROWS_PER_THREAD; ++k) {
+        const float df = sdiff[(threadIdx.y + k * BM_THREADS_Y) * BM_TW + threadIdx.x];
+#pragma unroll
+        for (int dd = 0; dd < BM_MAX_C; ++dd)
+          if (dd == c) dreg[k][dd] = df;
+      }
+      tile_blur_vpass<BM_TH, BM_TW>(r, s_taps, sm, tmp);
+    } else {
+      const float* m = d.mpre + (((long long)b * C + c) * F + f) * hw;
+      __syncthreads();  // previous channel done with sm/tmp; taps visible
+      tile_blur_vertical<BM_TH, BM_TW>(m, h, w, y0, x0, r, s_taps, sm, tmp);
+    }
     const float q = P.qs[c];
     const float eps_q = powf(BM_EPS, q);
 #pragma unroll
@@ -230,7 +402,8 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
       for (int dd = 0; dd < BM_MAX_C; ++dd) {
         if (dd >= C) continue;
         const long long o = (((long long)b * C + dd) * F + f) * hw + (long long)gy * w + gx;
-        const float du = (powf(d.diff[o] + BM_EPS, P.p) - eps_p) / (1.0f + mix[k][dd]);
+        const float df = FUSED ? dreg[k][dd] : d.diff[o];
+        const float du = (powf(df + BM_EPS, P.p) - eps_p) / (1.0f + mix[k][dd]);
         d.D[o] = P.max_v * du / (P.max_v + du);
       }
     }
@@ -248,7 +421,9 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
 #pragma unroll
     for (int dd = 0; dd < BM_MAX_C; ++dd) {
       if (dd >= C) continue;
-      const float df = d.diff[(((long long)b * C + dd) * F + f) * hw + (long long)gy * w + gx];
+      const float df = FUSED ? dreg[k][dd]
+                             : d.diff[(((long long)b * C + dd) * F + f) * hw +
+                                      (long long)gy * w + gx];
       const float du = (powf(df + BM_EPS, P.p) - eps_p) / (1.0f + mix[k][dd]);
       const float D = P.max_v * du / (P.max_v + du);
       part[dd] += pow_static(D + BM_EPS, P.beta) - eps_b;
@@ -316,7 +491,10 @@ CVVDP_API long long cvvdp_band_masking_tiles(int n_bands, int B, int F,
 }
 
 // ptrs: n_bands x {gi, E, mpre, diff, D} device pointers (D unused in pooled
-// mode; with contrast = 1 gi is the contrast band and E the logL field);
+// mode; with contrast = 1 gi is the contrast band and E the logL field; with
+// expand = 1, the fused mode, E is gn, the next Gaussian level
+// (B, 2C, F, ceil(h/2), ceil(w/2)), ek its 5 expand taps, and mpre/diff are
+// unused);
 // dims: n_bands x {h, w}; muls, blur: per band (muls unused with contrast =
 // 1); luts: device (n_bands, C, nk); ch_gain, qs: C floats; xcm: C x C
 // floats; taps: ntaps floats. d_out = 0: partials is (tiles, C) scratch and
@@ -327,11 +505,11 @@ CVVDP_API int cvvdp_band_masking(
     int n_bands, int B, int C, int F, int nk, const long long* ptrs,
     const int* dims, const float* muls, const int* blur, const float* luts,
     float x0, float lut_scale, const float* ch_gain, float sens_corr, int ref_only,
-    int contrast, const float* qs, float p, const float* xcm, float max_v, float blur_scale,
-    const float* taps, int ntaps, float beta, int d_out, float* partials, float* out,
-    void* stream) {
+    int contrast, int expand, const float* ek, const float* qs, float p, const float* xcm,
+    float max_v, float blur_scale, const float* taps, int ntaps, float beta, int d_out,
+    float* partials, float* out, void* stream) {
   if (n_bands < 1 || n_bands > BM_MAX_BANDS || C < 1 || C > BM_MAX_C ||
-      ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1)
+      ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1 || (expand && contrast))
     return (int)cudaErrorInvalidValue;
   BandParams P;
   P.n_bands = n_bands;
@@ -356,6 +534,8 @@ CVVDP_API int cvvdp_band_masking(
   P.lut_scale = lut_scale;
   P.ref_only = ref_only;
   P.contrast = contrast;
+  P.expand = expand;
+  for (int k = 0; k < 5; ++k) P.ek[k] = expand ? ek[k] : 0.0f;
   P.sens_corr = sens_corr;
   for (int c = 0; c < BM_MAX_C; ++c) {
     P.ch_gain[c] = c < C ? ch_gain[c] : 0.0f;
@@ -374,16 +554,28 @@ CVVDP_API int cvvdp_band_masking(
     return (int)cudaErrorInvalidValue;
 
   cudaStream_t st = (cudaStream_t)stream;
-  band_stage_a<<<(unsigned int)n_a, 256, 0, st>>>(P);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   const dim3 threads_b(BM_THREADS_X, BM_THREADS_Y);
-  if (d_out) {
-    band_stage_b<true><<<(unsigned int)n_t, threads_b, 0, st>>>(P, nullptr);
-    return (int)cudaGetLastError();
+  cudaError_t e;
+  if (expand) {
+    // Above the 48 KB default with the static arrays: opt in.
+    const int smem = BF_SMEM_FLOATS * (int)sizeof(float);
+    auto kern = d_out ? band_stage_b<true, true> : band_stage_b<false, true>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<(unsigned int)n_t, threads_b, smem, st>>>(P, d_out ? nullptr : partials);
+    e = cudaGetLastError();
+    if (d_out || e != cudaSuccess) return (int)e;
+  } else {
+    band_stage_a<<<(unsigned int)n_a, 256, 0, st>>>(P);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    if (d_out) {
+      band_stage_b<true, false><<<(unsigned int)n_t, threads_b, 0, st>>>(P, nullptr);
+      return (int)cudaGetLastError();
+    }
+    band_stage_b<false, false><<<(unsigned int)n_t, threads_b, 0, st>>>(P, partials);
+    e = cudaGetLastError();
   }
-  band_stage_b<false><<<(unsigned int)n_t, threads_b, 0, st>>>(P, partials);
-  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   band_stage_c<<<(unsigned int)n_p, 256, 0, st>>>(P, partials, out);
   return (int)cudaGetLastError();

@@ -69,8 +69,25 @@ __device__ __forceinline__ int reflect_clamp(int i, int n) {
 // tile_blur_vertical loads the tile plus its r-halo, (TH + 2r) x (TW + 2r),
 // into `sm` through the reflect, then sums the 2r + 1 vertical taps, in tap
 // order, into `tmp` (TH x (TW + 2r)). Every thread of the block must call it;
-// it ends with __syncthreads(). tile_blur_horizontal then sums the
+// it ends with __syncthreads(). tile_blur_vpass is its second half, for a
+// caller that has filled `sm` itself. tile_blur_horizontal then sums the
 // horizontal taps for tile pixel (y, x). `taps` lies in shared memory.
+template <int TH, int TW>
+__device__ __forceinline__ void tile_blur_vpass(int r, const float* taps, const float* sm,
+                                                float* tmp) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  const int SW = TW + 2 * r;
+  const int ntap = 2 * r + 1;
+  for (int idx = tid; idx < TH * SW; idx += nthr) {
+    const int y = idx / SW, x = idx % SW;
+    float acc = 0.0f;
+    for (int k = 0; k < ntap; ++k) acc = mul_add_rn(acc, taps[k], sm[(y + k) * SW + x]);
+    tmp[idx] = acc;
+  }
+  __syncthreads();
+}
+
 template <int TH, int TW>
 __device__ __forceinline__ void tile_blur_vertical(const float* __restrict__ plane, int h,
                                                    int w, int y0, int x0, int r,
@@ -79,7 +96,6 @@ __device__ __forceinline__ void tile_blur_vertical(const float* __restrict__ pla
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthr = blockDim.x * blockDim.y;
   const int SW = TW + 2 * r, SH = TH + 2 * r;
-  const int ntap = 2 * r + 1;
   for (int idx = tid; idx < SH * SW; idx += nthr) {
     const int yy = idx / SW, xx = idx % SW;
     const int gy = reflect_clamp(y0 - r + yy, h);
@@ -87,13 +103,7 @@ __device__ __forceinline__ void tile_blur_vertical(const float* __restrict__ pla
     sm[idx] = plane[(long long)gy * w + gx];
   }
   __syncthreads();
-  for (int idx = tid; idx < TH * SW; idx += nthr) {
-    const int y = idx / SW, x = idx % SW;
-    float acc = 0.0f;
-    for (int k = 0; k < ntap; ++k) acc = mul_add_rn(acc, taps[k], sm[(y + k) * SW + x]);
-    tmp[idx] = acc;
-  }
-  __syncthreads();
+  tile_blur_vpass<TH, TW>(r, taps, sm, tmp);
 }
 
 template <int TW>

@@ -147,6 +147,9 @@ class vvdp_display_photo_eotf(vvdp_display_photometry):
             return (self.Y_peak - Y_black) * lin + Y_black + Y_refl
         raise RuntimeError(f"Unknown EOTF '{self.EOTF}'")
 
+    def get_peak_luminance(self):
+        return self.Y_peak
+
     def get_black_level(self):
         Y_refl = self.E_ambient / math.pi * self.k_refl
         Y_black = self.Y_peak / self.contrast

@@ -2,12 +2,32 @@
 
 from __future__ import annotations
 
+import contextlib
+
+import torch
+
 from ..display import vvdp_display_geometry, vvdp_display_photometry
 from ..io.video_source import video_source_array
 
 
 class vq_exception(Exception):
     """User-facing metric error (reference: vq_metric.py:7-9)."""
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full float32 for cuDNN convolutions and matrix products inside the
+    block: both TF32 flags are set False and restored on exit, exceptions
+    included, so that the metric's own calls keep float32 parity without
+    changing the caller's settings. Used as a decorator on the metric's entry
+    points; it applies on every device."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 class vq_metric:
@@ -36,6 +56,29 @@ class vq_metric:
         else:
             self.display_geometry = display_geometry
         self.pix_per_deg = self.display_geometry.get_ppd()
+
+    def set_base_fname(self, fname):
+        """Base filename for any debug/auxiliary outputs."""
+        self.base_fname = fname
+
+    def full_name(self):
+        return type(self).__name__
+
+    def short_name(self):
+        # Class name but '-' instead of '_' (reference: vq_metric.py:76-78)
+        return type(self).__name__.replace("_", "-")
+
+    def quality_unit(self):
+        return ""
+
+    def get_info_string(self):
+        return None
+
+    def train(self, do_training=True):
+        pass
+
+    def export_distogram(self, stats, fname, jod_max=None, base_size=6):
+        raise vq_exception(f"Metric {self.short_name()} cannot generate distograms")
 
 
 # Metric classes by name (the JAX package's registry; the CLI looks metrics up

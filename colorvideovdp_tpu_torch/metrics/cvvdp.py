@@ -14,7 +14,10 @@ package's configuration gate (``_process_block``): the band kernel on raw
 pairs for the calibrated default; the band kernel on contrast bands for the
 other contrasts with the default masking; the generic chain (CSF LUT kernel,
 then ``masking.apply_masking_model`` with the blur kernel) for every other
-masking model, clamp or with the cross-channel mix off.
+masking model, clamp or with the cross-channel mix off. With
+``use_band_mega`` the raw bands that the JAX package's mega-kernel gate
+admits take the band kernel's fused mode instead (``ops/kernels/band_fused.py``:
+the next Gaussian level expanded inside the kernel; the same result).
 
 ``heatmap`` ("raw", "threshold" or "supra-threshold") adds the per-pixel
 distortion map ``stats["heatmap"]``: every interior band takes the band
@@ -34,14 +37,17 @@ PyTorch version on the same device (the reference the kernels are held to).
 
 from __future__ import annotations
 
+import json
 import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import masking as mk
 from ..ops.csf import CastleCSF
+from ..ops.kernels import band_fused as bf
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import masking_fused as bm
 from ..ops.kernels.csf_lut import CsfLut
@@ -49,11 +55,36 @@ from ..ops.pyramid import (LaplacianPyramid, LogContrastPyramid, WeberContrastPy
                            gausspyr_expand)
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import config_files, json2dict
-from .base import register_metric, vq_exception, vq_metric
+from .base import no_tf32, register_metric, vq_exception, vq_metric
 
 # Host memory budget (bytes) for the block-size model on the CPU when
 # ``gpu_mem`` is unset (the reference metric assumes the same 4 GB).
 HOST_MEM_BUDGET = 4e9
+
+
+class _NoTF32(torch.autograd.Function):
+    """fn(test, ref) with its forward and its backward (the recompute of a
+    checkpointed block included) under ``no_tf32``: the backward of a loss
+    runs after the forward's scope has closed, so the scope is taken again
+    around the inner graph's backward."""
+
+    @staticmethod
+    def forward(ctx, fn, test, ref):
+        ins = [t.detach().requires_grad_(t.requires_grad) for t in (test, ref)]
+        with no_tf32(), torch.enable_grad():
+            out = fn(*ins)
+        ctx.ins, ctx.out = ins, out
+        return out.detach()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        ins, out = ctx.ins, ctx.out
+        ctx.ins = ctx.out = None
+        need = [t for t in ins if t.requires_grad]
+        with no_tf32():
+            grads = iter(torch.autograd.grad(out, need, g))
+        return (None, *(next(grads) if t.requires_grad else None for t in ins))
 
 
 class cvvdp(vq_metric):
@@ -71,20 +102,18 @@ class cvvdp(vq_metric):
             raise NotImplementedError("dump_channels is not ported yet")
         if temp_resample:
             raise NotImplementedError("temp_resample is not ported yet")
-        if use_checkpoints:
-            raise NotImplementedError("use_checkpoints is not ported yet")
         if temp_padding not in ("replicate", "symmetric"):
             raise RuntimeError(f'Unknown padding method "{temp_padding}"')
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("device 'cuda' requested but CUDA is not available")
-            # The plain reduce/blur/mix must stay in full float32 on the card.
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         self.quiet = quiet
+        # Stored as the JAX package stores it; nothing reads it.
+        self.use_checkpoints = use_checkpoints
+        self.training_mode = False
         self.temp_padding = temp_padding
         self.gpu_mem = gpu_mem
         self.set_display_model(display_name, display_photometry=display_photometry,
@@ -94,6 +123,9 @@ class cvvdp(vq_metric):
 
     # ------------------------------------------------------------------
     # Configuration
+
+    def train(self, do_training=True):
+        self.training_mode = do_training
 
     def set_display_model(self, display_name="standard_4k", display_photometry=None,
                           display_geometry=None, config_paths=None):
@@ -151,8 +183,26 @@ class cvvdp(vq_metric):
         self.csf = CastleCSF(csf_version=self.csf_version, config_paths=config_paths)
         self.block_channels = (np.asarray(p["block_channels"], bool)
                                if "block_channels" in p else None)
+        self.debug = False
         # Kernels on the card when True; their plain versions when False.
         self.enable_fused_kernels = True
+        # The band mega-kernel route (``ops/kernels/band_fused.py``) for the
+        # interior raw bands its gate admits; ``force_fused`` lowers the
+        # gate's minimum width from 512 to 256, as in the JAX package.
+        self.use_band_mega = False
+        self.force_fused = False
+        self.lpyr = None
+        self._cache = {}
+
+    def update_from_checkpoint(self, ckpt):
+        """Load calibrated parameters from a Lightning-style torch checkpoint
+        (reference: cvvdp_metric.py:231-243)."""
+        state = torch.load(ckpt, map_location="cpu")["state_dict"]
+        prefix = "params."
+        for key, value in state.items():
+            if key.startswith(prefix):
+                v = value.detach().cpu().numpy()
+                setattr(self, key[len(prefix):], v if v.ndim else float(v))
         self.lpyr = None
         self._cache = {}
 
@@ -220,12 +270,18 @@ class cvvdp(vq_metric):
             R = dm.source_2_target_colorspace(ref, met_cs)
             return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)[0]
 
-        def loss_fn(test, ref):
+        def loss(test, ref):
             if remat:
                 Q_per_ch = checkpoint(block, test, ref, use_reentrant=False)
             else:
                 Q_per_ch = block(test, ref)
             return torch.mean(10.0 - self.do_pooling_and_jods(Q_per_ch))
+
+        def loss_fn(test, ref):
+            if not torch.is_grad_enabled():
+                with no_tf32():
+                    return loss(test, ref)
+            return _NoTF32.apply(loss, test, ref)
 
         return loss_fn
 
@@ -286,6 +342,7 @@ class cvvdp(vq_metric):
         return [ing.raw_to_met(dm, self._upload(vid_source.get_raw_frame_list(which, idx)),
                                met_cs).contiguous() for which in ("test", "reference")]
 
+    @no_tf32()
     def predict_video_source(self, vid_source):
         """Score a video source; returns (Q_jod, stats)."""
         h, w, N_frames = vid_source.get_video_size()
@@ -310,6 +367,7 @@ class cvvdp(vq_metric):
                     for raw in raws)
             Q, hm, context = self._process_block(ing.interleave_tr(T, R), temp_ch=1,
                                                  is_image=True, heatmap=self.do_heatmap)
+            self._check_finite(Q, 0)
             Q_blocks.append(Q)
             if heatmap is not None:
                 heatmap[:, :, 0:1] = self._heatmap_frames(hm, context)
@@ -334,6 +392,7 @@ class cvvdp(vq_metric):
                 Q, hm, context = self._process_block(R, temp_ch=2, is_image=False,
                                                      heatmap=self.do_heatmap)
                 del R
+                self._check_finite(Q, ff)
                 Q_blocks.append(Q[:, :, :cur])
                 if heatmap is not None:
                     heatmap[:, :, ff:ff + cur] = self._heatmap_frames(
@@ -353,6 +412,12 @@ class cvvdp(vq_metric):
         if heatmap is not None:
             stats["heatmap"] = heatmap
         return Q_jod, stats
+
+    def _check_finite(self, Q, ff):
+        """With ``debug``, the JAX package's numeric check of each block."""
+        if self.debug and not bool(torch.isfinite(Q).all()):
+            raise RuntimeError(f"Non-finite Q_per_ch in block at frame {ff} "
+                               "(masking produced NaN/Inf)")
 
     def _heatmap_frames(self, hm, context) -> np.ndarray:
         """One block's heatmap as the host's float16 frames: the raw map
@@ -385,6 +450,7 @@ class cvvdp(vq_metric):
             self._cache[key] = (consts, torch.as_tensor(luts, device=self.device))
         return self._cache[key]
 
+    @no_tf32()
     def _process_block(self, R, temp_ch, is_image, heatmap=False):
         """Pyramid -> CSF -> masking -> spatial pooling for one frame block.
         R: (B, 2 * all_ch, F, H, W) interleaved. Returns (Q_per_ch
@@ -436,15 +502,28 @@ class cvvdp(vq_metric):
                 put_D(bb, mk.apply_masking_model(band[:, 0::2], band[:, 1::2], S * sens_corr,
                                                  params, use_k))
         else:
-            d_blurs = [params.blurs(int(h), int(w)) for h, w in shapes] if heatmap else None
-            for sel in bm.band_groups(shapes, B, all_ch, F, d_blurs, contrast=not raw_pairs):
+            mega = self._mega_bands(shapes, all_ch, params) if raw_pairs else []
+            for bb in mega:
+                gi, gn = bands[bb]
+                if heatmap:
+                    fn = bf.band_fused_d if use_k else bf.band_fused_d_plain
+                    put_D(bb, fn(gi, gn, luts[bb], muls[bb], consts))
+                else:
+                    sums = bf.band_fused_sums(gi, gn, luts[bb], muls[bb], consts, use_k)
+                    Q_cols[bb] = bm.pooled_norm(sums, *shapes[bb], self.beta)
+            rest = [bb for bb in range(n_bands - 1) if bb not in mega]
+            d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
+                       if heatmap else None)
+            for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
+                                      contrast=not raw_pairs):
+                sel = [rest[i] for i in sel]
                 if raw_pairs:
                     xs = [bands[bb][0] for bb in sel]
                     ys = [gausspyr_expand(bands[bb][1], x.shape[-2:]) for bb, x in zip(sel, xs)]
                 else:
                     xs = [LaplacianPyramid.get_band(bands, bb) for bb in sel]
                     ys = [L_bkg_pyr[bb] for bb in sel]
-                args = (xs, ys, luts[sel[0]:sel[-1] + 1], [muls[bb] for bb in sel], consts, use_k)
+                args = (xs, ys, luts[sel], [muls[bb] for bb in sel], consts, use_k)
                 if heatmap:
                     for bb, D in zip(sel, bm.band_D(*args, contrast=not raw_pairs)):
                         put_D(bb, D)
@@ -472,6 +551,17 @@ class cvvdp(vq_metric):
         # A copy, so that the caller can free the block's R before drawing.
         return Q, 1.0 - self.met2jod(recon) / 10.0, R[:, 0].clone()
 
+    def _mega_bands(self, shapes, all_ch, params):
+        """The interior raw bands that take the mega-kernel route: with
+        ``use_band_mega``, those the JAX package's gate admits
+        (``metrics/cvvdp.py:1413-1421``)."""
+        if not self.use_band_mega or params.pu_dilate == 0:
+            return []
+        min_w = 256 if self.force_fused else 512
+        return [bb for bb, (h, w) in enumerate(shapes)
+                if h > params.pu_padsize and w > params.pu_padsize
+                and bf.can_band_fused(all_ch, int(h), int(w), params.pu_kernel_size, min_w)]
+
     def do_pooling_and_jods(self, Q_per_ch):
         """Band/channel/frame pooling and the JOD mapping; Q_per_ch is
         (B, C, F, bands)."""
@@ -497,6 +587,69 @@ class cvvdp(vq_metric):
 
     def met2jod(self, Q):
         return mk.met2jod(Q, self.jod_a, self.jod_exp)
+
+    # ------------------------------------------------------------------
+    # Reporting
+
+    def full_name(self):
+        return "ColorVideoVDP"
+
+    def short_name(self):
+        return "cvvdp"
+
+    def quality_unit(self):
+        return "JOD"
+
+    def get_info_string(self):
+        if self.display_name.startswith("standard_"):
+            standard_str = self.display_name
+        else:
+            standard_str = f"custom-display: {self.display_name}"
+        L_black, L_refl = self.display_photometry.get_black_level()
+        return (
+            f'"{self.full_name()} v{self.version}, '
+            f"{self.pix_per_deg:.4g} [pix/deg], "
+            f"Lpeak={self.display_photometry.get_peak_luminance():.5g}, "
+            f"Lblack={L_black:.4g}, Lrefl={L_refl:.4g} [cd/m^2], "
+            f'({standard_str})"'
+        )
+
+    def write_features_to_json(self, stats, dest_fname):
+        """Per-band feature export for calibration (reference:
+        cvvdp_metric.py:1112-1127). The port's own ``block_N_frames`` is left
+        out, so that the file is the JAX package's."""
+        Q_per_ch = stats["Q_per_ch"]
+        fmap = {}
+        for key, value in stats.items():
+            if key not in ("Q_per_ch", "heatmap", "block_N_frames"):
+                fmap[key] = value.tolist() if isinstance(value, np.ndarray) else value
+        for cc in range(Q_per_ch.shape[1]):
+            for bb in range(Q_per_ch.shape[3]):
+                fmap[f"t{cc}_b{bb}"] = Q_per_ch[:, cc, :, bb].tolist()
+        with open(dest_fname, "w", encoding="utf-8") as f:
+            json.dump(fmap, f, ensure_ascii=False, indent=4)
+
+    def save_to_config(self, fname, comment):
+        """Write the current (possibly re-calibrated) parameters back to JSON
+        (reference: cvvdp_metric.py:1129-1154)."""
+        from datetime import date
+
+        assert fname.endswith(".json"), "Please provide a .json file"
+        parameters = json2dict(self.parameters_file)
+        remap = {"csf": "csf_version"}
+        for key in parameters:
+            attr = remap.get(key, key)
+            if isinstance(parameters[key], (str, int)) or not hasattr(self, attr):
+                continue
+            val = getattr(self, attr)
+            if isinstance(parameters[key], float):
+                parameters[key] = float(np.asarray(val))
+            elif isinstance(parameters[key], list):
+                parameters[key] = [float(x) for x in np.asarray(val).flatten()]
+        parameters["__comment"] = comment
+        parameters["calibration_date"] = date.today().strftime("%d/%m/%Y")
+        with open(fname, "w") as f:
+            json.dump(parameters, f, indent=4)
 
     def export_distogram(self, stats, fname, jod_max=None, base_size=6):
         """Plot ``stats["Q_per_ch"]`` per channel, band and frame to ``fname``

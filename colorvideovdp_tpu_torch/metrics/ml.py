@@ -41,7 +41,7 @@ from ..ops.kernels import ingest as ing
 from ..ops.pyramid import LaplacianPyramid
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import VVDP_DATA, config_files
-from .base import register_metric, vq_exception
+from .base import no_tf32, register_metric, vq_exception
 from .cvvdp import cvvdp
 
 # ---------------------------------------------------------------------------
@@ -393,6 +393,7 @@ class cvvdp_ml_base(cvvdp):
                 for name in self.get_nets_to_load()
                 for k, v in getattr(self, name).state_dict().items()}
 
+    @no_tf32()
     def _process_block(self, R, temp_ch, is_image, heatmap=False):
         """Pyramid -> CSF -> masking -> tile statistics for one frame block.
         R: (B, 2 * all_ch, F, H, W) interleaved. Returns (features, None,
@@ -428,6 +429,7 @@ class cvvdp_ml_base(cvvdp):
             del band, T_f, R_f, S, D
         return features, None, None
 
+    @no_tf32()
     def predict_video_source(self, vid_source):
         """Score a video source; returns (Q_jod, stats). The first video block
         pads in the ingest kernel ("replicate" or "head" mode), later blocks

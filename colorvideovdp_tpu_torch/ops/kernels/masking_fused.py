@@ -57,6 +57,7 @@ from ..blur import gaussian_kernel1d
 from ..clip import clip
 from ..masking import (_EPS, MaskingParams, _pow_static, _safe_pow_static,
                        apply_masking_model)
+from ..pyramid import K5
 from . import _build
 from .csf_lut import CsfLut
 
@@ -206,11 +207,18 @@ def pooled_norm(sums: torch.Tensor, h: int, w: int, beta: float) -> torch.Tensor
     return _safe_pow_static(sums / float(h * w), 1.0 / float(beta))
 
 
+# The expand taps of the fused mode, 2 * K5, as ops/pyramid.py `_expand_1d`
+# forms them.
+_EXPAND_TAPS = np.ascontiguousarray(2.0 * K5.astype(np.float64), np.float32)
+
+
 def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool,
-            contrast: bool = False):
+            contrast: bool = False, expand: bool = False):
     """One ``cvvdp_band_masking`` launch over the given bands on the card:
     the (n_bands, B, C, F) pooled sums, or with ``d_out`` the list of D.
-    ``contrast``: the lists hold contrast bands and their logL."""
+    ``contrast``: the lists hold contrast bands and their logL. ``expand``
+    (the fused mode, ``band_fused.py``): the second list holds the next
+    Gaussian levels gn, expanded inside the kernel."""
     n = len(gi_list)
     if not 1 <= n <= MAX_BANDS or len(E_list) != n or len(muls) != n:
         raise ValueError(f"band_masking: 1..{MAX_BANDS} bands, got {n}")
@@ -221,12 +229,14 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
         raise ValueError("band_masking: table or channel count mismatch")
     dims = np.zeros((n, 2), np.int32)
     for i, (gi, E) in enumerate(zip(gi_list, E_list)):
-        e_shape = (B, 1, F) + tuple(gi.shape[-2:]) if contrast else gi.shape
+        h, w = gi.shape[-2:]
+        e_shape = ((B, 1, F, h, w) if contrast else
+                   (B, C2, F, (h + 1) // 2, (w + 1) // 2) if expand else gi.shape)
         if tuple(E.shape) != tuple(e_shape) or tuple(gi.shape[:3]) != (B, C2, F):
             raise ValueError("band_masking: band/second input shape mismatch")
         dims[i] = gi.shape[-2:]
     dev = gi_list[0].device
-    sizes = [B * C * F * int(h) * int(w) for h, w in dims]
+    sizes = [0 if expand else B * C * F * int(h) * int(w) for h, w in dims]
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     mpre = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
     diff = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
@@ -251,7 +261,8 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
     rc = lib.cvvdp_band_masking(
         n, B, C, F, luts.shape[2], ptrs.ctypes.data, dims.ctypes.data, muls_a.ctypes.data,
         blur.ctypes.data, luts.data_ptr(), k.x0, (luts.shape[2] - 1) / (k.x1 - k.x0),
-        ch_gain.ctypes.data, k.sens_corr, int(k.ref_only), int(contrast), qs.ctypes.data, k.p,
+        ch_gain.ctypes.data, k.sens_corr, int(k.ref_only), int(contrast), int(expand),
+        _EXPAND_TAPS.ctypes.data, qs.ctypes.data, k.p,
         xcm.ctypes.data, k.max_v, k.blur_scale, taps.ctypes.data, len(taps), k.beta, int(d_out),
         None if partials is None else partials.data_ptr(),
         None if out is None else out.data_ptr(), _build.stream_handle(dev))

@@ -5,6 +5,8 @@ not import jax, so on a machine without it run them as
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -12,9 +14,11 @@ import torch
 import colorvideovdp_tpu_torch as ct
 from colorvideovdp_tpu_torch.ops import pyramid as pyr
 from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
+from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
 from colorvideovdp_tpu_torch.ops.kernels import blur as bl
 from colorvideovdp_tpu_torch.ops.kernels import csf_lut as lut
 from colorvideovdp_tpu_torch.ops.kernels import ingest as ing
+from colorvideovdp_tpu_torch.ops.kernels import interleave as il
 from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
 from colorvideovdp_tpu_torch.ops.kernels.pyramid_reduce import pyramid_reduce
 from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
@@ -458,3 +462,100 @@ def test_ml_metrics_kernels_match_plain(dev, family, case):
         jods.append(float(Q))
     assert abs(10.0 - jods[1]) > 1e-3
     assert abs(jods[0] - jods[1]) <= 1e-4 * max(1.0, abs(10.0 - jods[1])), jods
+
+
+@pytest.mark.parametrize("C,ref_only", [(4, False), (3, False), (4, True)])
+def test_band_fused_kernel(dev, C, ref_only):
+    """The band kernel's fused mode against the raw-pair route fed the plain
+    expand (bit for bit) and against its plain version, pooled and D, at
+    aligned, odd and small band sizes (the 4-row band takes no blur)."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(512, 96)
+    consts, luts = m._band_tables(C)
+    consts = dataclasses.replace(consts, ref_only=ref_only)
+    for i, (h, w) in enumerate([(96, 512), (99, 517), (48, 256), (13, 65), (4, 17)]):
+        gi = torch.rand(2, 2 * C, 3, h, w, device=dev) * 20 + 30
+        gn = pyramid_reduce(gi)
+        E = pyr.gausspyr_expand(gn, (h, w))
+        lut_b, mul = luts[min(i, 1)], 1.0 if i == 0 else 2.0
+        before = (bf.band_fused.launches, bf.band_fused_d.launches)
+        s = bf.band_fused(gi, gn, lut_b, mul, consts)
+        D = bf.band_fused_d(gi, gn, lut_b, mul, consts)
+        assert (bf.band_fused.launches, bf.band_fused_d.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+        route_d = bm.band_masking_d if consts.params.blurs(h, w) else bm.band_masking_d_noblur
+        assert torch.equal(s, bm.band_masking([gi], [E], lut_b[None], [mul], consts)[0])
+        assert torch.equal(D, route_d([gi], [E], lut_b[None], [mul], consts)[0])
+        assert _rel(s, bf.band_fused_plain(gi, gn, lut_b, mul, consts)) <= 1e-4
+        assert _rel_planes(D, bf.band_fused_d_plain(gi, gn, lut_b, mul, consts)) <= 1e-5
+    with pytest.raises(ValueError):
+        bf.band_fused(gi, E, lut_b, 2.0, consts)  # E in gn's slot: wrong shape
+
+
+@pytest.mark.parametrize("heatmap", [None, "raw"])
+def test_band_mega_route_kernels_match_plain(dev, heatmap):
+    """predict with ``use_band_mega`` (``force_fused``: bands 0 and 1 of
+    96x512 pass the gate), kernels against plain and against the default
+    route; 7 frames in blocks of 5 and 2."""
+    rng = np.random.RandomState(6)
+    ref = (rng.rand(96, 512, 3, 7) * 255).astype(np.uint8)
+    test = np.clip(ref.astype(np.int16) + (rng.randn(*ref.shape) * 10).astype(np.int16),
+                   0, 255).astype(np.uint8)
+    pix = 96 * 512
+    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 5.5) / 1e9  # 5-frame blocks
+    fn = bf.band_fused_d if heatmap else bf.band_fused
+    out = {}
+    for mega, fused in ((True, True), (True, False), (False, True)):
+        m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=heatmap,
+                     gpu_mem=gpu_mem)
+        m.use_band_mega, m.force_fused, m.enable_fused_kernels = mega, True, fused
+        before = fn.launches
+        Q, st = m.predict(test, ref, dim_order="HWCF", frames_per_second=30)
+        assert st["block_N_frames"] == 5
+        assert fn.launches - before == (4 if mega and fused else 0)  # 2 bands x 2 blocks
+        out[(mega, fused)] = (float(Q), st.get("heatmap"))
+    (jk, hk), (jp, hp), (jd, hd) = out[(True, True)], out[(True, False)], out[(False, True)]
+    assert abs(jk - jp) <= 1e-4 and abs(jk - jd) <= 1e-5, (jk, jp, jd)
+    if heatmap:
+        assert np.abs(hk.astype(np.float32) - hp.astype(np.float32)).max() <= 1.1e-3
+        assert np.array_equal(hk, hd)
+
+
+def test_band_mega_loss_kernels_match_plain(dev):
+    """get_loss_fn with ``use_band_mega`` at 64x512 (band 0 passes the gate
+    with ``force_fused``): loss and gradient, kernels against plain and
+    against the default route."""
+    rng = np.random.RandomState(12)
+    ref = rng.rand(2, 3, 1, 64, 512).astype(np.float32)
+    test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
+    out = {}
+    for mega, fused in ((True, True), (True, False), (False, True)):
+        m = ct.cvvdp(display_name="standard_4k", device="cuda")
+        m.use_band_mega, m.force_fused, m.enable_fused_kernels = mega, True, fused
+        x = torch.from_numpy(test).to(dev).requires_grad_()
+        before = bf.band_fused.launches
+        v = m.get_loss_fn(64, 512)(x, torch.from_numpy(ref).to(dev))
+        (g,) = torch.autograd.grad(v, x)
+        assert (bf.band_fused.launches > before) == (mega and fused)
+        out[(mega, fused)] = (float(v.detach()), g)
+    for key in ((True, False), (False, True)):
+        assert abs(out[(True, True)][0] - out[key][0]) <= 1e-4
+        assert _rel(out[(True, True)][1], out[key][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 512), (3, 5, 14), (1, 7, 6), (4, 33, 258)])
+def test_interleave_kernels(dev, shape):
+    """Interleave, concat and de-interleave bit for bit against their plain
+    versions, on float4 (W/2 a multiple of 4) and element paths."""
+    P, H, W = shape
+    ev, od = (torch.rand(P, H, W // 2, device=dev) for _ in range(2))
+    x = torch.rand(P, H, W, device=dev)
+    for fn, plain, args in ((il.interleave, il.interleave_plain, (ev, od)),
+                            (il.concat, il.concat_plain, (ev, od)),
+                            (il.deinterleave, il.deinterleave_plain, (x,))):
+        before = fn.launches
+        got, want = fn(*args), plain(*args)
+        assert fn.launches == before + 1
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(il.deinterleave(il.interleave(ev, od))[1], od)

@@ -31,6 +31,18 @@ Q_ml, _ = ct.cvvdp_ml_transformer(display_name="standard_4k", device="cpu",
                                   random_init=True).predict(
     test, ref, dim_order="HWCF", frames_per_second=30)
 assert np.isfinite(float(Q_ml)), float(Q_ml)
+from colorvideovdp_tpu_torch.ops.kernels import band_fused
+from colorvideovdp_tpu_torch.tools import interleave_bench
+seen = []
+fused_sums = band_fused.band_fused_sums
+band_fused.band_fused_sums = lambda *a: seen.append(a[0].shape) or fused_sums(*a)
+m = ct.cvvdp(display_name="standard_4k", device="cpu")
+m.use_band_mega = m.force_fused = True
+ref2 = (rng.rand(48, 256, 3) * 255).astype(np.uint8)
+Q_mega, _ = m.predict(np.clip(ref2.astype(np.int16) + 9, 0, 255).astype(np.uint8), ref2,
+                      dim_order="HWC")
+assert np.isfinite(float(Q_mega)) and len(seen) == 1, (float(Q_mega), seen)
+assert interleave_bench.main(["--cpu-check"]) == 0
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("colorvideovdp_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("JOD", float(Q), float(Q_ml))
