@@ -99,6 +99,26 @@ Phase 10 the interleave micro-benchmark
          versions, the PyTorch calls that compute them, the copy floor and
          the bound.
 
+Phase 11 multi-device scoring (``colorvideovdp_tpu_torch/parallel``). First
+         the reduce kernel's slab mode (``pyramid_reduce_slab``, bit for bit)
+         and the band kernel's halo mode (``band_masking_halo``, pooled sums
+         within 1e-4 relative) against their plain versions at every launch
+         shape the sharded run gives them, rank 0's and rank 1's: 16-frame
+         blocks of 4K on a (1, 2) mesh, the slab reduce at levels 0-2
+         (level 0 (128, 1096, 3840)) and the halo mode at bands 0-3 as
+         ``band_groups`` packs them; timed at level 0 and the first halo
+         launch, with their bounds; each launch's two ranks' halo sums against
+         the whole bands'. Then the phase-3 clip (BFCHW, so no host relayout)
+         through ``shard_video_fn`` on a (1, 2) mesh via ``run_ranks``: NCCL
+         with one rank per card where there are two or more cards, else two
+         gloo ranks sharing card 0, ``gpu_mem`` set for the same 16-frame
+         blocks (each rank's must be 16 frames). The JOD must be within 0.01
+         of 7.8784 and within 1e-4 of phase 3's, on every rank, and both new
+         modes, ingest (replicate and tail), reduce, band masking and the CSF
+         LUT must have launched on every rank. Each rank's set-up (groups,
+         metric, kernel library, one collective per group) is timed apart
+         from its block loop, and each block is timed.
+
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
 read once, each output written once) over the HBM rate and its float32
@@ -126,7 +146,8 @@ TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
        "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
        "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
-       "interleave": 0.0, "concat": 0.0, "deinterleave": 0.0}
+       "interleave": 0.0, "concat": 0.0, "deinterleave": 0.0,
+       "pyramid_reduce_slab": 0.0, "band_masking_halo": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # Training step bounds (phase 5): kernels against plain on the card.
@@ -138,6 +159,8 @@ HEATMAP_TOL, HEATMAP_JOD_TOL = 1.1e-3, 1e-4
 ML_JOD_TOL = 1e-3
 # The mega-kernel route (phase 9): JOD against the default route.
 MEGA_JOD_TOL = 1e-4
+# Multi-device scoring (phase 11): JOD against single-device scoring.
+SHARD_JOD_TOL = 1e-4
 
 
 def log(*args):
@@ -145,13 +168,10 @@ def log(*args):
 
 
 def clip_content(H, W, N, rng):
-    """Synthetic HDR content: a PQ-encoded gradient plus noise, uint8."""
-    base = np.linspace(0.1, 0.7, W, dtype=np.float32)[None, :, None]
-    ref = (np.broadcast_to(base, (H, W, 3)) * 255).astype(np.uint8)
-    V_ref = np.repeat(ref[:, :, :, None], N, axis=3)
-    noise = (rng.randn(H, W, 3, N) * 8).astype(np.int16)
-    V_test = np.clip(V_ref.astype(np.int16) + noise, 0, 255).astype(np.uint8)
-    return V_test, V_ref
+    """Synthetic HDR content (H, W, 3, N) uint8: a gradient plus noise."""
+    from colorvideovdp_tpu_torch.tools.clips import hdr_clip
+
+    return hdr_clip(H, W, N, rng)
 
 
 def time_ms(fn, reps=5):
@@ -1003,6 +1023,161 @@ def phase_interleave(record, counters):
     return {"interleave_bench": counts}
 
 
+# The kernels every rank of the sharded 4K video must launch (phase 11).
+SHARD_PATH = ("ingest", "ingest_replicate", "pyramid_reduce", "pyramid_reduce_slab",
+              "band_masking", "band_masking_halo", "csf_lut")
+# Frames per block of the sharded run; phase 11 holds the kernels at its shapes.
+SHARD_BLOCK = 16
+
+
+def phase_sharded(m, fps, record, jod_single, gen):
+    """Phase 11; returns the launch counts of the sharded run, summed over
+    the ranks."""
+    import os
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    from colorvideovdp_tpu_torch.ops import pyramid as pyr
+    from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
+    from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
+    from colorvideovdp_tpu_torch.parallel import run_ranks
+    from colorvideovdp_tpu_torch.parallel import sharding as sh
+
+    t_phase = time.time()
+    H, W, N, blk, n_sp = 2160, 3840, 32, SHARD_BLOCK, 2
+    r = bm.HALO_ROWS
+    dev = torch.device("cuda")
+
+    def slab(x, s, edge):
+        """Rank s's slab of x with 8 rows of each neighbour, and at a global
+        edge zeros (the reduce) or the exclude-edge reflection (the band)."""
+        h_loc = x.shape[-2] // n_sp
+        lo, hi = s * h_loc, (s + 1) * h_loc
+        z = torch.zeros_like(x[..., :r, :])
+        above = x[..., lo - r:lo, :] if s > 0 else (z if edge == "zero"
+                                                     else x[..., 1:r + 1, :].flip(-2))
+        below = x[..., hi:hi + r, :] if s < n_sp - 1 else (z if edge == "zero"
+                                                           else x[..., -r - 1:-1, :].flip(-2))
+        return torch.cat([above, x[..., lo:hi, :], below], dim=-2).contiguous()
+
+    # The launches of the sharded run, from the global shapes as its routing
+    # makes them: levels are slab-reduced while the gate admits them (4K:
+    # levels 0-2); the bands of the row-sharded levels that band_shardable
+    # admits take the halo mode, packed into launches by band_groups.
+    m._ensure_pyramids(W, H)
+    shapes = m.lpyr.pyr_shape
+    n_red = 0
+    while sh.slab_reducible(shapes[n_red][0] // n_sp, shapes[n_red][1]):
+        n_red += 1
+    params = m._masking_params()
+    halo = [bb for bb in range(min(n_red + 1, len(shapes) - 1))
+            if sh.band_shardable(params, *shapes[bb], SimpleNamespace(n_space=n_sp))]
+    groups = [[halo[i] for i in sel] for sel in bm.band_groups(
+        [(shapes[bb][0] // n_sp + 2 * r, shapes[bb][1]) for bb in halo], 1, 4, blk)]
+    log(f"phase 11: {blk}-frame blocks: slab reduce at levels {list(range(n_red))}, "
+        f"halo launches {groups}")
+
+    # The slab reduce at every level it takes (P = 8 channels x blk frames).
+    errs, abs_errs = [], []
+    for lv in range(n_red):
+        x = torch.rand((1, 8, blk) + tuple(shapes[lv]), device=dev, generator=gen)
+        for s in range(n_sp):
+            xs = slab(x, s, "zero")
+            y_k, y_p = prd.pyramid_reduce_slab(xs, False), pyr.reduce_slab_plain(xs, False)
+            errs.append(float((y_k - y_p).abs().max()) / max(1.0, float(y_p.abs().max())))
+            abs_errs.append(max_abs(y_k, y_p))
+            log(f"  pyramid_reduce_slab level {lv} rank {s} {tuple(xs.shape)}: max |kernel - "
+                f"plain| {abs_errs[-1]:.3e}")
+            if lv == 0 and s == 0:
+                k_ms = time_ms(lambda: prd.pyramid_reduce_slab(xs, False))
+                p_ms = time_ms(lambda: pyr.reduce_slab_plain(xs, False))
+                # 5 taps vertically over (H_loc/2, W), 5 over (H_loc/2, W/2).
+                h_loc = xs.shape[-2] - 2 * r
+                b_red = bound(nbytes(xs, y_k), 7.5 * xs.numel() * h_loc // (h_loc + 2 * r))
+        del x, xs, y_k, y_p
+    record("pyramid_reduce_slab", max(errs), max(abs_errs), k_ms, p_ms, b_red)
+
+    # The halo mode at every launch it takes, C = 4; per group, the two
+    # ranks' sums against the whole bands' pooled mode.
+    consts, luts = m._band_tables(4)
+    errs, abs_errs = [], []
+    for g, sel in enumerate(groups):
+        gis = [torch.rand((1, 8, blk) + tuple(shapes[bb]), device=dev, generator=gen) * 20 + 30
+               for bb in sel]
+        Es = [gi + torch.randn(gi.shape, device=dev, generator=gen) for gi in gis]
+        muls = [1.0 if bb == 0 else 2.0 for bb in sel]
+        whole = bm.band_masking(gis, Es, luts[sel], muls, consts)
+        total = 0
+        for s in range(n_sp):
+            args = ([slab(gi, s, "reflect") for gi in gis], [slab(E, s, "reflect") for E in Es],
+                    luts[sel], muls, consts, [shapes[bb][0] // n_sp for bb in sel])
+            s_k, s_p = bm.band_masking_halo(*args), bm.band_masking_halo_plain(*args)
+            errs.append(rel_err_per(s_k, s_p, 2))
+            abs_errs.append(max_abs(s_k, s_p))
+            total = total + s_k
+            log(f"  band_masking_halo bands {sel} rank {s} "
+                f"{[tuple(x.shape) for x in args[0]]}: error {errs[-1]:.3e}")
+            if g == 0 and s == 0:
+                k_ms = time_ms(lambda: bm.band_masking_halo(*args))
+                p_ms = time_ms(lambda: bm.band_masking_halo_plain(*args))
+                # As band_masking's bound (phase 2) on the slabs: gi and E read once.
+                b_halo = bound(2 * nbytes(*args[0]) + nbytes(luts[sel], s_k),
+                               sum(95 * x.numel() // 2 for x in args[0]))
+        check(f"band_masking_halo bands {sel}: the ranks' sums against the whole bands",
+              rel_err_per(total, whole, 2), TOL["band_masking_halo"])
+        del gis, Es, args, s_k, s_p, whole, total
+    record("band_masking_halo", max(errs), max(abs_errs), k_ms, p_ms, b_halo)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # The 4K clip through shard_video_fn on a (1, 2) mesh.
+    t0 = time.time()
+    V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
+    tmp = tempfile.mkdtemp(prefix="cvvdp_phase11_")
+    paths = [os.path.join(tmp, f"{k}.npy") for k in ("test", "reference")]
+    for p, V in zip(paths, (V_test, V_ref)):
+        np.save(p, np.ascontiguousarray(V.transpose(3, 2, 0, 1)[None]))  # (1, F, 3, H, W)
+    del V_test, V_ref
+    log(f"phase 11: BFCHW clip written in {time.time() - t0:.1f} s")
+    n_cards = torch.cuda.device_count()
+    share = 1 if n_cards >= n_sp else n_sp
+    gpu_mem = m.block_gpu_mem(H // n_sp * W, blk, fps, share)
+    spec = dict(test=paths[0], reference=paths[1], dim_order="BFCHW", fps=fps,
+                display_name="standard_hdr_pq", gpu_mem=gpu_mem)
+    log(f"phase 11: {n_cards} card(s): {'one rank per card, NCCL' if share == 1 else 'two gloo ranks on card 0'}, "
+        f"gpu_mem {gpu_mem:.3f} GB for {blk}-frame blocks")
+    t0 = time.time()
+    try:
+        res = run_ranks(sh.score_rank, n_sp, (spec,), device="cuda", timeout_s=300)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.time() - t0
+    for rr in res:
+        jod = float(rr["jod"])
+        log(f"phase 11: rank {rr['rank']} (b {rr['b']}, s {rr['s']}) on {rr['device']}: JOD "
+            f"{jod:.6f}, blk {rr['block_N']}, set-up {rr['setup_s']:.3f} s, block loop "
+            f"{rr['block_loop_s']:.3f} s (blocks {[round(t, 3) for t in rr['block_s']]} s), "
+            f"peak memory {rr['peak_bytes'] / 2**30:.2f} GiB, route {rr['route']}, launches "
+            f"{rr['launches']}")
+        if rr["block_N"] != blk:
+            raise AssertionError(f"rank {rr['rank']}: {rr['block_N']}-frame blocks, the kernels "
+                                 f"were held at {blk}")
+        for k in SHARD_PATH:
+            if rr["launches"][k] <= 0:
+                raise AssertionError(f"rank {rr['rank']}: kernel {k} was not launched")
+        if not abs(jod - jod_single) <= SHARD_JOD_TOL:
+            raise AssertionError(f"rank {rr['rank']}: sharded JOD {jod} vs single-device "
+                                 f"{jod_single}")
+        if not abs(jod - CLIP_JOD) <= 0.01:
+            raise AssertionError(f"rank {rr['rank']}: sharded JOD {jod} vs reference {CLIP_JOD}")
+    log(f"phase 11: sharded 4K JOD {float(res[0]['jod']):.6f}, |JOD - single-device| "
+        f"{abs(float(res[0]['jod']) - jod_single):.2e}, wall {wall:.3f} s for {N} frames "
+        f"(spawn and set-up included)")
+    log(f"phase 11: {time.time() - t_phase:.1f} s")
+    return {k: sum(rr["launches"][k] for rr in res) for k in res[0]["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1010,10 +1185,9 @@ def main():
     import colorvideovdp_tpu_torch as cvt
     from colorvideovdp_tpu_torch.ops import pyramid as pyr
     from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
-    from colorvideovdp_tpu_torch.ops.kernels import _build, csf_lut, ingest, masking_fused
-    from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
+    from colorvideovdp_tpu_torch.ops.kernels import (_build, counted_wrappers, csf_lut, ingest,
+                                                     masking_fused)
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
-    from colorvideovdp_tpu_torch.ops.kernels import interleave as il
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
 
     # ---- phase 0 ------------------------------------------------------------
@@ -1213,17 +1387,7 @@ def main():
     t0 = time.time()
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
     log(f"phase 3: clip content made in {time.time() - t0:.1f} s")
-    counters = {"ingest": ingest.ingest, "pyramid_reduce": prd.pyramid_reduce,
-                "band_masking": masking_fused.band_masking, "csf_lut": csf_lut.csf_lut,
-                "csf_lut_bwd": csf_lut.csf_lut_bwd, "blur": blr.blur,
-                "band_masking_d": masking_fused.band_masking_d,
-                "band_masking_d_noblur": masking_fused.band_masking_d_noblur,
-                "band_masking_contrast": masking_fused.band_masking_contrast,
-                "band_masking_contrast_d": masking_fused.band_masking_contrast_d,
-                "ingest_replicate": ingest.ingest_replicate, "ingest_head": ingest.ingest_head,
-                "band_fused": bf.band_fused, "band_fused_d": bf.band_fused_d,
-                "interleave": il.interleave, "concat": il.concat,
-                "deinterleave": il.deinterleave}
+    counters = counted_wrappers()
     score_path = ("ingest", "pyramid_reduce", "band_masking", "csf_lut")
     results = {}
     for fused in (True, False):
@@ -1409,6 +1573,9 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     il_launches = phase_interleave(record, counters)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shard_launches = phase_sharded(m, fps, record, jod_k, gen)
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -1435,7 +1602,14 @@ def main():
         "interleave": ("interleave.cu", "tools/interleave_bench.py:50"),
         "concat": ("interleave.cu", "tools/interleave_bench.py:77"),
         "deinterleave": ("interleave.cu", "tools/interleave_bench.py:109"),
+        "pyramid_reduce_slab": ("pyramid_reduce.cu",
+                                "colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:238"),
+        "band_masking_halo": ("band_masking.cu",
+                              "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
     }
+    if set(kernels) != set(counters):
+        raise AssertionError(f"the kernels line {sorted(kernels)} and the counted wrappers "
+                             f"{sorted(counters)} differ")
     line = []
     for k, (f, rep) in kernels.items():
         by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k],
@@ -1443,8 +1617,11 @@ def main():
                    **{p: c[k] for p, c in config_launches.items()},
                    **{p: c[k] for p, c in ml_launches.items()},
                    **{p: c[k] for p, c in mega_launches.items()},
-                   **{p: c[k] for p, c in il_launches.items()}}
-        if k in ("interleave", "concat", "deinterleave"):
+                   **{p: c[k] for p, c in il_launches.items()},
+                   "sharded_4k_video": shard_launches[k]}
+        if k in ("pyramid_reduce_slab", "band_masking_halo"):
+            n_main = shard_launches[k]
+        elif k in ("interleave", "concat", "deinterleave"):
             n_main = il_launches["interleave_bench"][k]
         elif k == "band_fused":
             n_main = mega_launches["mega_4k_video"][k]

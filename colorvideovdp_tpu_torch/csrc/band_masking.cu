@@ -66,6 +66,19 @@
 //   r = 8 (the default 13 taps, r = 6: 1.89 times), out of about 74 KB of
 //   shared memory a block.
 //
+// The halo mode (pooled, raw pairs or contrast bands; per band row_off > 0)
+//   replaces `fused_blur_transducer`'s halo'd shard mode (`row_off` /
+//   `h_valid`, masking_fused.py:219-227, :313-316, :333-343): the band is one
+//   rank's row slab of a band sharded over image rows, h = h_valid + 2 row_off
+//   buffer rows, the owned rows [row_off, row_off + h_valid) with row_off real
+//   neighbour rows above and below (at a global edge the exclude-edge
+//   reflection, x[-s] = x[s], built by the caller). Stage A runs on every
+//   buffer row (it is elementwise); stage B's tiles cover the owned rows only
+//   and read the halo rows as they are, without the vertical reflection
+//   (row_off >= the blur radius), so that a slab's blurred rows are those of
+//   the whole band; only owned rows feed the tile sums. The caller sums the
+//   ranks' pooled sums. Bound as stage A + B + C: memory.
+//
 // Bound on the H100: memory. Stage A reads 16 floats per pixel (C = 4) and
 // writes 8 (raw pairs; contrast bands read 9); stage B reads the 8 again
 // (halo re-reads of M_pre hit L2) and writes C floats per tile, or C per
@@ -92,6 +105,7 @@ struct BandDesc {
   float* diff;
   float* D;  // D mode: (B, C, F, h, w) output
   int h, w;
+  int row_off, h_valid;  // halo mode: owned rows [row_off, row_off + h_valid)
   float mul;
   int blur;
   long long blk_off;    // first stage-A block of the band
@@ -287,7 +301,8 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
   const int tpp = d.tiles_x * d.tiles_y;
   const long long l = t / tpp;  // image plane b * F + f
   const int tt = (int)(t % tpp);
-  const int y0 = (tt / d.tiles_x) * BM_TH;
+  const int y0 = d.row_off + (tt / d.tiles_x) * BM_TH;
+  const int y_end = d.row_off + d.h_valid;  // end of the rows the tile sums take
   const int x0 = (tt % d.tiles_x) * BM_TW;
   const int b = (int)(l / F), f = (int)(l % F);
 
@@ -375,7 +390,7 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
     } else {
       const float* m = d.mpre + (((long long)b * C + c) * F + f) * hw;
       __syncthreads();  // previous channel done with sm/tmp; taps visible
-      tile_blur_vertical<BM_TH, BM_TW>(m, h, w, y0, x0, r, s_taps, sm, tmp);
+      tile_blur_vertical<BM_TH, BM_TW>(m, h, w, y0, x0, r, s_taps, sm, tmp, d.row_off == 0);
     }
     const float q = P.qs[c];
     const float eps_q = powf(BM_EPS, q);
@@ -417,7 +432,7 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
   for (int k = 0; k < BM_ROWS_PER_THREAD; ++k) {
     const int gy = y0 + threadIdx.y + k * BM_THREADS_Y;
     const int gx = x0 + threadIdx.x;
-    if (gy >= h || gx >= w) continue;
+    if (gy >= y_end || gx >= w) continue;
 #pragma unroll
     for (int dd = 0; dd < BM_MAX_C; ++dd) {
       if (dd >= C) continue;
@@ -456,15 +471,18 @@ __global__ void band_stage_c(BandParams P, const float* __restrict__ partials,
   }
 }
 
-static void layout(BandParams& P, const int* dims, long long* n_blocks_a,
+// halo: n_bands x {row_off, h_valid}; {0, h} outside the halo mode.
+static void layout(BandParams& P, const int* dims, const int* halo, long long* n_blocks_a,
                    long long* n_tiles, long long* n_planes) {
   long long blk = 0, tiles = 0, planes = 0;
   for (int k = 0; k < P.n_bands; ++k) {
     BandDesc& d = P.band[k];
     d.h = dims[2 * k];
     d.w = dims[2 * k + 1];
+    d.row_off = halo[2 * k];
+    d.h_valid = halo[2 * k + 1];
     d.tiles_x = (d.w + BM_TW - 1) / BM_TW;
-    d.tiles_y = (d.h + BM_TH - 1) / BM_TH;
+    d.tiles_y = (d.h_valid + BM_TH - 1) / BM_TH;
     d.blk_off = blk;
     d.tile_off = tiles;
     d.plane_off = planes;
@@ -480,13 +498,13 @@ static void layout(BandParams& P, const int* dims, long long* n_blocks_a,
 
 // Number of stage-B tiles (the length of the partials buffer / C).
 CVVDP_API long long cvvdp_band_masking_tiles(int n_bands, int B, int F,
-                                             const int* dims) {
+                                             const int* dims, const int* halo) {
   BandParams P;
   P.n_bands = n_bands;
   P.B = B;
   P.F = F;
   long long a, t, p;
-  layout(P, dims, &a, &t, &p);
+  layout(P, dims, halo, &a, &t, &p);
   return t;
 }
 
@@ -495,15 +513,17 @@ CVVDP_API long long cvvdp_band_masking_tiles(int n_bands, int B, int F,
 // expand = 1, the fused mode, E is gn, the next Gaussian level
 // (B, 2C, F, ceil(h/2), ceil(w/2)), ek its 5 expand taps, and mpre/diff are
 // unused);
-// dims: n_bands x {h, w}; muls, blur: per band (muls unused with contrast =
-// 1); luts: device (n_bands, C, nk); ch_gain, qs: C floats; xcm: C x C
+// dims: n_bands x {h, w}; halo: n_bands x {row_off, h_valid} ({0, h} for a
+// whole band; row_off > 0, the halo mode, pooled only, not with expand = 1,
+// and row_off >= the blur radius); muls, blur: per band (muls unused with
+// contrast = 1); luts: device (n_bands, C, nk); ch_gain, qs: C floats; xcm: C x C
 // floats; taps: ntaps floats. d_out = 0: partials is (tiles, C) scratch and
 // out receives the (n_bands, B, C, F) pooled sums of safe_pow(D, beta).
 // d_out = 1: each band's D is written to its D pointer; partials and out are
 // not touched.
 CVVDP_API int cvvdp_band_masking(
     int n_bands, int B, int C, int F, int nk, const long long* ptrs,
-    const int* dims, const float* muls, const int* blur, const float* luts,
+    const int* dims, const int* halo, const float* muls, const int* blur, const float* luts,
     float x0, float lut_scale, const float* ch_gain, float sens_corr, int ref_only,
     int contrast, int expand, const float* ek, const float* qs, float p, const float* xcm,
     float max_v, float blur_scale, const float* taps, int ntaps, float beta, int d_out,
@@ -528,7 +548,14 @@ CVVDP_API int cvvdp_band_masking(
     d.blur = blur[k];
   }
   long long n_a, n_t, n_p;
-  layout(P, dims, &n_a, &n_t, &n_p);
+  layout(P, dims, halo, &n_a, &n_t, &n_p);
+  for (int k = 0; k < n_bands; ++k) {
+    const BandDesc& d = P.band[k];
+    const int r = d.blur ? (ntaps - 1) / 2 : 0;
+    if (d.row_off < 0 || d.h_valid < 1 || d.h != d.h_valid + 2 * d.row_off ||
+        (d.row_off > 0 && (d_out || expand || d.row_off < r)))
+      return (int)cudaErrorInvalidValue;
+  }
   P.luts = luts;
   P.x0 = x0;
   P.lut_scale = lut_scale;

@@ -72,6 +72,9 @@ __device__ __forceinline__ int reflect_clamp(int i, int n) {
 // it ends with __syncthreads(). tile_blur_vpass is its second half, for a
 // caller that has filled `sm` itself. tile_blur_horizontal then sums the
 // horizontal taps for tile pixel (y, x). `taps` lies in shared memory.
+// With v_reflect false (a halo'd row slab, whose rows above and below the
+// owned rows are real neighbour rows) rows are not reflected, only clamped
+// into the plane.
 template <int TH, int TW>
 __device__ __forceinline__ void tile_blur_vpass(int r, const float* taps, const float* sm,
                                                 float* tmp) {
@@ -92,13 +95,13 @@ template <int TH, int TW>
 __device__ __forceinline__ void tile_blur_vertical(const float* __restrict__ plane, int h,
                                                    int w, int y0, int x0, int r,
                                                    const float* taps, float* sm,
-                                                   float* tmp) {
+                                                   float* tmp, bool v_reflect = true) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthr = blockDim.x * blockDim.y;
   const int SW = TW + 2 * r, SH = TH + 2 * r;
   for (int idx = tid; idx < SH * SW; idx += nthr) {
     const int yy = idx / SW, xx = idx % SW;
-    const int gy = reflect_clamp(y0 - r + yy, h);
+    const int gy = v_reflect ? reflect_clamp(y0 - r + yy, h) : min(max(y0 - r + yy, 0), h - 1);
     const int gx = reflect_clamp(x0 - r + xx, w);
     sm[idx] = plane[(long long)gy * w + gx];
   }

@@ -95,10 +95,12 @@ class video_source_array:
             self._raw_fmajor[which] = np.ascontiguousarray(np.transpose(src, (0, 2, 1, 3, 4)))
         return self._raw_fmajor[which]
 
-    def get_raw_block(self, which: str, start: int, count: int) -> np.ndarray:
+    def get_raw_block(self, which: str, start: int, count: int, batch=slice(None),
+                      rows=slice(None)) -> np.ndarray:
         """Raw source-dtype frames (B, count, C, H, W); short tails are padded
-        by repeating the last frame (the metric trims the padded outputs)."""
-        src = self._bfchw(which)
+        by repeating the last frame (the metric trims the padded outputs).
+        ``batch`` and ``rows`` select one rank's pairs and rows under a mesh."""
+        src = self._bfchw(which)[batch, :, :, rows]
         end = min(start + count, src.shape[1])
         block = src[:, start:end]
         if end - start < count:

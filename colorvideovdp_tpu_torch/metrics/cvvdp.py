@@ -288,19 +288,29 @@ class cvvdp(vq_metric):
     # ------------------------------------------------------------------
     # Scoring
 
-    def estimate_block_N(self, pix_cnt, N_frames):
+    def estimate_block_N(self, pix_cnt, N_frames, share=1):
         """Frames per block from the reference metric's memory model:
-        total = a + pix (N + fl - 1) b + pix N c, a = 1.6e9, b = 16, c = 320."""
+        total = a + pix (N + fl - 1) b + pix N c, a = 1.6e9, b = 16, c = 320.
+        ``share``: the number of ranks that divide the device's memory."""
         if self.device.type == "cuda":
             mem_avail = torch.cuda.mem_get_info(self.device)[0]
             if self.gpu_mem is not None:
                 mem_avail = min(mem_avail, self.gpu_mem * 1e9)
         else:
             mem_avail = HOST_MEM_BUDGET if self.gpu_mem is None else self.gpu_mem * 1e9
+        mem_avail /= share
         a, b, c = 1.6e9, 16, 320
         max_frames = int(math.floor(
             (mem_avail - a - pix_cnt * (self.filter_len - 1) * b) / (pix_cnt * (b + c))))
         return max(1, min(max_frames, N_frames))
+
+    def block_gpu_mem(self, pix_cnt, block_N, fps, share=1):
+        """The ``gpu_mem`` (GB) under which ``estimate_block_N(pix_cnt, N,
+        share)`` gives ``block_N``-frame blocks (N >= block_N) of a video at
+        ``fps``, when the device has that much free."""
+        fl = len(get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)[0][0])
+        a, b, c = 1.6e9, 16, 320
+        return share * (a + pix_cnt * (fl - 1) * b + pix_cnt * (b + c) * (block_N + 0.5)) / 1e9
 
     def _ensure_pyramids(self, width, height):
         if self.lpyr is not None and self.lpyr.W == width and self.lpyr.H == height:
@@ -451,7 +461,7 @@ class cvvdp(vq_metric):
         return self._cache[key]
 
     @no_tf32()
-    def _process_block(self, R, temp_ch, is_image, heatmap=False):
+    def _process_block(self, R, temp_ch, is_image, heatmap=False, mesh=None):
         """Pyramid -> CSF -> masking -> spatial pooling for one frame block.
         R: (B, 2 * all_ch, F, H, W) interleaved. Returns (Q_per_ch
         (B, all_ch, F, bands), heatmap block, context); with ``heatmap`` the
@@ -463,7 +473,14 @@ class cvvdp(vq_metric):
         kernel's configuration, raw pairs for weber_g1 and weber_g1_ref and
         contrast bands otherwise, both through ``band_masking.cu``; with any
         other configuration the generic chain, the CSF LUT then
-        ``apply_masking_model``."""
+        ``apply_masking_model``.
+
+        ``mesh`` (``parallel/sharding.py``): R is this rank's pairs and rows;
+        see ``_process_block_sharded``."""
+        if mesh is not None:
+            if heatmap:
+                raise NotImplementedError("heatmaps are not sharded yet")
+            return self._process_block_sharded(R, temp_ch, mesh), None, None
         all_ch = 2 + temp_ch
         use_k = self.enable_fused_kernels
         n_bands = self.lpyr.get_band_count()
@@ -533,15 +550,7 @@ class cvvdp(vq_metric):
                         Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
                 del xs, ys, args
 
-        base = bands[-1]
-        rho_bb = 0.1  # baseband CSF frequency
-        S = self.csf.sensitivity_multi_channel(
-            [rho_bb] * all_ch, [self.omega[0 if cc < 3 else 1] for cc in range(all_ch)],
-            L_bkg_pyr[-1], [cc if cc < 3 else 0 for cc in range(all_ch)], use_kernel=use_k)
-        # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w); h = w = 1 for weber_g1
-        S = S.movedim(0, 1)[:, :, 0] * sens_corr
-        D = torch.abs(base[:, 0::2] - base[:, 1::2]) * S
-        Q_cols[-1] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
+        Q_cols[-1], D = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
         Q = torch.stack(Q_cols, dim=-1)
         if not heatmap:
             return Q, None, None
@@ -550,6 +559,77 @@ class cvvdp(vq_metric):
         recon = self.heatmap_pyr.reconstruct(hm_bands)
         # A copy, so that the caller can free the block's R before drawing.
         return Q, 1.0 - self.met2jod(recon) / 10.0, R[:, 0].clone()
+
+    def _baseband(self, base, logL, all_ch, sens_corr):
+        """(Q column, D) of the baseband: the CSF LUT of its adaptation field."""
+        rho_bb = 0.1  # baseband CSF frequency
+        S = self.csf.sensitivity_multi_channel(
+            [rho_bb] * all_ch, [self.omega[0 if cc < 3 else 1] for cc in range(all_ch)],
+            logL, [cc if cc < 3 else 0 for cc in range(all_ch)],
+            use_kernel=self.enable_fused_kernels)
+        # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w); h = w = 1 for weber_g1
+        S = S.movedim(0, 1)[:, :, 0] * sens_corr
+        D = torch.abs(base[:, 0::2] - base[:, 1::2]) * S
+        return mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False), D
+
+    def _process_block_sharded(self, R, temp_ch, mesh):
+        """Q_per_ch (B, all_ch, F, bands) of one block under ``mesh``, the same
+        on every rank; R is this rank's (B / n_batch, 2 all_ch, F, H / n_space,
+        W) slab. The JAX package's routing under a mesh
+        (``metrics/cvvdp.py:1233-1245``, ``:1478-1490``): bands of row-sharded
+        levels that ``band_shardable`` admits take the band kernel's halo mode
+        on their slabs, and their pooled sums are summed over the space group
+        before the norm over the band's global size; the other bands and the
+        baseband run whole on every rank and are not summed; Q is gathered
+        over the batch group. The band kernel's raw-pair configuration only."""
+        from ..parallel import sharding as sh
+
+        all_ch = 2 + temp_ch
+        use_k = self.enable_fused_kernels
+        params = self._masking_params()
+        consts, luts = self._band_tables(all_ch)
+        if consts is None or self.contrast not in ("weber_g1", "weber_g1_ref"):
+            raise NotImplementedError(
+                "sharded scoring takes the band kernel's raw-pair configuration only")
+        sens_corr = 10.0 ** (self.sensitivity_correction / 20.0)
+        bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=True, use_kernel=use_k, mesh=mesh)
+        n_bands = len(bands)
+        B, F = R.shape[0], R.shape[2]
+        shapes = self.lpyr.pyr_shape
+        muls = [1.0 if bb == 0 else 2.0 for bb in range(n_bands - 1)]
+        halo = [bb for bb in range(n_bands - 1)
+                if bands[bb][0].sharded and sh.band_shardable(params, *shapes[bb], mesh)]
+        whole = [bb for bb in range(n_bands - 1) if bb not in halo]
+        # The route of the last block: the row-sharded levels, the halo bands.
+        levels = [pair[0] for pair in bands[:-1]] + [bands[-2][1]]
+        self.sharded_route = {"levels": [i for i, lv in enumerate(levels) if lv.sharded],
+                              "halo_bands": halo}
+        Q_cols = [None] * n_bands
+        sums = []
+        slab_h = [shapes[bb][0] // mesh.n_space for bb in halo]
+        for sel in bm.band_groups([(hv + 2 * bm.HALO_ROWS, shapes[bb][1])
+                                   for bb, hv in zip(halo, slab_h)], B, all_ch, F):
+            xs = [sh.halo_rows(bands[halo[i]][0].x, mesh) for i in sel]
+            ys = [sh.halo_rows(sh.expand_slab(bands[halo[i]][1], mesh, *shapes[halo[i]]), mesh)
+                  for i in sel]
+            fn = bm.band_masking_halo if use_k else bm.band_masking_halo_plain
+            sums.append(fn(xs, ys, luts[[halo[i] for i in sel]], [muls[halo[i]] for i in sel],
+                           consts, [slab_h[i] for i in sel]))
+            del xs, ys
+        if halo:
+            total = sh.sum_space(torch.cat(sums), mesh)
+            for j, bb in enumerate(halo):
+                Q_cols[bb] = bm.pooled_norm(total[j], *shapes[bb], self.beta)
+        for sel in bm.band_groups([shapes[bb] for bb in whole], B, all_ch, F):
+            sel = [whole[i] for i in sel]
+            xs = [bands[bb][0].full(mesh) for bb in sel]
+            ys = [gausspyr_expand(bands[bb][1].full(mesh), x.shape[-2:]) for bb, x in zip(sel, xs)]
+            out = bm.band_sums(xs, ys, luts[sel], [muls[bb] for bb in sel], consts, use_k)
+            for j, bb in enumerate(sel):
+                Q_cols[bb] = bm.pooled_norm(out[j], *shapes[bb], self.beta)
+            del xs, ys
+        Q_cols[-1], _ = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
+        return sh.gather_batch(torch.stack(Q_cols, dim=-1), mesh)
 
     def _mega_bands(self, shapes, all_ch, params):
         """The interior raw bands that take the mega-kernel route: with

@@ -42,13 +42,14 @@ SIGNATURES = {
     "cvvdp_csf_lut_bwd": [_P, _P, _P, _L, _I, _I, _P, _F, _F, _P],
     "cvvdp_blur": [_P, _P, _I, _I, _I, _P, _I, _P],
     "cvvdp_pyramid_reduce": [_P, _P, _I, _I, _I, _P, _P],
+    "cvvdp_pyramid_reduce_slab": [_P, _P, _I, _I, _I, _I, _P, _P],
     "cvvdp_ingest": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _I,
                      _P, _P, _P],
-    "cvvdp_band_masking_tiles": [_I, _I, _I, _P],
+    "cvvdp_band_masking_tiles": [_I, _I, _I, _P, _P],
     "cvvdp_interleave": [_P, _P, _P, _L, _P],
     "cvvdp_deinterleave": [_P, _P, _P, _L, _P],
     "cvvdp_concat": [_P, _P, _P, _L, _I, _P],
-    "cvvdp_band_masking": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _I,
+    "cvvdp_band_masking": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _I,
                            _I, _P, _P, _F, _P, _F, _F, _P, _I, _F, _I, _P, _P, _P],
 }
 RESTYPES = {"cvvdp_band_masking_tiles": _L}

@@ -35,6 +35,13 @@ Two output modes share stages A and B and one plain chain per input mode
   With the kernels on, that recompute runs the CSF LUT and blur kernels with
   their own backward rules, as JAX's recompute reaches its Pallas LUT and
   blur.
+* halo (``band_masking_halo``, pooled, raw pairs): each band is one rank's
+  row slab of a band sharded over image rows (``parallel/sharding.py``), with
+  ``HALO_ROWS`` neighbour rows above and below; the slab's blur reads them as
+  they are, and only the owned rows are pooled. The counterpart of the halo'd
+  shard mode of ``fused_blur_transducer`` (``row_off``/``h_valid``, JAX
+  ``masking_fused.py:553-602``). The caller sums the ranks' sums. Forward
+  only; the plain version is ``band_masking_halo_plain``.
 * D: the distortion map D, (B, C, F, h, w) per band, for the heatmap
   (forward only). The JAX package runs ``fused_blur_transducer(pool_beta=
   None)`` on bands its fused blur takes and ``blur_fn`` +
@@ -53,10 +60,10 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..blur import gaussian_kernel1d
+from ..blur import _blur_1d, gaussian_kernel1d
 from ..clip import clip
 from ..masking import (_EPS, MaskingParams, _pow_static, _safe_pow_static,
-                       apply_masking_model)
+                       apply_masking_model, clamp_diffs, mask_pool, safe_pow)
 from ..pyramid import K5
 from . import _build
 from .csf_lut import CsfLut
@@ -69,6 +76,9 @@ MAX_BANDS = 8
 # Small bands then share a launch (their time is launch latency), and a band
 # whose share alone exceeds the budget runs by itself.
 GROUP_BYTES = 1 << 28
+# The halo mode's neighbour rows on each side of a row slab (the JAX
+# package's r = 8, ``masking_fused.py:570``): at least the blur radius.
+HALO_ROWS = 8
 # Frames per plain-version chunk are chosen so that one chunk holds at most
 # this many pixels per channel: bounds the plain version's temporaries.
 _PLAIN_CHUNK_PIXELS = 1 << 24
@@ -107,18 +117,51 @@ class BandConsts:
         )
 
 
-def _band_D_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> torch.Tensor:
-    """D (B, C, F, h, w) of one band: the Weber contrast and CSF as the JAX
-    package's decompose + get_band + CSF chain forms them, then
-    ``masking.apply_masking_model``. ``use_kernel`` runs the CSF LUT and blur
-    kernels inside the chain."""
+def _raw_contrast(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False):
+    """(T, R, S) of raw pairs: the Weber contrast and CSF as the JAX package's
+    decompose + get_band + CSF chain forms them."""
     lb_r = clip(E[:, 1:2], 0.01)
     lb_t = lb_r if k.ref_only else clip(E[:, 0:1], 0.01)
     T = clip((gi[:, 0::2] - E[:, 0::2]) / lb_t, hi=1000.0) * mul
     R = clip((gi[:, 1::2] - E[:, 1::2]) / lb_r, hi=1000.0) * mul
     S = CsfLut.apply(torch.log10(lb_r[:, 0]), lut, k.x0, k.x1, use_kernel)
-    S = S.movedim(0, 1) * k.sens_corr
-    return apply_masking_model(T, R, S, k.params, use_kernel)
+    return T, R, S.movedim(0, 1) * k.sens_corr
+
+
+def _band_D_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> torch.Tensor:
+    """D (B, C, F, h, w) of one band: ``_raw_contrast``, then
+    ``masking.apply_masking_model``. ``use_kernel`` runs the CSF LUT and blur
+    kernels inside the chain."""
+    return apply_masking_model(*_raw_contrast(gi, E, lut, mul, k, use_kernel), k.params,
+                               use_kernel)
+
+
+def raw_stage_a_plain(gi, E, lut, mul, k: BandConsts):
+    """Stage A on raw pairs: (M_pre, diff), each (B, C, F, h, w), with the
+    products rounded as ``masking.apply_masking_model`` rounds them."""
+    T, R, S = _raw_contrast(gi, E, lut, mul, k)
+    g = torch.as_tensor(k.ch_gain, device=gi.device).reshape(1, -1, 1, 1, 1)
+    T_p, R_p = T * S * g, R * S * g
+    return torch.minimum(torch.abs(T_p), torch.abs(R_p)), torch.abs(T_p - R_p)
+
+
+def halo_pool_plain(m_h, d_h, k: BandConsts, h_valid: int) -> torch.Tensor:
+    """Stages B and C of the halo mode: (B, C, F) sums of safe_pow(D, beta)
+    over the owned rows [HALO_ROWS, HALO_ROWS + h_valid) of a row slab's
+    M_pre and diff, (B, C, F, h_valid + 2 HALO_ROWS, w). The vertical blur
+    reads the neighbour rows as they are (no reflection); the horizontal one
+    reflects as ``ops/blur.py`` does. The JAX package's
+    ``fused_blur_transducer(..., row_off=8, h_valid=h_valid)``."""
+    r, rb = HALO_ROWS, (len(k.taps) - 1) // 2
+    y = None
+    for i, t in enumerate(k.taps):
+        term = float(t) * m_h[..., r - rb + i:r - rb + i + h_valid, :]
+        y = term if y is None else y + term
+    M_mm = _blur_1d(y, k.taps, y.ndim - 1) * k.blur_scale
+    q = torch.as_tensor(k.qs, device=m_h.device).reshape(-1, 1, 1, 1)
+    M = mask_pool(safe_pow(torch.abs(M_mm), q), k.params)
+    D = clamp_diffs(safe_pow(d_h[..., r:r + h_valid, :], k.p) / (1.0 + M), k.params)
+    return torch.sum(_pow_static(D + _EPS, k.beta) - _EPS ** k.beta, dim=(-2, -1))
 
 
 def csf_contrast_plain(band, logL, lut, k: BandConsts):
@@ -213,12 +256,14 @@ _EXPAND_TAPS = np.ascontiguousarray(2.0 * K5.astype(np.float64), np.float32)
 
 
 def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool,
-            contrast: bool = False, expand: bool = False):
+            contrast: bool = False, expand: bool = False, h_valids=None):
     """One ``cvvdp_band_masking`` launch over the given bands on the card:
     the (n_bands, B, C, F) pooled sums, or with ``d_out`` the list of D.
     ``contrast``: the lists hold contrast bands and their logL. ``expand``
     (the fused mode, ``band_fused.py``): the second list holds the next
-    Gaussian levels gn, expanded inside the kernel."""
+    Gaussian levels gn, expanded inside the kernel. ``h_valids`` (the halo
+    mode, pooled only): each band is a row slab of h_valid owned rows with
+    ``HALO_ROWS`` neighbour rows above and below."""
     n = len(gi_list)
     if not 1 <= n <= MAX_BANDS or len(E_list) != n or len(muls) != n:
         raise ValueError(f"band_masking: 1..{MAX_BANDS} bands, got {n}")
@@ -228,6 +273,7 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
     if tuple(luts.shape[:2]) != (n, C) or C > 4 or len(k.taps) > 17:
         raise ValueError("band_masking: table or channel count mismatch")
     dims = np.zeros((n, 2), np.int32)
+    halo = np.zeros((n, 2), np.int32)
     for i, (gi, E) in enumerate(zip(gi_list, E_list)):
         h, w = gi.shape[-2:]
         e_shape = ((B, 1, F, h, w) if contrast else
@@ -235,6 +281,7 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
         if tuple(E.shape) != tuple(e_shape) or tuple(gi.shape[:3]) != (B, C2, F):
             raise ValueError("band_masking: band/second input shape mismatch")
         dims[i] = gi.shape[-2:]
+        halo[i] = (0, dims[i][0]) if h_valids is None else (HALO_ROWS, h_valids[i])
     dev = gi_list[0].device
     sizes = [0 if expand else B * C * F * int(h) * int(w) for h, w in dims]
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
@@ -251,7 +298,7 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
     if d_out:
         partials = out = None
     else:
-        n_tiles = lib.cvvdp_band_masking_tiles(n, B, F, dims.ctypes.data)
+        n_tiles = lib.cvvdp_band_masking_tiles(n, B, F, dims.ctypes.data, halo.ctypes.data)
         partials = torch.empty(n_tiles * C, dtype=torch.float32, device=dev)
         out = torch.empty((n, B, C, F), dtype=torch.float32, device=dev)
     ch_gain = np.ascontiguousarray(k.ch_gain, np.float32)
@@ -259,7 +306,8 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
     xcm = np.ascontiguousarray(k.xcm, np.float32)
     taps = np.ascontiguousarray(k.taps, np.float32)
     rc = lib.cvvdp_band_masking(
-        n, B, C, F, luts.shape[2], ptrs.ctypes.data, dims.ctypes.data, muls_a.ctypes.data,
+        n, B, C, F, luts.shape[2], ptrs.ctypes.data, dims.ctypes.data, halo.ctypes.data,
+        muls_a.ctypes.data,
         blur.ctypes.data, luts.data_ptr(), k.x0, (luts.shape[2] - 1) / (k.x1 - k.x0),
         ch_gain.ctypes.data, k.sens_corr, int(k.ref_only), int(contrast), int(expand),
         _EXPAND_TAPS.ctypes.data, qs.ctypes.data, k.p,
@@ -281,6 +329,35 @@ def band_masking(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
 
 
 band_masking.launches = 0
+
+
+def band_masking_halo_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts,
+                            h_valids):
+    """Plain version of the halo mode: (n_bands, B, C, F) pooled sums over
+    each slab's owned rows."""
+    return torch.stack([
+        torch.cat([halo_pool_plain(*raw_stage_a_plain(gi[:, :, fs], E[:, :, fs], luts[i],
+                                                      muls[i], k), k, h_valids[i])
+                   for fs in _frame_chunks(gi)], dim=2)
+        for i, (gi, E) in enumerate(zip(gi_list, E_list))])
+
+
+def band_masking_halo(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, h_valids):
+    """The halo mode on raw pairs: each gi and E (B, 2C, F, h_valid +
+    2 HALO_ROWS, w) is a rank's row slab with its neighbour rows; returns the
+    (n_bands, B, C, F) pooled sums over the owned rows, for the caller to sum
+    over the ranks. CPU tensors take ``band_masking_halo_plain``."""
+    if any(gi.shape[-2] != hv + 2 * HALO_ROWS for gi, hv in zip(gi_list, h_valids)):
+        raise ValueError("band_masking_halo: each slab needs HALO_ROWS rows on each side")
+    if gi_list[0].device.type == "cpu":
+        return band_masking_halo_plain(gi_list, E_list, luts, muls, k, h_valids)
+    _check_blur("band_masking_halo", gi_list, k, True)
+    out = _launch(gi_list, E_list, luts, muls, k, d_out=False, h_valids=h_valids)
+    band_masking_halo.launches += 1
+    return out
+
+
+band_masking_halo.launches = 0
 
 
 def _check_blur(name, gi_list, k: BandConsts, want: bool):

@@ -10,6 +10,12 @@ The plain version is ``ops/pyramid.py:reduce_plain``. ``Reduce`` is the
 kernel with the adjoint of ``reduce_plain`` as its backward (the reduce is
 linear), as ``colorvideovdp_tpu/ops/pyramid.py:140-161`` takes XLA's
 transpose.
+
+``pyramid_reduce_slab`` is the kernel's slab mode, the counterpart of
+``colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:238`` (``reduce_slab_tpu``):
+one rank's halo'd row slab of a level sharded over image rows
+(``parallel/sharding.py`` ``sharded_reduce``), with the plain version
+``ops/pyramid.py:reduce_slab_plain`` and the same bits. Forward only.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..pyramid import K5, reduce_plain
+from ..pyramid import K5, reduce_plain, reduce_slab_plain
 from . import _build
 
 _K5 = np.ascontiguousarray(K5, np.float32)
@@ -46,6 +52,31 @@ def pyramid_reduce(x: torch.Tensor) -> torch.Tensor:
 
 
 pyramid_reduce.launches = 0
+
+
+def pyramid_reduce_slab(x: torch.Tensor, rows_odd: bool) -> torch.Tensor:
+    """(..., H_loc + 16, W) halo'd slab -> (..., H_loc / 2, ceil(W / 2)), no
+    vertical edge corrections, the last-column branch keyed on the global
+    row parity ``rows_odd``. CPU tensors take ``reduce_slab_plain``; CUDA
+    tensors launch the kernel's slab mode."""
+    lead = tuple(x.shape[:-2])
+    H_loc, W = x.shape[-2] - 16, x.shape[-1]
+    P = int(np.prod(lead)) if lead else 1
+    if H_loc < 2 or H_loc % 2 or W < 3 or P > 65535:
+        raise ValueError(f"pyramid_reduce_slab: unsupported shape {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return reduce_slab_plain(x, rows_odd)
+    _build.require_cuda("pyramid_reduce_slab", x)
+    y = torch.empty(lead + (H_loc // 2, (W + 1) // 2), dtype=torch.float32, device=x.device)
+    rc = _build.library().cvvdp_pyramid_reduce_slab(
+        x.data_ptr(), y.data_ptr(), P, H_loc, W, int(bool(rows_odd)), _K5.ctypes.data,
+        _build.stream_handle(x.device))
+    _build.check_cuda(rc, "cvvdp_pyramid_reduce_slab")
+    pyramid_reduce_slab.launches += 1
+    return y
+
+
+pyramid_reduce_slab.launches = 0
 
 
 class Reduce(torch.autograd.Function):

@@ -85,6 +85,23 @@ def reduce_plain(x: torch.Tensor) -> torch.Tensor:
     return _reduce_1d(y, -1, odd_correction=rows_odd)
 
 
+def reduce_slab_plain(x: torch.Tensor, rows_odd: bool) -> torch.Tensor:
+    """One rank's slab of a row-sharded reduce, the plain version of the slab
+    kernel (the JAX package's ``reduce_slab_tpu``): ``x`` (..., H_loc + 16, W)
+    holds the H_loc owned rows (even) with 8 real neighbour rows above and
+    below (zeros at the global edges) -> (..., H_loc / 2, ceil(W / 2)). The
+    vertical pass has no edge corrections (the caller adds them at the global
+    edges); the horizontal pass keys its last-column branch on ``rows_odd``,
+    the parity of the level's GLOBAL row count (trap 1)."""
+    n_out = (x.shape[-2] - 16) // 2
+    y = None
+    for t in range(5):
+        # Output row i reads slab rows 2i - 2 + t, buffer rows 2i + 6 + t.
+        term = float(K5[t]) * x[..., 6 + t:6 + t + 2 * n_out - 1:2, :]
+        y = term if y is None else y + term
+    return _reduce_1d(y, -1, odd_correction=rows_odd)
+
+
 def gausspyr_reduce(x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
     """The reduce kernel (differentiable, ``kernels.pyramid_reduce.Reduce``)
     or the plain version under native autograd."""
@@ -181,7 +198,7 @@ class WeberContrastPyramid(LaplacianPyramid):
             raise RuntimeError(f"Contrast {contrast} not supported")
         self.contrast = contrast
 
-    def decompose(self, image, raw_pairs=False, use_kernel: bool = True):
+    def decompose(self, image, raw_pairs=False, use_kernel: bool = True, mesh=None):
         """``(contrast_bands, log10_L_bkg_bands)``; the log-luminance bands
         carry one channel, the reference's adaptation field. With
         ``raw_pairs`` the interior levels come back as raw ``(G_i, G_{i+1})``
@@ -190,7 +207,22 @@ class WeberContrastPyramid(LaplacianPyramid):
 
         Adaptation, as in the JAX package: ``weber_g1_ref`` to the reference
         Y of the expanded next level, ``weber_g1`` each side to its own
-        expanded Y, ``weber_g0_ref`` to the reference Y of G_i itself."""
+        expanded Y, ``weber_g0_ref`` to the reference Y of G_i itself.
+
+        ``mesh`` (``parallel/sharding.py``; raw pairs only): ``image`` is this
+        rank's row slab, and the pairs hold ``sharding.Level`` objects, each
+        the rank's slab of a row-sharded level or a whole, replicated one;
+        the baseband is whole on every rank."""
+        if mesh is not None:
+            if not raw_pairs:
+                raise ValueError("a mesh takes the raw-pair decomposition only")
+            from ..parallel.sharding import sharded_levels
+
+            levels = sharded_levels(image, self.height + 1, mesh, use_kernel)
+            contrast, logL = self._contrast(levels[-1].full(mesh), None)
+            n = len(levels)
+            return ([(levels[i], levels[i + 1]) for i in range(n - 1)] + [contrast],
+                    [None] * (n - 1) + [logL])
         gpyr = self.gaussian_pyramid(image, self.height + 1, use_kernel)
         lpyr, L_bkg_pyr = [], []
         for i in range(len(gpyr)):
@@ -198,34 +230,40 @@ class WeberContrastPyramid(LaplacianPyramid):
                 lpyr.append((gpyr[i], gpyr[i + 1]))
                 L_bkg_pyr.append(None)
                 continue
-            if i == len(gpyr) - 1:
-                layer = gpyr[i]
-                if self.contrast.endswith("ref"):
-                    L_bkg = clip(layer[..., 1:2, :, :, :], 0.01)
-                else:
-                    # Sustained channels adapt to the image mean; otherwise the
-                    # baseband would divide by itself.
-                    L_bkg = torch.mean(clip(layer[..., 0:2, :, :, :], 0.01), dim=(-1, -2),
-                                       keepdim=True)
-            else:
-                glayer_ex = gausspyr_expand(gpyr[i + 1], gpyr[i].shape[-2:])
-                layer = gpyr[i] - glayer_ex
-                if self.contrast == "weber_g1_ref":
-                    L_bkg = clip(glayer_ex[..., 1:2, :, :, :], 0.01)
-                elif self.contrast == "weber_g1":
-                    L_bkg = clip(glayer_ex[..., 0:2, :, :, :], 0.01)
-                else:
-                    L_bkg = clip(gpyr[i][..., 1:2, :, :, :], 0.01)
-            if L_bkg.shape[-4] == 2:
-                t = clip(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], hi=1000.0)
-                r = clip(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], hi=1000.0)
-                contrast = torch.stack([t, r], dim=-4).reshape(layer.shape)
-                L_bkg = L_bkg[..., 1:2, :, :, :]
-            else:
-                contrast = clip(layer / L_bkg, hi=1000.0)
+            contrast, logL = self._contrast(gpyr[i], gpyr[i + 1] if i < len(gpyr) - 1 else None)
             lpyr.append(contrast)
-            L_bkg_pyr.append(torch.log10(L_bkg))
+            L_bkg_pyr.append(logL)
         return lpyr, L_bkg_pyr
+
+    def _contrast(self, g, g_next):
+        """The contrast band of level ``g`` and its log10 adaptation field;
+        ``g_next``, the next level, is None at the baseband."""
+        if g_next is None:
+            layer = g
+            if self.contrast.endswith("ref"):
+                L_bkg = clip(layer[..., 1:2, :, :, :], 0.01)
+            else:
+                # Sustained channels adapt to the image mean; otherwise the
+                # baseband would divide by itself.
+                L_bkg = torch.mean(clip(layer[..., 0:2, :, :, :], 0.01), dim=(-1, -2),
+                                   keepdim=True)
+        else:
+            glayer_ex = gausspyr_expand(g_next, g.shape[-2:])
+            layer = g - glayer_ex
+            if self.contrast == "weber_g1_ref":
+                L_bkg = clip(glayer_ex[..., 1:2, :, :, :], 0.01)
+            elif self.contrast == "weber_g1":
+                L_bkg = clip(glayer_ex[..., 0:2, :, :, :], 0.01)
+            else:
+                L_bkg = clip(g[..., 1:2, :, :, :], 0.01)
+        if L_bkg.shape[-4] == 2:
+            t = clip(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], hi=1000.0)
+            r = clip(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], hi=1000.0)
+            contrast = torch.stack([t, r], dim=-4).reshape(layer.shape)
+            L_bkg = L_bkg[..., 1:2, :, :, :]
+        else:
+            contrast = clip(layer / L_bkg, hi=1000.0)
+        return contrast, torch.log10(L_bkg)
 
 
 class LogContrastPyramid(LaplacianPyramid):

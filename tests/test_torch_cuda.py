@@ -20,6 +20,7 @@ from colorvideovdp_tpu_torch.ops.kernels import csf_lut as lut
 from colorvideovdp_tpu_torch.ops.kernels import ingest as ing
 from colorvideovdp_tpu_torch.ops.kernels import interleave as il
 from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
+from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
 from colorvideovdp_tpu_torch.ops.kernels.pyramid_reduce import pyramid_reduce
 from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
 from colorvideovdp_tpu_torch.utils.config import write_parameters
@@ -559,3 +560,63 @@ def test_interleave_kernels(dev, shape):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(il.deinterleave(il.interleave(ev, od))[1], od)
+
+
+@pytest.mark.parametrize("shape,rows_odd", [((2, 64 + 16, 512), False), ((1, 96 + 16, 301), True),
+                                            ((3, 2 + 16, 7), False), ((64, 270 + 16, 960), False)])
+def test_reduce_slab_kernel(dev, shape, rows_odd):
+    """The slab mode gives ``reduce_slab_plain``'s bits (it rounds as the
+    plain version does, csrc/common.cuh)."""
+    x = torch.rand(shape, device=dev)
+    before = prd.pyramid_reduce_slab.launches
+    y = prd.pyramid_reduce_slab(x, rows_odd)
+    assert prd.pyramid_reduce_slab.launches == before + 1
+    assert torch.equal(y, pyr.reduce_slab_plain(x, rows_odd))
+
+
+@pytest.mark.parametrize("C", [4, 3])
+def test_band_masking_halo_kernel(dev, C):
+    """The halo mode against its plain version: a 3-band launch of slabs with
+    odd and even owned rows and an unaligned width, and the halo mode fed a
+    slab with zero-padded halos against the whole band's pooled mode on the
+    interior."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(517, 99)
+    consts, luts = m._band_tables(C)
+    r = bm.HALO_ROWS
+    h_valids, widths = [40, 17, 33], [517, 259, 130]
+    gis = [torch.rand(1, 2 * C, 3, hv + 2 * r, w, device=dev) * 20 + 30
+           for hv, w in zip(h_valids, widths)]
+    Es = [g + torch.randn_like(g) for g in gis]
+    args = (gis, Es, luts[0:3], [1.0, 2.0, 2.0], consts, h_valids)
+    before = bm.band_masking_halo.launches
+    got = bm.band_masking_halo(*args)
+    assert bm.band_masking_halo.launches == before + 1
+    assert _rel(got, bm.band_masking_halo_plain(*args)) <= 1e-4
+
+
+def test_sharded_scoring_on_the_card(dev, tmp_path):
+    """A 192x512 image and a 2-block 128x256 video on a (1, 2) mesh of two
+    ranks on the card(s): the JODs of single-device scoring, and the slab
+    reduce and halo band mode launched on every rank."""
+    from colorvideovdp_tpu_torch.parallel import run_ranks
+    from colorvideovdp_tpu_torch.parallel import sharding as sh
+
+    rng = np.random.RandomState(5)
+    cases = {"image": ([rng.randint(0, 255, (192, 512, 3), dtype=np.uint8) for _ in range(2)],
+                       "HWC", 0),
+             "video": ([rng.randint(0, 255, (128, 256, 3, 8), dtype=np.uint8)
+                        for _ in range(2)], "HWCF", 30.0)}
+    for name, (pair, dims, fps) in cases.items():
+        paths = [str(tmp_path / f"{name}{i}.npy") for i in range(2)]
+        for p, a in zip(paths, pair):
+            np.save(p, a)
+        spec = dict(test=paths[0], reference=paths[1], dim_order=dims, fps=fps,
+                    display_name="standard_hdr_pq", gpu_mem=2.5)
+        res = run_ranks(sh.score_rank, 2, (spec,), device="cuda", timeout_s=300)
+        Q1, _ = ct.cvvdp(display_name="standard_hdr_pq", device="cuda").predict(
+            *pair, dim_order=dims, frames_per_second=fps)
+        for r in res:
+            assert abs(float(r["jod"]) - float(Q1)) <= 2e-4, (name, float(r["jod"]), float(Q1))
+            assert r["launches"]["pyramid_reduce_slab"] > 0
+            assert r["launches"]["band_masking_halo"] > 0

@@ -43,6 +43,9 @@ Q_mega, _ = m.predict(np.clip(ref2.astype(np.int16) + 9, 0, 255).astype(np.uint8
                       dim_order="HWC")
 assert np.isfinite(float(Q_mega)) and len(seen) == 1, (float(Q_mega), seen)
 assert interleave_bench.main(["--cpu-check"]) == 0
+from colorvideovdp_tpu_torch.tools import shard_check
+assert shard_check.main(["--cpu", "--ranks", "2", "--size", "48x256", "--frames", "3",
+                         "--block-frames", "2"]) == 0
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("colorvideovdp_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("JOD", float(Q), float(Q_ml))
