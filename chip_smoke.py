@@ -12,14 +12,27 @@ Phase 2  every kernel against its plain PyTorch version on the card, at the
          on seeded random frames, and the loss path's CSF LUT, its backward
          and the blur at the shapes of phase 5: the worst relative error of
          any channel against the stated tolerance, kernel and plain times
-         (CUDA events, median of 5).
+         (CUDA events, median of 5). The ingest kernel also on uint16 and
+         float16 frames, its code-value table route against the same frames
+         as float32 (v / 255, v / 65535 correctly rounded, float16 widened)
+         through the per-sample path, bit for bit. The one-pass pooled band
+         kernel (``band_pooled``)
+         at 4K band 0 and at the launch that stacks the narrow bands,
+         against its plain version and bit for bit against the previous
+         route (the plain expand + ``band_masking``), timed in turns with
+         it.
 Phase 3  the 4K HDR clip (3840x2160, 32 frames, 30 fps, seed 7,
          standard_hdr_pq) through ``cvvdp.predict`` with the kernels, then
          with ``enable_fused_kernels = False``. Every kernel must have
-         launched, the two JODs must agree within 1e-3 and the JOD must be
-         within 0.01 of 7.8784, the value the reference metric gives. Then
-         the host relayout of the input arrays and the block loop are timed
-         apart.
+         launched, ``band_pooled`` and not ``band_masking`` for the pooled
+         raw bands, the two JODs must agree within 1e-3, the JOD must be
+         within 0.01 of 7.8784, the value the reference metric gives, and
+         within 1e-4 of 7.877874, the port's JOD before the one-pass band
+         kernel. Then the host relayout of the input arrays and the block
+         loop are timed apart, and the warm block loop's device time is
+         split per kernel (``torch.profiler``), and one warm block's stages
+         (ingest, decomposition, band kernel launches, baseband and pooling)
+         with CUDA events.
 Phase 4  a 1920x1080 sRGB image pair on standard_fhd (the image step, C = 3).
 Phase 5  a training step at full width: ``get_loss_fn(1080, 1920)`` on
          standard_fhd with 4 seeded sRGB pairs (seed 11). First the reduce
@@ -77,10 +90,11 @@ Phase 8  the ColorVideoVDP-ML metrics. First the ingest kernel's first-block
          time, peak memory and the split between trunk, feature pooling and
          head.
 
-Phase 9  the band mega-kernel route (``use_band_mega``). First the fused
-         mode of the band kernel, pooled (``band_fused``) and D
-         (``band_fused_d``), against its plain version and against the
-         default raw-pair route fed the plain expand, at 4K band 0
+Phase 9  the band mega-kernel route (``use_band_mega``). First the pooled
+         mode (``band_fused``, the one-pass pooled kernel for the one band)
+         and the fused D mode of the band kernel (``band_fused_d``), against
+         their plain versions and against the raw-pair route fed the plain
+         expand, at 4K band 0
          (1, 8, 8, 2160, 3840) and at an off-grid 1081x1921 band; its time
          beside the default route's (plain expand + ``band_masking``).
          Then ``predict`` on the phase-6 12-frame 4K content (BFCHW, 8-frame
@@ -142,7 +156,10 @@ import numpy as np
 import torch
 
 CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
-TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "csf_lut": 1e-5,
+PORT_JOD = 7.877874  # the port's JOD for it before the one-pass band kernel
+PORT_JOD_TOL = 1e-4
+TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_pooled": 1e-4,
+       "csf_lut": 1e-5,
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
        "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
        "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
@@ -207,6 +224,10 @@ def bound(n_bytes, n_ops):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def tuple_str(shape):
+    return str(tuple(shape)).replace(" ", "")
 
 
 def check(name, err, tol):
@@ -1025,7 +1046,7 @@ def phase_interleave(record, counters):
 
 # The kernels every rank of the sharded 4K video must launch (phase 11).
 SHARD_PATH = ("ingest", "ingest_replicate", "pyramid_reduce", "pyramid_reduce_slab",
-              "band_masking", "band_masking_halo", "csf_lut")
+              "band_pooled", "band_masking_halo", "csf_lut")
 # Frames per block of the sharded run; phase 11 holds the kernels at its shapes.
 SHARD_BLOCK = 16
 
@@ -1178,6 +1199,86 @@ def phase_sharded(m, fps, record, jod_single, gen):
     return {k: sum(rr["launches"][k] for rr in res) for k in res[0]["launches"]}
 
 
+def block_loop_split(mv, vs, N):
+    """Where phase 3's warm block loop spends device time: each kernel's sum
+    and count from ``torch.profiler``'s ``key_averages()`` and the device's
+    busy share of the loop; then one warm block's stages with CUDA events
+    (ingest, the decomposition, the band kernel's launches, baseband and
+    pooling), which hold even where the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
+    from colorvideovdp_tpu_torch.ops.kernels import ingest
+    from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
+
+    # The caching allocator's blocks count as used in the block model: empty
+    # it, so that the split's runs take the scoring run's blocks.
+    torch.cuda.empty_cache()
+    _, st = mv.predict_video_source(vs)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _, st = mv.predict_video_source(vs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if getattr(evt, "device_type", None) == DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"phase 3: profiled warm block loop {wall:.3f} s for {N} frames in "
+        f"{st['block_N_frames']}-frame blocks, device busy "
+        f"{busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%), idle "
+        f"{1e3 * wall - busy:.3f} ms")
+    for ms, count, name in rows[:15]:
+        log(f"  {ms:9.3f} ms {count:5d}x  {name[:110]}")
+    if not rows:
+        log("  (the profiler recorded no device time)")
+
+    # One warm block of the loop, its stages timed with CUDA events.
+    fl, blk = mv.filter_len, st["block_N_frames"]
+    dm = mv.display_photometry
+    filt = np.ascontiguousarray(np.stack([f[::-1] for f in mv.F]), np.float32)
+    raws = [mv._upload(vs.get_raw_block(s, 0, blk)) for s in ("test", "reference")]
+    tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, fl - 1, -1, -1).contiguous()
+             for r in raws]
+    consts, luts = mv._band_tables(4)
+    sens_corr = 10.0 ** (mv.sensitivity_correction / 20.0)
+    for rep in range(2):  # the first is the warm-up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        R = ingest.ingest(*tails, *raws, dm, filt)[0]
+        ev[1].record()
+        bands, L_bkg = mv.lpyr.decompose(R, raw_pairs=True, use_kernel=True)
+        ev[2].record()
+        shapes = [b[0].shape[-2:] for b in bands[:-1]]
+        launches = []
+        for sel in bm.band_groups(shapes, 1, 4, blk, gn=True):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            bp.band_pooled([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel], luts[sel],
+                           [1.0 if bb == 0 else 2.0 for bb in sel], consts)
+            launches.append((sel, s0))
+        ev[3].record()
+        mv._baseband(bands[-1], L_bkg[-1], 4, sens_corr)
+        ev[4].record()
+        torch.cuda.synchronize()
+        ends = [s for _, s in launches[1:]] + [ev[3]]
+        per = [(sel, s.elapsed_time(e)) for (sel, s), e in zip(launches, ends)]
+        del R, bands, L_bkg
+    stage = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    log(f"phase 3: one warm {blk}-frame block (CUDA events): ingest {stage[0]:.3f} ms, "
+        f"decomposition (reduce + bands) {stage[1]:.3f} ms, band_pooled {stage[2]:.3f} ms "
+        f"({', '.join(f'{sel} {t:.3f}' for sel, t in per)}), baseband and pooling "
+        f"{stage[3]:.3f} ms")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1187,6 +1288,7 @@ def main():
     from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
     from colorvideovdp_tpu_torch.ops.kernels import (_build, counted_wrappers, csf_lut, ingest,
                                                      masking_fused)
+    from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
 
@@ -1271,7 +1373,38 @@ def main():
                      25 * 2 * raws[0].numel() // 3 + 2 * m.filter_len * R_k.numel())
     record("ingest", err, max_abs(R_k, R_p), time_ms(lambda: ingest.ingest(*args)),
            time_ms(lambda: ingest.ingest_plain(*args)), b_ingest)
-    del R_p, nt_p, nt_k, tails, raws, args
+    del R_p, nt_p, nt_k
+    # The code-value table route: uint8, uint16 and float16 frames against the
+    # same samples as float32 (v / top correctly rounded, float16 widened)
+    # through the per-sample path, bit for bit, and uint16 and float16 against
+    # the plain version (these launches are not counted).
+    src = {"uint8": raws,
+           "uint16": [torch.randint(-32768, 32768, raws[0].shape, dtype=torch.int16, device=dev,
+                                    generator=gen) for _ in range(2)],
+           "float16": [torch.rand(raws[0].shape, device=dev, generator=gen).half()
+                       for _ in range(2)]}
+
+    def as_float32(r):
+        if r.dtype == torch.float16:
+            return r.float()
+        top = 255.0 if r.dtype == torch.uint8 else 65535.0
+        v = r if r.dtype == torch.uint8 else r.to(torch.int32) & 0xFFFF
+        return (v.double() / top).float()  # within 1e-16 of v / top: its float32 rounding
+
+    for name, rs in src.items():
+        out_t = ingest.ingest(*tails, *rs, dm, filt)
+        out_f = ingest.ingest(*tails, *[as_float32(r) for r in rs], dm, filt)
+        check(f"ingest {name} table route vs float32 per-sample path",
+              max(max_abs(a, b) for a, b in zip(out_t, out_f)), 0.0)
+        del out_f
+        if name != "uint8":
+            out_p = ingest.ingest_plain(*tails, *rs, dm, filt)
+            check(f"ingest {name} {tuple_str(rs[0].shape)} vs plain",
+                  max(rel_err_per(a, b, 1) for a, b in zip(out_t, out_p)), TOL["ingest"])
+            del out_p
+        del out_t
+    del tails, raws, args, src
+    torch.cuda.empty_cache()
 
     y_k = prd.pyramid_reduce(R_k)
     y_p = pyr.reduce_plain(R_k)
@@ -1317,6 +1450,58 @@ def main():
     record("band_masking", max(err_wide, err_narrow), abs_wide, k_wide, p_wide,
            bound(2 * nbytes(R_k) + nbytes(luts[0:1]) + 4 * 4 * blk,
                  95 * R_k.numel() // 2))
+    del gis, Es, stack, sk, sp
+    torch.cuda.empty_cache()
+
+    # The one-pass pooled kernel at 4K band 0 of this block and at the launch
+    # that stacks the narrow bands: against its plain version, bit for bit
+    # against the previous route (the plain expand + band_masking), and
+    # timed in turns with it (route, kernel, kernel, route).
+    groups_p = masking_fused.band_groups([b[0].shape[-2:] for b in bands[:-1]], 1, 4, blk,
+                                         gn=True)
+    occ = _build.library().cvvdp_band_pooled_occupancy((len(consts.taps) - 1) // 2, 4,
+                                                       luts.shape[2])
+    log(f"  band_pooled launches per block: {groups_p}; {occ} blocks of 256 threads an SM")
+
+    def pooled_args(sel):
+        return ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
+                luts[sel[0]:sel[-1] + 1].contiguous(), [1.0 if bb == 0 else 2.0 for bb in sel],
+                consts)
+
+    def previous_route(a):
+        Es = [pyr.gausspyr_expand(gn, gi.shape[-2:]) for gi, gn in zip(a[0], a[1])]
+        return masking_fused.band_masking(a[0], Es, *a[2:])
+
+    errs_p, abs_p, times_p = [], [], {}
+    for note, sel in (("4K band 0", [0]), (f"4K bands {groups_p[-1]}", groups_p[-1])):
+        a = pooled_args(sel)
+        s_k, s_r, s_p = bp.band_pooled(*a), previous_route(a), bp.band_pooled_plain(*a)
+        check(f"band_pooled {note} vs the previous route", max_abs(s_k, s_r), 0.0)
+        q_k, q_p = ([masking_fused.pooled_norm(s[j], *gi.shape[-2:], m.beta)
+                     for j, gi in enumerate(a[0])] for s in (s_k, s_p))
+        errs_p.append(max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_p)))
+        abs_p.append(max(max_abs(x, y) for x, y in zip(q_k, q_p)))
+        check(f"band_pooled {note}", errs_p[-1], TOL["band_pooled"])
+        turns = [time_ms(lambda: previous_route(a)), time_ms(lambda: bp.band_pooled(*a)),
+                 time_ms(lambda: bp.band_pooled(*a)), time_ms(lambda: previous_route(a))]
+        n_tiles = sum(-(-gi.shape[-2] // 32) * -(-gi.shape[-1] // 32) for gi in a[0]) * blk
+        # Bytes: gi's 2C planes and gn's 2C quarter planes read once, the
+        # tables, the C partial sums of each 32x32 tile and the sums written.
+        # Operations: ~115 per pixel and channel, the halo recompute counted
+        # once (the route's ~95 plus the expand of two planes).
+        b_p = bound(nbytes(*a[0], *a[1], a[2]) + 4 * 4 * n_tiles + nbytes(s_k),
+                    115 * sum(gi.numel() for gi in a[0]) // 2)
+        times_p[note] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, b_p)
+        log(f"  band_pooled {note} {[tuple(gi.shape) for gi in a[0]]}: kernel {turns[1]:.3f}/"
+            f"{turns[2]:.3f} ms, previous route (plain expand + band_masking) {turns[0]:.3f}/"
+            f"{turns[3]:.3f} ms, bound {b_p[0]:.4f} ms ({b_p[1]}, "
+            f"{100 * b_p[0] / times_p[note][0]:.1f}% of it)")
+        if note == "4K band 0":
+            p0 = time_ms(lambda: bp.band_pooled_plain(*a))
+        del a, s_k, s_r, s_p
+        torch.cuda.empty_cache()
+    k0, _, b0 = times_p["4K band 0"]
+    record("band_pooled", max(errs_p), abs_p[0], k0, p0, b0)
 
     logL = L_bkg[-1].contiguous()  # the baseband's (1, 1, blk, 1, 1) log-luminance
     x0, x1 = m.csf.lut_range()
@@ -1330,7 +1515,7 @@ def main():
     log(f"  csf_lut baseband: kernel "
         f"{time_ms(lambda: csf_lut.csf_lut(logL, lut_b, x0, x1)):.3f} ms, plain "
         f"{time_ms(lambda: csf_lut.csf_lut_plain(logL, lut_b, x0, x1)):.3f} ms")
-    del R_k, bands, L_bkg, gis, Es, stack
+    del R_k, bands, L_bkg
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1388,7 +1573,7 @@ def main():
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
     log(f"phase 3: clip content made in {time.time() - t0:.1f} s")
     counters = counted_wrappers()
-    score_path = ("ingest", "pyramid_reduce", "band_masking", "csf_lut")
+    score_path = ("ingest", "pyramid_reduce", "band_pooled", "csf_lut")
     results = {}
     for fused in (True, False):
         mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
@@ -1413,12 +1598,17 @@ def main():
     for k in score_path:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    if launches["band_masking"] != 0:
+        raise AssertionError("the pooled raw bands went through the expand + band_masking")
     if not abs(jod_k - jod_p) <= 1e-3:
         raise AssertionError(f"JOD kernels {jod_k} vs plain {jod_p}")
     if not abs(jod_k - CLIP_JOD) <= 0.01:
         raise AssertionError(f"JOD {jod_k} vs reference {CLIP_JOD}")
+    if not abs(jod_k - PORT_JOD) <= PORT_JOD_TOL:
+        raise AssertionError(f"JOD {jod_k} vs the port's earlier {PORT_JOD}")
     log(f"phase 3: |JOD kernels - plain| = {abs(jod_k - jod_p):.2e}, "
-        f"|JOD - {CLIP_JOD}| = {abs(jod_k - CLIP_JOD):.2e}")
+        f"|JOD - {CLIP_JOD}| = {abs(jod_k - CLIP_JOD):.2e}, |JOD - {PORT_JOD}| = "
+        f"{abs(jod_k - PORT_JOD):.2e}")
     # Where the end-to-end time goes: the host relayout of the input arrays
     # into frame-major blocks against the block loop (uploads included).
     for fused in (True, False):
@@ -1431,12 +1621,16 @@ def main():
             vs.get_raw_block(s, 0, 1)
         t_host = time.time() - t0
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         t0 = time.time()
-        mv.predict_video_source(vs)
+        _, st = mv.predict_video_source(vs)
         torch.cuda.synchronize()
         t_loop = time.time() - t0
         log(f"phase 3: {'kernels' if fused else 'plain  '} split: host relayout {t_host:.3f} s, "
-            f"block loop {t_loop:.3f} s = {N / t_loop:.2f} frames/s")
+            f"block loop {t_loop:.3f} s = {N / t_loop:.2f} frames/s "
+            f"({st['block_N_frames']}-frame blocks)")
+        if fused:
+            block_loop_split(mv, vs, N)
     del V_test, V_ref, vs
 
     # ---- phase 4 ------------------------------------------------------------
@@ -1453,14 +1647,14 @@ def main():
     log(f"phase 4: image JOD {jod_i:.6f}, launches {img_launches}")
     if not math.isfinite(jod_i):
         raise AssertionError("image JOD is not finite")
-    for k in ("pyramid_reduce", "band_masking", "csf_lut"):
+    for k in ("pyramid_reduce", "band_pooled", "csf_lut"):
         if img_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the image path")
 
     del mi
 
     # ---- phase 5 ------------------------------------------------------------
-    train_path = ("pyramid_reduce", "band_masking", "csf_lut", "csf_lut_bwd", "blur")
+    train_path = ("pyramid_reduce", "band_pooled", "csf_lut", "csf_lut_bwd", "blur")
     Ht, Wt, Bt = 1080, 1920, 4
     rng = np.random.RandomState(11)
     ref_np = rng.rand(Bt, 3, 1, Ht, Wt).astype(np.float32)
@@ -1500,7 +1694,25 @@ def main():
                                                                      mt.beta), 1)
                                for j, gi in enumerate(gis)))
         check(f"band_masking, every band of {tuple(Rt.shape)}", err, TOL["band_masking"])
-        del Rt, bands_t, gis, Es, args, sk, sp
+        err, d_route = 0.0, 0.0
+        for sel in masking_fused.band_groups([b[0].shape[-2:] for b in bands_t[:-1]],
+                                             Bt, 3, 1, gn=True):
+            gis = [bands_t[bb][0] for bb in sel]
+            gns = [bands_t[bb][1] for bb in sel]
+            args = (gis, gns, luts_t[sel[0]:sel[-1] + 1],
+                    [1.0 if bb == 0 else 2.0 for bb in sel], consts_t)
+            sk, sp = bp.band_pooled(*args), bp.band_pooled_plain(*args)
+            Es = [pyr.gausspyr_expand(gn, gi.shape[-2:]) for gi, gn in zip(gis, gns)]
+            d_route = max(d_route, max_abs(sk, masking_fused.band_masking(gis, Es, *args[2:])))
+            err = max(err, max(rel_err_per(masking_fused.pooled_norm(sk[j], *gi.shape[-2:],
+                                                                     mt.beta),
+                                           masking_fused.pooled_norm(sp[j], *gi.shape[-2:],
+                                                                     mt.beta), 1)
+                               for j, gi in enumerate(gis)))
+        check(f"band_pooled, every band of {tuple(Rt.shape)}", err, TOL["band_pooled"])
+        check(f"band_pooled, every band of {tuple(Rt.shape)}, vs the previous route", d_route,
+              0.0)
+        del Rt, bands_t, gis, gns, Es, args, sk, sp
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1531,6 +1743,8 @@ def main():
     for k in train_path:
         if train_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the training path")
+    if train_launches["band_masking"] != 0:
+        raise AssertionError("the training step's raw bands went through band_masking")
     d_loss = abs(v_k - v_p)
     d_grad = float((g_k - g_p).abs().max() / g_p.abs().max())
     if not torch.isfinite(g_k).all() or not g_k.abs().max() > 0:
@@ -1582,6 +1796,8 @@ def main():
         "ingest": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:322"),
         "pyramid_reduce": ("pyramid_reduce.cu",
                            "colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:195"),
+        "band_pooled": ("band_pooled.cu",
+                        "colorvideovdp_tpu/ops/kernels/masking_fused.py:440"),
         "band_masking": ("band_masking.cu",
                          "colorvideovdp_tpu/ops/kernels/masking_fused.py:440"),
         "csf_lut": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:114"),
@@ -1597,7 +1813,7 @@ def main():
                                     "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
         "ingest_replicate": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
         "ingest_head": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
-        "band_fused": ("band_masking.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
+        "band_fused": ("band_pooled.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
         "band_fused_d": ("band_masking.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
         "interleave": ("interleave.cu", "tools/interleave_bench.py:50"),
         "concat": ("interleave.cu", "tools/interleave_bench.py:77"),
@@ -1634,6 +1850,8 @@ def main():
                       + config_launches["log_4k_video"][k])
         elif k == "band_masking_contrast_d":
             n_main = config_launches["log_heatmap_720p_image"][k]
+        elif k == "band_pooled":
+            n_main = launches[k]
         else:
             n_main = (heat_launches if k.startswith("band_masking_d") else
                       train_launches if k in train_path else launches)[k]

@@ -50,20 +50,21 @@
 //    partials of the plane are summed in a fixed order. No float atomics, so
 //    the result is deterministic.
 //
-// The fused mode (expand = 1; ops/kernels/band_fused.py): raw pairs with the
-//   next Gaussian level gn in place of E. Stage A does not run; each stage-B
-//   block expands gn over its tile's window (the 32 x 32 tile plus the blur
-//   halo, clipped to the band) in shared memory, rows then columns, rounded
-//   as ops/pyramid.py `_expand_1d` rounds each sample, forms stage A's M_pre
-//   for the window into the blur's input and diff for its own pixels in
-//   registers (raw_pair, shared with stage A), then runs stage B and, pooled,
-//   stage C. Neither E, M_pre nor diff reaches device memory, and the result
-//   is the raw-pair route's fed the plain expand, bit for bit.
+// The fused mode (expand = 1, D output only; ops/kernels/band_fused.py
+//   `band_fused_d`): raw pairs with the next Gaussian level gn in place of
+//   E. Stage A does not run; each stage-B block expands gn over its tile's
+//   window (the 32 x 32 tile plus the blur halo, clipped to the band) in
+//   shared memory, rows then columns, rounded as ops/pyramid.py `_expand_1d`
+//   rounds each sample, forms stage A's M_pre for the window into the blur's
+//   input and diff for its own pixels in registers (raw_pair, shared with
+//   stage A through band_common.cuh), then runs stage B. Neither E, M_pre
+//   nor diff reaches device memory, and D is the raw-pair route's fed the
+//   plain expand, bit for bit. The pooled sums of raw bands, fused or not,
+//   are csrc/band_pooled.cu's.
 //   Bound on the H100: memory. Per pixel it reads the 2C planes of gi and
-//   the 2C quarter planes of gn (40 B at C = 4) and writes C floats per tile
-//   pooled, or C floats per pixel in D mode (56 B). The halo makes each block
-//   recompute E and M_pre on (32 + 2r)^2 / 32^2 of its pixels, 2.25 times at
-//   r = 8 (the default 13 taps, r = 6: 1.89 times), out of about 74 KB of
+//   the 2C quarter planes of gn and writes C floats (56 B at C = 4). The
+//   halo makes each block recompute E and M_pre on (32 + 2r)^2 / 32^2 of its
+//   pixels, 1.89 times at the default 13 taps (r = 6), out of about 74 KB of
 //   shared memory a block.
 //
 // The halo mode (pooled, raw pairs or contrast bands; per band row_off > 0)
@@ -85,18 +86,12 @@
 // pixel in D mode. The blur is 2 * 13 multiply-adds per channel and pixel out
 // of shared memory. In pooled mode D never reaches device memory.
 
-#include "common.cuh"
+#include "band_common.cuh"
 
-#define BM_MAX_BANDS 8
-#define BM_MAX_C 4
-#define BM_MAX_TAPS 17
-#define BM_TH 32
-#define BM_TW 32
 #define BM_R_MAX ((BM_MAX_TAPS - 1) / 2)
 #define BM_THREADS_X 32
 #define BM_THREADS_Y 8
 #define BM_ROWS_PER_THREAD (BM_TH / BM_THREADS_Y)
-#define BM_EPS 1e-5f
 
 struct BandDesc {
   const float* gi;
@@ -144,25 +139,6 @@ __device__ __forceinline__ int band_of(const BandParams& P, long long idx,
     if (idx >= off) b = k;
   }
   return b;
-}
-
-__device__ __forceinline__ float min1000(float x) { return x > 1000.0f ? 1000.0f : x; }
-
-// Stage A on raw pairs at one pixel, shared by stage A and the fused mode so
-// that the two give the same bits; every product and quotient is rounded on
-// its own. S_c = 10^lut_c(ind) * (gain_c * band_mul);
-// T/R = min((gi - E) / lb, 1000) * S_c; M_pre = min(|T|, |R|); diff = |T - R|.
-__device__ __forceinline__ float raw_sensitivity(const float* lut, int nk, float ind,
-                                                 float gain, float mul) {
-  return __fmul_rn(pow10_lut(lut_lerp(lut, nk, ind)), __fmul_rn(gain, mul));
-}
-
-__device__ __forceinline__ void raw_pair(float g_t, float e_t, float g_r, float e_r, float lb_t,
-                                         float lb_r, float S, float& mpre, float& diff) {
-  const float T = __fmul_rn(min1000(__fdiv_rn(__fsub_rn(g_t, e_t), lb_t)), S);
-  const float R = __fmul_rn(min1000(__fdiv_rn(__fsub_rn(g_r, e_r), lb_r)), S);
-  mpre = fminf(fabsf(T), fabsf(R));
-  diff = fabsf(__fsub_rn(T, R));
 }
 
 __global__ void band_stage_a(BandParams P) {
@@ -217,20 +193,6 @@ __global__ void band_stage_a(BandParams P) {
 #define BF_EW (BM_TH + 2 * BM_R_MAX)  // window side
 #define BF_GW (BF_EW / 2 + 4)         // gn window side (at most BF_EW / 2 + 3)
 
-__device__ __forceinline__ float expand_tap(const float* ek, const float* s, int stride, int y,
-                                            int n, int base) {
-  const int m = y >> 1;
-  if ((y & 1) == 0) {
-    const float a = s[(max(m - 1, 0) - base) * stride];
-    const float b = s[(m - base) * stride];
-    const float c = s[(min(m + 1, n - 1) - base) * stride];
-    return __fadd_rn(__fadd_rn(__fmul_rn(ek[0], a), __fmul_rn(ek[2], b)), __fmul_rn(ek[4], c));
-  }
-  const float a = s[(m - base) * stride];
-  const float b = s[(min(m + 1, n - 1) - base) * stride];
-  return __fadd_rn(__fmul_rn(ek[1], a), __fmul_rn(ek[3], b));
-}
-
 __device__ void expand_window(const float* __restrict__ gn, int hn, int wn, int wy0, int eh,
                               int wx0, int ew, const float* ek, float* gnw, float* rexp,
                               float* Ew) {
@@ -263,21 +225,8 @@ __device__ void expand_window(const float* __restrict__ gn, int hn, int wn, int 
 #define BF_SMEM_FLOATS \
   (5 * BF_EW * BF_EW + BF_GW * BF_GW + BF_EW * BF_GW + BM_TH * BM_TW)
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nwarps = (blockDim.x * blockDim.y) >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
-  if (tid == 0)
-    for (int k = 0; k < nwarps; ++k) s += red[k];
-  return s;  // valid in thread 0
-}
-
-// FUSED: the fused mode (stages A and B in one pass). The block expands gn
+// FUSED: the fused mode (stages A and B in one pass; D output only, the
+// pooled sums of raw bands are csrc/band_pooled.cu's). The block expands gn
 // over its tile's window in shared memory, forms the LUT index of the window
 // once, then per channel M_pre for the tile and its blur halo into `sm` (the
 // samples stage B would read from M_pre) and the tile's diff, through the
@@ -286,6 +235,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 template <bool D_OUT, bool FUSED>
 __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
     band_stage_b(BandParams P, float* __restrict__ partials) {
+  static_assert(D_OUT || !FUSED, "the pooled fused mode is band_pooled.cu");
   __shared__ float sm[(BM_TH + 2 * BM_R_MAX) * (BM_TW + 2 * BM_R_MAX)];
   __shared__ float tmp[BM_TH * (BM_TW + 2 * BM_R_MAX)];
   __shared__ float s_taps[BM_MAX_TAPS];
@@ -399,7 +349,7 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
       const int y = threadIdx.y + k * BM_THREADS_Y;
       const float mb =
           tile_blur_horizontal<BM_TW>(tmp, r, s_taps, y, threadIdx.x) * P.blur_scale;
-      const float mq = powf(fabsf(mb) + BM_EPS, q) - eps_q;
+      const float mq = masking_mq(mb, q, eps_q);
 #pragma unroll
       for (int dd = 0; dd < BM_MAX_C; ++dd)
         if (dd < C) mix[k][dd] += P.xcm[c * BM_MAX_C + dd] * mq;
@@ -418,8 +368,7 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
         if (dd >= C) continue;
         const long long o = (((long long)b * C + dd) * F + f) * hw + (long long)gy * w + gx;
         const float df = FUSED ? dreg[k][dd] : d.diff[o];
-        const float du = (powf(df + BM_EPS, P.p) - eps_p) / (1.0f + mix[k][dd]);
-        d.D[o] = P.max_v * du / (P.max_v + du);
+        d.D[o] = band_D(df, mix[k][dd], P.p, eps_p, P.max_v);
       }
     }
     return;
@@ -436,12 +385,8 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
 #pragma unroll
     for (int dd = 0; dd < BM_MAX_C; ++dd) {
       if (dd >= C) continue;
-      const float df = FUSED ? dreg[k][dd]
-                             : d.diff[(((long long)b * C + dd) * F + f) * hw +
-                                      (long long)gy * w + gx];
-      const float du = (powf(df + BM_EPS, P.p) - eps_p) / (1.0f + mix[k][dd]);
-      const float D = P.max_v * du / (P.max_v + du);
-      part[dd] += pow_static(D + BM_EPS, P.beta) - eps_b;
+      const float df = d.diff[(((long long)b * C + dd) * F + f) * hw + (long long)gy * w + gx];
+      part[dd] += pooled_term(band_D(df, mix[k][dd], P.p, eps_p, P.max_v), P.beta, eps_b);
     }
   }
   const long long tile = blockIdx.x;
@@ -460,15 +405,9 @@ __global__ void band_stage_c(BandParams P, const float* __restrict__ partials,
   const int C = P.C, F = P.F;
   const long long l = blockIdx.x - d.plane_off;
   const int tpp = d.tiles_x * d.tiles_y;
-  const long long first = d.tile_off + l * tpp;
   const int b = (int)(l / F), f = (int)(l % F);
-  for (int dd = 0; dd < C; ++dd) {
-    float s = 0.0f;
-    for (int k = threadIdx.x; k < tpp; k += blockDim.x) s += partials[(first + k) * C + dd];
-    s = block_sum(s, red);
-    if (threadIdx.x == 0)
-      out[(((long long)bi * P.B + b) * C + dd) * F + f] = s;
-  }
+  plane_sums(partials, d.tile_off + l * tpp, tpp, C,
+             out + (((long long)bi * P.B + b) * C) * F + f, F, red);
 }
 
 // halo: n_bands x {row_off, h_valid}; {0, h} outside the halo mode.
@@ -510,9 +449,9 @@ CVVDP_API long long cvvdp_band_masking_tiles(int n_bands, int B, int F,
 
 // ptrs: n_bands x {gi, E, mpre, diff, D} device pointers (D unused in pooled
 // mode; with contrast = 1 gi is the contrast band and E the logL field; with
-// expand = 1, the fused mode, E is gn, the next Gaussian level
-// (B, 2C, F, ceil(h/2), ceil(w/2)), ek its 5 expand taps, and mpre/diff are
-// unused);
+// expand = 1, the fused mode (d_out = 1 only), E is gn, the next Gaussian
+// level (B, 2C, F, ceil(h/2), ceil(w/2)), ek its 5 expand taps, and
+// mpre/diff are unused);
 // dims: n_bands x {h, w}; halo: n_bands x {row_off, h_valid} ({0, h} for a
 // whole band; row_off > 0, the halo mode, pooled only, not with expand = 1,
 // and row_off >= the blur radius); muls, blur: per band (muls unused with
@@ -529,7 +468,7 @@ CVVDP_API int cvvdp_band_masking(
     float max_v, float blur_scale, const float* taps, int ntaps, float beta, int d_out,
     float* partials, float* out, void* stream) {
   if (n_bands < 1 || n_bands > BM_MAX_BANDS || C < 1 || C > BM_MAX_C ||
-      ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1 || (expand && contrast))
+      ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1 || (expand && (contrast || !d_out)))
     return (int)cudaErrorInvalidValue;
   BandParams P;
   P.n_bands = n_bands;
@@ -586,12 +525,11 @@ CVVDP_API int cvvdp_band_masking(
   if (expand) {
     // Above the 48 KB default with the static arrays: opt in.
     const int smem = BF_SMEM_FLOATS * (int)sizeof(float);
-    auto kern = d_out ? band_stage_b<true, true> : band_stage_b<false, true>;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaFuncSetAttribute(band_stage_b<true, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<(unsigned int)n_t, threads_b, smem, st>>>(P, d_out ? nullptr : partials);
-    e = cudaGetLastError();
-    if (d_out || e != cudaSuccess) return (int)e;
+    band_stage_b<true, true><<<(unsigned int)n_t, threads_b, smem, st>>>(P, nullptr);
+    return (int)cudaGetLastError();
   } else {
     band_stage_a<<<(unsigned int)n_a, 256, 0, st>>>(P);
     e = cudaGetLastError();

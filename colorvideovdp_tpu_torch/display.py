@@ -120,6 +120,15 @@ class vvdp_display_photo_eotf(vvdp_display_photometry):
                     - 0.07623 * math.log10(self.E_ambient / 5))
         return 1.2
 
+    def hlg_from_s(self, rgb_s: torch.Tensor) -> torch.Tensor:
+        """An HLG display's luminance from the per-channel inverse OETF
+        ``cs.hlg_s`` (colour axis at -4): the OOTF, exposure and the GOG."""
+        Y_black, Y_refl = self.get_black_level()
+        lin = cs.hlg_ootf(rgb_s, self.hlg_gamma())
+        if self.exposure != 1:
+            lin = clip(lin * self.exposure, 0.0, 1.0)
+        return (self.Y_peak - Y_black) * lin + Y_black + Y_refl
+
     def forward(self, V: torch.Tensor) -> torch.Tensor:
         """Display-encoded (or linear) values -> absolute cd/m^2 emitted."""
         V = V.to(torch.float32)
@@ -137,10 +146,7 @@ class vvdp_display_photo_eotf(vvdp_display_photometry):
         if self.EOTF == "linear":
             return clip(V * self.exposure, max(0.005, Y_black), self.Y_peak) + Y_refl
         if self.EOTF == "HLG":
-            lin = cs.hlg2lin(clip(V, 0.0, 1.0), self.hlg_gamma())
-            if self.exposure != 1:
-                lin = clip(lin * self.exposure, 0.0, 1.0)
-            return (self.Y_peak - Y_black) * lin + Y_black + Y_refl
+            return self.hlg_from_s(cs.hlg_s(clip(V, 0.0, 1.0)))
         if self.EOTF[0].isnumeric():
             V = clip(V, 0.0, 1.0)
             lin = clip(torch.pow(V, float(self.EOTF)) * self.exposure, 0.0, 1.0)

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import masking as mk
 from ..ops.csf import CastleCSF
 from ..ops.kernels import band_fused as bf
+from ..ops.kernels import band_pooled as bp
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import masking_fused as bm
 from ..ops.kernels.csf_lut import CsfLut
@@ -470,10 +471,11 @@ class cvvdp(vq_metric):
 
         Interior bands take the JAX package's routes (its
         ``metrics/cvvdp.py:1224-1246``, ``:1487-1519``): with the band
-        kernel's configuration, raw pairs for weber_g1 and weber_g1_ref and
-        contrast bands otherwise, both through ``band_masking.cu``; with any
-        other configuration the generic chain, the CSF LUT then
-        ``apply_masking_model``.
+        kernel's configuration, raw pairs for weber_g1 and weber_g1_ref
+        (pooled: ``band_pooled``, one pass from each band's level and the
+        next; heatmap D: ``band_masking_d`` fed the expand) and contrast
+        bands otherwise (``band_masking.cu``); with any other configuration
+        the generic chain, the CSF LUT then ``apply_masking_model``.
 
         ``mesh`` (``parallel/sharding.py``): R is this rank's pairs and rows;
         see ``_process_block_sharded``."""
@@ -531,9 +533,18 @@ class cvvdp(vq_metric):
             rest = [bb for bb in range(n_bands - 1) if bb not in mega]
             d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
                        if heatmap else None)
+            pooled_raw = raw_pairs and not heatmap
             for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
-                                      contrast=not raw_pairs):
+                                      contrast=not raw_pairs, gn=pooled_raw):
                 sel = [rest[i] for i in sel]
+                if pooled_raw:
+                    # One pass from gi and gn: the expand is inside the kernel.
+                    sums = bp.band_pooled_sums([bands[bb][0] for bb in sel],
+                                               [bands[bb][1] for bb in sel], luts[sel],
+                                               [muls[bb] for bb in sel], consts, use_k)
+                    for j, bb in enumerate(sel):
+                        Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
+                    continue
                 if raw_pairs:
                     xs = [bands[bb][0] for bb in sel]
                     ys = [gausspyr_expand(bands[bb][1], x.shape[-2:]) for bb, x in zip(sel, xs)]
@@ -620,14 +631,13 @@ class cvvdp(vq_metric):
             total = sh.sum_space(torch.cat(sums), mesh)
             for j, bb in enumerate(halo):
                 Q_cols[bb] = bm.pooled_norm(total[j], *shapes[bb], self.beta)
-        for sel in bm.band_groups([shapes[bb] for bb in whole], B, all_ch, F):
+        for sel in bm.band_groups([shapes[bb] for bb in whole], B, all_ch, F, gn=True):
             sel = [whole[i] for i in sel]
-            xs = [bands[bb][0].full(mesh) for bb in sel]
-            ys = [gausspyr_expand(bands[bb][1].full(mesh), x.shape[-2:]) for bb, x in zip(sel, xs)]
-            out = bm.band_sums(xs, ys, luts[sel], [muls[bb] for bb in sel], consts, use_k)
+            out = bp.band_pooled_sums([bands[bb][0].full(mesh) for bb in sel],
+                                      [bands[bb][1].full(mesh) for bb in sel], luts[sel],
+                                      [muls[bb] for bb in sel], consts, use_k)
             for j, bb in enumerate(sel):
                 Q_cols[bb] = bm.pooled_norm(out[j], *shapes[bb], self.beta)
-            del xs, ys
         Q_cols[-1], _ = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
         return sh.gather_batch(torch.stack(Q_cols, dim=-1), mesh)
 

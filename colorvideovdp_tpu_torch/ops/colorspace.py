@@ -68,15 +68,25 @@ def pq2lin(V: torch.Tensor) -> torch.Tensor:
         clip(im_t - PQ_C1, 0.0) / (PQ_C2 - PQ_C3 * im_t), 1.0 / PQ_N)
 
 
-def hlg2lin(rgb: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Rec.2100 HLG inverse-OETF + OOTF; colour axis at -4."""
-    rgb_s = torch.where(
+def hlg_s(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.2100 HLG inverse OETF, per channel (the ingest kernel's table
+    entry for HLG)."""
+    return torch.where(
         rgb <= 0.5, torch.square(rgb) / 3.0,
         (torch.exp((rgb - HLG_C) / HLG_A) + HLG_B) / 12.0,
     )
-    w = torch.tensor(HLG_W, dtype=rgb.dtype, device=rgb.device).reshape(3, 1, 1, 1)
+
+
+def hlg_ootf(rgb_s: torch.Tensor, gamma: float) -> torch.Tensor:
+    """The HLG OOTF of the inverse-OETF values; colour axis at -4."""
+    w = torch.tensor(HLG_W, dtype=rgb_s.dtype, device=rgb_s.device).reshape(3, 1, 1, 1)
     Y_s = torch.sum(rgb_s * w, dim=-4, keepdim=True)
     return (Y_s ** (gamma - 1.0)) * rgb_s
+
+
+def hlg2lin(rgb: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Rec.2100 HLG inverse-OETF + OOTF; colour axis at -4."""
+    return hlg_ootf(hlg_s(rgb), gamma)
 
 
 def apply_color_matrix(img: torch.Tensor, M: np.ndarray) -> torch.Tensor:

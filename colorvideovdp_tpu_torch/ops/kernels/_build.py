@@ -44,13 +44,16 @@ SIGNATURES = {
     "cvvdp_pyramid_reduce": [_P, _P, _I, _I, _I, _P, _P],
     "cvvdp_pyramid_reduce_slab": [_P, _P, _I, _I, _I, _I, _P, _P],
     "cvvdp_ingest": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _I,
-                     _P, _P, _P],
+                     _P, _P, _P, _P],
     "cvvdp_band_masking_tiles": [_I, _I, _I, _P, _P],
     "cvvdp_interleave": [_P, _P, _P, _L, _P],
     "cvvdp_deinterleave": [_P, _P, _P, _L, _P],
     "cvvdp_concat": [_P, _P, _P, _L, _I, _P],
     "cvvdp_band_masking": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _I,
                            _I, _P, _P, _F, _P, _F, _F, _P, _I, _F, _I, _P, _P, _P],
+    "cvvdp_band_pooled": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _P, _P, _F,
+                          _P, _F, _F, _P, _I, _F, _P, _P, _P],
+    "cvvdp_band_pooled_occupancy": [_I, _I, _I],
 }
 RESTYPES = {"cvvdp_band_masking_tiles": _L}
 
@@ -71,8 +74,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(extra=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(extra)).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -80,26 +83,31 @@ def _digest() -> str:
     return h.hexdigest()
 
 
-def build() -> str:
+def build(sources=None, flags=(), build_dir=BUILD_DIR) -> str:
     """Compile the kernels unless the cached library matches the sources.
-    Returns the library path; raises with nvcc's output on failure."""
+    Returns the library path; raises with nvcc's output on failure.
+    ``sources`` (file names in ``csrc/``, default all), ``flags`` (extra nvcc
+    flags) and ``build_dir`` build a variant library apart from the package's
+    (``tools/kernel_variants.py``)."""
     global last_build_seconds
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    lib_path = os.path.join(build_dir, LIB_NAME)
     stamp = lib_path + ".sha256"
-    digest = _digest()
+    cus = [s for s in _sources() if s.endswith(".cu")
+           and (sources is None or os.path.basename(s) in sources)]
+    digest = _digest(list(flags) + cus)
     if os.path.isfile(lib_path) and os.path.isfile(stamp):
         with open(stamp) as f:
             if f.read().strip() == digest:
                 last_build_seconds = 0.0
                 return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     tmp = f"{lib_path}.{tag}"
     t0 = time.time()
     jobs = []
-    for src in (s for s in _sources() if s.endswith(".cu")):
-        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+    for src in cus:
+        obj = os.path.join(build_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     logs, failed = [], []
@@ -118,7 +126,7 @@ def build() -> str:
         if os.path.exists(obj):
             os.remove(obj)
     last_build_seconds = time.time() - t0
-    with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
+    with open(os.path.join(build_dir, "nvcc.log"), "w") as f:
         f.write("\n".join(logs))
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -128,15 +136,21 @@ def build() -> str:
     return lib_path
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a kernel library and set the argtypes of the entry points it has."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = RESTYPES.get(name, _I)
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library with argtypes set (built on first call)."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, _I)
-    return lib
+    return bind(build())
 
 
 def check_cuda(rc: int, name: str):

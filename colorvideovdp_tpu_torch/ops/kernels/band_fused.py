@@ -4,27 +4,27 @@ one raw band in one pass.
 Replaces ``colorvideovdp_tpu/ops/kernels/band_fused.py:320``
 (``band_fused_tpu``, wrapped by ``make_band_fused`` :346), which the JAX
 package runs for the interior raw bands its gate admits when
-``cvvdp.use_band_mega`` is set. The default raw-pair route materialises
-E = ``gausspyr_expand(gn)`` for the band and the band kernel's M_pre and diff;
-here the kernel reads the band's Gaussian level ``gi`` (B, 2C, F, h, w) and
-the next level ``gn`` (B, 2C, F, ceil(h/2), ceil(w/2)) and keeps E, M_pre and
-diff in shared memory and registers. Kernel: the fused mode of
-``csrc/band_masking.cu`` (``expand = 1``), whose source note states its
-bound: memory, 40 bytes per pixel pooled and 56 in D mode at C = 4. Its
-expand rounds as ``ops/pyramid.py:_expand_1d``, so it gives the bits of the
-raw-pair route (``masking_fused.band_masking``) fed the plain expand.
+``cvvdp.use_band_mega`` is set. Both modes read the band's Gaussian level
+``gi`` (B, 2C, F, h, w) and the next level ``gn`` (B, 2C, F, ceil(h/2),
+ceil(w/2)) and keep E = ``gausspyr_expand(gn)``, M_pre and diff in shared
+memory and registers; both give the bits of the raw-pair route
+(``masking_fused.band_masking`` / ``band_masking_d``) fed the plain expand.
 
-* ``band_fused`` / ``band_fused_d``: the pooled sums (B, C, F) of
-  safe_pow(D, beta), or D (B, C, F, h, w) for the heatmap; CPU tensors take
-  ``band_fused_plain`` / ``band_fused_d_plain``, which are the raw-pair
-  route's plain chain (``masking_fused._band_D_plain``) fed
-  ``gausspyr_expand(gn)``.
-* ``BandFused``: the pooled sums, differentiable in ``gi`` and ``gn``; the
-  backward recomputes the plain chain through ``gausspyr_expand`` per frame
-  chunk, as JAX's ``fused_bwd`` recomputes ``jnp_impl``.
+* ``band_fused``: the pooled sums (B, C, F) of safe_pow(D, beta), through
+  the one-pass pooled kernel of the default route, ``csrc/band_pooled.cu``
+  (``band_pooled.launch`` for this one band; counted here, not in
+  ``band_pooled.launches``). Its plain version ``band_fused_plain`` is
+  ``band_pooled``'s.
+* ``band_fused_d``: D (B, C, F, h, w) for the heatmap, the fused mode of
+  ``csrc/band_masking.cu`` (``expand = 1``; memory-bound, 56 bytes a pixel
+  at C = 4); plain version ``band_fused_d_plain``.
+* ``BandFused``: the pooled sums, differentiable in ``gi`` and ``gn``; its
+  backward is ``band_pooled.pooled_vjp``, the plain chain through
+  ``gausspyr_expand`` per frame chunk, as JAX's ``fused_bwd`` recomputes
+  ``jnp_impl``.
 * ``can_band_fused``: the JAX package's shape gate (``band_fused.py:79-90``),
-  which ``cvvdp._process_block`` applies as the JAX package does. The kernel
-  itself takes any band shape.
+  which ``cvvdp._process_block`` applies as the JAX package does. The
+  kernels themselves take any band shape.
 """
 
 from __future__ import annotations
@@ -32,9 +32,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..pyramid import gausspyr_expand
-from .masking_fused import (BandConsts, _band_D_plain, _band_sums_plain, _frame_chunks,
-                            _launch)
+from . import band_pooled as bp
+from .masking_fused import BandConsts, _band_D_plain, _frame_chunks, _launch
 
 # The JAX kernel's row tile (``band_fused.py`` ``TH``); only the gate uses it.
 TH = 16
@@ -54,21 +53,15 @@ def can_band_fused(C: int, H: int, W: int, kernel_size: int, min_w: int = 512) -
     return -(-H // TH) >= 2
 
 
-def _expanded(gi, gn):
-    return gausspyr_expand(gn, gi.shape[-2:])
-
-
-def band_fused_plain(gi, gn, lut, mul, k: BandConsts, use_kernel: bool = False):
+def band_fused_plain(gi, gn, lut, mul, k: BandConsts):
     """Plain PyTorch version of the pooled mode: sum(safe_pow(D, beta)) over
     each image plane, (B, C, F), per frame chunk as ``band_masking_plain``."""
-    return torch.cat([_band_sums_plain(gi[:, :, fs], _expanded(gi[:, :, fs], gn[:, :, fs]),
-                                       lut, mul, k, use_kernel)
-                      for fs in _frame_chunks(gi)], dim=2)
+    return bp.band_pooled_plain([gi], [gn], lut[None], [mul], k)[0]
 
 
 def band_fused_d_plain(gi, gn, lut, mul, k: BandConsts):
     """Plain PyTorch version of the D mode: D (B, C, F, h, w)."""
-    return torch.cat([_band_D_plain(gi[:, :, fs], _expanded(gi[:, :, fs], gn[:, :, fs]),
+    return torch.cat([_band_D_plain(gi[:, :, fs], bp._expanded(gi[:, :, fs], gn[:, :, fs]),
                                     lut, mul, k)
                       for fs in _frame_chunks(gi)], dim=2)
 
@@ -79,7 +72,7 @@ def band_fused(gi, gn, lut, mul, k: BandConsts):
     ``band_fused_plain``; CUDA tensors launch the kernel."""
     if gi.device.type == "cpu":
         return band_fused_plain(gi, gn, lut, mul, k)
-    out = _launch([gi], [gn], lut[None].contiguous(), [mul], k, d_out=False, expand=True)[0]
+    out = bp.launch([gi], [gn], lut[None].contiguous(), [mul], k)[0]
     band_fused.launches += 1
     return out
 
@@ -103,9 +96,7 @@ band_fused_d.launches = 0
 class BandFused(torch.autograd.Function):
     """Pooled sums (B, C, F) of one raw band, differentiable in ``gi`` and
     ``gn``: ``band_fused`` (or the plain version without ``use_kernel``)
-    forward; the backward recomputes the plain chain through
-    ``gausspyr_expand`` per frame chunk and returns its vector-Jacobian
-    product for both levels."""
+    forward; the backward is ``band_pooled.pooled_vjp``."""
 
     @staticmethod
     def forward(ctx, lut, mul, k, use_kernel, gi, gn):
@@ -120,14 +111,7 @@ class BandFused(torch.autograd.Function):
     def backward(ctx, g):
         lut, gi, gn = ctx.saved_tensors
         mul, k, use_kernel = ctx.args
-        d_gi, d_gn = torch.zeros_like(gi), torch.zeros_like(gn)
-        for fs in _frame_chunks(gi):
-            with torch.enable_grad():
-                gi_c = gi[:, :, fs].detach().requires_grad_()
-                gn_c = gn[:, :, fs].detach().requires_grad_()
-                s = _band_sums_plain(gi_c, _expanded(gi_c, gn_c), lut, mul, k, use_kernel)
-                d_gi[:, :, fs], d_gn[:, :, fs] = torch.autograd.grad(s, (gi_c, gn_c), g[:, :, fs])
-        return None, None, None, None, d_gi, d_gn
+        return (None, None, None, None, *bp.pooled_vjp(gi, gn, lut, mul, k, use_kernel, g))
 
 
 def band_fused_sums(gi, gn, lut, mul, k: BandConsts, use_kernel: bool = True):

@@ -4,15 +4,19 @@ Replaces ``colorvideovdp_tpu/ops/kernels/ingest.py:322`` (``make_ingest_fn``)
 in its three modes: "tail" (``ingest``: the fl-1 frames of the metric colour
 space carried from the previous block), and the first block's "replicate"
 (``ingest_replicate``: frame 0 repeated) and "head" (``ingest_head``: fl-1
-raw head frames, the symmetric padding). Kernel: ``csrc/ingest.cu``, one
-thread per pixel and source and batch item; it converts every buffer slot to
-the metric colour space once (DKLd65, or logLMS_DKLd65 for the log contrast,
-which the JAX package computes in XLA rather than in its Pallas kernel) and
-is bound by memory (raw bytes and the carried tail or the raw head in, the
-(B, 8, blk, H, W) block and the next tail out). The kernel and the plain
-versions (``ingest_plain``, ``ingest_first_plain``, the same chain in plain
-PyTorch) take any batch, uint8 / uint16 / float16 / float32 frames and
-3-channel or luminance-only content.
+raw head frames, the symmetric padding). Kernel: ``csrc/ingest.cu``, the
+temporal window in registers at the metric's common filter lengths (fl = 7,
+9, 17) and in shared memory otherwise; it converts every
+buffer slot to the metric colour space once (DKLd65, or logLMS_DKLd65 for
+the log contrast, which the JAX package computes in XLA rather than in its
+Pallas kernel), uint8 / uint16 / float16 samples in DKLd65 through a table
+of the EOTF of every code value that a small kernel builds first
+(``eotf_table_plain`` is its plain version, ``eotf_from_table`` the lookup
+in plain PyTorch), and is bound by memory (raw bytes and the carried tail
+or the raw head in, the (B, 8, blk, H, W) block and the next tail out). The
+kernel and the plain versions (``ingest_plain``, ``ingest_first_plain``,
+the same chain in plain PyTorch) take any batch, uint8 / uint16 / float16 /
+float32 frames and 3-channel or luminance-only content.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ...display import vvdp_display_photo_eotf
 from .. import colorspace as cs
+from ..clip import clip
 from ..temporal import apply_temporal_filters
 from . import _build
 
@@ -33,6 +38,10 @@ _TAIL, _REPLICATE, _HEAD = 0, 1, 2
 # Source dtype -> the kernel's SrcType (int16 carries uint16 bits).
 _SRC_TYPES = {torch.uint8: 0, torch.int16: 1, torch.uint16: 1, torch.float16: 2,
               torch.float32: 3}
+# Source dtypes whose samples the kernel looks up in a code-value table, and
+# the table's length.
+_TABLE_SIZES = {torch.uint8: 256, torch.int16: 65536, torch.uint16: 65536,
+                torch.float16: 65536}
 
 
 def raw_to_float(x: torch.Tensor) -> torch.Tensor:
@@ -94,6 +103,46 @@ def ingest_first_plain(raw_t, raw_r, dm, filt, colorspace="DKLd65", head_t=None,
     return _fir(pads, news, filt)
 
 
+def _code_index(raw: torch.Tensor) -> torch.Tensor:
+    """Each sample's code value, the index of its table entry (float16 by
+    its bit pattern)."""
+    if raw.dtype == torch.uint8:
+        return raw.long()
+    if raw.dtype == torch.float16:
+        raw = raw.view(torch.int16)
+    return raw.to(torch.int64) & 0xFFFF
+
+
+def eotf_table_plain(dm, dtype) -> torch.Tensor:
+    """Plain version of the kernel's code-value table: for every code value
+    of ``dtype`` (uint8: 256; uint16, its int16 upload and float16, by bit
+    pattern: 65,536), (n,) float32 on the CPU, what the per-channel EOTF of
+    ``dm`` gives a sample with that code: the display luminance for sRGB, PQ,
+    linear and gamma displays, and for HLG the inverse OETF ``cs.hlg_s``, to
+    which the pixel's OOTF is applied after the lookup
+    (``eotf_from_table``)."""
+    n = _TABLE_SIZES[dtype]
+    codes = torch.arange(n, dtype=torch.int64)
+    if n == 256:
+        raw = codes.to(torch.uint8)
+    else:
+        raw = codes.to(torch.int32).to(torch.int16)  # uint16 bits
+        if dtype == torch.float16:
+            raw = raw.view(torch.float16)
+    V = raw_to_float(raw)
+    if _eotf_name(dm) == "HLG":
+        return cs.hlg_s(clip(V, 0.0, 1.0))
+    return dm.forward(V)
+
+
+def eotf_from_table(dm, table: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """The kernel's table route in plain PyTorch: raw (B, F, C, H, W) frames
+    -> the display's luminance (B, C, F, H, W), each sample looked up in
+    ``table`` (``eotf_table_plain``), then for HLG the pixel's OOTF."""
+    L = table.to(raw.device)[_code_index(raw)].transpose(1, 2)
+    return dm.hlg_from_s(L) if _eotf_name(dm) == "HLG" else L
+
+
 def _eotf_name(dm):
     eotf = dm.EOTF
     if eotf not in _EOTF_CODES and eotf[0].isnumeric():
@@ -135,6 +184,9 @@ def _launch(mode, pad_t, pad_r, raw_t, raw_r, dm, filt, colorspace):
     out = torch.empty((B, 8, blk, H, W), dtype=torch.float32, device=dev)
     new_t = torch.empty((B, 3, fl - 1, H, W), dtype=torch.float32, device=dev)
     new_r = torch.empty_like(new_t)
+    # The code-value table, built by the kernel's first launch.
+    table = (torch.empty(_TABLE_SIZES[raw_t.dtype], dtype=torch.float32, device=dev)
+             if raw_t.dtype in _TABLE_SIZES and not log_lms else None)
     lib = _build.library()
     rc = lib.cvvdp_ingest(
         mode, None if pad_t is None else pad_t.data_ptr(),
@@ -142,7 +194,7 @@ def _launch(mode, pad_t, pad_r, raw_t, raw_r, dm, filt, colorspace):
         out.data_ptr(), new_t.data_ptr(), new_r.data_ptr(), B, blk, C, fl, H * W,
         _SRC_TYPES[raw_t.dtype], _EOTF_CODES[eotf],
         consts.ctypes.data, M.ctypes.data, log_lms, M2.ctypes.data, filt.ctypes.data,
-        _build.stream_handle(dev))
+        None if table is None else table.data_ptr(), _build.stream_handle(dev))
     _build.check_cuda(rc, "cvvdp_ingest")
     return out, new_t, new_r
 

@@ -17,7 +17,10 @@ Stage A has two input modes:
 * raw pairs (``band_masking``, ``band_masking_d``, ``band_masking_d_noblur``):
   the raw Gaussian level ``gi`` and the expanded next level ``E``, both
   (B, 2C, F, h, w) with test/reference channels interleaved; the Weber
-  contrast (weber_g1, weber_g1_ref) is formed in the kernel.
+  contrast (weber_g1, weber_g1_ref) is formed in the kernel. The metric's
+  pooled raw bands take ``band_pooled`` instead (``csrc/band_pooled.cu``,
+  the expand inside, the same bits); ``band_masking`` stays as its
+  yardstick and shares its stages with the halo mode.
 * contrast bands (``band_masking_contrast``, ``band_masking_contrast_d``): the
   band (B, 2C, F, h, w) as the non-raw decomposition gives it, interleaved and
   at full band gain, and its adaptation field ``logL`` (B, 1, F, h, w). The
@@ -72,7 +75,9 @@ MAX_BANDS = 8
 # Consecutive interior bands share one launch while the memory the launch
 # holds stays within this budget: per band the expanded next level E (2C
 # planes; a contrast band's logL, 1 plane) and the kernel's M_pre and diff
-# scratch (C planes each), float32.
+# scratch (C planes each), float32. A ``band_pooled`` launch holds no
+# scratch; its bands count what it reads, gi's 2C planes and the next
+# level's 2C quarter planes, in place.
 # Small bands then share a launch (their time is launch latency), and a band
 # whose share alone exceeds the budget runs by itself.
 GROUP_BYTES = 1 << 28
@@ -224,18 +229,21 @@ def band_masking_d_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConst
             for i, (gi, E) in enumerate(zip(gi_list, E_list))]
 
 
-def band_groups(shapes, B: int, C: int, F: int, d_blurs=None, contrast: bool = False):
+def band_groups(shapes, B: int, C: int, F: int, d_blurs=None, contrast: bool = False,
+                gn: bool = False):
     """Split the interior bands, given by their (h, w), into launches:
     lists of consecutive band indices. ``d_blurs``, the bands' blur flags,
     asks for the D mode: each band then also holds its D output (C planes),
     and a band whose flag differs from the previous band's starts a new
     launch, so that a band without blur runs as ``band_masking_d_noblur``.
     ``contrast``: the bands are contrast bands, which hold one logL plane in
-    place of E's 2C planes."""
-    planes = 2 * C + (1 if contrast else 2 * C) + (0 if d_blurs is None else C)
+    place of E's 2C planes. ``gn``: pooled raw bands for ``band_pooled``,
+    which reads the next level's 2C quarter planes in place of E's 2C
+    planes."""
+    planes = 2 * C + (1 if contrast else C / 2 if gn else 2 * C) + (0 if d_blurs is None else C)
     groups, cur, used = [], [], 0
     for i, (h, w) in enumerate(shapes):
-        need = planes * B * F * int(h) * int(w) * 4
+        need = int(planes * B * F * int(h) * int(w) * 4)
         split = d_blurs is not None and cur and d_blurs[i] != d_blurs[cur[-1]]
         if cur and (split or used + need > GROUP_BYTES or len(cur) == MAX_BANDS):
             groups.append(cur)

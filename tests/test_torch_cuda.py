@@ -15,6 +15,7 @@ import colorvideovdp_tpu_torch as ct
 from colorvideovdp_tpu_torch.ops import pyramid as pyr
 from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
 from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
+from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
 from colorvideovdp_tpu_torch.ops.kernels import blur as bl
 from colorvideovdp_tpu_torch.ops.kernels import csf_lut as lut
 from colorvideovdp_tpu_torch.ops.kernels import ingest as ing
@@ -111,6 +112,89 @@ def test_band_masking_kernel(dev, C):
         assert _rel(bm.band_masking(*args), bm.band_masking_plain(*args)) <= 1e-4
 
 
+@pytest.mark.parametrize("C,ref_only", [(4, False), (3, False), (4, True)])
+def test_band_pooled_kernel(dev, C, ref_only):
+    """The one-pass pooled kernel against the previous route, the plain
+    expand + ``band_masking``, bit for bit, and against its plain version
+    within 1e-4: an odd 1081x1921 band of B = 2, and a stacked list of
+    narrow bands (the 4-row band takes no blur)."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(1921, 1081)
+    consts, luts = m._band_tables(C)
+    consts = dataclasses.replace(consts, ref_only=ref_only)
+    for B, shapes in ((2, [(1081, 1921)]), (1, [(135, 240), (68, 120), (34, 60), (17, 30),
+                                                 (9, 15), (4, 17)])):
+        gis = [torch.rand(B, 2 * C, 3, h, w, device=dev) * 20 + 30 for h, w in shapes]
+        gns = [pyramid_reduce(g) for g in gis]
+        Es = [pyr.gausspyr_expand(gn, g.shape[-2:]) for g, gn in zip(gis, gns)]
+        lt = luts[:len(shapes)].contiguous()
+        muls = [1.0] + [2.0] * (len(shapes) - 1)
+        before = bp.band_pooled.launches
+        s = bp.band_pooled(gis, gns, lt, muls, consts)
+        assert bp.band_pooled.launches == before + 1
+        assert torch.equal(s, bm.band_masking(gis, Es, lt, muls, consts))
+        assert _rel(s, bp.band_pooled_plain(gis, gns, lt, muls, consts)) <= 1e-4
+    with pytest.raises(ValueError):
+        bp.band_pooled([gis[0]], [Es[0]], lt[:1], [2.0], consts)  # E in gn's slot
+
+
+def _ieee_float(raw, top):
+    """raw / top as a correctly rounded float32 (PyTorch's CUDA division by a
+    scalar multiplies by its reciprocal)."""
+    return torch.from_numpy((raw.cpu().numpy().astype(np.float64) / top).astype(np.float32)
+                            ).to(raw.device)
+
+
+@pytest.mark.parametrize("display", ["standard_4k", "standard_hdr_pq", "standard_hdr_hlg"])
+@pytest.mark.parametrize("mode", ["tail", "replicate", "head"])
+def test_ingest_table_route_matches_float_path(dev, display, mode):
+    """uint8, uint16 and float16 frames go through the kernel's code-value
+    table; the same samples as float32 (v / 255 and v / 65535 correctly
+    rounded, float16 widened) take the per-sample path: the two give the
+    same bits, at fl = 9 (the register window) and fl = 15 (the shared-memory
+    ring), and the table route is within 1e-5 (1e-4 on PQ) of the plain
+    version."""
+    dm = ct.vvdp_display_photometry.load(display)
+    m = ct.cvvdp(display_name=display, device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for fps in (30.0, 50.0):
+        F_taps, _ = get_temporal_filters(fps, m.sigma_tf, m.beta_tf, m.temp_filter)
+        filt = np.stack([f[::-1] for f in F_taps])
+        fl = filt.shape[1]
+        shape = (2, 4, 3, 36, 64)
+        u8 = [torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+              for _ in range(2)]
+        u16 = [torch.randint(-32768, 32768, shape, dtype=torch.int16, device=dev, generator=gen)
+               for _ in range(2)]
+        f16 = [torch.rand(shape, device=dev, generator=gen).half() for _ in range(2)]
+        tails = [torch.rand((2, 3, fl - 1, 36, 64), device=dev, generator=gen) * 50
+                 for _ in range(2)]
+        for raws, flts in ((u8, [_ieee_float(r, 255) for r in u8]),
+                           (u16, [_ieee_float(r.to(torch.int32) & 0xFFFF, 65535) for r in u16]),
+                           (f16, [r.float() for r in f16])):
+            def run(x):
+                if mode == "tail":
+                    return ing.ingest(*tails, *x, dm, filt)
+                if mode == "replicate":
+                    return ing.ingest_replicate(*x, dm, filt)
+                heads = [r[:, 1:2].expand(-1, fl - 1, -1, -1, -1).contiguous() for r in x]
+                return ing.ingest_head(*heads, *x, dm, filt)
+
+            out_t, out_f = run(raws), run(flts)
+            for a, b in zip(out_t, out_f):
+                assert torch.equal(a, b)
+            if mode == "tail":
+                plain = ing.ingest_plain(*tails, *raws, dm, filt)
+            elif mode == "replicate":
+                plain = ing.ingest_first_plain(*raws, dm, filt)
+            else:
+                heads = [r[:, 1:2].expand(-1, fl - 1, -1, -1, -1).contiguous() for r in raws]
+                plain = ing.ingest_first_plain(*raws, dm, filt, "DKLd65", *heads)
+            tol = 1e-4 if display == "standard_hdr_pq" else 1e-5
+            for a, b in zip(out_t, plain):
+                assert _rel_planes(a, b) <= tol
+
+
 @pytest.mark.parametrize("C", [4, 3])
 def test_band_masking_d_kernel(dev, C):
     """The D mode against its plain version at unaligned sizes: one wide band,
@@ -182,7 +266,7 @@ def test_loss_kernels_match_plain(dev):
     rng = np.random.RandomState(4)
     ref = rng.rand(2, 3, 1, 96, 320).astype(np.float32)
     test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
-    counters = [pyramid_reduce, bm.band_masking, lut.csf_lut, lut.csf_lut_bwd, bl.blur]
+    counters = [pyramid_reduce, bp.band_pooled, lut.csf_lut, lut.csf_lut_bwd, bl.blur]
     out = []
     for fused in (True, False):
         m = ct.cvvdp(display_name="standard_4k", device="cuda")

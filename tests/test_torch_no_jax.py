@@ -43,6 +43,19 @@ Q_mega, _ = m.predict(np.clip(ref2.astype(np.int16) + 9, 0, 255).astype(np.uint8
                       dim_order="HWC")
 assert np.isfinite(float(Q_mega)) and len(seen) == 1, (float(Q_mega), seen)
 assert interleave_bench.main(["--cpu-check"]) == 0
+import torch
+from colorvideovdp_tpu_torch.ops.kernels import band_pooled, ingest
+pooled = []
+band_pooled_sums = band_pooled.band_pooled_sums
+band_pooled.band_pooled_sums = lambda *a: pooled.append(len(a[0])) or band_pooled_sums(*a)
+Q_pooled, _ = ct.cvvdp(display_name="standard_4k", device="cpu").predict(
+    test[..., 0], ref[..., 0], dim_order="HWC")
+assert np.isfinite(float(Q_pooled)) and pooled, (float(Q_pooled), pooled)
+dm = ct.vvdp_display_photometry.load("standard_hdr_pq")
+table = ingest.eotf_table_plain(dm, torch.uint8)
+raw = torch.from_numpy(np.ascontiguousarray(ref.transpose(3, 2, 0, 1)[None]))  # (1, F, 3, H, W)
+assert torch.equal(ingest.eotf_from_table(dm, table, raw),
+                   dm.forward(ingest.raw_to_float(raw).transpose(1, 2)))
 from colorvideovdp_tpu_torch.tools import shard_check
 assert shard_check.main(["--cpu", "--ranks", "2", "--size", "48x256", "--frames", "3",
                          "--block-frames", "2"]) == 0
