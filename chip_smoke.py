@@ -1199,42 +1199,39 @@ def phase_sharded(m, fps, record, jod_single, gen):
     return {k: sum(rr["launches"][k] for rr in res) for k in res[0]["launches"]}
 
 
-def block_loop_split(mv, vs, N):
-    """Where phase 3's warm block loop spends device time: each kernel's sum
-    and count from ``torch.profiler``'s ``key_averages()`` and the device's
-    busy share of the loop; then one warm block's stages with CUDA events
+def block_loop_split(cvt, vs, N, pix, fps, split_blk):
+    """Where phase 3's block loop spends its time. First the loop from an
+    emptied allocator cache, at the split's blocks (pinned with ``gpu_mem``)
+    and at the blocks the model gives an empty card, which separates the
+    block length from the allocator's state. Then the device time of one
+    run at the latter blocks, each kernel's sum and count from
+    ``torch.profiler`` (``tools/path_times.py`` ``profile_device``) and the
+    device's busy share; then one warm block's stages with CUDA events
     (ingest, the decomposition, the band kernel's launches, baseband and
     pooling), which hold even where the profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import ingest
     from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
+    from colorvideovdp_tpu_torch.tools.path_times import profile_device
 
-    # The caching allocator's blocks count as used in the block model: empty
-    # it, so that the split's runs take the scoring run's blocks.
-    torch.cuda.empty_cache()
-    _, st = mv.predict_video_source(vs)  # warm
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def loop(gpu_mem=None):
+        m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True, gpu_mem=gpu_mem)
+        # The caching allocator's blocks count as used in the block model.
+        torch.cuda.empty_cache()
         t0 = time.time()
-        _, st = mv.predict_video_source(vs)
+        _, st = m.predict_video_source(vs)
         torch.cuda.synchronize()
-        wall = time.time() - t0
-    rows = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if getattr(evt, "device_type", None) == DeviceType.CUDA and us > 0:
-            rows.append((us / 1e3, evt.count, evt.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"phase 3: profiled warm block loop {wall:.3f} s for {N} frames in "
-        f"{st['block_N_frames']}-frame blocks, device busy "
-        f"{busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%), idle "
+        return m, time.time() - t0, st["block_N_frames"]
+
+    probe = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+    _, t_split, b_split = loop(probe.block_gpu_mem(pix, split_blk, fps))
+    mv, t_full, blk = loop()
+    log(f"phase 3: block loop from an emptied allocator cache: {t_split:.3f} s in "
+        f"{b_split}-frame blocks, {t_full:.3f} s in {blk}-frame blocks")
+    torch.cuda.empty_cache()
+    rows, busy, wall = profile_device(lambda: mv.predict_video_source(vs))
+    log(f"phase 3: profiled block loop {wall:.3f} s for {N} frames in {blk}-frame blocks, "
+        f"device busy {busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%), idle "
         f"{1e3 * wall - busy:.3f} ms")
     for ms, count, name in rows[:15]:
         log(f"  {ms:9.3f} ms {count:5d}x  {name[:110]}")
@@ -1242,7 +1239,7 @@ def block_loop_split(mv, vs, N):
         log("  (the profiler recorded no device time)")
 
     # One warm block of the loop, its stages timed with CUDA events.
-    fl, blk = mv.filter_len, st["block_N_frames"]
+    fl = mv.filter_len
     dm = mv.display_photometry
     filt = np.ascontiguousarray(np.stack([f[::-1] for f in mv.F]), np.float32)
     raws = [mv._upload(vs.get_raw_block(s, 0, blk)) for s in ("test", "reference")]
@@ -1621,7 +1618,6 @@ def main():
             vs.get_raw_block(s, 0, 1)
         t_host = time.time() - t0
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
         t0 = time.time()
         _, st = mv.predict_video_source(vs)
         torch.cuda.synchronize()
@@ -1630,7 +1626,7 @@ def main():
             f"block loop {t_loop:.3f} s = {N / t_loop:.2f} frames/s "
             f"({st['block_N_frames']}-frame blocks)")
         if fused:
-            block_loop_split(mv, vs, N)
+            block_loop_split(cvt, vs, N, H * W, fps, st["block_N_frames"])
     del V_test, V_ref, vs
 
     # ---- phase 4 ------------------------------------------------------------

@@ -28,14 +28,17 @@
 // arithmetic is about 115 float32 operations per pixel and channel counting
 // each transcendental (powf, log10f) and each IEEE division as one; they
 // take many dependent instructions each, so the kernel is bound by their
-// latency well above its byte bound (its time follows the warps an SM
-// holds: colorvideovdp_tpu_torch/tools/kernel_variants.py), and the design
-// cuts instructions and stalls:
-//   * Block tiles of 32 x 64 pixels (two partial tiles side by side): the
-//     stage-A work on the blur halo falls from 1.89x (a 32x32 tile at the
-//     default 13 taps, r = 6) to (32 + 2r)(64 + 2r) / 2048 = 1.63x.
+// latency well above its byte bound: its time follows the warps an SM holds
+// (PERF.md), and the design cuts instructions and stalls:
+//   * Block tiles of 32 x 32 pixels, the partial tiles themselves, at three
+//     256-thread blocks an SM (85 registers a thread, about 68 KB of dynamic
+//     shared memory a block at r <= 6). The stage-A work on the blur halo is
+//     (32 + 2r)^2 / 1024 = 1.89x at the default 13 taps (r = 6); 32 x 64
+//     tiles cut it to 1.63x but fit two blocks an SM and were measured
+//     slower on the H100 (PERF.md): the warps an SM holds count, not the
+//     halo.
 //   * Per job (tile, channel pair) the block copies the gi window
-//     ((32 + 2r) x (64 + 2r), clipped to the band) and the gn window it
+//     ((32 + 2r) x (32 + 2r), clipped to the band) and the gn window it
 //     expands from into shared memory with cp.async: 16-byte copies where
 //     the rows are 16-byte aligned (w % 4 == 0), 4-byte ones otherwise (the
 //     narrow bands of 30 or 15 columns; TMA's 16-byte pitch rule excludes
@@ -48,10 +51,9 @@
 //     where M_pre is formed. The Y pair's expand gives the adaptation
 //     luminances and the LUT index of every window pixel once per tile; the
 //     other channel pairs read them.
-//   * A persistent grid of as many blocks as fit (two 256-thread blocks per
-//     SM at r <= 6: about 108 KB of dynamic shared memory each) walks the
-//     block tiles in a fixed order; a block loads a band's LUT rows and blur
-//     taps into shared memory once, when it enters the band.
+//   * A persistent grid of as many blocks as fit walks the tiles in a fixed
+//     order; a block loads a band's LUT rows and blur taps into shared
+//     memory once, when it enters the band.
 //   * The tile's own pixels are computed by the threads that pool them, so
 //     diff stays in registers; the halo ring is computed by all threads. A
 //     tile whose window the band does not clip skips the reflection.
@@ -60,22 +62,13 @@
 
 #include "band_common.cuh"
 
-#define BP_TH 32                  // block tile rows
-// Compile-time knobs, measured by colorvideovdp_tpu_torch/tools/
-// kernel_variants.py: the block tile's width (64 or 32 columns) and the
-// blocks an SM the registers are capped for (2: 128 registers a thread; 3:
-// 85). This file builds alone, so that the tool can build variants of it.
-#ifndef BP_TW
-#define BP_TW 64                  // block tile columns
-#endif
-#define BP_SUB (BP_TW / BM_TW)    // partial tiles per block tile
+#define BP_TH BM_TH  // block tile = partial tile, 32 x 32
+#define BP_TW BM_TW
 #define BP_THREADS 256
+#define BP_MIN_BLOCKS 3  // blocks an SM the registers are capped for
 #define BP_WARPS (BP_THREADS / 32)
-#define BP_ROWS (BP_TH / BP_WARPS)  // rows a thread pools per partial tile
+#define BP_ROWS (BP_TH / BP_WARPS)  // rows a thread pools
 #define BP_MAX_NK 64
-#ifndef BP_MIN_BLOCKS
-#define BP_MIN_BLOCKS 2
-#endif
 
 struct PooledBand {
   const float* gi;
@@ -84,10 +77,8 @@ struct PooledBand {
   float mul;
   int r;                 // blur radius; 0 (a unit tap) where the blur is skipped
   int vec_gi, vec_gn;    // 16-byte rows: 16-byte copies
-  int tiles_x, tiles_y;  // 32x32 partial tiles
-  int btx;               // block tiles across
-  long long bt_off;      // first block tile of the band
-  long long tile_off;    // first partial tile of the band
+  int tiles_x, tiles_y;  // 32x32 tiles
+  long long tile_off;    // first tile of the band
   long long plane_off;   // first (b, f) plane of the band (stage C)
 };
 
@@ -105,15 +96,15 @@ struct PooledParams {
   float max_v, blur_scale, beta;
   float taps[BM_MAX_TAPS];
   int ntaps;
-  long long n_bt;  // block tiles of all bands
+  long long n_tiles;  // tiles of all bands
   // Dynamic shared memory, in floats, sized for the launch's largest radius.
   int y_plane, rexp_plane, giw_plane, gnw_plane;
   int o_y, o_mpre, o_rexp, o_giw, o_gnw, o_lut;
 };
 
 // Row pitches (floats) of the staged gi window and of the gn window and its
-// vertical expand, for blur radius r: the window is at most 64 + 2r columns
-// (35 + r of gn), plus up to 3 on each side for 16-byte alignment.
+// vertical expand, for blur radius r: the window is at most 32 + 2r columns
+// (19 + r of gn), plus up to 3 on each side for 16-byte alignment.
 __host__ __device__ __forceinline__ int gi_pitch(int r) { return (BP_TW + 2 * r + 9) & ~3; }
 __host__ __device__ __forceinline__ int gn_pitch(int r) { return (BP_TW / 2 + r + 12) & ~3; }
 __host__ __device__ __forceinline__ int gn_rows(int r) { return BP_TH / 2 + r + 3; }
@@ -159,12 +150,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One block tile of one band: its 32 x 64 pixels at (y0, x0) of plane
+// One tile of one band: its 32 x 32 pixels at (y0, x0) of plane
 // (b, f), the window of band pixels its blur halo reads, [wy0, wy1) x
 // [wx0, wx1), the staged gi columns [sx0, sx1), and the gn rows [gr0, gr1]
 // and the columns the window's expand reads, staged from [sgc0, sgc1).
 struct Job {
-  int bi, b, f, ty, bx, y0, x0, r;
+  int bi, b, f, ty, tx, y0, x0, r;
   int wy0, wy1, wx0, wx1, sx0, sx1, gr0, gr1, sgc0, sgc1;
 };
 
@@ -172,18 +163,18 @@ __device__ __forceinline__ Job make_job(const PooledParams& P, long long bt) {
   Job J;
   J.bi = 0;
   for (int k = 1; k < P.n_bands; ++k)
-    if (bt >= P.band[k].bt_off) J.bi = k;
+    if (bt >= P.band[k].tile_off) J.bi = k;
   const PooledBand& d = P.band[J.bi];
-  const long long local = bt - d.bt_off;
-  const long long per_plane = (long long)d.tiles_y * d.btx;
+  const long long local = bt - d.tile_off;
+  const long long per_plane = (long long)d.tiles_y * d.tiles_x;
   const long long l = local / per_plane;
   const int rem = (int)(local - l * per_plane);
-  J.ty = rem / d.btx;
-  J.bx = rem - J.ty * d.btx;
+  J.ty = rem / d.tiles_x;
+  J.tx = rem - J.ty * d.tiles_x;
   J.b = (int)(l / P.F);
   J.f = (int)(l - (long long)J.b * P.F);
   J.y0 = J.ty * BP_TH;
-  J.x0 = J.bx * BP_TW;
+  J.x0 = J.tx * BP_TW;
   J.r = d.r;
   J.wy0 = max(J.y0 - J.r, 0);
   J.wy1 = min(J.y0 + BP_TH + J.r, d.h);
@@ -256,10 +247,10 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     band_pooled_kernel(const __grid_constant__ PooledParams P, float* __restrict__ partials) {
   extern __shared__ __align__(16) float dyn[];
   __shared__ float s_taps[BM_MAX_TAPS];
-  __shared__ float red[BP_SUB * BM_MAX_C * BP_WARPS];
+  __shared__ float red[BM_MAX_C * BP_WARPS];
 
   long long bt = blockIdx.x;
-  if (bt >= P.n_bt) return;
+  if (bt >= P.n_tiles) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int C = P.C, nk = P.nk;
   float* Yt = dyn + P.o_y;  // per window pixel: lb_t, lb_r, LUT index
@@ -275,8 +266,8 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
 #pragma unroll
   for (int k = 0; k < 5; ++k) ek[k] = P.ek[k];
 
-  float mix[BP_SUB][BP_ROWS][BM_MAX_C];
-  float dreg[BP_SUB][BP_ROWS][BM_MAX_C];  // diff of the thread's own pixels
+  float mix[BP_ROWS][BM_MAX_C];
+  float dreg[BP_ROWS][BM_MAX_C];  // diff of the thread's own pixels
   Job J = make_job(P, bt);
   int c = 0, cur_band = -1;
   issue_loads(P, J, 0, giw, gnw);
@@ -290,11 +281,9 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     const int GIP = gi_pitch(r), GNP = gn_pitch(r);
     if (c == 0) {
 #pragma unroll
-      for (int j = 0; j < BP_SUB; ++j)
+      for (int k = 0; k < BP_ROWS; ++k)
 #pragma unroll
-        for (int k = 0; k < BP_ROWS; ++k)
-#pragma unroll
-          for (int dd = 0; dd < BM_MAX_C; ++dd) mix[j][k][dd] = dreg[j][k][dd] = 0.0f;
+        for (int dd = 0; dd < BM_MAX_C; ++dd) mix[k][dd] = dreg[k][dd] = 0.0f;
       if (J.bi != cur_band) {
         for (int i = tid; i < C * nk; i += BP_THREADS)
           s_lut[i] = P.luts[(long long)J.bi * C * nk + i];
@@ -357,17 +346,15 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
       raw_pair(giw[o], E_t, giw[P.giw_plane + o], E_r, lb_t, lb_r, S, mp, df);
     };
 #pragma unroll
-    for (int j = 0; j < BP_SUB; ++j)
+    for (int k = 0; k < BP_ROWS; ++k) {
+      const int yy = r + warp + k * BP_WARPS, xx = r + lane;
+      float mp, df;
+      sample(yy, xx, mp, df);
+      mpre[yy * SW + xx] = mp;
 #pragma unroll
-      for (int k = 0; k < BP_ROWS; ++k) {
-        const int yy = r + warp + k * BP_WARPS, xx = r + lane + j * BM_TW;
-        float mp, df;
-        sample(yy, xx, mp, df);
-        mpre[yy * SW + xx] = mp;
-#pragma unroll
-        for (int dd = 0; dd < BM_MAX_C; ++dd)
-          if (dd == c) dreg[j][k][dd] = df;
-      }
+      for (int dd = 0; dd < BM_MAX_C; ++dd)
+        if (dd == c) dreg[k][dd] = df;
+    }
     if (r > 0) {
       const int top = r * SW;
       const float inv_sw = 1.0f / (float)SW, inv_2r = 1.0f / (float)(2 * r);
@@ -400,7 +387,7 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     if (nc == C) {
       nc = 0;
       nbt = bt + gridDim.x;
-      more = nbt < P.n_bt;
+      more = nbt < P.n_tiles;
       if (more) N = make_job(P, nbt);
     }
     if (more) issue_loads(P, N, nc, giw, gnw);
@@ -425,61 +412,51 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
       const float eps_q = powf(BM_EPS, q);
       const int ntap = 2 * r + 1;
 #pragma unroll
-      for (int j = 0; j < BP_SUB; ++j)
+      for (int k = 0; k < BP_ROWS; ++k) {
+        const float* row = tmp + (warp + k * BP_WARPS) * SW + lane;
+        float acc = 0.0f;
+        for (int t = 0; t < ntap; ++t) acc = mul_add_rn(acc, s_taps[t], row[t]);
+        const float mq = masking_mq(acc * P.blur_scale, q, eps_q);
 #pragma unroll
-        for (int k = 0; k < BP_ROWS; ++k) {
-          const float* row = tmp + (warp + k * BP_WARPS) * SW + lane + j * BM_TW;
-          float acc = 0.0f;
-          for (int t = 0; t < ntap; ++t) acc = mul_add_rn(acc, s_taps[t], row[t]);
-          const float mq = masking_mq(acc * P.blur_scale, q, eps_q);
-#pragma unroll
-          for (int dd = 0; dd < BM_MAX_C; ++dd)
-            if (dd < C) mix[j][k][dd] += P.xcm[c * BM_MAX_C + dd] * mq;
-        }
+        for (int dd = 0; dd < BM_MAX_C; ++dd)
+          if (dd < C) mix[k][dd] += P.xcm[c * BM_MAX_C + dd] * mq;
+      }
     }
 
     if (c == C - 1) {
-      // The epilogue of stage B per 32x32 partial tile: the thread's rows in
-      // order, the warp's tree sum, the warps in order (band_common.cuh
-      // block_sum), into the partial tile's slot.
+      // The epilogue of stage B: the thread's rows in order, the warp's tree
+      // sum, the warps in order (band_common.cuh block_sum), into the tile's
+      // slot.
       const float eps_p = powf(BM_EPS, P.p);
       const float eps_b = pow_static(BM_EPS, P.beta);
+      float part[BM_MAX_C];
 #pragma unroll
-      for (int j = 0; j < BP_SUB; ++j) {
-        float part[BM_MAX_C];
+      for (int dd = 0; dd < BM_MAX_C; ++dd) part[dd] = 0.0f;
 #pragma unroll
-        for (int dd = 0; dd < BM_MAX_C; ++dd) part[dd] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < BP_ROWS; ++k) {
-          const int gy = J.y0 + warp + k * BP_WARPS;
-          const int gx = J.x0 + j * BM_TW + lane;
-          if (gy >= h || gx >= w) continue;
-#pragma unroll
-          for (int dd = 0; dd < BM_MAX_C; ++dd) {
-            if (dd >= C) continue;
-            part[dd] += pooled_term(band_D(dreg[j][k][dd], mix[j][k][dd], P.p, eps_p, P.max_v),
-                                    P.beta, eps_b);
-          }
-        }
+      for (int k = 0; k < BP_ROWS; ++k) {
+        const int gy = J.y0 + warp + k * BP_WARPS, gx = J.x0 + lane;
+        if (gy >= h || gx >= w) continue;
 #pragma unroll
         for (int dd = 0; dd < BM_MAX_C; ++dd) {
           if (dd >= C) continue;
-          const float v = warp_sum(part[dd]);
-          if (lane == 0) red[(j * BM_MAX_C + dd) * BP_WARPS + warp] = v;
+          part[dd] += pooled_term(band_D(dreg[k][dd], mix[k][dd], P.p, eps_p, P.max_v), P.beta,
+                                  eps_b);
         }
       }
+#pragma unroll
+      for (int dd = 0; dd < BM_MAX_C; ++dd) {
+        if (dd >= C) continue;
+        const float v = warp_sum(part[dd]);
+        if (lane == 0) red[dd * BP_WARPS + warp] = v;
+      }
       __syncthreads();
-      if (tid < BP_SUB * C) {
-        const int j = tid / C, dd = tid - j * C;
-        const int tx = J.bx * BP_SUB + j;
-        if (tx < d.tiles_x) {
-          float s = 0.0f;
-          for (int k = 0; k < BP_WARPS; ++k) s += red[(j * BM_MAX_C + dd) * BP_WARPS + k];
-          const long long l = (long long)J.b * P.F + J.f;
-          const long long tile =
-              d.tile_off + l * d.tiles_x * d.tiles_y + (long long)J.ty * d.tiles_x + tx;
-          partials[tile * C + dd] = s;
-        }
+      if (tid < C) {
+        float s = 0.0f;
+        for (int k = 0; k < BP_WARPS; ++k) s += red[tid * BP_WARPS + k];
+        const long long l = (long long)J.b * P.F + J.f;
+        const long long tile =
+            d.tile_off + l * d.tiles_x * d.tiles_y + (long long)J.ty * d.tiles_x + J.tx;
+        partials[tile * C + tid] = s;
       }
     }
     if (!more) break;
@@ -527,7 +504,7 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
   P.C = C;
   P.F = F;
   P.nk = nk;
-  long long bts = 0, tiles = 0, planes = 0;
+  long long tiles = 0, planes = 0;
   int r_max = 0;
   for (int k = 0; k < n_bands; ++k) {
     PooledBand& d = P.band[k];
@@ -545,16 +522,13 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
     d.vec_gn = (d.wn % 4 == 0) && ((uintptr_t)d.gn % 16 == 0);
     d.tiles_x = (d.w + BM_TW - 1) / BM_TW;
     d.tiles_y = (d.h + BM_TH - 1) / BM_TH;
-    d.btx = (d.tiles_x + BP_SUB - 1) / BP_SUB;
-    d.bt_off = bts;
     d.tile_off = tiles;
     d.plane_off = planes;
-    bts += (long long)B * F * d.tiles_y * d.btx;
     tiles += (long long)B * F * d.tiles_x * d.tiles_y;
     planes += (long long)B * F;
   }
   if (planes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  P.n_bt = bts;
+  P.n_tiles = tiles;
   P.luts = luts;
   P.x0 = x0;
   P.lut_scale = lut_scale;
@@ -591,7 +565,7 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
                                                     smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long grid = bts < (long long)per_sm * n_sm ? bts : (long long)per_sm * n_sm;
+  const long long grid = tiles < (long long)per_sm * n_sm ? tiles : (long long)per_sm * n_sm;
   band_pooled_kernel<<<(unsigned int)grid, BP_THREADS, smem, st>>>(P, partials);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -58,14 +58,12 @@
 //     lengths keep the window in shared memory with a ring index advanced by
 //     compare-and-reset. Either way the sum runs in tap order, so the bits do
 //     not change.
-//   * Pixels per thread. The template path takes one pixel a thread: a
-//     register window of 4 pixels (uchar4 / ushort4 / float4 loads, float4
-//     stores) needs 4x the window's registers, and at fl = 9 the kernel then
-//     holds 255 registers a thread and 8 warps an SM, which costs more than
-//     the wider accesses save (INGEST_PIXELS below, measured by
-//     colorvideovdp_tpu_torch/tools/kernel_variants.py). A warp still moves
-//     32 contiguous source samples and 128 output bytes per instruction.
-//     Other lengths take the shared-memory path, one pixel a thread.
+//   * One pixel a thread: a warp moves 32 contiguous source samples and 128
+//     output bytes per instruction. A register window of 2 or 4 pixels a
+//     thread (vector loads and float4 stores) was measured slower on the
+//     H100, 12.8 and 22.6 ms against 9.8 ms at (1, 29, 3, 2160, 3840) uint8
+//     and fl = 9 (PERF.md): it multiplies the window's registers, and at 4
+//     pixels the kernel holds 255 registers a thread and 8 warps an SM.
 
 #include <cuda_fp16.h>
 
@@ -73,11 +71,6 @@
 
 #define INGEST_MAX_FL 64
 #define INGEST_THREADS 128
-// Compile-time knob: pixels a thread of the register-window path (1, 2 or
-// 4; 2 and 4 where hw % 4 == 0 and the planes are 16-byte aligned).
-#ifndef INGEST_PIXELS
-#define INGEST_PIXELS 1
-#endif
 
 enum Eotf { EOTF_SRGB = 0, EOTF_PQ = 1, EOTF_LINEAR = 2, EOTF_HLG = 3, EOTF_GAMMA = 4 };
 enum SrcType { SRC_U8 = 0, SRC_U16 = 1, SRC_F16 = 2, SRC_F32 = 3 };
@@ -246,52 +239,10 @@ __global__ void eotf_table_kernel(const __grid_constant__ IngestParams P,
   table[i] = table_entry(P, to_float<SRC>(code));
 }
 
-// VEC consecutive elements, one vector access (the caller keeps them aligned).
-template <int VEC, typename U>
-__device__ __forceinline__ void load_vec(const U* __restrict__ p, U (&o)[VEC]) {
-  if constexpr (VEC == 1) {
-    o[0] = p[0];
-  } else if constexpr (sizeof(U) == 1) {
-    if constexpr (VEC == 4) {
-      const uchar4 u = *reinterpret_cast<const uchar4*>(p);
-      o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
-    } else {
-      const uchar2 u = *reinterpret_cast<const uchar2*>(p);
-      o[0] = u.x; o[1] = u.y;
-    }
-  } else if constexpr (sizeof(U) == 2) {
-    if constexpr (VEC == 4) {
-      const ushort4 u = *reinterpret_cast<const ushort4*>(p);
-      o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
-    } else {
-      const ushort2 u = *reinterpret_cast<const ushort2*>(p);
-      o[0] = u.x; o[1] = u.y;
-    }
-  } else {
-    if constexpr (VEC == 4) {
-      const float4 u = *reinterpret_cast<const float4*>(p);
-      o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
-    } else {
-      const float2 u = *reinterpret_cast<const float2*>(p);
-      o[0] = u.x; o[1] = u.y;
-    }
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else if constexpr (VEC == 2)
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  else
-    p[0] = v[0];
-}
-
 // The slots' sources, shared by both kernels. pad_t / pad_r: the DKL tails
 // (float, (B, 3, fl-1, hw)) in tail mode, the raw head frames (B, fl-1,
 // channels, hw) in head mode, unused in replicate mode.
-template <int SRC, int VEC>
+template <int SRC>
 struct Slots {
   using U = typename Src<SRC>::bits;
   const IngestParams& P;
@@ -300,35 +251,23 @@ struct Slots {
   const void* pad;
   long long pix, b;
 
-  // Frame fr of a (frames, channels, hw) raw plane set -> VEC triplets.
-  __device__ __forceinline__ void convert(const U* frames, int fr, float (&dkl)[3][VEC]) const {
+  // Frame fr of a (frames, channels, hw) raw plane set -> the pixel's triplet.
+  __device__ __forceinline__ void convert(const U* frames, int fr, float (&dkl)[3]) const {
     const int nc = P.channels;
-    U code[3][VEC];
+    U code[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      if (c < nc) load_vec<VEC>(frames + ((long long)fr * nc + c) * P.hw + pix, code[c]);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      U cv[3];
-      float d[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) cv[c] = code[c < nc ? c : 0][v];
-      pixel_to_metric<SRC>(P, tab, cv, d);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) dkl[c][v] = d[c];
-    }
+      code[c] = c < nc ? frames[((long long)fr * nc + c) * P.hw + pix] : (U)0;
+    pixel_to_metric<SRC>(P, tab, code, dkl);
   }
 
-  // Slot s (s < fl - 1: the padding) -> VEC triplets; `first` holds frame 0
-  // in replicate mode.
-  __device__ __forceinline__ void get(int s, const float (&first)[3][VEC],
-                                      float (&dkl)[3][VEC]) const {
+  // Slot s (s < fl - 1: the padding) -> the pixel's triplet; `first` holds
+  // frame 0 in replicate mode.
+  __device__ __forceinline__ void get(int s, const float (&first)[3], float (&dkl)[3]) const {
     const int fl = P.fl;
     if (P.mode == MODE_REPLICATE && s <= fl - 1) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) dkl[c][v] = first[c][v];
+      for (int c = 0; c < 3; ++c) dkl[c] = first[c];
     } else if (s >= fl - 1 || P.mode == MODE_HEAD) {
       const bool is_new = s >= fl - 1;
       convert(is_new ? raw : (const U*)pad + b * (fl - 1) * P.channels * P.hw,
@@ -336,14 +275,13 @@ struct Slots {
     } else {
       const float* tail = (const float*)pad + b * 3 * (fl - 1) * P.hw;
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        load_vec<VEC>(tail + ((long long)c * (fl - 1) + s) * P.hw + pix, dkl[c]);
+      for (int c = 0; c < 3; ++c) dkl[c] = tail[((long long)c * (fl - 1) + s) * P.hw + pix];
     }
   }
 };
 
-// fl = FL, VEC pixels a thread (hw % VEC == 0), the window in registers.
-template <int SRC, int VEC, int FL>
+// fl = FL, one pixel a thread, the window in registers.
+template <int SRC, int FL>
 __global__ void __launch_bounds__(INGEST_THREADS)
     ingest_window(const void* __restrict__ pad_t, const void* __restrict__ pad_r,
                   const void* __restrict__ raw_t, const void* __restrict__ raw_r,
@@ -359,20 +297,19 @@ __global__ void __launch_bounds__(INGEST_THREADS)
     tab = s_tab;
   }
   const long long hw = P.hw;
-  const long long pix = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  const long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= hw) return;
   const int src = blockIdx.y, blk = P.blk;
   const long long b = blockIdx.z;
-  const Slots<SRC, VEC> slots{P, tab,
-                              (const U*)(src == 0 ? raw_t : raw_r) + b * blk * P.channels * hw,
-                              src == 0 ? pad_t : pad_r, pix, b};
+  const Slots<SRC> slots{P, tab, (const U*)(src == 0 ? raw_t : raw_r) + b * blk * P.channels * hw,
+                         src == 0 ? pad_t : pad_r, pix, b};
   float* ntail = (src == 0 ? ntail_t : ntail_r) + b * 3 * (FL - 1) * hw;
   float* outb = out + b * 8 * blk * hw;
 
-  float first[3][VEC];  // replicate: frame 0's triplets, converted once
+  float first[3];  // replicate: frame 0's triplet, converted once
   if (P.mode == MODE_REPLICATE) slots.convert(slots.raw, 0, first);
 
-  float win[FL][3][VEC];  // slot s sits at win[s % FL]
+  float win[FL][3];  // slot s sits at win[s % FL]
   const int nslot = FL - 1 + blk;
   for (int s0 = 0; s0 < nslot; s0 += FL) {
 #pragma unroll
@@ -383,24 +320,18 @@ __global__ void __launch_bounds__(INGEST_THREADS)
         if (s >= blk) {
 #pragma unroll
           for (int c = 0; c < 3; ++c)
-            store_vec<VEC>(ntail + ((long long)c * (FL - 1) + (s - blk)) * hw + pix, win[j][c]);
+            ntail[((long long)c * (FL - 1) + (s - blk)) * hw + pix] = win[j][c];
         }
         if (s >= FL - 1) {
           const int fo = s - (FL - 1);
 #pragma unroll
           for (int co = 0; co < 4; ++co) {
             const int ci = co < 3 ? co : 0;
-            float acc[VEC];
+            float acc = 0.0f;
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-#pragma unroll
-            for (int t = 0; t < FL; ++t) {
-              const int q = (j + 1 + t) % FL;  // slot fo + t
-#pragma unroll
-              for (int v = 0; v < VEC; ++v)
-                acc[v] = __fadd_rn(acc[v], __fmul_rn(win[q][ci][v], P.filt[co * FL + t]));
-            }
-            store_vec<VEC>(outb + ((long long)(2 * co + src) * blk + fo) * hw + pix, acc);
+            for (int t = 0; t < FL; ++t)  // slot fo + t sits at win[(j + 1 + t) % FL]
+              acc = __fadd_rn(acc, __fmul_rn(win[(j + 1 + t) % FL][ci], P.filt[co * FL + t]));
+            outb[((long long)(2 * co + src) * blk + fo) * hw + pix] = acc;
           }
         }
       }
@@ -435,24 +366,23 @@ __global__ void __launch_bounds__(INGEST_THREADS)
   if (pix >= hw) return;
   const int src = blockIdx.y;
   const long long b = blockIdx.z;
-  const Slots<SRC, 1> slots{P, tab,
-                            (const U*)(src == 0 ? raw_t : raw_r) + b * blk * P.channels * hw,
-                            src == 0 ? pad_t : pad_r, pix, b};
+  const Slots<SRC> slots{P, tab, (const U*)(src == 0 ? raw_t : raw_r) + b * blk * P.channels * hw,
+                         src == 0 ? pad_t : pad_r, pix, b};
   float* ntail = (src == 0 ? ntail_t : ntail_r) + b * 3 * (fl - 1) * hw;
   float* outb = out + b * 8 * blk * hw;
   const int bd = blockDim.x, tid = threadIdx.x;
 
-  float first[3][1];
+  float first[3];
   if (P.mode == MODE_REPLICATE) slots.convert(slots.raw, 0, first);
 
   int slot = 0;  // s % fl
   for (int s = 0; s < fl - 1 + blk; ++s) {
-    float dkl[3][1];
+    float dkl[3];
     slots.get(s, first, dkl);
-    for (int c = 0; c < 3; ++c) ring[(slot * 3 + c) * bd + tid] = dkl[c][0];
+    for (int c = 0; c < 3; ++c) ring[(slot * 3 + c) * bd + tid] = dkl[c];
     if (s >= blk) {
       for (int c = 0; c < 3; ++c)
-        ntail[((long long)c * (fl - 1) + (s - blk)) * hw + pix] = dkl[c][0];
+        ntail[((long long)c * (fl - 1) + (s - blk)) * hw + pix] = dkl[c];
     }
     if (++slot == fl) slot = 0;  // now (s + 1) % fl: slot fo of the window
     if (s >= fl - 1) {
@@ -472,29 +402,20 @@ __global__ void __launch_bounds__(INGEST_THREADS)
 }
 
 template <int SRC>
-static cudaError_t launch(dim3 threads, long long hw, int batch, int fl, bool vec,
-                          cudaStream_t st, const void* pad_t, const void* pad_r,
-                          const void* raw_t, const void* raw_r, float* out, float* ntail_t,
-                          float* ntail_r, const float* table, const IngestParams& P) {
-  auto grid = [&](int v) {
-    return dim3(ceil_div_u(hw / v, INGEST_THREADS), 2, batch);
-  };
-#define CVVDP_INGEST_WINDOW(V, L)                                                         \
-  ingest_window<SRC, V, L><<<grid(V), threads, 0, st>>>(pad_t, pad_r, raw_t, raw_r, out, \
-                                                         ntail_t, ntail_r, table, P)
-  if (vec && (fl == 7 || fl == 9 || fl == 17)) {
-    if (fl == 7)
-      CVVDP_INGEST_WINDOW(INGEST_PIXELS, 7);
-    else if (fl == 9)
-      CVVDP_INGEST_WINDOW(INGEST_PIXELS, 9);
-    else
-      CVVDP_INGEST_WINDOW(INGEST_PIXELS, 17);
-  } else if (fl == 7) {
-    CVVDP_INGEST_WINDOW(1, 7);
+static cudaError_t launch(dim3 threads, long long hw, int batch, int fl, cudaStream_t st,
+                          const void* pad_t, const void* pad_r, const void* raw_t,
+                          const void* raw_r, float* out, float* ntail_t, float* ntail_r,
+                          const float* table, const IngestParams& P) {
+  const dim3 grid(ceil_div_u(hw, INGEST_THREADS), 2, batch);
+#define CVVDP_INGEST_WINDOW(L)                                                         \
+  ingest_window<SRC, L><<<grid, threads, 0, st>>>(pad_t, pad_r, raw_t, raw_r, out, \
+                                                  ntail_t, ntail_r, table, P)
+  if (fl == 7) {
+    CVVDP_INGEST_WINDOW(7);
   } else if (fl == 9) {
-    CVVDP_INGEST_WINDOW(1, 9);
+    CVVDP_INGEST_WINDOW(9);
   } else if (fl == 17) {
-    CVVDP_INGEST_WINDOW(1, 17);
+    CVVDP_INGEST_WINDOW(17);
   } else {
     const size_t smem = (size_t)fl * 3 * INGEST_THREADS * sizeof(float);
     if (smem > 48 * 1024) {
@@ -502,8 +423,8 @@ static cudaError_t launch(dim3 threads, long long hw, int batch, int fl, bool ve
           ingest_ring<SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
     }
-    ingest_ring<SRC><<<grid(1), threads, smem, st>>>(pad_t, pad_r, raw_t, raw_r, out, ntail_t,
-                                                     ntail_r, table, P);
+    ingest_ring<SRC><<<grid, threads, smem, st>>>(pad_t, pad_r, raw_t, raw_r, out, ntail_t,
+                                                  ntail_r, table, P);
   }
 #undef CVVDP_INGEST_WINDOW
   return cudaGetLastError();
@@ -556,28 +477,23 @@ CVVDP_API int cvvdp_ingest(int mode, const void* pad_t, const void* pad_r,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  // Vector access needs whole vectors per plane and 16-byte aligned bases.
-  auto al = [](const void* p) { return ((uintptr_t)p % 16) == 0; };
-  const bool vec = INGEST_PIXELS > 1 && hw % 4 == 0 && al(raw_t) && al(raw_r) && al(out) &&
-                   al(ntail_t) && al(ntail_r) &&
-                   (mode == MODE_REPLICATE || (al(pad_t) && al(pad_r)));
   const dim3 threads(INGEST_THREADS);
   cudaError_t e;
   switch (src_type) {
     case SRC_U8:
-      e = launch<SRC_U8>(threads, hw, batch, fl, vec, st, pad_t, pad_r, raw_t, raw_r, out,
+      e = launch<SRC_U8>(threads, hw, batch, fl, st, pad_t, pad_r, raw_t, raw_r, out,
                          ntail_t, ntail_r, table, P);
       break;
     case SRC_U16:
-      e = launch<SRC_U16>(threads, hw, batch, fl, vec, st, pad_t, pad_r, raw_t, raw_r, out,
+      e = launch<SRC_U16>(threads, hw, batch, fl, st, pad_t, pad_r, raw_t, raw_r, out,
                           ntail_t, ntail_r, table, P);
       break;
     case SRC_F16:
-      e = launch<SRC_F16>(threads, hw, batch, fl, vec, st, pad_t, pad_r, raw_t, raw_r, out,
+      e = launch<SRC_F16>(threads, hw, batch, fl, st, pad_t, pad_r, raw_t, raw_r, out,
                           ntail_t, ntail_r, table, P);
       break;
     default:
-      e = launch<SRC_F32>(threads, hw, batch, fl, vec, st, pad_t, pad_r, raw_t, raw_r, out,
+      e = launch<SRC_F32>(threads, hw, batch, fl, st, pad_t, pad_r, raw_t, raw_r, out,
                           ntail_t, ntail_r, table, P);
       break;
   }

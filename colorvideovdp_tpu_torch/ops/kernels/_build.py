@@ -74,8 +74,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest(extra=()) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(extra)).encode())
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -83,31 +83,26 @@ def _digest(extra=()) -> str:
     return h.hexdigest()
 
 
-def build(sources=None, flags=(), build_dir=BUILD_DIR) -> str:
+def build() -> str:
     """Compile the kernels unless the cached library matches the sources.
-    Returns the library path; raises with nvcc's output on failure.
-    ``sources`` (file names in ``csrc/``, default all), ``flags`` (extra nvcc
-    flags) and ``build_dir`` build a variant library apart from the package's
-    (``tools/kernel_variants.py``)."""
+    Returns the library path; raises with nvcc's output on failure."""
     global last_build_seconds
-    lib_path = os.path.join(build_dir, LIB_NAME)
+    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = lib_path + ".sha256"
-    cus = [s for s in _sources() if s.endswith(".cu")
-           and (sources is None or os.path.basename(s) in sources)]
-    digest = _digest(list(flags) + cus)
+    digest = _digest()
     if os.path.isfile(lib_path) and os.path.isfile(stamp):
         with open(stamp) as f:
             if f.read().strip() == digest:
                 last_build_seconds = 0.0
                 return lib_path
-    os.makedirs(build_dir, exist_ok=True)
+    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     tmp = f"{lib_path}.{tag}"
     t0 = time.time()
     jobs = []
-    for src in cus:
-        obj = os.path.join(build_dir, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, src]
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     logs, failed = [], []
@@ -126,7 +121,7 @@ def build(sources=None, flags=(), build_dir=BUILD_DIR) -> str:
         if os.path.exists(obj):
             os.remove(obj)
     last_build_seconds = time.time() - t0
-    with open(os.path.join(build_dir, "nvcc.log"), "w") as f:
+    with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
         f.write("\n".join(logs))
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -136,21 +131,15 @@ def build(sources=None, flags=(), build_dir=BUILD_DIR) -> str:
     return lib_path
 
 
-def bind(path: str) -> ctypes.CDLL:
-    """Load a kernel library and set the argtypes of the entry points it has."""
-    lib = ctypes.CDLL(path)
-    for name, argtypes in SIGNATURES.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = RESTYPES.get(name, _I)
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library with argtypes set (built on first call)."""
-    return bind(build())
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = RESTYPES.get(name, _I)
+    return lib
 
 
 def check_cuda(rc: int, name: str):

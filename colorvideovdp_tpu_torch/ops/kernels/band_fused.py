@@ -18,10 +18,10 @@ memory and registers; both give the bits of the raw-pair route
 * ``band_fused_d``: D (B, C, F, h, w) for the heatmap, the fused mode of
   ``csrc/band_masking.cu`` (``expand = 1``; memory-bound, 56 bytes a pixel
   at C = 4); plain version ``band_fused_d_plain``.
-* ``BandFused``: the pooled sums, differentiable in ``gi`` and ``gn``; its
-  backward is ``band_pooled.pooled_vjp``, the plain chain through
-  ``gausspyr_expand`` per frame chunk, as JAX's ``fused_bwd`` recomputes
-  ``jnp_impl``.
+* ``band_fused_sums``: the pooled sums, differentiable in ``gi`` and
+  ``gn``, through ``band_pooled.BandPooled`` with ``band_fused`` launching;
+  its backward recomputes the plain chain through ``gausspyr_expand`` per
+  frame chunk, as JAX's ``fused_bwd`` recomputes ``jnp_impl``.
 * ``can_band_fused``: the JAX package's shape gate (``band_fused.py:79-90``),
   which ``cvvdp._process_block`` applies as the JAX package does. The
   kernels themselves take any band shape.
@@ -30,7 +30,6 @@ memory and registers; both give the bits of the raw-pair route
 from __future__ import annotations
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import band_pooled as bp
 from .masking_fused import BandConsts, _band_D_plain, _frame_chunks, _launch
@@ -93,27 +92,11 @@ def band_fused_d(gi, gn, lut, mul, k: BandConsts):
 band_fused_d.launches = 0
 
 
-class BandFused(torch.autograd.Function):
-    """Pooled sums (B, C, F) of one raw band, differentiable in ``gi`` and
-    ``gn``: ``band_fused`` (or the plain version without ``use_kernel``)
-    forward; the backward is ``band_pooled.pooled_vjp``."""
-
-    @staticmethod
-    def forward(ctx, lut, mul, k, use_kernel, gi, gn):
-        ctx.save_for_backward(lut, gi, gn)
-        ctx.args = (mul, k, use_kernel)
-        if not use_kernel:
-            return band_fused_plain(gi, gn, lut, mul, k)
-        return band_fused(gi, gn, lut, mul, k)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        lut, gi, gn = ctx.saved_tensors
-        mul, k, use_kernel = ctx.args
-        return (None, None, None, None, *bp.pooled_vjp(gi, gn, lut, mul, k, use_kernel, g))
+def _band_fused_list(gi_list, gn_list, luts, muls, k: BandConsts):
+    return band_fused(gi_list[0], gn_list[0], luts[0], muls[0], k)[None]
 
 
 def band_fused_sums(gi, gn, lut, mul, k: BandConsts, use_kernel: bool = True):
-    """(B, C, F) pooled sums of one raw band through ``BandFused``."""
-    return BandFused.apply(lut, mul, k, use_kernel, gi, gn)
+    """(B, C, F) pooled sums of one raw band, differentiable in ``gi`` and
+    ``gn``."""
+    return bp.band_pooled_sums([gi], [gn], lut[None], [mul], k, use_kernel, _band_fused_list)[0]

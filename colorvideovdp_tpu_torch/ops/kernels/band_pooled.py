@@ -17,10 +17,10 @@ those of ``masking_fused.band_masking`` fed ``gausspyr_expand(gn)``.
   (``masking_fused._band_sums_plain``) fed ``gausspyr_expand(gn)`` per frame
   chunk; CUDA tensors launch the kernel over all the given bands at once.
 * ``BandPooled`` / ``band_pooled_sums``: the same sums, differentiable in
-  every gi and gn; the backward (``pooled_vjp``, shared with
-  ``band_fused.BandFused``) recomputes the plain chain through
-  ``gausspyr_expand`` per frame chunk, as JAX's custom VJPs recompute their
-  plain implementations.
+  every gi and gn (also ``band_fused.band_fused_sums``, which gives its own
+  counted launcher); the backward (``pooled_vjp``) recomputes the plain
+  chain through ``gausspyr_expand`` per frame chunk, as JAX's custom VJPs
+  recompute their plain implementations.
 """
 
 from __future__ import annotations
@@ -126,18 +126,19 @@ def pooled_vjp(gi, gn, lut, mul, k: BandConsts, use_kernel: bool, g):
 
 class BandPooled(torch.autograd.Function):
     """Pooled sums (n_bands, B, C, F) of raw bands, differentiable in every
-    gi and gn: ``band_pooled`` (or the plain version without ``use_kernel``)
-    forward; the backward is ``pooled_vjp`` per band."""
+    gi and gn: ``kernel`` (``band_pooled`` or a wrapper of it that counts its
+    own launches), or the plain version without ``use_kernel``, forward; the
+    backward is ``pooled_vjp`` per band."""
 
     @staticmethod
-    def forward(ctx, luts, muls, k, use_kernel, *gi_and_gn):
+    def forward(ctx, luts, muls, k, use_kernel, kernel, *gi_and_gn):
         n = len(gi_and_gn) // 2
         ctx.save_for_backward(luts, *gi_and_gn)
         ctx.args = (muls, k, use_kernel)
         x, y = list(gi_and_gn[:n]), list(gi_and_gn[n:])
         if not use_kernel:
             return band_pooled_plain(x, y, luts, muls, k)
-        return band_pooled(x, y, luts, muls, k)
+        return kernel(x, y, luts, muls, k)
 
     @staticmethod
     @once_differentiable
@@ -147,10 +148,10 @@ class BandPooled(torch.autograd.Function):
         n = len(gi_and_gn) // 2
         grads = [pooled_vjp(gi, gn, luts[i], muls[i], k, use_kernel, g[i])
                  for i, (gi, gn) in enumerate(zip(gi_and_gn[:n], gi_and_gn[n:]))]
-        return (None, None, None, None, *[a for a, _ in grads], *[b for _, b in grads])
+        return (None, None, None, None, None, *[a for a, _ in grads], *[b for _, b in grads])
 
 
 def band_pooled_sums(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts,
-                     use_kernel: bool = True):
+                     use_kernel: bool = True, kernel=band_pooled):
     """(n_bands, B, C, F) pooled sums through ``BandPooled``."""
-    return BandPooled.apply(luts, muls, k, use_kernel, *gi_list, *gn_list)
+    return BandPooled.apply(luts, muls, k, use_kernel, kernel, *gi_list, *gn_list)

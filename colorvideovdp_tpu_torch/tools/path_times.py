@@ -1,22 +1,18 @@
-"""Time the port's main paths on the card.
+"""Time the port's 4K scoring path on the card.
 
     python3 colorvideovdp_tpu_torch/tools/path_times.py [--reps N] [--block-frames B]
 
 Run as a script with ``PYTHONPATH`` naming a checkout's root, it measures that
 checkout's package: two checkouts compared in one call on one card take turns
 (A, B, B, A). It uses only the package's public entry points and
-``ops.kernels.counted_wrappers()``. Measurements:
-
-* the 4K HDR clip of ``chip_smoke.py`` phase 3 (3840x2160, 32 frames, 30 fps,
-  ``tools/clips.py`` content of seed 7, ``standard_hdr_pq``) through
-  ``cvvdp.predict`` as (1, F, 3, H, W) "BFCHW" arrays, so no host relayout is
-  timed, in blocks of ``--block-frames`` (``gpu_mem`` from
-  ``cvvdp.block_gpu_mem``): the wall time of each warm run, the JOD, the
-  kernels' launches, and from ``torch.profiler`` the device time of one warm
-  run by kernel and the device's busy share;
-* a training step of ``chip_smoke.py`` phase 5: ``get_loss_fn(1080, 1920)`` on
-  ``standard_fhd``, 4 seeded sRGB pairs (seed 11), forward and backward, CUDA
-  events, each rep the median of 5.
+``ops.kernels.counted_wrappers()``. It scores the 4K HDR clip of
+``chip_smoke.py`` phase 3 (3840x2160, 32 frames, 30 fps, ``tools/clips.py``
+content of seed 7, ``standard_hdr_pq``) through ``cvvdp.predict`` as (1, F,
+3, H, W) "BFCHW" arrays, so no host relayout is timed, in blocks of
+``--block-frames`` (``gpu_mem`` from ``cvvdp.block_gpu_mem``), and reports
+the wall time of each warm run, the JOD, the kernels' launches, and from
+``torch.profiler`` (``profile_device``, which ``chip_smoke.py`` also uses)
+the device time of one warm run by kernel and the device's busy share.
 
 Prints one JSON line. Needs a CUDA card; it exits with an error without one.
 """
@@ -34,8 +30,9 @@ import numpy as np
 import torch
 
 
-def _profile(fn):
-    """(device ms by kernel name, device busy ms, wall s) of one call of fn."""
+def profile_device(fn):
+    """One call of fn under ``torch.profiler``: ([(device ms, launches, kernel
+    name)] by device time, largest first; the device's busy ms; wall s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -44,16 +41,15 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    by_name = {}
+    rows = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if getattr(evt, "device_type", None) == DeviceType.CUDA and us > 0:
-            by_name[evt.key[:100]] = [round(us / 1e3, 3), evt.count]
-    busy = sum(v[0] for v in by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12])
-    return top, busy, wall
+            rows.append((us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return rows, sum(r[0] for r in rows), wall
 
 
 def main(argv=None) -> int:
@@ -71,7 +67,6 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     out = {"package": os.path.dirname(os.path.abspath(cvt.__file__)), "card": smi}
-    dev = torch.device("cuda")
     counters = counted_wrappers()
 
     # The 4K clip, BFCHW, fixed blocks.
@@ -100,40 +95,11 @@ def main(argv=None) -> int:
         times.append(round(time.time() - t0, 4))
     launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
     torch.cuda.empty_cache()
-    top, busy, wall = _profile(score)
+    rows, busy, wall = profile_device(score)
+    top = {name[:100]: [round(ms, 3), count] for ms, count, name in rows[:12]}
     out["clip_4k"] = {"jod": jod, "block_frames": blk, "seconds": times, "launches": launches,
                       "profiled_seconds": round(wall, 4), "device_busy_ms": round(busy, 3),
                       "device_ms_by_kernel": top}
-    del V_test, V_ref
-    torch.cuda.empty_cache()
-
-    # The training step.
-    rng = np.random.RandomState(11)
-    ref_np = rng.rand(4, 3, 1, 1080, 1920).astype(np.float32)
-    test_np = np.clip(ref_np + rng.randn(*ref_np.shape).astype(np.float32) * 0.1, 0, 1)
-    ref_t, test_t = torch.from_numpy(ref_np).to(dev), torch.from_numpy(test_np).to(dev)
-    loss_fn = cvt.cvvdp(display_name="standard_fhd", device="cuda", quiet=True).get_loss_fn(
-        1080, 1920)
-
-    def step():
-        x = test_t.clone().requires_grad_()
-        v = loss_fn(x, ref_t)
-        torch.autograd.grad(v, x)
-        return float(v.detach())
-
-    loss = step()
-    step_ms = []
-    for _ in range(args.reps):
-        ts = []
-        for _ in range(5):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            step()
-            end.record()
-            torch.cuda.synchronize()
-            ts.append(start.elapsed_time(end))
-        step_ms.append(round(float(np.median(ts)), 3))
-    out["train_fhd_b4"] = {"loss": loss, "ms": step_ms}
     print(json.dumps(out))
     return 0
 
