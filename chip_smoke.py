@@ -15,7 +15,9 @@ Phase 2  every kernel against its plain PyTorch version on the card, at the
          (CUDA events, median of 5). The ingest kernel also on uint16 and
          float16 frames, its code-value table route against the same frames
          as float32 (v / 255, v / 65535 correctly rounded, float16 widened)
-         through the per-sample path, bit for bit. The one-pass pooled band
+         through the per-sample path, bit for bit. The reduce at every
+         level of the 4K pyramid, each from the kernel's previous level, bit
+         for bit, timed beside its bound. The one-pass pooled band
          kernel (``band_pooled``)
          at 4K band 0 and at the launch that stacks the narrow bands,
          against its plain version and bit for bit against the previous
@@ -43,11 +45,16 @@ Phase 5  a training step at full width: ``get_loss_fn(1080, 1920)`` on
          backward, blur) must have launched; then three Adam steps on a leaf
          copy of the test batch must lower the loss. Forward+backward ms per
          step (median of 5) both ways, and the peak memory.
-Phase 6  the heatmap. First the D mode of the band kernel against its plain
-         version at the shapes of the runs below: 4K band 0 at the block
-         length, the launch that takes the smallest 4K bands together (C = 4),
-         and band 0 and the 6-row band of a 1280x720 image (C = 3; the 6-row
-         band takes no masking blur, the band_masking_d_noblur launch). Then
+Phase 6  the heatmap. First the D modes against their plain versions at
+         the shapes of the runs below: 4K band 0 at the block length, the
+         launch that takes the smallest 4K bands together (C = 4), and band 0
+         and the 6-row band of a 1280x720 image (C = 3; the 6-row band takes
+         no masking blur): the one-pass kernel's D mode (``band_pooled_d``,
+         the heatmap's route) bit for bit against the previous route, the
+         plain expand + ``band_masking_d`` (``band_masking_d_noblur`` on the
+         6-row band), with sums bit for bit those of ``band_pooled``, timed
+         in turns with it; the previous route's kernels against plain as its
+         yardstick. Then
          ``predict`` with heatmap="raw" and "supra-threshold" on 12 frames of
          the phase-3 content (3840x2160, standard_hdr_pq; 32 frames cut to 12
          to fit the time limit) with ``gpu_mem`` set for 8-frame blocks, so
@@ -55,7 +62,9 @@ Phase 6  the heatmap. First the D mode of the band kernel against its plain
          with heatmap="threshold" on the 1280x720 image (standard_4k). Each
          with the kernels, then plain: equal block lengths, heatmaps within
          1.1e-3 (one float16 quantum and a rounding), JODs within 1e-3, and
-         the 4K JOD with a heatmap within 1e-4 of the pooled-only JOD.
+         the 4K JOD with a heatmap within 1e-4 of the pooled-only JOD;
+         ``band_pooled_d`` must have launched and ``band_masking_d`` /
+         ``band_masking_d_noblur`` not.
 Phase 7  the non-default configurations, each a copy of the default
          cvvdp_parameters.json with one or two keys changed, written to a
          temporary directory and passed as ``config_paths``. First the
@@ -91,10 +100,9 @@ Phase 8  the ColorVideoVDP-ML metrics. First the ingest kernel's first-block
          head.
 
 Phase 9  the band mega-kernel route (``use_band_mega``). First the pooled
-         mode (``band_fused``, the one-pass pooled kernel for the one band)
-         and the fused D mode of the band kernel (``band_fused_d``), against
-         their plain versions and against the raw-pair route fed the plain
-         expand, at 4K band 0
+         mode (``band_fused``, the one-pass kernel for the one band) and its
+         D mode (``band_fused_d``), against their plain versions and against
+         the raw-pair route fed the plain expand, at 4K band 0
          (1, 8, 8, 2160, 3840) and at an off-grid 1081x1921 band; its time
          beside the default route's (plain expand + ``band_masking``).
          Then ``predict`` on the phase-6 12-frame 4K content (BFCHW, 8-frame
@@ -159,7 +167,7 @@ CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 PORT_JOD = 7.877874  # the port's JOD for it before the one-pass band kernel
 PORT_JOD_TOL = 1e-4
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_pooled": 1e-4,
-       "csf_lut": 1e-5,
+       "csf_lut": 1e-5, "band_pooled_d": 1e-5,
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
        "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
        "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
@@ -236,14 +244,17 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
 
 
-# The kernels the heatmap path launches (phase 6).
-HEAT_PATH = ("ingest", "pyramid_reduce", "csf_lut", "band_masking_d", "band_masking_d_noblur")
+# The kernels the heatmap path launches (phase 6); the previous route's D
+# modes, band_masking_d and band_masking_d_noblur, must not launch there.
+HEAT_PATH = ("ingest", "pyramid_reduce", "csf_lut", "band_pooled_d")
+HEAT_OFF_PATH = ("band_masking_d", "band_masking_d_noblur")
 
 
 def phase_heatmap(m, fps, rows, record, counters, gen):
     """Phase 6; returns the kernels' launch counts of the heatmap run."""
     import colorvideovdp_tpu_torch as cvt
     from colorvideovdp_tpu_torch.ops import pyramid as pyr
+    from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
     from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
@@ -262,7 +273,10 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     if probe.estimate_block_N(pix, N) != blk:
         raise AssertionError(f"gpu_mem {gpu_mem} does not give {blk}-frame blocks")
 
-    # The D mode against its plain version (these launches are not counted).
+    # The D modes against their plain versions, and band_pooled_d bit for bit
+    # against the previous route, the plain expand + band_masking_d (or
+    # band_masking_d_noblur on a band without the blur), with sums bit for
+    # bit those of band_pooled (these launches are not counted).
     def hold_d(name, fn, args, shape_note):
         D_k = fn(*args)
         D_p = masking_fused.band_masking_d_plain(*args)
@@ -270,6 +284,46 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
         abs_err = max(max_abs(a, b) for a, b in zip(D_k, D_p))
         check(f"{name} {shape_note}", err, TOL[name])
         return D_k, err, abs_err
+
+    def previous_d(a):
+        """The previous route of a band_pooled_d launch, band by band."""
+        out = []
+        for j, (gi, gn) in enumerate(zip(a[0], a[1])):
+            fn = (masking_fused.band_masking_d if a[4].params.blurs(*gi.shape[-2:])
+                  else masking_fused.band_masking_d_noblur)
+            out += fn([gi], [pyr.gausspyr_expand(gn, gi.shape[-2:])], a[2][j:j + 1],
+                      [a[3][j]], a[4])
+        return out
+
+    def hold_pooled_d(a, note):
+        """(rel. error, abs. error) of band_pooled_d against its plain
+        version, after the bit-for-bit checks against the previous route and
+        the pooled mode."""
+        Ds, sums = bp.band_pooled_d(*a)
+        check(f"band_pooled_d {note} D vs the previous route (plain expand + "
+              "band_masking_d)", max(max_abs(x, y) for x, y in zip(Ds, previous_d(a))), 0.0)
+        check(f"band_pooled_d {note} sums vs band_pooled", max_abs(sums, bp.band_pooled(*a)),
+              0.0)
+        D_p, _ = bp.band_pooled_d_plain(*a)
+        err = max(rel_err_per(x, y, 1) for x, y in zip(Ds, D_p))
+        check(f"band_pooled_d {note} vs plain", err, TOL["band_pooled_d"])
+        return err, max(max_abs(x, y) for x, y in zip(Ds, D_p))
+
+    def turns(a, note):
+        """band_pooled_d timed in turns with the previous route (route,
+        kernel, kernel, route); returns the kernel's mean."""
+        t = [time_ms(lambda: previous_d(a)), time_ms(lambda: bp.band_pooled_d(*a)),
+             time_ms(lambda: bp.band_pooled_d(*a)), time_ms(lambda: previous_d(a))]
+        log(f"  band_pooled_d {note}: kernel {t[1]:.3f}/{t[2]:.3f} ms, previous route (plain "
+            f"expand + band_masking_d) {t[0]:.3f}/{t[3]:.3f} ms")
+        return (t[1] + t[2]) / 2
+
+    def pooled_d_bound(a, Ds):
+        # Bytes: gi's 2C planes and gn's 2C quarter planes read once, the
+        # tables, D and the sums written. Operations: ~115 per pixel and
+        # channel, as band_pooled's (phase 2).
+        n_pix = sum(gi.numel() for gi in a[0]) // 2
+        return bound(nbytes(*a[0], *a[1], a[2], *Ds) + 4 * n_pix // 1024, 115 * n_pix)
 
     dm = m.display_photometry
     F_taps, _ = get_temporal_filters(fps, m.sigma_tf, m.beta_tf, m.temp_filter)
@@ -282,7 +336,8 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     del raws, tails
     m._ensure_pyramids(W, H)
     consts, luts = m._band_tables(4)
-    E0 = pyr.gausspyr_expand(prd.pyramid_reduce(R), (H, W))
+    gn0 = prd.pyramid_reduce(R)
+    E0 = pyr.gausspyr_expand(gn0, (H, W))
     band0 = ([R], [E0], luts[0:1], [1.0], consts)
     D_k, err_wide, abs_wide = hold_d("band_masking_d", masking_fused.band_masking_d, band0,
                                      f"4K band 0 {tuple(R.shape)}")
@@ -292,11 +347,19 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     # 2 x 13-tap blur 52, the transducer ~18.
     b_wide = bound(nbytes(R, E0, luts[0:1]) + nbytes(*D_k), 90 * R.numel() // 2)
     del D_k, E0, band0
+    a0 = ([R], [gn0], luts[0:1], [1.0], consts)
+    errs_pd = [hold_pooled_d(a0, f"4K band 0 {tuple(R.shape)}")]
+    k_pd = turns(a0, "4K band 0")
+    p_pd = time_ms(lambda: bp.band_pooled_d_plain(*a0))
+    b_pd = pooled_d_bound(a0, bp.band_pooled_d(*a0)[0])
+    del a0, gn0
+    torch.cuda.empty_cache()
     bands, _ = m.lpyr.decompose(R, raw_pairs=True, use_kernel=False)
     shapes = [b[0].shape[-2:] for b in bands[:-1]]
     blurs = [consts.params.blurs(int(h), int(w)) for h, w in shapes]
     groups = masking_fused.band_groups(shapes, 1, 4, blk, blurs)
-    log(f"phase 6: band_masking_d launches per 4K block: {groups}")
+    groups_pd = masking_fused.band_groups(shapes, 1, 4, blk, blurs, gn=True)
+    log(f"phase 6: launches per 4K block: band_masking_d {groups}, band_pooled_d {groups_pd}")
     stacked = groups[-1]
     gis = [bands[bb][0] for bb in stacked]
     Es = [pyr.gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(stacked, gis)]
@@ -309,7 +372,18 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
         f"{time_ms(lambda: masking_fused.band_masking_d(*stack)):.3f} ms, plain "
         f"{time_ms(lambda: masking_fused.band_masking_d_plain(*stack)):.3f} ms, "
         f"bound {b_stack[0]:.4f} ms ({b_stack[1]})")
-    del R, bands, gis, Es, stack
+    del gis, Es, stack
+    sel = groups_pd[-1]
+    a_st = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
+            luts[sel[0]:sel[-1] + 1].contiguous(), [1.0 if bb == 0 else 2.0 for bb in sel],
+            consts)
+    note = f"4K bands {sel} {[tuple(g.shape[-2:]) for g in a_st[0]]}"
+    errs_pd.append(hold_pooled_d(a_st, note))
+    k_st = turns(a_st, f"4K bands {sel}")
+    b_st = pooled_d_bound(a_st, bp.band_pooled_d(*a_st)[0])
+    log(f"  band_pooled_d 4K stacked launch: bound {b_st[0]:.4f} ms ({b_st[1]}, "
+        f"{100 * b_st[0] / k_st:.1f}% of it)")
+    del R, bands, a_st
 
     # C = 3: a seeded 1280x720 image pair on standard_4k, as the image step forms it.
     rng = np.random.RandomState(17)
@@ -335,6 +409,11 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
         return ([gi], [pyr.gausspyr_expand(bands_i[bb][1], gi.shape[-2:])],
                 luts_i[bb:bb + 1], [1.0 if bb == 0 else 2.0], consts_i)
 
+    def pooled_d_args(sel):
+        return ([bands_i[bb][0] for bb in sel], [bands_i[bb][1] for bb in sel],
+                luts_i[sel[0]:sel[-1] + 1].contiguous(), [1.0 if bb == 0 else 2.0 for bb in sel],
+                consts_i)
+
     a0 = band_args(0)
     _, err_i0, _ = hold_d("band_masking_d", masking_fused.band_masking_d, a0,
                           f"720p band 0 {tuple(a0[0][0].shape)}")
@@ -348,7 +427,20 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
            time_ms(lambda: masking_fused.band_masking_d_noblur(*an)),
            time_ms(lambda: masking_fused.band_masking_d_plain(*an)),
            bound(nbytes(*an[0], *an[1], an[2]) + nbytes(*D_n), 38 * an[0][0].numel() // 2))
-    del Ri, bands_i, a0, an, D_n
+    # band_pooled_d on the 720p bands: band 0, the band without the blur
+    # alone (row 6's shape), and every band in one launch (both kinds).
+    all_i = list(range(len(shapes_i)))
+    for sel, note in (([0], "720p band 0"), ([noblur[0]], f"720p band {noblur[0]}"),
+                      (all_i, f"720p bands {all_i}")):
+        a = pooled_d_args(sel)
+        errs_pd.append(hold_pooled_d(a, f"{note} {[tuple(g.shape) for g in a[0]]}"))
+        if sel == [noblur[0]]:
+            turns(a, note)
+            b_n = pooled_d_bound(a, bp.band_pooled_d(*a)[0])
+            log(f"  band_pooled_d {note}: bound {b_n[0]:.6f} ms ({b_n[1]}), plain "
+                f"{time_ms(lambda: bp.band_pooled_d_plain(*a)):.3f} ms")
+    record("band_pooled_d", max(e for e, _ in errs_pd), errs_pd[0][1], k_pd, p_pd, b_pd)
+    del Ri, bands_i, a0, an, D_n, a
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -393,6 +485,9 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     for k in HEAT_PATH:
         if heat_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the heatmap path")
+    for k in HEAT_OFF_PATH:
+        if heat_launches[k] != 0:
+            raise AssertionError(f"the heatmap's raw bands went through {k}")
     for hm_type, *_ in runs:
         (jk, hk, bk), (jp, hp, bp) = out[(True, hm_type)], out[(False, hm_type)]
         d_hm = float(np.abs(hk.astype(np.float32) - hp.astype(np.float32)).max())
@@ -876,12 +971,13 @@ def phase_mega(m, fps, record, counters, gen):
         s_p = bf.band_fused_plain(*args)
         h, w = g.shape[-2:]
         q_k, q_r, q_p = (masking_fused.pooled_norm(x, h, w, m.beta) for x in (s_k, s_r, s_p))
-        D_k = bf.band_fused_d(*args)
+        D_k, sd_k = bf.band_fused_d(*args)
         D_r = masking_fused.band_masking_d([g], [E], lut[None], [mul], consts)[0]
-        D_p = bf.band_fused_d_plain(*args)
-        d_route = (max_abs(q_k, q_r), max_abs(D_k, D_r))
+        D_p, _ = bf.band_fused_d_plain(*args)
+        d_route = (max_abs(q_k, q_r), max_abs(D_k, D_r), max_abs(sd_k, s_k))
         log(f"  mega {note} {tuple(g.shape)}: |fused - default route fed plain E| pooled "
-            f"{d_route[0]:.3e}, D {d_route[1]:.3e} (expected 0)")
+            f"{d_route[0]:.3e}, D {d_route[1]:.3e}; |D mode's sums - pooled mode's| "
+            f"{d_route[2]:.3e} (expected 0)")
         check(f"band_fused {note} vs the default route", max(d_route), 0.0)
         err_s, err_d = rel_err_per(q_k, q_p, 1), rel_err_per(D_k, D_p, 1)
         check(f"band_fused {note}", err_s, TOL["band_fused"])
@@ -891,7 +987,7 @@ def phase_mega(m, fps, record, counters, gen):
             errs[key] = [max(errs[key][0], e), max(errs[key][1], a)]
         if note == "4K band 0":
             args0, E0, D0 = args, E, D_k
-        del E, s_k, s_r, s_p, D_k, D_r, D_p
+        del E, s_k, s_r, s_p, D_k, sd_k, D_r, D_p
     del cases, g_off
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -964,6 +1060,8 @@ def phase_mega(m, fps, record, counters, gen):
             raise AssertionError(f"mega route heatmap {hm}: JODs {jk}, {jp}, {jd} disagree")
         if launches[path][key] != n_blocks:
             raise AssertionError(f"{key} launched {launches[path][key]} times for {n_blocks} blocks")
+        if hm and any(launches[path][k] for k in HEAT_OFF_PATH):
+            raise AssertionError("the mega heatmap's raw bands went through band_masking_d")
         if hm:
             d_hm = max(float(np.abs(hk.astype(np.float32) - h2.astype(np.float32)).max())
                        for h2 in (hp, hd))
@@ -1403,16 +1501,29 @@ def main():
     del tails, raws, args, src
     torch.cuda.empty_cache()
 
-    y_k = prd.pyramid_reduce(R_k)
-    y_p = pyr.reduce_plain(R_k)
-    err = float((y_k - y_p).abs().max()) / max(1.0, float(y_p.abs().max()))
-    # 5 taps vertically over (H/2, W), then 5 over (H/2, W/2): 7.5 H W per plane.
-    record("pyramid_reduce", err, max_abs(y_k, y_p), time_ms(lambda: prd.pyramid_reduce(R_k)),
-           time_ms(lambda: pyr.reduce_plain(R_k)),
-           bound(nbytes(R_k, y_k), 7.5 * R_k.numel()))
-    del y_p
-
+    # The reduce at every level of the 4K pyramid, each from the kernel's
+    # previous level, bit for bit, timed beside its bound (5 taps vertically
+    # over (H/2, W), then 5 over (H/2, W/2): 7.5 H W operations a plane).
     m._ensure_pyramids(W, H)
+    x, y_k = R_k, None
+    for lv in range(len(m.lpyr.pyr_shape) - 1):
+        y = prd.pyramid_reduce(x)
+        y_p = pyr.reduce_plain(x)
+        check(f"pyramid_reduce level {lv} {tuple_str(x.shape)} vs plain, bit for bit",
+              max_abs(y, y_p), 0.0)
+        k_ms = time_ms(lambda: prd.pyramid_reduce(x))
+        b_lv = bound(nbytes(x, y), 7.5 * x.numel())
+        log(f"  pyramid_reduce level {lv}: kernel {k_ms:.4f} ms, bound {b_lv[0]:.4f} ms "
+            f"({b_lv[1]}, {100 * b_lv[0] / k_ms:.1f}% of it)")
+        if lv == 0:
+            y_k = y
+            err = float((y - y_p).abs().max()) / max(1.0, float(y_p.abs().max()))
+            record("pyramid_reduce", err, max_abs(y, y_p), k_ms,
+                   time_ms(lambda: pyr.reduce_plain(R_k)), b_lv)
+        x = y
+        del y_p
+    del x, y
+
     consts, luts = m._band_tables(4)
     bands, L_bkg = m.lpyr.decompose(R_k, raw_pairs=True, use_kernel=False)
     groups = masking_fused.band_groups([b[0].shape[-2:] for b in bands[:-1]], 1, 4, blk)
@@ -1810,7 +1921,8 @@ def main():
         "ingest_replicate": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
         "ingest_head": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
         "band_fused": ("band_pooled.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
-        "band_fused_d": ("band_masking.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
+        "band_fused_d": ("band_pooled.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
+        "band_pooled_d": ("band_pooled.cu", "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
         "interleave": ("interleave.cu", "tools/interleave_bench.py:50"),
         "concat": ("interleave.cu", "tools/interleave_bench.py:77"),
         "deinterleave": ("interleave.cu", "tools/interleave_bench.py:109"),
@@ -1849,7 +1961,7 @@ def main():
         elif k == "band_pooled":
             n_main = launches[k]
         else:
-            n_main = (heat_launches if k.startswith("band_masking_d") else
+            n_main = (heat_launches if k in ("band_pooled_d",) + HEAT_OFF_PATH else
                       train_launches if k in train_path else launches)[k]
         line.append({"name": k, "route": "cuda", "source": src + f, "replaces": rep,
                      "launches": n_main, "launches_by_path": by_path, **rows[k]})

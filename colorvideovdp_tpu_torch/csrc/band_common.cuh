@@ -1,8 +1,8 @@
 // The band kernels' shared arithmetic: stage A on raw pairs, the expand tap,
 // the stage-B transducer and its epilogue, the block sums and stage C.
-// csrc/band_masking.cu (stages A, B and C, the fused D mode, the halo and
-// contrast-band modes) and csrc/band_pooled.cu (the one-pass pooled raw-band
-// kernel) both include it, so that the two give the same bits.
+// csrc/band_masking.cu (stages A, B and C, the halo and contrast-band modes)
+// and csrc/band_pooled.cu (the one-pass raw-band kernel, pooled and D) both
+// include it, so that the two give the same bits.
 #pragma once
 
 #include "common.cuh"

@@ -13,10 +13,11 @@
 //   masking_fused.py `fused_masking_transducer` (`_kernel_b`, the transducer
 //     on a band whose blur is skipped: here the same stage B with a unit
 //     tap), and
-//   band_stack.py `make_band_stack` (`_stack_kernel`, all narrow bands), and
-//   band_fused.py `band_fused_tpu` (:320, `_band_kernel`, the band
-//     mega-kernel: expand + contrast + CSF + masking + pooling or D in one
-//     pass): the fused mode below.
+//   band_stack.py `make_band_stack` (`_stack_kernel`, all narrow bands).
+// The raw bands the metric scores, pooled or as D for its heatmap, take
+// csrc/band_pooled.cu, which expands the next level inside and gives this
+// kernel's bits fed the plain expand; the raw-pair modes here stay as its
+// yardstick.
 // One launch handles a list of up to BM_MAX_BANDS bands of any sizes (per-band
 // LUT rows, sizes and gains come from the band table, so one build serves
 // every band); ops/kernels/masking_fused.py `band_groups` picks the lists.
@@ -50,23 +51,6 @@
 //    partials of the plane are summed in a fixed order. No float atomics, so
 //    the result is deterministic.
 //
-// The fused mode (expand = 1, D output only; ops/kernels/band_fused.py
-//   `band_fused_d`): raw pairs with the next Gaussian level gn in place of
-//   E. Stage A does not run; each stage-B block expands gn over its tile's
-//   window (the 32 x 32 tile plus the blur halo, clipped to the band) in
-//   shared memory, rows then columns, rounded as ops/pyramid.py `_expand_1d`
-//   rounds each sample, forms stage A's M_pre for the window into the blur's
-//   input and diff for its own pixels in registers (raw_pair, shared with
-//   stage A through band_common.cuh), then runs stage B. Neither E, M_pre
-//   nor diff reaches device memory, and D is the raw-pair route's fed the
-//   plain expand, bit for bit. The pooled sums of raw bands, fused or not,
-//   are csrc/band_pooled.cu's.
-//   Bound on the H100: memory. Per pixel it reads the 2C planes of gi and
-//   the 2C quarter planes of gn and writes C floats (56 B at C = 4). The
-//   halo makes each block recompute E and M_pre on (32 + 2r)^2 / 32^2 of its
-//   pixels, 1.89 times at the default 13 taps (r = 6), out of about 74 KB of
-//   shared memory a block.
-//
 // The halo mode (pooled, raw pairs or contrast bands; per band row_off > 0)
 //   replaces `fused_blur_transducer`'s halo'd shard mode (`row_off` /
 //   `h_valid`, masking_fused.py:219-227, :313-316, :333-343): the band is one
@@ -95,7 +79,7 @@
 
 struct BandDesc {
   const float* gi;
-  const float* E;  // expand mode: gn, (B, 2C, F, ceil(h/2), ceil(w/2))
+  const float* E;
   float* mpre;
   float* diff;
   float* D;  // D mode: (B, C, F, h, w) output
@@ -119,8 +103,6 @@ struct BandParams {
   float gains[BM_MAX_C];    // raw pairs: ch_gain x sens_corr, rounded once
   int ref_only;
   int contrast;             // stage A input: 0 raw pairs, 1 contrast bands
-  int expand;               // 1: raw pairs with gn in E's slot (fused mode)
-  float ek[5];              // expand taps, 2 * K5
   float qs[BM_MAX_C];
   float p;
   float xcm[BM_MAX_C * BM_MAX_C];  // 2^xcm_weights, [c][d]
@@ -182,65 +164,13 @@ __global__ void band_stage_a(BandParams P) {
   }
 }
 
-// The fused mode's expand: E = gausspyr_expand(gn) of one plane over the
-// window of band rows [wy0, wy0 + eh) and columns [wx0, wx0 + ew), into
-// Ew (eh x BF_EW). Rows first, then columns, each output sample rounded as
-// ops/pyramid.py `_expand_1d` rounds it: even ((k0 a + k2 b) + k4 c), odd
-// (k1 a + k3 b), over the edge-clamped samples of gn (the 1-sample
-// replicate pad); an odd band size ends on an even sample. gnw and rexp are
-// shared scratch. Every thread of the block must call it; it ends with
-// __syncthreads().
-#define BF_EW (BM_TH + 2 * BM_R_MAX)  // window side
-#define BF_GW (BF_EW / 2 + 4)         // gn window side (at most BF_EW / 2 + 3)
-
-__device__ void expand_window(const float* __restrict__ gn, int hn, int wn, int wy0, int eh,
-                              int wx0, int ew, const float* ek, float* gnw, float* rexp,
-                              float* Ew) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const int gr0 = max((wy0 >> 1) - 1, 0), gr1 = min(((wy0 + eh - 1) >> 1) + 1, hn - 1);
-  const int gc0 = max((wx0 >> 1) - 1, 0), gc1 = min(((wx0 + ew - 1) >> 1) + 1, wn - 1);
-  const int gh = gr1 - gr0 + 1, gw = gc1 - gc0 + 1;
-  __syncthreads();  // the previous plane's readers are done with the scratch
-  for (int idx = tid; idx < gh * gw; idx += nthr) {
-    const int i = idx / gw, j = idx % gw;
-    gnw[i * BF_GW + j] = gn[(long long)(gr0 + i) * wn + gc0 + j];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < eh * gw; idx += nthr) {
-    const int yy = idx / gw, j = idx % gw;
-    rexp[yy * BF_GW + j] = expand_tap(ek, gnw + j, BF_GW, wy0 + yy, hn, gr0);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < eh * ew; idx += nthr) {
-    const int yy = idx / ew, xx = idx % ew;
-    Ew[yy * BF_EW + xx] = expand_tap(ek, rexp + yy * BF_GW, 1, wx0 + xx, wn, gc0);
-  }
-  __syncthreads();
-}
-
-// Dynamic shared memory of the fused mode: E of the Y pair and of the
-// current channel's pair over the window, the LUT index over the window,
-// the expand scratch and the tile's diff of the current channel.
-#define BF_SMEM_FLOATS \
-  (5 * BF_EW * BF_EW + BF_GW * BF_GW + BF_EW * BF_GW + BM_TH * BM_TW)
-
-// FUSED: the fused mode (stages A and B in one pass; D output only, the
-// pooled sums of raw bands are csrc/band_pooled.cu's). The block expands gn
-// over its tile's window in shared memory, forms the LUT index of the window
-// once, then per channel M_pre for the tile and its blur halo into `sm` (the
-// samples stage B would read from M_pre) and the tile's diff, through the
-// same raw_pair as stage A; the blur, transducer and epilogue are stage B's
-// code. Registers are capped for two blocks per SM.
-template <bool D_OUT, bool FUSED>
-__global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
+template <bool D_OUT>
+__global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y)
     band_stage_b(BandParams P, float* __restrict__ partials) {
-  static_assert(D_OUT || !FUSED, "the pooled fused mode is band_pooled.cu");
   __shared__ float sm[(BM_TH + 2 * BM_R_MAX) * (BM_TW + 2 * BM_R_MAX)];
   __shared__ float tmp[BM_TH * (BM_TW + 2 * BM_R_MAX)];
   __shared__ float s_taps[BM_MAX_TAPS];
   __shared__ float red[32];
-  extern __shared__ float dyn[];  // FUSED: BF_SMEM_FLOATS
 
   const int bi = band_of(P, blockIdx.x, 1);
   const BandDesc& d = P.band[bi];
@@ -261,87 +191,15 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
   if (tid < BM_MAX_TAPS) s_taps[tid] = d.blur ? P.taps[tid] : (tid == 0 ? 1.0f : 0.0f);
 
   float mix[BM_ROWS_PER_THREAD][BM_MAX_C];
-  float dreg[BM_ROWS_PER_THREAD][BM_MAX_C];  // FUSED: diff of own pixels
 #pragma unroll
   for (int k = 0; k < BM_ROWS_PER_THREAD; ++k)
 #pragma unroll
-    for (int dd = 0; dd < BM_MAX_C; ++dd) mix[k][dd] = dreg[k][dd] = 0.0f;
-
-  // FUSED: the window of band pixels the tile and its halo read.
-  const int wy0 = max(y0 - r, 0), wy1 = min(y0 + BM_TH + r, h);
-  const int wx0 = max(x0 - r, 0), wx1 = min(x0 + BM_TW + r, w);
-  const int hn = (h + 1) / 2, wn = (w + 1) / 2;
-  float* EY0 = dyn;
-  float* EY1 = EY0 + BF_EW * BF_EW;
-  float* EC0 = EY1 + BF_EW * BF_EW;
-  float* EC1 = EC0 + BF_EW * BF_EW;
-  float* IND = EC1 + BF_EW * BF_EW;
-  float* gnw = IND + BF_EW * BF_EW;
-  float* rexp = gnw + BF_GW * BF_GW;
-  float* sdiff = rexp + BF_EW * BF_GW;
-  auto gi_plane = [&](int k) {
-    return d.gi + (((long long)b * 2 * C + k) * F + f) * hw;
-  };
-  auto expand = [&](int k, float* Ew) {
-    const long long hwn = (long long)hn * wn;
-    expand_window(d.E + (((long long)b * 2 * C + k) * F + f) * hwn, hn, wn, wy0, wy1 - wy0,
-                  wx0, wx1 - wx0, P.ek, gnw, rexp, Ew);
-  };
-  if (FUSED) {
-    expand(0, EY0);
-    expand(1, EY1);
-    const int ew = wx1 - wx0;
-    for (int idx = tid; idx < (wy1 - wy0) * ew; idx += BM_THREADS_X * BM_THREADS_Y) {
-      const int e = (idx / ew) * BF_EW + idx % ew;
-      IND[e] = lut_index(log10f(fmaxf(EY1[e], 0.01f)), P.x0, P.lut_scale, P.nk);
-    }
-  }
+    for (int dd = 0; dd < BM_MAX_C; ++dd) mix[k][dd] = 0.0f;
 
   for (int c = 0; c < C; ++c) {
-    if (FUSED) {
-      if (c > 0) {
-        expand(2 * c, EC0);
-        expand(2 * c + 1, EC1);
-      }
-      const float* Et = c == 0 ? EY0 : EC0;
-      const float* Er = c == 0 ? EY1 : EC1;
-      const float* g_t = gi_plane(2 * c);
-      const float* g_r = gi_plane(2 * c + 1);
-      const float* lut = P.luts + ((long long)bi * C + c) * P.nk;
-      __syncthreads();  // previous channel done with sm/tmp/sdiff; taps visible
-      const int SW = BM_TW + 2 * r, SH = BM_TH + 2 * r;
-      for (int idx = tid; idx < SH * SW; idx += BM_THREADS_X * BM_THREADS_Y) {
-        const int yy = idx / SW, xx = idx % SW;
-        // The reflected sample stage B reads; clamped into the window, which
-        // moves only samples that feed rows or columns past the band's edge.
-        const int gy = min(max(reflect_clamp(y0 - r + yy, h), wy0), wy1 - 1);
-        const int gx = min(max(reflect_clamp(x0 - r + xx, w), wx0), wx1 - 1);
-        const int e = (gy - wy0) * BF_EW + (gx - wx0);
-        const float lb_r = fmaxf(EY1[e], 0.01f);
-        const float lb_t = P.ref_only ? lb_r : fmaxf(EY0[e], 0.01f);
-        const float S = raw_sensitivity(lut, P.nk, IND[e], P.gains[c], d.mul);
-        const long long o = (long long)gy * w + gx;
-        float mp, df;
-        raw_pair(g_t[o], Et[e], g_r[o], Er[e], lb_t, lb_r, S, mp, df);
-        sm[idx] = mp;
-        // Tile pixels inside the band sit unreflected at (yy - r, xx - r).
-        const int ty = yy - r, tx = xx - r;
-        if (ty >= 0 && ty < BM_TH && tx >= 0 && tx < BM_TW) sdiff[ty * BM_TW + tx] = df;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BM_ROWS_PER_THREAD; ++k) {
-        const float df = sdiff[(threadIdx.y + k * BM_THREADS_Y) * BM_TW + threadIdx.x];
-#pragma unroll
-        for (int dd = 0; dd < BM_MAX_C; ++dd)
-          if (dd == c) dreg[k][dd] = df;
-      }
-      tile_blur_vpass<BM_TH, BM_TW>(r, s_taps, sm, tmp);
-    } else {
-      const float* m = d.mpre + (((long long)b * C + c) * F + f) * hw;
-      __syncthreads();  // previous channel done with sm/tmp; taps visible
-      tile_blur_vertical<BM_TH, BM_TW>(m, h, w, y0, x0, r, s_taps, sm, tmp, d.row_off == 0);
-    }
+    const float* m = d.mpre + (((long long)b * C + c) * F + f) * hw;
+    __syncthreads();  // previous channel done with sm/tmp; taps visible
+    tile_blur_vertical<BM_TH, BM_TW>(m, h, w, y0, x0, r, s_taps, sm, tmp, d.row_off == 0);
     const float q = P.qs[c];
     const float eps_q = powf(BM_EPS, q);
 #pragma unroll
@@ -367,8 +225,7 @@ __global__ void __launch_bounds__(BM_THREADS_X* BM_THREADS_Y, FUSED ? 2 : 1)
       for (int dd = 0; dd < BM_MAX_C; ++dd) {
         if (dd >= C) continue;
         const long long o = (((long long)b * C + dd) * F + f) * hw + (long long)gy * w + gx;
-        const float df = FUSED ? dreg[k][dd] : d.diff[o];
-        d.D[o] = band_D(df, mix[k][dd], P.p, eps_p, P.max_v);
+        d.D[o] = band_D(d.diff[o], mix[k][dd], P.p, eps_p, P.max_v);
       }
     }
     return;
@@ -448,13 +305,10 @@ CVVDP_API long long cvvdp_band_masking_tiles(int n_bands, int B, int F,
 }
 
 // ptrs: n_bands x {gi, E, mpre, diff, D} device pointers (D unused in pooled
-// mode; with contrast = 1 gi is the contrast band and E the logL field; with
-// expand = 1, the fused mode (d_out = 1 only), E is gn, the next Gaussian
-// level (B, 2C, F, ceil(h/2), ceil(w/2)), ek its 5 expand taps, and
-// mpre/diff are unused);
+// mode; with contrast = 1 gi is the contrast band and E the logL field);
 // dims: n_bands x {h, w}; halo: n_bands x {row_off, h_valid} ({0, h} for a
-// whole band; row_off > 0, the halo mode, pooled only, not with expand = 1,
-// and row_off >= the blur radius); muls, blur: per band (muls unused with
+// whole band; row_off > 0, the halo mode, pooled only, and row_off >= the
+// blur radius); muls, blur: per band (muls unused with
 // contrast = 1); luts: device (n_bands, C, nk); ch_gain, qs: C floats; xcm: C x C
 // floats; taps: ntaps floats. d_out = 0: partials is (tiles, C) scratch and
 // out receives the (n_bands, B, C, F) pooled sums of safe_pow(D, beta).
@@ -464,11 +318,11 @@ CVVDP_API int cvvdp_band_masking(
     int n_bands, int B, int C, int F, int nk, const long long* ptrs,
     const int* dims, const int* halo, const float* muls, const int* blur, const float* luts,
     float x0, float lut_scale, const float* ch_gain, float sens_corr, int ref_only,
-    int contrast, int expand, const float* ek, const float* qs, float p, const float* xcm,
+    int contrast, const float* qs, float p, const float* xcm,
     float max_v, float blur_scale, const float* taps, int ntaps, float beta, int d_out,
     float* partials, float* out, void* stream) {
   if (n_bands < 1 || n_bands > BM_MAX_BANDS || C < 1 || C > BM_MAX_C ||
-      ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1 || (expand && (contrast || !d_out)))
+      ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1)
     return (int)cudaErrorInvalidValue;
   BandParams P;
   P.n_bands = n_bands;
@@ -492,7 +346,7 @@ CVVDP_API int cvvdp_band_masking(
     const BandDesc& d = P.band[k];
     const int r = d.blur ? (ntaps - 1) / 2 : 0;
     if (d.row_off < 0 || d.h_valid < 1 || d.h != d.h_valid + 2 * d.row_off ||
-        (d.row_off > 0 && (d_out || expand || d.row_off < r)))
+        (d.row_off > 0 && (d_out || d.row_off < r)))
       return (int)cudaErrorInvalidValue;
   }
   P.luts = luts;
@@ -500,8 +354,6 @@ CVVDP_API int cvvdp_band_masking(
   P.lut_scale = lut_scale;
   P.ref_only = ref_only;
   P.contrast = contrast;
-  P.expand = expand;
-  for (int k = 0; k < 5; ++k) P.ek[k] = expand ? ek[k] : 0.0f;
   P.sens_corr = sens_corr;
   for (int c = 0; c < BM_MAX_C; ++c) {
     P.ch_gain[c] = c < C ? ch_gain[c] : 0.0f;
@@ -521,26 +373,15 @@ CVVDP_API int cvvdp_band_masking(
 
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 threads_b(BM_THREADS_X, BM_THREADS_Y);
-  cudaError_t e;
-  if (expand) {
-    // Above the 48 KB default with the static arrays: opt in.
-    const int smem = BF_SMEM_FLOATS * (int)sizeof(float);
-    e = cudaFuncSetAttribute(band_stage_b<true, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    band_stage_b<true, true><<<(unsigned int)n_t, threads_b, smem, st>>>(P, nullptr);
+  band_stage_a<<<(unsigned int)n_a, 256, 0, st>>>(P);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (d_out) {
+    band_stage_b<true><<<(unsigned int)n_t, threads_b, 0, st>>>(P, nullptr);
     return (int)cudaGetLastError();
-  } else {
-    band_stage_a<<<(unsigned int)n_a, 256, 0, st>>>(P);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    if (d_out) {
-      band_stage_b<true, false><<<(unsigned int)n_t, threads_b, 0, st>>>(P, nullptr);
-      return (int)cudaGetLastError();
-    }
-    band_stage_b<false, false><<<(unsigned int)n_t, threads_b, 0, st>>>(P, partials);
-    e = cudaGetLastError();
   }
+  band_stage_b<false><<<(unsigned int)n_t, threads_b, 0, st>>>(P, partials);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   band_stage_c<<<(unsigned int)n_p, 256, 0, st>>>(P, partials, out);
   return (int)cudaGetLastError();

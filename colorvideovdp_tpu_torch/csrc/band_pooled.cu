@@ -1,8 +1,11 @@
-// One-pass pooled band masking of raw bands: expand, Weber contrast, CSF,
-// masking blur, transducer and pooling, from each band's Gaussian level gi and
-// the next level gn. It gives the bits of the raw-pair route of
-// csrc/band_masking.cu (stages A, B and C) fed E = gausspyr_expand(gn), with
-// E, M_pre, diff and D kept out of device memory.
+// One-pass band masking of raw bands: expand, Weber contrast, CSF, masking
+// blur, transducer and pooling, from each band's Gaussian level gi and the
+// next level gn. It gives the bits of the raw-pair route of
+// csrc/band_masking.cu (stages A, B and C, or its D mode) fed
+// E = gausspyr_expand(gn), with E, M_pre and diff kept out of device memory.
+// Two modes of one kernel (the D_OUT template flag): pooled, where D never
+// reaches memory either, and D, which also stores each pixel's D for the
+// heatmap.
 //
 // Replaces, for the pooled raw-pair route of ops/kernels/band_pooled.py:
 //   colorvideovdp_tpu/ops/kernels/masking_fused.py `fused_csf_contrast_raw`
@@ -10,7 +13,11 @@
 //   colorvideovdp_tpu/ops/kernels/band_stack.py `make_band_stack` (:253, the
 //     narrow bands in one launch), and
 //   colorvideovdp_tpu/ops/kernels/band_fused.py `band_fused_tpu` (:320, the
-//     band mega-kernel, pooled).
+//     band mega-kernel, pooled and D).
+// and, in the D mode (ops/kernels/band_pooled.py band_pooled_d), the D
+// output of `fused_blur_transducer` (:352, pool_beta=None) on bands that take
+// the masking blur and `fused_masking_transducer` (:463) on bands whose blur
+// is skipped (the unit tap, r = 0).
 // The JAX package expands gn in XLA before its band kernels
 // (colorvideovdp_tpu/metrics/cvvdp.py:1400-1410); here the expand is inside.
 //
@@ -20,11 +27,16 @@
 // beta) per 32x32 tile and channel, in the slots and in the in-tile order of
 // band_masking.cu's stage B, then the same stage C (band_common.cuh
 // plane_sums): the (n_bands, B, C, F) pooled sums, deterministic, no float
-// atomics.
+// atomics. The D mode also writes D (B, C, F, h, w) per band, each row of a
+// tile by one warp (coalesced), from the registers the pooled term is formed
+// from, so its sums are the pooled mode's and the heatmap's JOD is the
+// pooled-only JOD.
 //
 // Bound on the H100: per pixel the 2C planes of gi and the 2C quarter planes
 // of gn are read once (40 B at C = 4; 9.6 GB, 2.9 ms at 3.35 TB/s, for band
-// 0 of a 29-frame 4K block) and C floats per 32x32 tile are written. The
+// 0 of a 29-frame 4K block) and C floats per 32x32 tile are written; the D
+// mode adds C floats a pixel (4 B x C a pixel written; at band 0 of an
+// 8-frame 4K block 1.06 GB, 0.32 ms). The
 // arithmetic is about 115 float32 operations per pixel and channel counting
 // each transcendental (powf, log10f) and each IEEE division as one; they
 // take many dependent instructions each, so the kernel is bound by their
@@ -73,6 +85,7 @@
 struct PooledBand {
   const float* gi;
   const float* gn;
+  float* D;  // the D mode: (B, C, F, h, w)
   int h, w, hn, wn;
   float mul;
   int r;                 // blur radius; 0 (a unit tap) where the blur is skipped
@@ -133,21 +146,6 @@ static int pooled_smem_floats(int r_max, int C, int nk, PooledParams* P) {
 // error (2^-23) stays below the 0.5 / n margin of i + 0.5.
 __device__ __forceinline__ int div_small(int i, float inv_n) {
   return __float2int_rz(__fmul_rn((float)i + 0.5f, inv_n));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // One tile of one band: its 32 x 32 pixels at (y0, x0) of plane
@@ -243,6 +241,7 @@ __device__ __forceinline__ void issue_loads(const PooledParams& P, const Job& J,
   cp_async_commit();
 }
 
+template <bool D_OUT>
 __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     band_pooled_kernel(const __grid_constant__ PooledParams P, float* __restrict__ partials) {
   extern __shared__ __align__(16) float dyn[];
@@ -272,7 +271,7 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
   int c = 0, cur_band = -1;
   issue_loads(P, J, 0, giw, gnw);
   while (true) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // the windows have landed; the previous job is done
     const PooledBand& d = P.band[J.bi];
     const int r = J.r, h = d.h, w = d.w;
@@ -426,7 +425,7 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     if (c == C - 1) {
       // The epilogue of stage B: the thread's rows in order, the warp's tree
       // sum, the warps in order (band_common.cuh block_sum), into the tile's
-      // slot.
+      // slot; the D mode stores each own pixel's D on the way.
       const float eps_p = powf(BM_EPS, P.p);
       const float eps_b = pow_static(BM_EPS, P.beta);
       float part[BM_MAX_C];
@@ -439,8 +438,11 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
 #pragma unroll
         for (int dd = 0; dd < BM_MAX_C; ++dd) {
           if (dd >= C) continue;
-          part[dd] += pooled_term(band_D(dreg[k][dd], mix[k][dd], P.p, eps_p, P.max_v), P.beta,
-                                  eps_b);
+          const float Dv = band_D(dreg[k][dd], mix[k][dd], P.p, eps_p, P.max_v);
+          if (D_OUT)
+            d.D[(((long long)J.b * C + dd) * P.F + J.f) * h * (long long)w +
+                (long long)gy * w + gx] = Dv;
+          part[dd] += pooled_term(Dv, P.beta, eps_b);
         }
       }
 #pragma unroll
@@ -482,15 +484,48 @@ __global__ void pooled_stage_c(const __grid_constant__ PooledParams P,
              out + (((long long)bi * P.B + b) * C) * F + f, F, red);
 }
 
+// Opt a mode's kernel into `smem` bytes of dynamic shared memory; returns
+// its blocks per SM through per_sm.
+template <bool D_OUT>
+static cudaError_t configure(int smem, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(band_pooled_kernel<D_OUT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(band_pooled_kernel<D_OUT>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, band_pooled_kernel<D_OUT>,
+                                                       BP_THREADS, smem);
+}
+
+template <bool D_OUT>
+static cudaError_t launch_tiles(const PooledParams& P, int smem, cudaStream_t st,
+                                float* partials) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = configure<D_OUT>(smem, &per_sm);
+  if (e != cudaSuccess) return e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long fit = (long long)per_sm * n_sm;
+  const long long grid = P.n_tiles < fit ? P.n_tiles : fit;
+  band_pooled_kernel<D_OUT><<<(unsigned int)grid, BP_THREADS, smem, st>>>(P, partials);
+  return cudaGetLastError();
+}
+
 // ptrs: n_bands x {gi, gn} device pointers, gi (B, 2C, F, h, w) and gn
-// (B, 2C, F, ceil(h/2), ceil(w/2)); dims: n_bands x {h, w}; muls, blur: per
-// band; luts: device (n_bands, C, nk); ch_gain, qs: C floats; xcm: C x C
-// floats; ek: the 5 expand taps; taps: ntaps floats. partials: (tiles, C)
-// scratch, one per 32x32 tile of each (b, f) plane of each band in order;
-// out receives the (n_bands, B, C, F) pooled sums of safe_pow(D, beta).
+// (B, 2C, F, ceil(h/2), ceil(w/2)); dptrs: null (the pooled mode) or, for
+// the D mode, n_bands device pointers to each band's D (B, C, F, h, w);
+// dims: n_bands x {h, w}; muls, blur: per band; luts: device (n_bands, C,
+// nk); ch_gain, qs: C floats; xcm: C x C floats; ek: the 5 expand taps;
+// taps: ntaps floats. partials: (tiles, C) scratch, one per 32x32 tile of
+// each (b, f) plane of each band in order; out receives the (n_bands, B, C,
+// F) pooled sums of safe_pow(D, beta) in both modes.
 CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const long long* ptrs,
-                                const int* dims, const float* muls, const int* blur,
-                                const float* luts, float x0, float lut_scale,
+                                const long long* dptrs, const int* dims, const float* muls,
+                                const int* blur, const float* luts, float x0, float lut_scale,
                                 const float* ch_gain, float sens_corr, int ref_only,
                                 const float* ek, const float* qs, float p, const float* xcm,
                                 float max_v, float blur_scale, const float* taps, int ntaps,
@@ -510,6 +545,7 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
     PooledBand& d = P.band[k];
     d.gi = (const float*)ptrs[2 * k];
     d.gn = (const float*)ptrs[2 * k + 1];
+    d.D = dptrs ? (float*)dptrs[k] : nullptr;
     d.h = dims[2 * k];
     d.w = dims[2 * k + 1];
     if (d.h < 1 || d.w < 1) return (int)cudaErrorInvalidValue;
@@ -549,42 +585,19 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
   P.ntaps = ntaps;
 
   const int smem = pooled_smem_floats(r_max, C, nk, &P) * (int)sizeof(float);
-
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaFuncSetAttribute(band_pooled_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(band_pooled_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, band_pooled_kernel, BP_THREADS,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long grid = tiles < (long long)per_sm * n_sm ? tiles : (long long)per_sm * n_sm;
-  band_pooled_kernel<<<(unsigned int)grid, BP_THREADS, smem, st>>>(P, partials);
-  e = cudaGetLastError();
+  cudaError_t e = dptrs ? launch_tiles<true>(P, smem, st, partials)
+                        : launch_tiles<false>(P, smem, st, partials);
   if (e != cudaSuccess) return (int)e;
   pooled_stage_c<<<(unsigned int)planes, BM_STAGE_C_THREADS, 0, st>>>(P, partials, out);
   return (int)cudaGetLastError();
 }
 
-// Blocks per SM the kernel gets for a launch whose largest blur radius is
-// r_max with C channels and nk knots (for the record; 0 if it does not fit).
+// Blocks per SM the pooled mode gets for a launch whose largest blur radius
+// is r_max with C channels and nk knots (for the record; 0 if it does not
+// fit).
 CVVDP_API int cvvdp_band_pooled_occupancy(int r_max, int C, int nk) {
   const int smem = pooled_smem_floats(r_max, C, nk, nullptr) * (int)sizeof(float);
-  if (cudaFuncSetAttribute(band_pooled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return 0;
-  cudaFuncSetAttribute(band_pooled_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       (int)cudaSharedmemCarveoutMaxShared);
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, band_pooled_kernel, BP_THREADS,
-                                                    smem) != cudaSuccess)
-    return 0;
-  return per_sm;
+  return configure<false>(smem, &per_sm) == cudaSuccess ? per_sm : 0;
 }

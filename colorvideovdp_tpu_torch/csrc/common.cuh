@@ -118,6 +118,27 @@ __device__ __forceinline__ float tile_blur_horizontal(const float* tmp, int r,
   return acc;
 }
 
+// Asynchronous global -> shared copies (Ampere's cp.async, on Hopper too):
+// 16 bytes (both addresses 16-byte aligned) or 4 bytes, one commit group per
+// cp_async_commit; cp_async_wait<N> waits until at most N of the calling
+// thread's groups are pending (a __syncthreads() then makes every thread's
+// copies visible).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 static inline unsigned int ceil_div_u(long long a, long long b) {
   return (unsigned int)((a + b - 1) / b);
 }

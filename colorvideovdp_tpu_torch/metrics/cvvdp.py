@@ -16,12 +16,14 @@ other contrasts with the default masking; the generic chain (CSF LUT kernel,
 then ``masking.apply_masking_model`` with the blur kernel) for every other
 masking model, clamp or with the cross-channel mix off. With
 ``use_band_mega`` the raw bands that the JAX package's mega-kernel gate
-admits take the band kernel's fused mode instead (``ops/kernels/band_fused.py``:
-the next Gaussian level expanded inside the kernel; the same result).
+admits take ``ops/kernels/band_fused.py`` instead: the same one-pass kernel
+as the default raw route, with launch counters of its own; the same result.
 
 ``heatmap`` ("raw", "threshold" or "supra-threshold") adds the per-pixel
-distortion map ``stats["heatmap"]``: every interior band takes the band
-kernel's D-output mode, the per-band maps are pooled over channels and
+distortion map ``stats["heatmap"]``: every interior band takes a D-output
+mode (raw bands the one-pass kernel's, ``band_pooled_d``, whose pooled sums
+give the Q columns, so the JOD is the pooled-only JOD; contrast bands the band
+kernel's), the per-band maps are pooled over channels and
 collapsed by the Laplacian reconstruct, and the colour maps are drawn block by
 block on the device (``viz.py``). That path is forward-only.
 
@@ -52,8 +54,7 @@ from ..ops.kernels import band_pooled as bp
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import masking_fused as bm
 from ..ops.kernels.csf_lut import CsfLut
-from ..ops.pyramid import (LaplacianPyramid, LogContrastPyramid, WeberContrastPyramid,
-                           gausspyr_expand)
+from ..ops.pyramid import LaplacianPyramid, LogContrastPyramid, WeberContrastPyramid
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import config_files, json2dict
 from .base import no_tf32, register_metric, vq_exception, vq_metric
@@ -472,10 +473,11 @@ class cvvdp(vq_metric):
         Interior bands take the JAX package's routes (its
         ``metrics/cvvdp.py:1224-1246``, ``:1487-1519``): with the band
         kernel's configuration, raw pairs for weber_g1 and weber_g1_ref
-        (pooled: ``band_pooled``, one pass from each band's level and the
-        next; heatmap D: ``band_masking_d`` fed the expand) and contrast
-        bands otherwise (``band_masking.cu``); with any other configuration
-        the generic chain, the CSF LUT then ``apply_masking_model``.
+        (``band_pooled``, one pass from each band's level and the next; with
+        a heatmap its D mode ``band_pooled_d``, whose pooled sums give the
+        Q columns, so the JOD is the pooled-only JOD) and contrast bands
+        otherwise (``band_masking.cu``); with any other configuration the
+        generic chain, the CSF LUT then ``apply_masking_model``.
 
         ``mesh`` (``parallel/sharding.py``): R is this rank's pairs and rows;
         see ``_process_block_sharded``."""
@@ -505,8 +507,11 @@ class cvvdp(vq_metric):
             w_bb = w_ch * torch.as_tensor(self.baseband_weight[:all_ch], device=dev).reshape(
                 -1, 1, 1, 1)
 
-        def put_D(bb, D):
-            Q_cols[bb] = mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
+        def put_D(bb, D, sums=None):
+            """Band bb's Q column, from the kernel's pooled sums where given,
+            and its heatmap band."""
+            Q_cols[bb] = (mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
+                          if sums is None else bm.pooled_norm(sums, *shapes[bb], self.beta))
             if heatmap:
                 # Interior bands are stored at half gain (lpyr_dec.py:308-314).
                 hm_bands[bb] = mk.lp_norm(D * w_ch, self.beta_tch, dim=-4,
@@ -526,37 +531,39 @@ class cvvdp(vq_metric):
                 gi, gn = bands[bb]
                 if heatmap:
                     fn = bf.band_fused_d if use_k else bf.band_fused_d_plain
-                    put_D(bb, fn(gi, gn, luts[bb], muls[bb], consts))
+                    put_D(bb, *fn(gi, gn, luts[bb], muls[bb], consts))
                 else:
                     sums = bf.band_fused_sums(gi, gn, luts[bb], muls[bb], consts, use_k)
                     Q_cols[bb] = bm.pooled_norm(sums, *shapes[bb], self.beta)
             rest = [bb for bb in range(n_bands - 1) if bb not in mega]
             d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
                        if heatmap else None)
-            pooled_raw = raw_pairs and not heatmap
             for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
-                                      contrast=not raw_pairs, gn=pooled_raw):
+                                      contrast=not raw_pairs, gn=raw_pairs):
                 sel = [rest[i] for i in sel]
-                if pooled_raw:
+                if raw_pairs:
                     # One pass from gi and gn: the expand is inside the kernel.
-                    sums = bp.band_pooled_sums([bands[bb][0] for bb in sel],
-                                               [bands[bb][1] for bb in sel], luts[sel],
-                                               [muls[bb] for bb in sel], consts, use_k)
+                    args = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
+                            luts[sel], [muls[bb] for bb in sel], consts)
+                    if heatmap:
+                        fn = bp.band_pooled_d if use_k else bp.band_pooled_d_plain
+                        Ds, sums = fn(*args)
+                        for j, bb in enumerate(sel):
+                            put_D(bb, Ds[j], sums[j])
+                        del Ds
+                        continue
+                    sums = bp.band_pooled_sums(*args, use_k)
                     for j, bb in enumerate(sel):
                         Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
                     continue
-                if raw_pairs:
-                    xs = [bands[bb][0] for bb in sel]
-                    ys = [gausspyr_expand(bands[bb][1], x.shape[-2:]) for bb, x in zip(sel, xs)]
-                else:
-                    xs = [LaplacianPyramid.get_band(bands, bb) for bb in sel]
-                    ys = [L_bkg_pyr[bb] for bb in sel]
+                xs = [LaplacianPyramid.get_band(bands, bb) for bb in sel]
+                ys = [L_bkg_pyr[bb] for bb in sel]
                 args = (xs, ys, luts[sel], [muls[bb] for bb in sel], consts, use_k)
                 if heatmap:
-                    for bb, D in zip(sel, bm.band_D(*args, contrast=not raw_pairs)):
+                    for bb, D in zip(sel, bm.band_D(*args, contrast=True)):
                         put_D(bb, D)
                 else:
-                    sums = bm.band_sums(*args, contrast=not raw_pairs)
+                    sums = bm.band_sums(*args, contrast=True)
                     for j, bb in enumerate(sel):
                         Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
                 del xs, ys, args

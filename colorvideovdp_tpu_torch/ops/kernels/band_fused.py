@@ -9,15 +9,15 @@ package runs for the interior raw bands its gate admits when
 ceil(w/2)) and keep E = ``gausspyr_expand(gn)``, M_pre and diff in shared
 memory and registers; both give the bits of the raw-pair route
 (``masking_fused.band_masking`` / ``band_masking_d``) fed the plain expand.
+Both are the one-pass kernel of the default route, ``csrc/band_pooled.cu``
+(``band_pooled.launch`` for this one band), counted here, not in
+``band_pooled.launches`` / ``band_pooled_d.launches``.
 
-* ``band_fused``: the pooled sums (B, C, F) of safe_pow(D, beta), through
-  the one-pass pooled kernel of the default route, ``csrc/band_pooled.cu``
-  (``band_pooled.launch`` for this one band; counted here, not in
-  ``band_pooled.launches``). Its plain version ``band_fused_plain`` is
-  ``band_pooled``'s.
-* ``band_fused_d``: D (B, C, F, h, w) for the heatmap, the fused mode of
-  ``csrc/band_masking.cu`` (``expand = 1``; memory-bound, 56 bytes a pixel
-  at C = 4); plain version ``band_fused_d_plain``.
+* ``band_fused``: the pooled sums (B, C, F) of safe_pow(D, beta). Its plain
+  version ``band_fused_plain`` is ``band_pooled``'s.
+* ``band_fused_d``: (D (B, C, F, h, w), the pooled sums (B, C, F)) for the
+  heatmap, the kernel's D mode; plain version ``band_fused_d_plain``,
+  ``band_pooled_d``'s.
 * ``band_fused_sums``: the pooled sums, differentiable in ``gi`` and
   ``gn``, through ``band_pooled.BandPooled`` with ``band_fused`` launching;
   its backward recomputes the plain chain through ``gausspyr_expand`` per
@@ -29,10 +29,8 @@ memory and registers; both give the bits of the raw-pair route
 
 from __future__ import annotations
 
-import torch
-
 from . import band_pooled as bp
-from .masking_fused import BandConsts, _band_D_plain, _frame_chunks, _launch
+from .masking_fused import BandConsts
 
 # The JAX kernel's row tile (``band_fused.py`` ``TH``); only the gate uses it.
 TH = 16
@@ -59,10 +57,10 @@ def band_fused_plain(gi, gn, lut, mul, k: BandConsts):
 
 
 def band_fused_d_plain(gi, gn, lut, mul, k: BandConsts):
-    """Plain PyTorch version of the D mode: D (B, C, F, h, w)."""
-    return torch.cat([_band_D_plain(gi[:, :, fs], bp._expanded(gi[:, :, fs], gn[:, :, fs]),
-                                    lut, mul, k)
-                      for fs in _frame_chunks(gi)], dim=2)
+    """Plain PyTorch version of the D mode: (D (B, C, F, h, w), the pooled
+    sums (B, C, F))."""
+    Ds, sums = bp.band_pooled_d_plain([gi], [gn], lut[None], [mul], k)
+    return Ds[0], sums[0]
 
 
 def band_fused(gi, gn, lut, mul, k: BandConsts):
@@ -80,13 +78,14 @@ band_fused.launches = 0
 
 
 def band_fused_d(gi, gn, lut, mul, k: BandConsts):
-    """D (B, C, F, h, w) of one raw band (the heatmap path). CPU tensors take
-    ``band_fused_d_plain``; CUDA tensors launch the kernel."""
+    """(D (B, C, F, h, w), pooled sums (B, C, F)) of one raw band (the
+    heatmap path). CPU tensors take ``band_fused_d_plain``; CUDA tensors
+    launch the kernel's D mode."""
     if gi.device.type == "cpu":
         return band_fused_d_plain(gi, gn, lut, mul, k)
-    D = _launch([gi], [gn], lut[None].contiguous(), [mul], k, d_out=True, expand=True)[0]
+    Ds, sums = bp.launch([gi], [gn], lut[None].contiguous(), [mul], k, d_out=True)
     band_fused_d.launches += 1
-    return D
+    return Ds[0], sums[0]
 
 
 band_fused_d.launches = 0

@@ -18,9 +18,11 @@ Stage A has two input modes:
   the raw Gaussian level ``gi`` and the expanded next level ``E``, both
   (B, 2C, F, h, w) with test/reference channels interleaved; the Weber
   contrast (weber_g1, weber_g1_ref) is formed in the kernel. The metric's
-  pooled raw bands take ``band_pooled`` instead (``csrc/band_pooled.cu``,
-  the expand inside, the same bits); ``band_masking`` stays as its
-  yardstick and shares its stages with the halo mode.
+  raw bands take ``band_pooled`` (pooled) and ``band_pooled_d`` (D, for the
+  heatmap) instead (``csrc/band_pooled.cu``, the expand inside, the same
+  bits); ``band_masking``, ``band_masking_d`` and ``band_masking_d_noblur``
+  stay as their yardsticks, and ``band_masking`` shares its stages with the
+  halo mode.
 * contrast bands (``band_masking_contrast``, ``band_masking_contrast_d``): the
   band (B, 2C, F, h, w) as the non-raw decomposition gives it, interleaved and
   at full band gain, and its adaptation field ``logL`` (B, 1, F, h, w). The
@@ -53,6 +55,7 @@ Two output modes share stages A and B and one plain chain per input mode
   launch on bands whose blur ``phase_uncertainty`` skips (h or w <=
   ``pu_padsize``, ``band_masking_d_noblur``), which ``band_groups`` keeps
   apart. ``band_masking_contrast_d`` takes either kind, one kind per launch.
+  (``band_pooled_d`` takes both kinds in one launch.)
 """
 
 from __future__ import annotations
@@ -67,7 +70,6 @@ from ..blur import _blur_1d, gaussian_kernel1d
 from ..clip import clip
 from ..masking import (_EPS, MaskingParams, _pow_static, _safe_pow_static,
                        apply_masking_model, clamp_diffs, mask_pool, safe_pow)
-from ..pyramid import K5
 from . import _build
 from .csf_lut import CsfLut
 
@@ -77,7 +79,7 @@ MAX_BANDS = 8
 # planes; a contrast band's logL, 1 plane) and the kernel's M_pre and diff
 # scratch (C planes each), float32. A ``band_pooled`` launch holds no
 # scratch; its bands count what it reads, gi's 2C planes and the next
-# level's 2C quarter planes, in place.
+# level's 2C quarter planes, in place. The D modes add D (C planes).
 # Small bands then share a launch (their time is launch latency), and a band
 # whose share alone exceeds the budget runs by itself.
 GROUP_BYTES = 1 << 28
@@ -237,14 +239,16 @@ def band_groups(shapes, B: int, C: int, F: int, d_blurs=None, contrast: bool = F
     and a band whose flag differs from the previous band's starts a new
     launch, so that a band without blur runs as ``band_masking_d_noblur``.
     ``contrast``: the bands are contrast bands, which hold one logL plane in
-    place of E's 2C planes. ``gn``: pooled raw bands for ``band_pooled``,
-    which reads the next level's 2C quarter planes in place of E's 2C
-    planes."""
+    place of E's 2C planes. ``gn``: raw bands for ``band_pooled`` (or
+    ``band_pooled_d`` with ``d_blurs``), which reads the next level's 2C
+    quarter planes in place of E's 2C planes and takes bands with and
+    without the blur in one launch."""
     planes = 2 * C + (1 if contrast else C / 2 if gn else 2 * C) + (0 if d_blurs is None else C)
     groups, cur, used = [], [], 0
     for i, (h, w) in enumerate(shapes):
         need = int(planes * B * F * int(h) * int(w) * 4)
-        split = d_blurs is not None and cur and d_blurs[i] != d_blurs[cur[-1]]
+        split = (d_blurs is not None and not gn and cur
+                 and d_blurs[i] != d_blurs[cur[-1]])
         if cur and (split or used + need > GROUP_BYTES or len(cur) == MAX_BANDS):
             groups.append(cur)
             cur, used = [], 0
@@ -258,20 +262,13 @@ def pooled_norm(sums: torch.Tensor, h: int, w: int, beta: float) -> torch.Tensor
     return _safe_pow_static(sums / float(h * w), 1.0 / float(beta))
 
 
-# The expand taps of the fused mode, 2 * K5, as ops/pyramid.py `_expand_1d`
-# forms them.
-_EXPAND_TAPS = np.ascontiguousarray(2.0 * K5.astype(np.float64), np.float32)
-
-
 def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool,
-            contrast: bool = False, expand: bool = False, h_valids=None):
+            contrast: bool = False, h_valids=None):
     """One ``cvvdp_band_masking`` launch over the given bands on the card:
     the (n_bands, B, C, F) pooled sums, or with ``d_out`` the list of D.
-    ``contrast``: the lists hold contrast bands and their logL. ``expand``
-    (the fused mode, ``band_fused.py``): the second list holds the next
-    Gaussian levels gn, expanded inside the kernel. ``h_valids`` (the halo
-    mode, pooled only): each band is a row slab of h_valid owned rows with
-    ``HALO_ROWS`` neighbour rows above and below."""
+    ``contrast``: the lists hold contrast bands and their logL. ``h_valids``
+    (the halo mode, pooled only): each band is a row slab of h_valid owned
+    rows with ``HALO_ROWS`` neighbour rows above and below."""
     n = len(gi_list)
     if not 1 <= n <= MAX_BANDS or len(E_list) != n or len(muls) != n:
         raise ValueError(f"band_masking: 1..{MAX_BANDS} bands, got {n}")
@@ -284,14 +281,13 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
     halo = np.zeros((n, 2), np.int32)
     for i, (gi, E) in enumerate(zip(gi_list, E_list)):
         h, w = gi.shape[-2:]
-        e_shape = ((B, 1, F, h, w) if contrast else
-                   (B, C2, F, (h + 1) // 2, (w + 1) // 2) if expand else gi.shape)
+        e_shape = (B, 1, F, h, w) if contrast else gi.shape
         if tuple(E.shape) != tuple(e_shape) or tuple(gi.shape[:3]) != (B, C2, F):
             raise ValueError("band_masking: band/second input shape mismatch")
         dims[i] = gi.shape[-2:]
         halo[i] = (0, dims[i][0]) if h_valids is None else (HALO_ROWS, h_valids[i])
     dev = gi_list[0].device
-    sizes = [0 if expand else B * C * F * int(h) * int(w) for h, w in dims]
+    sizes = [B * C * F * int(h) * int(w) for h, w in dims]
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     mpre = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
     diff = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
@@ -317,8 +313,7 @@ def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
         n, B, C, F, luts.shape[2], ptrs.ctypes.data, dims.ctypes.data, halo.ctypes.data,
         muls_a.ctypes.data,
         blur.ctypes.data, luts.data_ptr(), k.x0, (luts.shape[2] - 1) / (k.x1 - k.x0),
-        ch_gain.ctypes.data, k.sens_corr, int(k.ref_only), int(contrast), int(expand),
-        _EXPAND_TAPS.ctypes.data, qs.ctypes.data, k.p,
+        ch_gain.ctypes.data, k.sens_corr, int(k.ref_only), int(contrast), qs.ctypes.data, k.p,
         xcm.ctypes.data, k.max_v, k.blur_scale, taps.ctypes.data, len(taps), k.beta, int(d_out),
         None if partials is None else partials.data_ptr(),
         None if out is None else out.data_ptr(), _build.stream_handle(dev))

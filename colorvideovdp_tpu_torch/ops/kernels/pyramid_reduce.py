@@ -1,11 +1,12 @@
 """Gaussian-pyramid reduce: CUDA kernel wrapper beside its plain version.
 
 Replaces ``colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:195``
-(``reduce_tpu``). Kernel: ``csrc/pyramid_reduce.cu``, a shared-memory tile
-per block that runs both passes in the plain version's order and rounding
-(both keyed on H's parity, trap 1), so it gives the plain version's bits.
-It launches for every level and any
-size with H, W >= 3: the TPU kernel's shape gate has no counterpart here.
+(``reduce_tpu``). Kernel: ``csrc/pyramid_reduce.cu``, which streams each
+plane down strips of 128 output columns through a cp.async ring of input
+rows and runs both passes in the plain version's order and rounding (both
+keyed on H's parity, trap 1), so it gives the plain version's bits. It
+launches for every level, any number of planes and any size with H, W >= 3:
+the TPU kernel's shape gate has no counterpart here.
 The plain version is ``ops/pyramid.py:reduce_plain``. ``Reduce`` is the
 kernel with the adjoint of ``reduce_plain`` as its backward (the reduce is
 linear), as ``colorvideovdp_tpu/ops/pyramid.py:140-161`` takes XLA's
@@ -39,7 +40,7 @@ def pyramid_reduce(x: torch.Tensor) -> torch.Tensor:
     lead = tuple(x.shape[:-2])
     H, W = x.shape[-2:]
     P = int(np.prod(lead)) if lead else 1
-    if H < 3 or W < 3 or P > 65535:
+    if H < 3 or W < 3:
         raise ValueError(f"pyramid_reduce: unsupported shape {tuple(x.shape)}")
     y = torch.empty(lead + ((H + 1) // 2, (W + 1) // 2), dtype=torch.float32,
                     device=x.device)
@@ -62,7 +63,7 @@ def pyramid_reduce_slab(x: torch.Tensor, rows_odd: bool) -> torch.Tensor:
     lead = tuple(x.shape[:-2])
     H_loc, W = x.shape[-2] - 16, x.shape[-1]
     P = int(np.prod(lead)) if lead else 1
-    if H_loc < 2 or H_loc % 2 or W < 3 or P > 65535:
+    if H_loc < 2 or H_loc % 2 or W < 3:
         raise ValueError(f"pyramid_reduce_slab: unsupported shape {tuple(x.shape)}")
     if x.device.type == "cpu":
         return reduce_slab_plain(x, rows_odd)

@@ -7,8 +7,8 @@ and the bound (the bytes moved at the HBM rate).
 Counterpart of ``tools/interleave_bench.py`` of the JAX package, at its shape:
 (P, H, W) = (48, 2160, 3840), band 0 of a 4K block of 6 frames with its 8
 test/reference channel planes. It measures what merging the two phases of a
-polyphase expand costs, the step that the band kernel's fused mode
-(``ops/kernels/band_fused.py``) does in shared memory.
+polyphase expand costs, the step that the one-pass band kernel
+(``csrc/band_pooled.cu``) does in shared memory.
 
 Usage: ``python -m colorvideovdp_tpu_torch.tools.interleave_bench
 [--cpu-check] [--reps N]``. ``--cpu-check`` checks the plain versions bit for

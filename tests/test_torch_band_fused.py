@@ -89,7 +89,7 @@ def test_band_fused_d_matches_jax_kernel_and_chain():
     chain."""
     H, W, L, seed, mul = 96, 512, 2, 41, 2.0
     gi, gn, lut, consts = _port(H, W, L, seed)
-    D_t = bf.band_fused_d(gi, gn, lut, mul, consts).numpy()  # CPU: the plain version
+    D_t = bf.band_fused_d(gi, gn, lut, mul, consts)[0].numpy()  # CPU: the plain version
     D_k, D_chain = _jax_D(H, W, L, seed, mul)
     assert D_t.shape == D_k.shape == (1, 4, L, H, W)
     denom = max(1.0, float(np.abs(D_chain).max()))

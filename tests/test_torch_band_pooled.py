@@ -26,7 +26,7 @@ import colorvideovdp_tpu_torch as ct  # noqa: E402
 from colorvideovdp_tpu.ops import masking as mk_j  # noqa: E402
 from colorvideovdp_tpu.ops import pyramid as pyr_j  # noqa: E402
 from colorvideovdp_tpu.ops.kernels.masking_fused import make_fused_mult_mutual_raw  # noqa: E402
-from colorvideovdp_tpu_torch.metrics import cvvdp as cvvdp_t  # noqa: E402
+from colorvideovdp_tpu_torch.ops import pyramid as pyr_t  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm  # noqa: E402
 
@@ -116,16 +116,30 @@ def test_band_pooled_takes_several_bands_in_one_launch():
 
 
 def _route_spies(monkeypatch):
-    """Record what the metric hands to ``band_pooled_sums``, and every call
-    of the previous route (the metric's expand, ``band_sums``,
-    ``band_masking``) and of the heatmap's D modes."""
-    seen = {"pooled": [], "expand": 0, "band_sums": 0, "band_masking": 0, "d": []}
+    """Record what the metric hands to ``band_pooled_sums`` and to
+    ``band_pooled_d``, every call of the previous route (``band_sums``,
+    ``band_masking``) and of the previous heatmap D mode, and the channel
+    count of every plain expand through ``ops/pyramid.py``."""
+    seen = {"pooled": [], "pooled_d": [], "expand": [], "band_sums": 0, "band_masking": 0,
+            "d": []}
     pooled = bp.band_pooled_sums
+    pooled_d = bp.band_pooled_d
 
     def spy_pooled(gis, gns, *args):
         seen["pooled"].append([(tuple(g.shape[-2:]), tuple(n.shape[-2:]))
                                for g, n in zip(gis, gns)])
         return pooled(gis, gns, *args)
+
+    def spy_pooled_d(gis, gns, *args):
+        seen["pooled_d"].append([(tuple(g.shape[-2:]), tuple(n.shape[-2:]))
+                                 for g, n in zip(gis, gns)])
+        return pooled_d(gis, gns, *args)
+
+    expand = pyr_t.gausspyr_expand
+
+    def spy_expand(x, *a, **kw):
+        seen["expand"].append(int(x.shape[1]))
+        return expand(x, *a, **kw)
 
     def counting(key, fn):
         def run(*a, **kw):
@@ -140,7 +154,8 @@ def _route_spies(monkeypatch):
         return band_d(gis, Es, *args)
 
     monkeypatch.setattr(bp, "band_pooled_sums", spy_pooled)
-    monkeypatch.setattr(cvvdp_t, "gausspyr_expand", counting("expand", cvvdp_t.gausspyr_expand))
+    monkeypatch.setattr(bp, "band_pooled_d", spy_pooled_d)
+    monkeypatch.setattr(pyr_t, "gausspyr_expand", spy_expand)
     monkeypatch.setattr(bm, "band_sums", counting("band_sums", bm.band_sums))
     monkeypatch.setattr(bm, "band_masking", counting("band_masking", bm.band_masking))
     monkeypatch.setattr(bm, "band_masking_d", spy_d)
@@ -155,9 +170,11 @@ def _want_pooled(m, B, F):
 
 def test_default_route_hands_gn_to_band_pooled(monkeypatch):
     """A 1-frame 64x96 score, one loss step and a raw heatmap: every pooled
-    raw band group goes to ``band_pooled_sums`` with gn, none through the
-    metric's expand and ``band_sums`` / ``band_masking``; the heatmap keeps
-    ``band_masking_d`` fed the expand."""
+    raw band group goes to ``band_pooled_sums`` with gn, none through a
+    plain expand and ``band_sums`` / ``band_masking``; the heatmap's raw
+    bands go to ``band_pooled_d`` with gn, not to ``band_masking_d`` fed the
+    expand (its only plain expands are the reconstruct's one-channel
+    maps)."""
     seen = _route_spies(monkeypatch)
     rng = np.random.RandomState(3)
     ref = (rng.rand(64, 96, 3) * 255).astype(np.uint8)
@@ -167,7 +184,7 @@ def test_default_route_hands_gn_to_band_pooled(monkeypatch):
     m.predict(test, ref, dim_order="HWC")
     want = _want_pooled(m, 1, 1)
     assert seen["pooled"] == want and len(want) >= 1
-    assert (seen["expand"], seen["band_sums"], seen["band_masking"], seen["d"]) == (0, 0, 0, [])
+    assert (seen["expand"], seen["band_sums"], seen["band_masking"], seen["d"]) == ([], 0, 0, [])
 
     seen["pooled"].clear()
     x = torch.from_numpy(test.transpose(2, 0, 1)[None, :, None] / np.float32(255)).float()
@@ -177,17 +194,19 @@ def test_default_route_hands_gn_to_band_pooled(monkeypatch):
     (g,) = torch.autograd.grad(v, x)
     # Once in the forward, once in the checkpointed block's recompute.
     assert seen["pooled"] == want * 2
-    assert (seen["expand"], seen["band_sums"], seen["band_masking"]) == (0, 0, 0)
+    assert (seen["expand"], seen["band_sums"], seen["band_masking"]) == ([], 0, 0)
     assert torch.isfinite(g).all() and g.abs().max() > 0
 
     seen["pooled"].clear()
     mh = ct.cvvdp(display_name="standard_4k", device="cpu", heatmap="raw")
     mh.predict(test, ref, dim_order="HWC")
-    assert seen["pooled"] == [] and seen["band_sums"] == 0
-    blurred = [tuple(s) for s in mh.lpyr.pyr_shape[:-1]
-               if mh._masking_params().blurs(*s)]
-    assert [s for launch in seen["d"] for s in launch] == blurred
-    assert seen["expand"] == len(mh.lpyr.pyr_shape) - 1
+    assert seen["pooled"] == [] and seen["band_sums"] == 0 and seen["d"] == []
+    shapes = [tuple(s) for s in mh.lpyr.pyr_shape[:-1]]
+    blurs = [mh._masking_params().blurs(*s) for s in shapes]
+    assert seen["pooled_d"] == [[(shapes[bb], ((shapes[bb][0] + 1) // 2,
+                                               (shapes[bb][1] + 1) // 2)) for bb in sel]
+                                for sel in bm.band_groups(shapes, 1, 3, 1, blurs, gn=True)]
+    assert seen["expand"] == [1] * len(shapes)
 
 
 def test_band_pooled_gradient_matches_jax():

@@ -47,14 +47,43 @@ def _rel_planes(a, b):
     return float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
 
 
-@pytest.mark.parametrize("shape", [(2, 57, 256), (1, 66, 301), (3, 5, 7), (16, 270, 481)])
+@pytest.mark.parametrize("shape", [(2, 57, 256), (1, 66, 301), (3, 5, 7), (16, 270, 481),
+                                   (1, 3, 3), (2, 3, 4, 6), (2, 3, 131, 262), (1, 260, 520),
+                                   (3, 129, 516), (4, 130, 30), (2, 17, 15)])
 def test_reduce_kernel(dev, shape):
+    """Odd and even H and W, W % 4 != 0 (4-byte copies) and == 0 (16-byte),
+    H = W = 3, lead dimensions, several row runs (Ho > 64) and strips
+    (Wo > 128)."""
     x = torch.rand(shape, device=dev)
+    before = prd.pyramid_reduce.launches
     y = pyramid_reduce(x)
+    assert prd.pyramid_reduce.launches == before + 1
     ref = pyr.reduce_plain(x)
     assert y.shape == ref.shape
     # The kernel rounds as the plain version does (csrc/common.cuh).
     assert torch.equal(y, ref)
+
+
+def test_reduce_kernel_4k_pyramid(dev):
+    """Every level of a 4K pyramid (8 channels x 2 frames) bit for bit, each
+    from the kernel's previous level."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(3840, 2160)
+    shapes = [tuple(int(v) for v in s) for s in m.lpyr.pyr_shape]
+    x = torch.rand((1, 8, 2) + shapes[0], device=dev)
+    for nxt in shapes[1:]:
+        y = pyramid_reduce(x)
+        assert tuple(y.shape[-2:]) == nxt
+        assert torch.equal(y, pyr.reduce_plain(x))
+        x = y
+
+
+def test_reduce_kernel_many_planes(dev):
+    """More than 65535 planes (the grid is 1-D), in both modes."""
+    x = torch.rand((70001, 5, 9), device=dev)
+    assert torch.equal(pyramid_reduce(x), pyr.reduce_plain(x))
+    xs = torch.rand((70001, 2 + 16, 6), device=dev)
+    assert torch.equal(prd.pyramid_reduce_slab(xs, True), pyr.reduce_slab_plain(xs, True))
 
 
 @pytest.mark.parametrize("display,dtype", [("standard_4k", np.uint8),
@@ -224,6 +253,40 @@ def test_band_masking_d_kernel(dev, C):
         bm.band_masking_d([gis[5]], [Es[5]], luts[5:6], [2.0], consts)
 
 
+@pytest.mark.parametrize("C,ref_only", [(4, False), (3, False), (4, True)])
+def test_band_pooled_d_kernel(dev, C, ref_only):
+    """The one-pass kernel's D mode against the previous route, the plain
+    expand + ``band_masking_d`` (``band_masking_d_noblur`` on the band
+    without the blur), bit for bit, with sums bit for bit those of the
+    pooled mode, and against its plain version: an aligned 96x512 band, an
+    odd 1081x1921 band of B = 2, and one launch over narrow bands whose
+    4-row band takes no blur."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(1921, 1081)
+    consts, luts = m._band_tables(C)
+    consts = dataclasses.replace(consts, ref_only=ref_only)
+    for B, shapes in ((1, [(96, 512)]), (2, [(1081, 1921)]),
+                      (1, [(135, 240), (68, 120), (34, 60), (17, 30), (9, 15), (4, 17)])):
+        gis = [torch.rand(B, 2 * C, 3, h, w, device=dev) * 20 + 30 for h, w in shapes]
+        gns = [pyramid_reduce(g) for g in gis]
+        lt = luts[:len(shapes)].contiguous()
+        muls = [1.0] + [2.0] * (len(shapes) - 1)
+        before = bp.band_pooled_d.launches
+        Ds, s = bp.band_pooled_d(gis, gns, lt, muls, consts)
+        assert bp.band_pooled_d.launches == before + 1
+        assert torch.equal(s, bp.band_pooled(gis, gns, lt, muls, consts))
+        D_p, s_p = bp.band_pooled_d_plain(gis, gns, lt, muls, consts)
+        assert _rel(s, s_p) <= 1e-4
+        for i, (g, gn) in enumerate(zip(gis, gns)):
+            E = pyr.gausspyr_expand(gn, g.shape[-2:])
+            route = (bm.band_masking_d if consts.params.blurs(*g.shape[-2:])
+                     else bm.band_masking_d_noblur)
+            assert torch.equal(Ds[i], route([g], [E], lt[i:i + 1], [muls[i]], consts)[0])
+            assert _rel_planes(Ds[i], D_p[i]) <= 1e-5
+    with pytest.raises(ValueError):
+        bp.band_pooled_d([gis[0]], [gis[0]], lt[:1], [1.0], consts)  # gi in gn's slot
+
+
 def test_csf_lut_kernel(dev):
     m = ct.cvvdp(display_name="standard_4k", device="cuda")
     x0, x1 = m.csf.lut_range()
@@ -322,16 +385,21 @@ def test_heatmap_kernels_match_plain(dev, hm_type):
         m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=hm_type,
                      gpu_mem=gpu_mem)
         m.enable_fused_kernels = fused
-        before = bm.band_masking_d.launches, bm.band_masking_d_noblur.launches
+        old = bm.band_masking_d.launches, bm.band_masking_d_noblur.launches
+        before = bp.band_pooled_d.launches
         Q, st = m.predict(test, ref, **kw)
-        after = bm.band_masking_d.launches, bm.band_masking_d_noblur.launches
-        assert all((a > b) == fused for a, b in zip(after, before))
+        assert (bp.band_pooled_d.launches > before) == fused
+        assert (bm.band_masking_d.launches, bm.band_masking_d_noblur.launches) == old
         out.append((float(Q), st["heatmap"].astype(np.float32), st["block_N_frames"]))
     (q_k, hm_k, blk_k), (q_p, hm_p, blk_p) = out
     assert blk_k == blk_p == (1 if test.ndim == 3 else 5)
     assert hm_k.shape == hm_p.shape
     assert np.abs(hm_k - hm_p).max() <= 1.1e-3
     assert abs(q_k - q_p) <= 1e-4
+    # The Q columns come from the D mode's pooled sums: the pooled-only JOD.
+    q_0, _ = ct.cvvdp(display_name="standard_4k", device="cuda", gpu_mem=gpu_mem).predict(
+        test, ref, **kw)
+    assert float(q_0) == q_k
 
 
 @pytest.mark.parametrize("C", [4, 3])
@@ -565,14 +633,16 @@ def test_band_fused_kernel(dev, C, ref_only):
         lut_b, mul = luts[min(i, 1)], 1.0 if i == 0 else 2.0
         before = (bf.band_fused.launches, bf.band_fused_d.launches)
         s = bf.band_fused(gi, gn, lut_b, mul, consts)
-        D = bf.band_fused_d(gi, gn, lut_b, mul, consts)
+        D, s_d = bf.band_fused_d(gi, gn, lut_b, mul, consts)
         assert (bf.band_fused.launches, bf.band_fused_d.launches) == (before[0] + 1,
                                                                       before[1] + 1)
         route_d = bm.band_masking_d if consts.params.blurs(h, w) else bm.band_masking_d_noblur
         assert torch.equal(s, bm.band_masking([gi], [E], lut_b[None], [mul], consts)[0])
         assert torch.equal(D, route_d([gi], [E], lut_b[None], [mul], consts)[0])
+        assert torch.equal(s_d, s)
         assert _rel(s, bf.band_fused_plain(gi, gn, lut_b, mul, consts)) <= 1e-4
-        assert _rel_planes(D, bf.band_fused_d_plain(gi, gn, lut_b, mul, consts)) <= 1e-5
+        D_p, s_p = bf.band_fused_d_plain(gi, gn, lut_b, mul, consts)
+        assert _rel_planes(D, D_p) <= 1e-5 and _rel(s_d, s_p) <= 1e-4
     with pytest.raises(ValueError):
         bf.band_fused(gi, E, lut_b, 2.0, consts)  # E in gn's slot: wrong shape
 
@@ -647,7 +717,10 @@ def test_interleave_kernels(dev, shape):
 
 
 @pytest.mark.parametrize("shape,rows_odd", [((2, 64 + 16, 512), False), ((1, 96 + 16, 301), True),
-                                            ((3, 2 + 16, 7), False), ((64, 270 + 16, 960), False)])
+                                            ((3, 2 + 16, 7), False), ((64, 270 + 16, 960), False),
+                                            ((2, 64 + 16, 512), True), ((1, 96 + 16, 301), False),
+                                            ((3, 2 + 16, 7), True), ((8, 540 + 16, 1920), True),
+                                            ((4, 136 + 16, 30), True)])
 def test_reduce_slab_kernel(dev, shape, rows_odd):
     """The slab mode gives ``reduce_slab_plain``'s bits (it rounds as the
     plain version does, csrc/common.cuh)."""
