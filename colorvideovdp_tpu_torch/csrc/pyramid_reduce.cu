@@ -28,15 +28,20 @@
 // that, and does 7.5 float32 operations per input pixel, far below the
 // card's rate. The design streams rows so that each input byte crosses HBM
 // about once, with enough of them in flight:
-//   * A block of RT = 64 threads owns a strip of 128 output columns (256
-//     input columns plus 4 on each side: the horizontal halo is 8/256, and
-//     the staged window starts 16-byte aligned) and a run of up to 64
+//   * A block of RT = 128 threads owns a strip of 256 output columns (512
+//     input columns plus 4 on each side: the horizontal halo is 8/512, and
+//     the staged window starts 16-byte aligned) and a run of up to 32
 //     output rows, which it walks down. The vertical halo (3 input rows)
 //     is paid once per run.
 //   * Input rows go through a ring of RING = 8 rows in shared memory by
 //     cp.async: 16-byte copies where W % 4 == 0 (4K: 3840 down to 60),
 //     4-byte copies otherwise. While output row k is computed, the input
 //     rows of rows k + 1 and k + 2 (two rows each) are in flight.
+//   * These sizes were measured fastest on the H100 (PERF.md): strips
+//     of 128 outputs or 64-thread blocks cost 5%, more rows in flight or a
+//     16-row ring cost registers and 8-15%, one row in flight 18%; one
+//     barrier a row (double-buffered edge sums) and edge sums formed by
+//     every thread lost too.
 //   * Thread u forms the vertical sums of input columns 4u .. 4u + 3 in
 //     registers from one 16-byte shared load per ring row (no bank
 //     conflicts), then the two adjacent outputs 2u and 2u + 1. The three
@@ -77,24 +82,12 @@ __device__ __forceinline__ float reduce_pass(const float s[5], int i, int n, int
   return y;
 }
 
-#ifndef RED_RT
-#define RED_RT 64
-#endif
-#ifndef RED_RING
-#define RED_RING 8
-#endif
-#ifndef RED_AHEAD
-#define RED_AHEAD 2
-#endif
-#ifndef RED_RUN
-#define RED_RUN 64
-#endif
-constexpr int RT = RED_RT;             // threads a block, two outputs each
+constexpr int RT = 128;                // threads a block, two outputs each
 constexpr int RS_OUT = 2 * RT;         // output columns a strip
 constexpr int RS_IN = 2 * RS_OUT + 8;  // staged input columns, from 2 j0 - 4
-constexpr int RING = RED_RING;         // input rows in the ring
-constexpr int AHEAD = RED_AHEAD;       // output rows whose input rows are in flight
-constexpr int RUN_MAX = RED_RUN;       // output rows a block walks at most
+constexpr int RING = 8;                // input rows in the ring
+constexpr int AHEAD = 2;               // output rows whose input rows are in flight
+constexpr int RUN_MAX = 32;            // output rows a block walks at most
 // The ring holds the five rows of the current output row and the rows in
 // flight: 2 * AHEAD + 3 <= RING.
 static_assert(2 * AHEAD + 3 <= RING && (RING & (RING - 1)) == 0, "ring too small");
@@ -165,8 +158,8 @@ __global__ void __launch_bounds__(RT)
 
   // The vertical pass of output row k at input columns 4u .. 4u + 3 (zero
   // outside the plane: the vertical pass's output is zero-padded too), and
-  // the neighbours' sums into the edge arrays E2, E1, ER.
-  auto vertical = [&](int k, float v[4], float* E2, float* E1, float* ER) {
+  // the neighbours' sums into l2, l1 and r0.
+  auto vertical = [&](int k, float v[4]) {
     const int i = i0 + k;
     const float* rows[5];
     bool ok[5];
@@ -199,23 +192,9 @@ __global__ void __launch_bounds__(RT)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (2 * j0 + 4 * u + e >= A.W) v[e] = 0.0f;
-    E2[u + 1] = v[2];
-    E1[u + 1] = v[3];
-    ER[u] = v[0];
-#ifdef RED_EDGE_PAR
-    {  // every thread forms a fifth sum; threads 0..2 keep the strip's edges
-      const int c = u == 0 ? 2 : u == 1 ? 3 : RS_IN - 4;
-      const int col = X0 + c;
-      float s[5];
-#pragma unroll
-      for (int a = 0; a < 5; ++a) s[a] = ok[a] ? rows[a][c] : 0.0f;
-      const float e0 = reduce_pass(s, i, A.Hin, A.Ho, h_odd, A.K, vfix);
-      const float e = (col >= 0 && col < A.W) ? e0 : 0.0f;
-      if (u == 0) E2[0] = e;
-      else if (u == 1) E1[0] = e;
-      else if (u == 2) ER[RT] = e;
-    }
-#else
+    l2[u + 1] = v[2];
+    l1[u + 1] = v[3];
+    r0[u] = v[0];
     if (u < 3) {  // the strip's edge columns: 2 j0 - 2, 2 j0 - 1, 2 j0 + 4 RT
       const int c = u < 2 ? 2 + u : RS_IN - 4;
       const int col = X0 + c;
@@ -224,23 +203,21 @@ __global__ void __launch_bounds__(RT)
       for (int a = 0; a < 5; ++a) s[a] = ok[a] ? rows[a][c] : 0.0f;
       const float e = (col >= 0 && col < A.W) ? reduce_pass(s, i, A.Hin, A.Ho, h_odd, A.K, vfix)
                                               : 0.0f;
-      if (u == 0) E2[0] = e;
-      else if (u == 1) E1[0] = e;
-      else ER[RT] = e;
+      if (u == 0) l2[0] = e;
+      else if (u == 1) l1[0] = e;
+      else r0[RT] = e;
     }
-#endif
   };
   // The horizontal pass of output row i: outputs j and j + 1 from input
   // columns 2j - 2 .. 2j + 4 (the correction keyed on the ROW parity, trap 1).
-  auto horizontal = [&](int i, const float v[4], const float* E2, const float* E1,
-                        const float* ER) {
+  auto horizontal = [&](int i, const float v[4]) {
     const int j = j0 + 2 * u;
     if (j >= A.Wo) return;
-    float s[5] = {E2[u], E1[u], v[0], v[1], v[2]};
+    float s[5] = {l2[u], l1[u], v[0], v[1], v[2]};
     const float o0 = reduce_pass(s, j, A.W, A.Wo, h_odd, A.K, true);
     float* dst = yp + (long long)i * A.Wo + j;
     if (j + 1 < A.Wo) {
-      const float t[5] = {v[0], v[1], v[2], v[3], ER[u + 1]};
+      const float t[5] = {v[0], v[1], v[2], v[3], r0[u + 1]};
       const float o1 = reduce_pass(t, j + 1, A.W, A.Wo, h_odd, A.K, true);
       if (A.vec_out) {
         *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
@@ -253,33 +230,15 @@ __global__ void __launch_bounds__(RT)
     }
   };
 
-#ifdef RED_ONESYNC
-  static_assert(2 * AHEAD + 5 <= RING, "ring too small for one barrier a row");
-  __shared__ float m2[RT + 1], m1[RT + 1], mr[RT + 1];
-  float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k = 0; k <= n_rows; ++k) {
-    if (k < n_rows) cp_async_wait<AHEAD - 1>();
-    __syncthreads();
-    if (k > 0) {
-      if ((k - 1) & 1) horizontal(i0 + k - 1, pv, m2, m1, mr);
-      else horizontal(i0 + k - 1, pv, l2, l1, r0);
-    }
-    if (k == n_rows) break;
-    if (k & 1) vertical(k, pv, m2, m1, mr);
-    else vertical(k, pv, l2, l1, r0);
-    load_group(k + AHEAD);
-  }
-#else
   for (int k = 0; k < n_rows; ++k) {
     cp_async_wait<AHEAD - 1>();
     __syncthreads();  // group k has landed; the previous row's readers are done
     float v[4];
-    vertical(k, v, l2, l1, r0);
+    vertical(k, v);
     __syncthreads();  // the neighbours' sums are visible; ring rows 2k, 2k + 1 are free
     load_group(k + AHEAD);
-    horizontal(i0 + k, v, l2, l1, r0);
+    horizontal(i0 + k, v);
   }
-#endif
   cp_async_wait<0>();
 }
 

@@ -2,7 +2,7 @@
 
 Replaces ``colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:195``
 (``reduce_tpu``). Kernel: ``csrc/pyramid_reduce.cu``, which streams each
-plane down strips of 128 output columns through a cp.async ring of input
+plane down strips of 256 output columns through a cp.async ring of input
 rows and runs both passes in the plain version's order and rounding (both
 keyed on H's parity, trap 1), so it gives the plain version's bits. It
 launches for every level, any number of planes and any size with H, W >= 3:

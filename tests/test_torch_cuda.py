@@ -52,8 +52,8 @@ def _rel_planes(a, b):
                                    (3, 129, 516), (4, 130, 30), (2, 17, 15)])
 def test_reduce_kernel(dev, shape):
     """Odd and even H and W, W % 4 != 0 (4-byte copies) and == 0 (16-byte),
-    H = W = 3, lead dimensions, several row runs (Ho > 64) and strips
-    (Wo > 128)."""
+    H = W = 3, lead dimensions, several row runs (Ho > 32) and strips
+    (Wo > 256)."""
     x = torch.rand(shape, device=dev)
     before = prd.pyramid_reduce.launches
     y = pyramid_reduce(x)
