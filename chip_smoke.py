@@ -68,19 +68,28 @@ Phase 6  the heatmap. First the D modes against their plain versions at
 Phase 7  the non-default configurations, each a copy of the default
          cvvdp_parameters.json with one or two keys changed, written to a
          temporary directory and passed as ``config_paths``. First the
-         contrast-band mode of the band kernel against its plain version,
-         pooled and D, at 4K band 0 (1, 8, 8, 2160, 3840) of the weber_g0_ref
-         decomposition and at the launch that takes its smallest bands; the
-         log-LMS mode of the ingest kernel at 8 frames of 4K; the blur kernel
-         at the texture models' 33 taps on (3, 1080, 1920). Then ``predict``
-         on 12 frames of the phase-3 content (BFCHW, 8-frame blocks) with
-         contrast weber_g0_ref and with log, kernels then plain (JODs within
-         1e-3; ingest, reduce, the contrast mode and the CSF LUT must have
-         launched); a log-contrast "raw" heatmap of the 720p image of phase 6
-         (the D mode on contrast bands); a FHD image with
+         log-LMS mode of the ingest kernel at 8 frames of 4K; the previous
+         contrast-band route's kernel (``band_masking_contrast`` / ``_d``,
+         kept as a yardstick) against its plain version, pooled and D, at
+         4K band 0 (1, 8, 8, 2160, 3840) of the weber_g0_ref decomposition
+         and at the launch that takes its smallest bands. Then the one-pass
+         kernel's contrast-band codings (``band_pooled`` / ``band_pooled_d``
+         with weber_g0_ref and with log, from each band's level and the
+         next) against their plain versions and against that previous
+         route (the plain contrast bands and fields + the yardstick), at
+         4K band 0 and the smallest-bands launch, timed in turns with it at
+         band 0 (D with log, and over the 720p log heatmap's bands); the
+         blur kernel at the texture models' 33 taps on (3, 1080, 1920).
+         Then ``predict`` on 12 frames of the phase-3 content (BFCHW,
+         8-frame blocks) with contrast weber_g0_ref and with log, kernels
+         then plain (JODs within 1e-3; ingest, reduce, ``band_pooled`` and
+         the CSF LUT must have launched; wall time and peak memory); a
+         log-contrast "raw" heatmap of the 720p image of phase 6
+         (``band_pooled_d`` with log); a FHD image with
          mult-transducer-texture (the generic chain: CSF LUT and 33-tap blur
          kernels); and a ``get_loss_fn(1080, 1920)`` step of 2 pairs with
          weber_g0_ref: loss within 1e-4, gradient within 1e-4 of max|g|.
+         The yardstick must launch on none of these paths.
 
 Phase 8  the ColorVideoVDP-ML metrics. First the ingest kernel's first-block
          modes, "replicate" and "head", against their plain version
@@ -123,21 +132,27 @@ Phase 10 the interleave micro-benchmark
 
 Phase 11 multi-device scoring (``colorvideovdp_tpu_torch/parallel``). First
          the reduce kernel's slab mode (``pyramid_reduce_slab``, bit for bit)
-         and the band kernel's halo mode (``band_masking_halo``, pooled sums
-         within 1e-4 relative) against their plain versions at every launch
-         shape the sharded run gives them, rank 0's and rank 1's: 16-frame
-         blocks of 4K on a (1, 2) mesh, the slab reduce at levels 0-2
-         (level 0 (128, 1096, 3840)) and the halo mode at bands 0-3 as
+         and the one-pass kernel's halo mode (``band_pooled_halo``, from gi
+         slabs and the rows of gn their expand reads; pooled sums within
+         1e-4 relative of its plain version and bit for bit those of the
+         previous route, the slab of the plain expand +
+         ``band_masking_halo``, itself held to its plain version) at every
+         launch shape the sharded run gives them, rank 0's and rank 1's:
+         16-frame blocks of 4K on a (1, 2) mesh, the slab reduce at levels
+         0-2 (level 0 (128, 1096, 3840)) and the halo mode at bands 0-3 as
          ``band_groups`` packs them; timed at level 0 and the first halo
-         launch, with their bounds; each launch's two ranks' halo sums against
-         the whole bands'. Then the phase-3 clip (BFCHW, so no host relayout)
-         through ``shard_video_fn`` on a (1, 2) mesh via ``run_ranks``: NCCL
+         launch, the halo mode in turns with the previous route, with their
+         bounds and each halo exchange's bytes; each launch's two ranks'
+         halo sums against the whole bands'. Then the phase-3 clip (BFCHW,
+         so no host relayout) through ``shard_video_fn`` on a (1, 2) mesh
+         via ``run_ranks``: NCCL
          with one rank per card where there are two or more cards, else two
          gloo ranks sharing card 0, ``gpu_mem`` set for the same 16-frame
          blocks (each rank's must be 16 frames). The JOD must be within 0.01
          of 7.8784 and within 1e-4 of phase 3's, on every rank, and both new
-         modes, ingest (replicate and tail), reduce, band masking and the CSF
-         LUT must have launched on every rank. Each rank's set-up (groups,
+         modes, ingest (replicate and tail), reduce, the one-pass band
+         kernel and the CSF LUT must have launched on every rank, and
+         ``band_masking_halo`` on none. Each rank's set-up (groups,
          metric, kernel library, one collective per group) is timed apart
          from its block loop, and each block is timed.
 
@@ -146,6 +161,11 @@ take for the same work, the larger of the bytes it must move (each input
 read once, each output written once) over the HBM rate and its float32
 operations (a transcendental counts as one) over the non-tensor float32
 peak, both from the published H100 SXM figures at 700 W.
+
+The previous routes' kernels (``band_masking``, ``band_masking_d``,
+``band_masking_d_noblur``, ``band_masking_contrast``, ``_contrast_d``,
+``band_masking_halo``) are yardsticks: a launch of any of them on any path
+fails the run.
 
 Any failure raises (non-zero exit). The last line of standard output is a
 JSON object naming the device; the line before it is the card's name and
@@ -172,7 +192,7 @@ TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_poole
        "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
        "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
        "interleave": 0.0, "concat": 0.0, "deinterleave": 0.0,
-       "pyramid_reduce_slab": 0.0, "band_masking_halo": 1e-4}
+       "pyramid_reduce_slab": 0.0, "band_masking_halo": 1e-4, "band_pooled_halo": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # Training step bounds (phase 5): kernels against plain on the card.
@@ -186,6 +206,10 @@ ML_JOD_TOL = 1e-3
 MEGA_JOD_TOL = 1e-4
 # Multi-device scoring (phase 11): JOD against single-device scoring.
 SHARD_JOD_TOL = 1e-4
+# The previous routes' kernels, kept as the one-pass kernel's yardsticks:
+# they must launch on no path.
+YARDSTICKS = ("band_masking", "band_masking_d", "band_masking_d_noblur", "band_masking_contrast",
+              "band_masking_contrast_d", "band_masking_halo")
 
 
 def log(*args):
@@ -515,16 +539,19 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     return heat_launches
 
 
-def phase_configs(m, fps, record, counters, gen):
+def phase_configs(m, fps, rows, record, counters, gen):
     """Phase 7; returns the kernels' launch counts per path."""
     import shutil
     import tempfile
 
     import colorvideovdp_tpu_torch as cvt
     from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
+    from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
     from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
-    from colorvideovdp_tpu_torch.ops.pyramid import LaplacianPyramid
+    from colorvideovdp_tpu_torch.ops.kernels.pyramid_reduce import pyramid_reduce as prd_reduce
+    from colorvideovdp_tpu_torch.ops.pyramid import (LaplacianPyramid, gausspyr_expand,
+                                                     interior_contrast)
     from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
     from colorvideovdp_tpu_torch.utils.config import write_parameters
 
@@ -565,6 +592,7 @@ def phase_configs(m, fps, record, counters, gen):
         log(f"  ingest log-LMS mode: max abs error {max_abs(out_k[0], out_p[0]):.3e}, kernel "
             f"{k_log:.3f} ms, plain {time_ms(lambda: ingest.ingest_plain(*args)):.3f} ms, bound "
             f"{b_log[0]:.3f} ms ({b_log[1]}, {100 * b_log[0] / k_log:.1f}% of it)")
+        R_log = out_k[0]  # the log coding's 4K block
         del out_k, out_p, args, log_tails
         tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, fl - 1, -1, -1).contiguous()
                  for r in raws]
@@ -573,7 +601,6 @@ def phase_configs(m, fps, record, counters, gen):
         mg._ensure_pyramids(W, H)
         consts, luts = mg._band_tables(4)
         bands, L_bkg = mg.lpyr.decompose(R, raw_pairs=False, use_kernel=False)
-        del R
 
         def contrast_args(sel):
             return ([LaplacianPyramid.get_band(bands, bb) for bb in sel],
@@ -625,6 +652,119 @@ def phase_configs(m, fps, record, counters, gen):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+        # The contrast-band codings of the one-pass kernel (the route of both
+        # contrasts): from each 4K band's level gi and the next level gn, the
+        # coding formed per sample. Against their plain versions, and against
+        # the previous route (plain interior_contrast on gi and the plain
+        # expand of gn, the band gain, then band_masking_contrast(_d)), at
+        # band 0 and the launch that takes the smallest bands; timed in
+        # turns with that route at 4K band 0 (pooled, both codings; D with
+        # log), and D over the 720p log heatmap's bands in one launch.
+        ml_ = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                        config_paths=cfg["log"])
+        ml_._ensure_pyramids(W, H)
+        coding_consts = {"weber_g0_ref": consts, "log": ml_._band_tables(4)[0]}
+        n_lv = len(mg.lpyr.pyr_shape)
+
+        def previous_contrast(a, d_out=False):
+            out = [interior_contrast(gi, gausspyr_expand(gn, gi.shape[-2:]), a[4].coding)
+                   for gi, gn in zip(a[0], a[1])]
+            xs, Ls = [b * mul for (b, _), mul in zip(out, a[3])], [L for _, L in out]
+            if not d_out:
+                return masking_fused.band_masking_contrast(xs, Ls, a[2], a[4])
+            # The D mode takes one blur flag a launch: a launch a band.
+            return [masking_fused.band_masking_contrast_d([x], [L], a[2][i:i + 1], a[4])[0]
+                    for i, (x, L) in enumerate(zip(xs, Ls))]
+
+        def pooled_bound(a, extra=0):
+            # As band_pooled's (phase 2): gi's 2C planes and gn's 2C quarter
+            # planes read once, the tables, C partial sums a 32x32 tile and
+            # the sums written (+ D); ~115 operations a pixel and channel.
+            B_, C2_, F_ = a[0][0].shape[:3]
+            n_tiles = B_ * F_ * sum(-(-gi.shape[-2] // 32) * -(-gi.shape[-1] // 32)
+                                    for gi in a[0])
+            return bound(nbytes(*a[0], *a[1], a[2]) + 4 * (C2_ // 2) * n_tiles
+                         + 4 * len(a[0]) * B_ * (C2_ // 2) * F_ + extra,
+                         115 * sum(gi.numel() for gi in a[0]) // 2)
+
+        modes_p, modes_d = {}, {}
+        for coding, R_c in (("weber_g0_ref", R), ("log", R_log)):
+            kc = coding_consts[coding]
+            levels = [R_c]
+            for _ in range(1, n_lv):
+                levels.append(prd_reduce(levels[-1]))
+            shapes_c = [lv.shape[-2:] for lv in levels[:-1]]
+            groups_c = masking_fused.band_groups(shapes_c, 1, 4, blk, gn=True)
+            log(f"phase 7: {coding}: band_pooled launches per 4K block: {groups_c}")
+            errs, abs_errs = [], []
+            for sel in ([0], groups_c[-1]):
+                a = ([levels[bb] for bb in sel], [levels[bb + 1] for bb in sel],
+                     luts[sel[0]:sel[-1] + 1].contiguous(),
+                     [1.0 if bb == 0 else 2.0 for bb in sel], kc)
+                note = f"{coding} bands {sel} {[tuple(x.shape[-2:]) for x in a[0]]}"
+                s_k, s_p, s_r = bp.band_pooled(*a), bp.band_pooled_plain(*a), previous_contrast(a)
+                D_k, s_d = bp.band_pooled_d(*a)
+                D_p, _ = bp.band_pooled_d_plain(*a)
+                D_r = previous_contrast(a, d_out=True)
+                q_k, q_p, q_r = ([masking_fused.pooled_norm(x[j], *gi.shape[-2:], mg.beta)
+                                  for j, gi in enumerate(a[0])] for x in (s_k, s_p, s_r))
+                errs.append(max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_p)))
+                abs_errs.append(max(max_abs(x, y) for x, y in zip(q_k, q_p)))
+                check(f"band_pooled {note} vs plain", errs[-1], TOL["band_pooled"])
+                check(f"band_pooled {note} vs the previous route",
+                      max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_r)), TOL["band_pooled"])
+                log(f"  band_pooled {note}: max |kernel - previous route| {max_abs(s_k, s_r):.3e}"
+                    f" (sums), bit-equal {bool(torch.equal(s_k, s_r))}")
+                check(f"band_pooled_d {note} sums vs band_pooled", max_abs(s_d, s_k), 0.0)
+                check(f"band_pooled_d {note} vs plain",
+                      max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_p)), TOL["band_pooled_d"])
+                check(f"band_pooled_d {note} vs the previous route",
+                      max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_r)), TOL["band_pooled_d"])
+                log(f"  band_pooled_d {note}: max |D kernel - previous route| "
+                    f"{max(max_abs(x, y) for x, y in zip(D_k, D_r)):.3e}, bit-equal "
+                    f"{all(torch.equal(x, y) for x, y in zip(D_k, D_r))}")
+                if sel == [0]:
+                    turns = [time_ms(lambda: previous_contrast(a)), time_ms(lambda: bp.band_pooled(*a)),
+                             time_ms(lambda: bp.band_pooled(*a)), time_ms(lambda: previous_contrast(a))]
+                    b_c = pooled_bound(a)
+                    k_ms = (turns[1] + turns[2]) / 2
+                    modes_p[coding] = dict(
+                        shape=tuple_str(a[0][0].shape), ms=k_ms, turns_ms=turns,
+                        was_ms=(turns[0] + turns[3]) / 2,
+                        plain_ms=time_ms(lambda: bp.band_pooled_plain(*a)), bound_ms=b_c[0],
+                        bound_by=b_c[1], max_abs_err=abs_errs[-1],
+                        bit_equal_to_previous_route=bool(torch.equal(s_k, s_r)))
+                    log(f"  band_pooled {coding} 4K band 0: kernel {turns[1]:.3f}/{turns[2]:.3f} ms, "
+                        f"previous route (plain contrast + band_masking_contrast) {turns[0]:.3f}/"
+                        f"{turns[3]:.3f} ms, plain {modes_p[coding]['plain_ms']:.3f} ms, bound "
+                        f"{b_c[0]:.4f} ms ({b_c[1]}, {100 * b_c[0] / k_ms:.1f}% of it)")
+                    if coding == "log":
+                        turns = [time_ms(lambda: previous_contrast(a, True)),
+                                 time_ms(lambda: bp.band_pooled_d(*a)),
+                                 time_ms(lambda: bp.band_pooled_d(*a)),
+                                 time_ms(lambda: previous_contrast(a, True))]
+                        b_d = pooled_bound(a, nbytes(*D_k))
+                        k_ms = (turns[1] + turns[2]) / 2
+                        modes_d["log"] = dict(
+                            shape=tuple_str(a[0][0].shape), ms=k_ms, turns_ms=turns,
+                            was_ms=(turns[0] + turns[3]) / 2,
+                            plain_ms=time_ms(lambda: bp.band_pooled_d_plain(*a)),
+                            bound_ms=b_d[0], bound_by=b_d[1],
+                            max_abs_err=max(max_abs(x, y) for x, y in zip(D_k, D_p)),
+                            bit_equal_to_previous_route=all(
+                                torch.equal(x, y) for x, y in zip(D_k, D_r)))
+                        log(f"  band_pooled_d log 4K band 0: kernel {turns[1]:.3f}/{turns[2]:.3f} "
+                            f"ms, previous route (plain contrast + band_masking_contrast_d) "
+                            f"{turns[0]:.3f}/{turns[3]:.3f} ms, bound {b_d[0]:.4f} ms ({b_d[1]}, "
+                            f"{100 * b_d[0] / k_ms:.1f}% of it)")
+                del a, s_k, s_p, s_r, D_k, D_p, D_r, s_d
+                torch.cuda.empty_cache()
+            modes_p[coding]["max_rel_err"] = max(errs)
+            del levels
+        del R, R_log
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
         # The texture models' blur: 33 taps, radius 16.
         taps33 = gaussian_kernel1d(33, 8.0)
         xb = torch.rand((3, 1080, 1920), device=dev, generator=gen)
@@ -638,11 +778,11 @@ def phase_configs(m, fps, record, counters, gen):
             f"{b33[0]:.4f} ms ({b33[1]}, {100 * b33[0] / k33:.1f}% of it)")
         del xb, y_k, y_p
 
-        # predict with the two contrasts on the contrast-band route.
+        # predict with the two contrasts: the one-pass kernel's codings.
         V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
         V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None])
                          for v in (V_test, V_ref))
-        contrast_path = ("ingest", "pyramid_reduce", "band_masking_contrast", "csf_lut")
+        contrast_path = ("ingest", "pyramid_reduce", "band_pooled", "csf_lut")
         for name in ("weber_g0_ref", "log"):
             jods = {}
             for fused in (True, False):
@@ -651,6 +791,7 @@ def phase_configs(m, fps, record, counters, gen):
                 mv.enable_fused_kernels = fused
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
                 for fn in counters.values():
                     fn.launches = 0
                 t0 = time.time()
@@ -658,11 +799,12 @@ def phase_configs(m, fps, record, counters, gen):
                 jods[fused] = float(Q)
                 torch.cuda.synchronize()
                 dt = time.time() - t0
+                peak = torch.cuda.max_memory_allocated() / 2**30
                 counts = {k: fn.launches for k, fn in counters.items()}
                 if fused:
                     launches[f"{name}_4k_video"] = counts
                 log(f"phase 7: {name} {'kernels' if fused else 'plain  '}: JOD {jods[fused]:.6f}, "
-                    f"blk {st['block_N_frames']}, {dt:.3f} s, launches "
+                    f"blk {st['block_N_frames']}, {dt:.3f} s, peak {peak:.2f} GiB, launches "
                     f"{ {k: v for k, v in counts.items() if v} }")
             if not all(math.isfinite(j) for j in jods.values()):
                 raise AssertionError(f"{name}: JOD is not finite")
@@ -696,8 +838,54 @@ def phase_configs(m, fps, record, counters, gen):
             f"{ {k: v for k, v in launches['log_heatmap_720p_image'].items() if v} }")
         if not (d_hm <= HEATMAP_TOL and abs(hms[True][0] - hms[False][0]) <= 1e-3):
             raise AssertionError("log heatmap: kernels disagree with plain")
-        if launches["log_heatmap_720p_image"]["band_masking_contrast_d"] <= 0:
-            raise AssertionError("band_masking_contrast_d was not launched on the heatmap path")
+        if launches["log_heatmap_720p_image"]["band_pooled_d"] <= 0:
+            raise AssertionError("band_pooled_d was not launched on the log heatmap path")
+
+        # The log heatmap's D launch at its shapes: every interior band of
+        # the 720p image in one band_pooled_d launch (C = 3), in turns with
+        # the previous route (one band_masking_contrast_d launch per blur
+        # group, fed the plain contrast bands).
+        mh = cvt.cvvdp(display_name="standard_4k", device="cuda", quiet=True,
+                       config_paths=cfg["log"])
+        mh._ensure_pyramids(1280, 720)
+        kh, luts_h = mh._band_tables(3)
+        g720 = [torch.rand((1, 6, 1, 720, 1280), device=dev, generator=gen) * 2 - 1]
+        for _ in range(1, len(mh.lpyr.pyr_shape)):
+            g720.append(prd_reduce(g720[-1]))
+        sel = list(range(len(g720) - 1))
+        a = (g720[:-1], g720[1:], luts_h, [1.0] + [2.0] * (len(sel) - 1), kh)
+        blurs = [kh.params.blurs(*x.shape[-2:]) for x in a[0]]
+
+        def previous_720(a=a):
+            out = [interior_contrast(gi, gausspyr_expand(gn, gi.shape[-2:]), "log")
+                   for gi, gn in zip(a[0], a[1])]
+            xs = [b * mul for (b, _), mul in zip(out, a[3])]
+            Ds = []
+            for grp in masking_fused.band_groups([x.shape[-2:] for x in xs], 1, 3, 1, blurs,
+                                                 contrast=True):
+                Ds += masking_fused.band_masking_contrast_d(
+                    [xs[i] for i in grp], [out[i][1] for i in grp], a[2][grp[0]:grp[-1] + 1],
+                    a[4])
+            return Ds
+
+        D_k, _ = bp.band_pooled_d(*a)
+        D_r = previous_720()
+        D_p, _ = bp.band_pooled_d_plain(*a)
+        check(f"band_pooled_d log 720p bands {[tuple(x.shape[-2:]) for x in a[0]]} vs plain",
+              max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_p)), TOL["band_pooled_d"])
+        check("band_pooled_d log 720p bands vs the previous route",
+              max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_r)), TOL["band_pooled_d"])
+        turns = [time_ms(previous_720), time_ms(lambda: bp.band_pooled_d(*a)),
+                 time_ms(lambda: bp.band_pooled_d(*a)), time_ms(previous_720)]
+        b_h = pooled_bound(a, nbytes(*D_k))
+        modes_d["log_720p_image"] = dict(
+            shape=tuple_str(a[0][0].shape), ms=(turns[1] + turns[2]) / 2, turns_ms=turns,
+            was_ms=(turns[0] + turns[3]) / 2, bound_ms=b_h[0], bound_by=b_h[1],
+            bit_equal_to_previous_route=all(torch.equal(x, y) for x, y in zip(D_k, D_r)))
+        log(f"  band_pooled_d log 720p image, {len(sel)} bands in one launch: kernel "
+            f"{turns[1]:.3f}/{turns[2]:.3f} ms, previous route {turns[0]:.3f}/{turns[3]:.3f} ms, "
+            f"bit-equal {modes_d['log_720p_image']['bit_equal_to_previous_route']}")
+        del g720, a, D_k, D_r, D_p
 
         # The generic chain: a FHD image with mult-transducer-texture.
         rng = np.random.RandomState(5)
@@ -754,10 +942,16 @@ def phase_configs(m, fps, record, counters, gen):
             f"{ {k: v for k, v in launches['train_fhd_weber_g0_ref'].items() if v} }")
         if not (d_loss <= LOSS_TOL and d_grad <= GRAD_TOL and res[True][1].abs().max() > 0):
             raise AssertionError("weber_g0_ref training step: kernels disagree with plain")
-        if launches["train_fhd_weber_g0_ref"]["band_masking_contrast"] <= 0:
-            raise AssertionError("band_masking_contrast was not launched on the training path")
+        if launches["train_fhd_weber_g0_ref"]["band_pooled"] <= 0:
+            raise AssertionError("band_pooled was not launched on the training path")
+        for path, counts in launches.items():
+            for k in ("band_masking_contrast", "band_masking_contrast_d"):
+                if counts[k]:
+                    raise AssertionError(f"{k}, the previous route, launched on the {path} path")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    rows["band_pooled"]["modes"] = modes_p
+    rows["band_pooled_d"]["modes"] = modes_d
     log(f"phase 7: {time.time() - t_phase:.1f} s")
     return launches
 
@@ -1144,12 +1338,12 @@ def phase_interleave(record, counters):
 
 # The kernels every rank of the sharded 4K video must launch (phase 11).
 SHARD_PATH = ("ingest", "ingest_replicate", "pyramid_reduce", "pyramid_reduce_slab",
-              "band_pooled", "band_masking_halo", "csf_lut")
+              "band_pooled", "band_pooled_halo", "csf_lut")
 # Frames per block of the sharded run; phase 11 holds the kernels at its shapes.
 SHARD_BLOCK = 16
 
 
-def phase_sharded(m, fps, record, jod_single, gen):
+def phase_sharded(m, fps, rows, record, jod_single, gen):
     """Phase 11; returns the launch counts of the sharded run, summed over
     the ranks."""
     import os
@@ -1158,6 +1352,7 @@ def phase_sharded(m, fps, record, jod_single, gen):
     from types import SimpleNamespace
 
     from colorvideovdp_tpu_torch.ops import pyramid as pyr
+    from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
     from colorvideovdp_tpu_torch.parallel import run_ranks
@@ -1193,7 +1388,7 @@ def phase_sharded(m, fps, record, jod_single, gen):
     halo = [bb for bb in range(min(n_red + 1, len(shapes) - 1))
             if sh.band_shardable(params, *shapes[bb], SimpleNamespace(n_space=n_sp))]
     groups = [[halo[i] for i in sel] for sel in bm.band_groups(
-        [(shapes[bb][0] // n_sp + 2 * r, shapes[bb][1]) for bb in halo], 1, 4, blk)]
+        [(shapes[bb][0] // n_sp + 2 * r, shapes[bb][1]) for bb in halo], 1, 4, blk, gn=True)]
     log(f"phase 11: {blk}-frame blocks: slab reduce at levels {list(range(n_red))}, "
         f"halo launches {groups}")
 
@@ -1217,36 +1412,125 @@ def phase_sharded(m, fps, record, jod_single, gen):
         del x, xs, y_k, y_p
     record("pyramid_reduce_slab", max(errs), max(abs_errs), k_ms, p_ms, b_red)
 
-    # The halo mode at every launch it takes, C = 4; per group, the two
-    # ranks' sums against the whole bands' pooled mode.
+    # The one-pass kernel's halo mode (band_pooled_halo, the route) at every
+    # launch it takes, C = 4, from gi slabs and the rows of gn their expand
+    # reads (5 a side of a sharded gn, levels 1..n_red; a replicated gn
+    # whole), against its plain version and bit for bit against the
+    # previous route, the slab of the plain expand + band_masking_halo (the
+    # yardstick, also held against its own plain version); per group the two
+    # ranks' sums against the whole bands' band_pooled. Timed at the first
+    # launch on rank 0, in turns with the previous route on the device:
+    # expand_slab's work (the rank's rows of the expand from gn's rows and
+    # one neighbour row a side), E's halo rows joined, band_masking_halo.
     consts, luts = m._band_tables(4)
-    errs, abs_errs = [], []
+    gr = bp.GN_HALO_ROWS
+
+    def gn_rows(gn, s, sharded):
+        """(rows, row0) of gn as sharding.halo_gn hands them over."""
+        if not sharded:
+            return gn, 0
+        hn_loc = gn.shape[-2] // n_sp
+        z = torch.zeros_like(gn[..., :gr, :])
+        above = gn[..., s * hn_loc - gr:s * hn_loc, :] if s > 0 else z
+        below = gn[..., (s + 1) * hn_loc:(s + 1) * hn_loc + gr, :] if s < n_sp - 1 else z
+        return (torch.cat([above, gn[..., s * hn_loc:(s + 1) * hn_loc, :], below], -2)
+                .contiguous(), s * hn_loc - gr)
+
+    def previous_E(gn, s, h, w, sharded):
+        """E's rows of rank s as expand_slab forms them, with their halo."""
+        h_loc = h // n_sp
+        hn = gn.shape[-2]
+        if sharded:
+            hn_loc = hn // n_sp
+            z = torch.zeros_like(gn[..., :1, :])
+            src = torch.cat([gn[..., s * hn_loc - 1:s * hn_loc, :] if s > 0 else z,
+                             gn[..., s * hn_loc:(s + 1) * hn_loc, :],
+                             gn[..., (s + 1) * hn_loc:(s + 1) * hn_loc + 1, :]
+                             if s < n_sp - 1 else z], -2)
+            row0 = s * hn_loc - 1
+        else:
+            src, row0 = gn, 0
+        y = torch.arange(s * h_loc, (s + 1) * h_loc, device=gn.device)
+        return pyr.expand_rows(src, row0, hn, y, w)
+
+    errs, abs_errs, errs_y, abs_y = [], [], [], []
     for g, sel in enumerate(groups):
         gis = [torch.rand((1, 8, blk) + tuple(shapes[bb]), device=dev, generator=gen) * 20 + 30
                for bb in sel]
-        Es = [gi + torch.randn(gi.shape, device=dev, generator=gen) for gi in gis]
+        gns = [prd.pyramid_reduce(gi) for gi in gis]
+        sharded = [bb + 1 <= n_red for bb in sel]
         muls = [1.0 if bb == 0 else 2.0 for bb in sel]
-        whole = bm.band_masking(gis, Es, luts[sel], muls, consts)
+        whole = bp.band_pooled(gis, gns, luts[sel], muls, consts)
+        E_full = [pyr.gausspyr_expand(gn, gi.shape[-2:]) for gi, gn in zip(gis, gns)]
         total = 0
         for s in range(n_sp):
-            args = ([slab(gi, s, "reflect") for gi in gis], [slab(E, s, "reflect") for E in Es],
-                    luts[sel], muls, consts, [shapes[bb][0] // n_sp for bb in sel])
-            s_k, s_p = bm.band_masking_halo(*args), bm.band_masking_halo_plain(*args)
+            xs = [slab(gi, s, "reflect") for gi in gis]
+            ys, row0s = zip(*[gn_rows(gn, s, sh_) for gn, sh_ in zip(gns, sharded)])
+            ys = list(ys)
+            slabs = [(s * (shapes[bb][0] // n_sp), shapes[bb][0], row0)
+                     for bb, row0 in zip(sel, row0s)]
+            h_valids = [shapes[bb][0] // n_sp for bb in sel]
+            args = (xs, ys, luts[sel], muls, consts, slabs)
+            s_k, s_p = bp.band_pooled_halo(*args), bp.band_pooled_halo_plain(*args)
+            Es = [slab(E, s, "reflect") for E in E_full]
+            y_args = (xs, Es, luts[sel], muls, consts, h_valids)
+            s_r = bm.band_masking_halo(*y_args)
             errs.append(rel_err_per(s_k, s_p, 2))
             abs_errs.append(max_abs(s_k, s_p))
+            errs_y.append(rel_err_per(s_r, bm.band_masking_halo_plain(*y_args), 2))
+            abs_y.append(max_abs(s_r, bm.band_masking_halo_plain(*y_args)))
+            check(f"band_pooled_halo bands {sel} rank {s} vs the previous route", max_abs(s_k, s_r),
+                  0.0)
             total = total + s_k
-            log(f"  band_masking_halo bands {sel} rank {s} "
-                f"{[tuple(x.shape) for x in args[0]]}: error {errs[-1]:.3e}")
+            log(f"  band_pooled_halo bands {sel} rank {s} {[tuple(x.shape) for x in xs]}, gn "
+                f"{[tuple(y.shape[-2:]) for y in ys]} from rows {list(row0s)}: error vs plain "
+                f"{errs[-1]:.3e}; band_masking_halo vs its plain {errs_y[-1]:.3e}")
             if g == 0 and s == 0:
-                k_ms = time_ms(lambda: bm.band_masking_halo(*args))
-                p_ms = time_ms(lambda: bm.band_masking_halo_plain(*args))
+                # Rank 0's E halo below: rank 1's first E rows (its own work).
+                E_below = [E[..., h_loc:h_loc + r, :] for E, h_loc in zip(E_full, h_valids)]
+
+                def previous_route():
+                    Eh = []
+                    for gn, gi, sh_, below in zip(gns, gis, sharded, E_below):
+                        E_own = previous_E(gn, 0, gi.shape[-2], gi.shape[-1], sh_)
+                        Eh.append(torch.cat([E_own[..., 1:r + 1, :].flip(-2), E_own, below], -2))
+                    return bm.band_masking_halo(xs, Eh, luts[sel], muls, consts, h_valids)
+
+                check("previous route as timed vs band_masking_halo on the slabs",
+                      max_abs(previous_route(), s_r), 0.0)
+                turns = [time_ms(previous_route), time_ms(lambda: bp.band_pooled_halo(*args)),
+                         time_ms(lambda: bp.band_pooled_halo(*args)), time_ms(previous_route)]
+                k_ms, was_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                p_ms = time_ms(lambda: bp.band_pooled_halo_plain(*args))
+                # gi's slab and gn's rows read once, the tables, C partials a
+                # tile of the owned rows and the sums written; ~115
+                # operations a pixel and channel of the owned rows.
+                n_tiles = blk * sum(-(-hv // 32) * -(-x.shape[-1] // 32)
+                                    for hv, x in zip(h_valids, xs))
+                b_pd = bound(nbytes(*xs, *ys, luts[sel], s_k) + 4 * 4 * n_tiles,
+                             sum(115 * 4 * blk * hv * x.shape[-1] for hv, x in zip(h_valids, xs)))
+                y_ms = time_ms(lambda: bm.band_masking_halo(*y_args))
+                y_pms = time_ms(lambda: bm.band_masking_halo_plain(*y_args))
                 # As band_masking's bound (phase 2) on the slabs: gi and E read once.
-                b_halo = bound(2 * nbytes(*args[0]) + nbytes(luts[sel], s_k),
-                               sum(95 * x.numel() // 2 for x in args[0]))
-        check(f"band_masking_halo bands {sel}: the ranks' sums against the whole bands",
-              rel_err_per(total, whole, 2), TOL["band_masking_halo"])
-        del gis, Es, args, s_k, s_p, whole, total
-    record("band_masking_halo", max(errs), max(abs_errs), k_ms, p_ms, b_halo)
+                b_halo = bound(2 * nbytes(*xs) + nbytes(luts[sel], s_r),
+                               sum(95 * x.numel() // 2 for x in xs))
+                log(f"  band_pooled_halo bands {sel} rank 0: kernel {turns[1]:.3f}/{turns[2]:.3f} "
+                    f"ms, previous route (expand_slab + E's halo rows + band_masking_halo) "
+                    f"{turns[0]:.3f}/{turns[3]:.3f} ms, band_masking_halo alone {y_ms:.3f} ms, "
+                    f"bound {b_pd[0]:.4f} ms ({b_pd[1]}, {100 * b_pd[0] / k_ms:.1f}% of it)")
+                for bb, x, y, sh_ in zip(sel, xs, ys, sharded):
+                    C2, F_, w = x.shape[1], x.shape[2], x.shape[-1]
+                    e_bytes = 2 * r * w * C2 * F_ * 4
+                    g_bytes = 2 * gr * y.shape[-1] * C2 * F_ * 4 if sh_ else 0
+                    log(f"  halo exchange of band {bb} a rank: E's 2 x {r} rows {e_bytes / 1e6:.3f}"
+                        f" MB, gn's {'2 x %d rows' % gr if sh_ else 'none (replicated)'} "
+                        f"{g_bytes / 1e6:.3f} MB, gi's 2 x {r} rows {e_bytes / 1e6:.3f} MB both")
+        check(f"band_pooled_halo bands {sel}: the ranks' sums against the whole bands",
+              rel_err_per(total, whole, 2), TOL["band_pooled_halo"])
+        del gis, gns, E_full, xs, ys, Es, args, y_args, s_k, s_p, s_r, whole, total
+    record("band_pooled_halo", max(errs), max(abs_errs), k_ms, p_ms, b_pd)
+    rows["band_pooled_halo"].update(was_ms=was_ms, turns_ms=turns)
+    record("band_masking_halo", max(errs_y), max(abs_y), y_ms, y_pms, b_halo)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1285,6 +1569,9 @@ def phase_sharded(m, fps, record, jod_single, gen):
         for k in SHARD_PATH:
             if rr["launches"][k] <= 0:
                 raise AssertionError(f"rank {rr['rank']}: kernel {k} was not launched")
+        if rr["launches"]["band_masking_halo"]:
+            raise AssertionError(f"rank {rr['rank']}: band_masking_halo, the previous route, "
+                                 "launched")
         if not abs(jod - jod_single) <= SHARD_JOD_TOL:
             raise AssertionError(f"rank {rr['rank']}: sharded JOD {jod} vs single-device "
                                  f"{jod_single}")
@@ -1884,7 +2171,7 @@ def main():
     heat_launches = phase_heatmap(m, fps, rows, record, counters, gen)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    config_launches = phase_configs(m, fps, record, counters, gen)
+    config_launches = phase_configs(m, fps, rows, record, counters, gen)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ml_launches = phase_ml(m, fps, record, counters, gen)
@@ -1896,7 +2183,7 @@ def main():
     il_launches = phase_interleave(record, counters)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    shard_launches = phase_sharded(m, fps, record, jod_k, gen)
+    shard_launches = phase_sharded(m, fps, rows, record, jod_k, gen)
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -1930,6 +2217,8 @@ def main():
                                 "colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:238"),
         "band_masking_halo": ("band_masking.cu",
                               "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
+        "band_pooled_halo": ("band_pooled.cu",
+                             "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
     }
     if set(kernels) != set(counters):
         raise AssertionError(f"the kernels line {sorted(kernels)} and the counted wrappers "
@@ -1943,7 +2232,7 @@ def main():
                    **{p: c[k] for p, c in mega_launches.items()},
                    **{p: c[k] for p, c in il_launches.items()},
                    "sharded_4k_video": shard_launches[k]}
-        if k in ("pyramid_reduce_slab", "band_masking_halo"):
+        if k in ("pyramid_reduce_slab", "band_masking_halo", "band_pooled_halo"):
             n_main = shard_launches[k]
         elif k in ("interleave", "concat", "deinterleave"):
             n_main = il_launches["interleave_bench"][k]
@@ -1963,6 +2252,8 @@ def main():
         else:
             n_main = (heat_launches if k in ("band_pooled_d",) + HEAT_OFF_PATH else
                       train_launches if k in train_path else launches)[k]
+        if k in YARDSTICKS and any(by_path.values()):
+            raise AssertionError(f"{k}, a yardstick of the one-pass kernel, launched: {by_path}")
         line.append({"name": k, "route": "cuda", "source": src + f, "replaces": rep,
                      "launches": n_main, "launches_by_path": by_path, **rows[k]})
     print(json.dumps({"kernels": line}))

@@ -1,4 +1,5 @@
-// The band kernels' shared arithmetic: stage A on raw pairs, the expand tap,
+// The band kernels' shared arithmetic: stage A on raw pairs and on contrast
+// bands, the expand tap,
 // the stage-B transducer and its epilogue, the block sums and stage C.
 // csrc/band_masking.cu (stages A, B and C, the halo and contrast-band modes)
 // and csrc/band_pooled.cu (the one-pass raw-band kernel, pooled and D) both
@@ -28,6 +29,17 @@ __device__ __forceinline__ void raw_pair(float g_t, float e_t, float g_r, float 
                                          float lb_r, float S, float& mpre, float& diff) {
   const float T = __fmul_rn(min1000(__fdiv_rn(__fsub_rn(g_t, e_t), lb_t)), S);
   const float R = __fmul_rn(min1000(__fdiv_rn(__fsub_rn(g_r, e_r), lb_r)), S);
+  mpre = fminf(fabsf(T), fabsf(R));
+  diff = fabsf(__fsub_rn(T, R));
+}
+
+// Stage A on a pair of pre-formed contrast-band samples (at full band
+// gain): T = band_t * S * g, R likewise, each product rounded as
+// masking.apply_masking_model rounds it (S = 10^lut_c(logL) * sens_corr).
+__device__ __forceinline__ void contrast_pair(float b_t, float b_r, float S, float g,
+                                              float& mpre, float& diff) {
+  const float T = __fmul_rn(__fmul_rn(b_t, S), g);
+  const float R = __fmul_rn(__fmul_rn(b_r, S), g);
   mpre = fminf(fabsf(T), fabsf(R));
   diff = fabsf(__fsub_rn(T, R));
 }

@@ -14,10 +14,11 @@
 //     on a band whose blur is skipped: here the same stage B with a unit
 //     tap), and
 //   band_stack.py `make_band_stack` (`_stack_kernel`, all narrow bands).
-// The raw bands the metric scores, pooled or as D for its heatmap, take
-// csrc/band_pooled.cu, which expands the next level inside and gives this
-// kernel's bits fed the plain expand; the raw-pair modes here stay as its
-// yardstick.
+// The metric's bands, pooled or as D for its heatmap, in every contrast
+// coding and in the sharded halo mode, take csrc/band_pooled.cu, which
+// expands the next level and forms the coding inside and gives this
+// kernel's bits fed the plain expand or the plain contrast bands; every
+// mode here stays as its yardstick, launched on no path.
 // One launch handles a list of up to BM_MAX_BANDS bands of any sizes (per-band
 // LUT rows, sizes and gains come from the band table, so one build serves
 // every band); ops/kernels/masking_fused.py `band_groups` picks the lists.
@@ -145,10 +146,8 @@ __global__ void band_stage_a(BandParams P) {
     for (int c = 0; c < C; ++c) {
       const float S = __fmul_rn(pow10_lut(lut_lerp(lut + c * P.nk, P.nk, ind)), P.sens_corr);
       const long long it = in0 + (2 * c) * cstride;
-      const float T = __fmul_rn(__fmul_rn(d.gi[it], S), P.ch_gain[c]);
-      const float R = __fmul_rn(__fmul_rn(d.gi[it + cstride], S), P.ch_gain[c]);
-      d.mpre[out0 + c * cstride] = fminf(fabsf(T), fabsf(R));
-      d.diff[out0 + c * cstride] = fabsf(__fsub_rn(T, R));
+      contrast_pair(d.gi[it], d.gi[it + cstride], S, P.ch_gain[c], d.mpre[out0 + c * cstride],
+                    d.diff[out0 + c * cstride]);
     }
     return;
   }

@@ -18,6 +18,19 @@
 // output of `fused_blur_transducer` (:352, pool_beta=None) on bands that take
 // the masking blur and `fused_masking_transducer` (:463) on bands whose blur
 // is skipped (the unit tap, r = 0).
+// The contrast-band codings (PooledParams.coding weber_g0_ref, log) replace
+// `fused_csf_contrast` (:403) + `fused_blur_transducer` (:352), pooled and
+// D, fed the bands and logL that the JAX package's decomposition writes
+// (colorvideovdp_tpu/ops/pyramid.py:488-579): here the contrast band, its
+// band gain and its adaptation field are formed per sample, rounded as the
+// pre-formed band route of csrc/band_masking.cu rounds them.
+// The halo mode (per band geometry, pooled only) replaces the halo'd shard
+// mode of `fused_blur_transducer` (`row_off`/`h_valid`, :219-227, :540-602):
+// gi is one rank's row slab with row_off neighbour rows on each side (the
+// exclude-edge reflection past a global edge), gn the rows of the next
+// level the slab's expand reads; the expand is taken at each buffer row's
+// reflected global row, stage B reads the halo rows as they are, and only
+// the owned rows are pooled. The caller sums the ranks' sums.
 // The JAX package expands gn in XLA before its band kernels
 // (colorvideovdp_tpu/metrics/cvvdp.py:1400-1410); here the expand is inside.
 //
@@ -82,11 +95,27 @@
 #define BP_ROWS (BP_TH / BP_WARPS)  // rows a thread pools
 #define BP_MAX_NK 64
 
+// Contrast codings (PooledParams.coding): the raw codings adapt to the
+// expanded Y, and S folds the band gain in (raw_sensitivity); the
+// contrast-band codings round as the pre-formed band route does: the band
+// (x band gain), then band * S, then x the channel gain.
+#define BP_WEBER_G1 0      // each side to its own E_Y
+#define BP_WEBER_G1_REF 1  // both to the reference's E_Y
+#define BP_WEBER_G0_REF 2  // both to the reference's Y of gi itself
+#define BP_LOG 3           // gi - E, no division; LUT input a (E_Y,ref - b)
+
 struct PooledBand {
   const float* gi;
   const float* gn;
   float* D;  // the D mode: (B, C, F, h, w)
+  // gi holds h rows; the halo mode: a rank's row slab of a band of h_glob
+  // rows, row_off neighbour rows on each side of its owned rows, buffer
+  // row 0 at global row g_off (rows past a global edge hold the
+  // exclude-edge reflection). Whole bands: row_off = g_off = 0, h_glob = h.
   int h, w, hn, wn;
+  int row_off, y_end;  // tiles cover buffer rows [row_off, y_end)
+  int g_off, h_glob;
+  int gn_row0, hn_buf;  // gn holds hn_buf rows from global row gn_row0 on
   float mul;
   int r;                 // blur radius; 0 (a unit tap) where the blur is skipped
   int vec_gi, vec_gn;    // 16-byte rows: 16-byte copies
@@ -100,8 +129,10 @@ struct PooledParams {
   PooledBand band[BM_MAX_BANDS];
   const float* luts;  // (n_bands, C, nk)
   float x0, lut_scale;
-  float gains[BM_MAX_C];  // channel gain x sensitivity correction
-  int ref_only;
+  float gains[BM_MAX_C];  // raw codings: channel gain x sensitivity correction
+  float ch_gain[BM_MAX_C], sens_corr;  // contrast-band codings: apart
+  int coding;
+  float log_a, log_b;  // the log coding's LUT input a (E_Y - b)
   float ek[5];  // expand taps, 2 * K5
   float qs[BM_MAX_C];
   float p;
@@ -142,6 +173,27 @@ static int pooled_smem_floats(int r_max, int C, int nk, PooledParams* P) {
   return R.o_lut + up4(C * nk);
 }
 
+// The global row a buffer row stands for: the exclude-edge reflection (-k
+// -> k, h - 1 + k -> h - 1 - k) past a global edge, as halo_rows builds
+// the halo; the identity inside the band.
+__host__ __device__ __forceinline__ int reflect_row(int g, int h) {
+  return g < 0 ? -g : (g >= h ? 2 * (h - 1) - g : g);
+}
+
+// The rows of gn that the expand of buffer rows [y0, y1] reads, in global
+// gn rows: the expand of global row y reads gn rows y/2 - 1 .. y/2 + 1,
+// clamped at the edges, and the buffer rows stand for their reflected
+// rows. [y0, y1] meets the band's rows; its reflected rows span [lo, hi].
+__host__ __device__ __forceinline__ void gn_rows_of(int y0, int y1, int g_off, int h, int hn,
+                                                    int* gr0, int* gr1) {
+  const int G0 = g_off + y0, G1 = g_off + y1;
+  const int r1 = reflect_row(G1, h), r0 = reflect_row(G0, h);
+  const int lo = G0 < 0 ? 0 : (G0 < r1 ? G0 : r1);
+  const int hi = G1 > h - 1 ? h - 1 : (G1 > r0 ? G1 : r0);
+  *gr0 = (lo >> 1) - 1 > 0 ? (lo >> 1) - 1 : 0;
+  *gr1 = (hi >> 1) + 1 < hn - 1 ? (hi >> 1) + 1 : hn - 1;
+}
+
 // floor(i / n) for 0 <= i < 2^22 through fl(1 / n): the product's relative
 // error (2^-23) stays below the 0.5 / n margin of i + 0.5.
 __device__ __forceinline__ int div_small(int i, float inv_n) {
@@ -171,7 +223,7 @@ __device__ __forceinline__ Job make_job(const PooledParams& P, long long bt) {
   J.tx = rem - J.ty * d.tiles_x;
   J.b = (int)(l / P.F);
   J.f = (int)(l - (long long)J.b * P.F);
-  J.y0 = J.ty * BP_TH;
+  J.y0 = d.row_off + J.ty * BP_TH;
   J.x0 = J.tx * BP_TW;
   J.r = d.r;
   J.wy0 = max(J.y0 - J.r, 0);
@@ -180,8 +232,7 @@ __device__ __forceinline__ Job make_job(const PooledParams& P, long long bt) {
   J.wx1 = min(J.x0 + BP_TW + J.r, d.w);
   J.sx0 = d.vec_gi ? (J.wx0 & ~3) : J.wx0;
   J.sx1 = d.vec_gi ? min((J.wx1 + 3) & ~3, d.w) : J.wx1;
-  J.gr0 = max((J.wy0 >> 1) - 1, 0);
-  J.gr1 = min(((J.wy1 - 1) >> 1) + 1, d.hn - 1);
+  gn_rows_of(J.wy0, J.wy1 - 1, d.g_off, d.h_glob, d.hn, &J.gr0, &J.gr1);
   const int gc0 = max((J.wx0 >> 1) - 1, 0);
   const int gc1 = min(((J.wx1 - 1) >> 1) + 1, d.wn - 1);
   J.sgc0 = d.vec_gn ? (gc0 & ~3) : gc0;
@@ -194,7 +245,7 @@ __device__ __forceinline__ void issue_loads(const PooledParams& P, const Job& J,
                                             float* giw, float* gnw) {
   const PooledBand& d = P.band[J.bi];
   const int tid = threadIdx.x;
-  const long long hw = (long long)d.h * d.w, hwn = (long long)d.hn * d.wn;
+  const long long hw = (long long)d.h * d.w, hwn = (long long)d.hn_buf * d.wn;
   const long long pl = ((long long)J.b * 2 * P.C + 2 * c) * P.F + J.f;  // plane 2c
   const int WH = J.wy1 - J.wy0;
   {
@@ -219,7 +270,7 @@ __device__ __forceinline__ void issue_loads(const PooledParams& P, const Job& J,
   }
   {
     const int GH = J.gr1 - J.gr0 + 1;
-    const float* src0 = d.gn + pl * hwn + (long long)J.gr0 * d.wn + J.sgc0;
+    const float* src0 = d.gn + pl * hwn + (long long)(J.gr0 - d.gn_row0) * d.wn + J.sgc0;
     const long long pstride = (long long)P.F * hwn;
     const int GNP = gn_pitch(J.r);
     const int step = d.vec_gn ? 4 : 1;
@@ -241,7 +292,10 @@ __device__ __forceinline__ void issue_loads(const PooledParams& P, const Job& J,
   cp_async_commit();
 }
 
-template <bool D_OUT>
+// KIND: the coding's code path, BP_WEBER_G1 (both raw codings, told apart
+// by P.coding), BP_WEBER_G0_REF or BP_LOG; a template argument, so that
+// each coding's kernel holds only its own arithmetic.
+template <bool D_OUT, int KIND>
 __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     band_pooled_kernel(const __grid_constant__ PooledParams P, float* __restrict__ partials) {
   extern __shared__ __align__(16) float dyn[];
@@ -302,7 +356,8 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
         const int p = pr >= WH;
         const int ey = pr - p * WH;
         rexp[p * P.rexp_plane + ey * GNP + j] =
-            expand_tap(ek, gnw + p * P.gnw_plane + j, GNP, J.wy0 + ey, d.hn, J.gr0);
+            expand_tap(ek, gnw + p * P.gnw_plane + j, GNP,
+                       reflect_row(d.g_off + J.wy0 + ey, d.h_glob), d.hn, J.gr0);
       }
     }
     __syncthreads();
@@ -313,7 +368,7 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     // edge. The tile's pixels go to the threads that pool them, diff with
     // them; the halo ring is shared out over all threads.
     const float* lut = s_lut + c * nk;
-    const float gain = P.gains[c];
+    const float gain = P.gains[c], chg = P.ch_gain[c];
     // A tile whose window the band does not clip reads no reflected sample.
     const bool interior = J.wy0 == J.y0 - r && J.wy1 == J.y0 + BP_TH + r &&
                           J.wx0 == J.x0 - r && J.wx1 == J.x0 + BP_TW + r;
@@ -327,11 +382,19 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
       const float E_t = expand_tap_sel(ek, rt, gx, d.wn, J.sgc0);
       const float E_r = expand_tap_sel(ek, rt + P.rexp_plane, gx, d.wn, J.sgc0);
       const int e = ey * SW + (gx - J.wx0);
+      const int o = ey * GIP + (gx - J.sx0);
+      const float g_t = giw[o], g_r = giw[P.giw_plane + o];
       float lb_t, lb_r, ind;
       if (c == 0) {
-        lb_r = fmaxf(E_r, 0.01f);
-        lb_t = P.ref_only ? lb_r : fmaxf(E_t, 0.01f);
-        ind = lut_index(log10f(lb_r), P.x0, P.lut_scale, nk);
+        if constexpr (KIND == BP_LOG) {
+          lb_t = lb_r = 1.0f;  // no division
+          ind = lut_index(__fmul_rn(P.log_a, __fsub_rn(E_r, P.log_b)), P.x0, P.lut_scale, nk);
+        } else {
+          // The Y pair: weber_g0_ref adapts to the reference Y of gi itself.
+          lb_r = fmaxf(KIND == BP_WEBER_G0_REF ? g_r : E_r, 0.01f);
+          lb_t = KIND == BP_WEBER_G1 && P.coding == BP_WEBER_G1 ? fmaxf(E_t, 0.01f) : lb_r;
+          ind = lut_index(log10f(lb_r), P.x0, P.lut_scale, nk);
+        }
         Yt[e] = lb_t;
         Yr[e] = lb_r;
         YI[e] = ind;
@@ -340,9 +403,18 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
         lb_r = Yr[e];
         ind = YI[e];
       }
-      const float S = raw_sensitivity(lut, nk, ind, gain, d.mul);
-      const int o = ey * GIP + (gx - J.sx0);
-      raw_pair(giw[o], E_t, giw[P.giw_plane + o], E_r, lb_t, lb_r, S, mp, df);
+      if constexpr (KIND == BP_WEBER_G1) {
+        const float S = raw_sensitivity(lut, nk, ind, gain, d.mul);
+        raw_pair(g_t, E_t, g_r, E_r, lb_t, lb_r, S, mp, df);
+      } else {
+        const float S = __fmul_rn(pow10_lut(lut_lerp(lut, nk, ind)), P.sens_corr);
+        float ct = __fsub_rn(g_t, E_t), cr = __fsub_rn(g_r, E_r);
+        if constexpr (KIND == BP_WEBER_G0_REF) {
+          ct = min1000(__fdiv_rn(ct, lb_t));
+          cr = min1000(__fdiv_rn(cr, lb_r));
+        }
+        contrast_pair(__fmul_rn(ct, d.mul), __fmul_rn(cr, d.mul), S, chg, mp, df);
+      }
     };
 #pragma unroll
     for (int k = 0; k < BP_ROWS; ++k) {
@@ -434,7 +506,7 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
 #pragma unroll
       for (int k = 0; k < BP_ROWS; ++k) {
         const int gy = J.y0 + warp + k * BP_WARPS, gx = J.x0 + lane;
-        if (gy >= h || gx >= w) continue;
+        if (gy >= d.y_end || gx >= w) continue;
 #pragma unroll
         for (int dd = 0; dd < BM_MAX_C; ++dd) {
           if (dd >= C) continue;
@@ -486,24 +558,24 @@ __global__ void pooled_stage_c(const __grid_constant__ PooledParams P,
 
 // Opt a mode's kernel into `smem` bytes of dynamic shared memory; returns
 // its blocks per SM through per_sm.
-template <bool D_OUT>
+template <bool D_OUT, int KIND>
 static cudaError_t configure(int smem, int* per_sm) {
-  cudaError_t e = cudaFuncSetAttribute(band_pooled_kernel<D_OUT>,
+  cudaError_t e = cudaFuncSetAttribute(band_pooled_kernel<D_OUT, KIND>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(band_pooled_kernel<D_OUT>,
+  e = cudaFuncSetAttribute(band_pooled_kernel<D_OUT, KIND>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, band_pooled_kernel<D_OUT>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, band_pooled_kernel<D_OUT, KIND>,
                                                        BP_THREADS, smem);
 }
 
-template <bool D_OUT>
+template <bool D_OUT, int KIND>
 static cudaError_t launch_tiles(const PooledParams& P, int smem, cudaStream_t st,
                                 float* partials) {
   int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t e = configure<D_OUT>(smem, &per_sm);
+  cudaError_t e = configure<D_OUT, KIND>(smem, &per_sm);
   if (e != cudaSuccess) return e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -511,27 +583,44 @@ static cudaError_t launch_tiles(const PooledParams& P, int smem, cudaStream_t st
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long fit = (long long)per_sm * n_sm;
   const long long grid = P.n_tiles < fit ? P.n_tiles : fit;
-  band_pooled_kernel<D_OUT><<<(unsigned int)grid, BP_THREADS, smem, st>>>(P, partials);
+  band_pooled_kernel<D_OUT, KIND><<<(unsigned int)grid, BP_THREADS, smem, st>>>(P, partials);
   return cudaGetLastError();
+}
+
+template <bool D_OUT>
+static cudaError_t launch_coding(const PooledParams& P, int smem, cudaStream_t st,
+                                 float* partials) {
+  if (P.coding == BP_WEBER_G0_REF)
+    return launch_tiles<D_OUT, BP_WEBER_G0_REF>(P, smem, st, partials);
+  if (P.coding == BP_LOG) return launch_tiles<D_OUT, BP_LOG>(P, smem, st, partials);
+  return launch_tiles<D_OUT, BP_WEBER_G1>(P, smem, st, partials);
 }
 
 // ptrs: n_bands x {gi, gn} device pointers, gi (B, 2C, F, h, w) and gn
 // (B, 2C, F, ceil(h/2), ceil(w/2)); dptrs: null (the pooled mode) or, for
 // the D mode, n_bands device pointers to each band's D (B, C, F, h, w);
-// dims: n_bands x {h, w}; muls, blur: per band; luts: device (n_bands, C,
-// nk); ch_gain, qs: C floats; xcm: C x C floats; ek: the 5 expand taps;
-// taps: ntaps floats. partials: (tiles, C) scratch, one per 32x32 tile of
-// each (b, f) plane of each band in order; out receives the (n_bands, B, C,
-// F) pooled sums of safe_pow(D, beta) in both modes.
+// dims: n_bands x {h, w}; geo: null (whole bands) or, for the halo mode
+// (pooled only), n_bands x {row_off, y0, h_glob, gn_row0, hn_buf}: gi is a
+// row slab of h = h_valid + 2 row_off rows whose owned rows start at global
+// row y0 of a band of h_glob rows, and gn holds hn_buf rows of the next
+// level from global row gn_row0 on; muls, blur: per band; luts: device
+// (n_bands, C, nk); coding: BP_WEBER_G1 .. BP_LOG, log_a and log_b the log
+// coding's; ch_gain, qs: C floats; xcm: C x C floats; ek: the 5 expand
+// taps; taps: ntaps floats. partials: (tiles, C) scratch, one per 32x32
+// tile of each (b, f) plane of each band in order (the owned rows' tiles in
+// the halo mode); out receives the (n_bands, B, C, F) pooled sums of
+// safe_pow(D, beta) in both modes.
 CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const long long* ptrs,
-                                const long long* dptrs, const int* dims, const float* muls,
-                                const int* blur, const float* luts, float x0, float lut_scale,
-                                const float* ch_gain, float sens_corr, int ref_only,
-                                const float* ek, const float* qs, float p, const float* xcm,
-                                float max_v, float blur_scale, const float* taps, int ntaps,
-                                float beta, float* partials, float* out, void* stream) {
+                                const long long* dptrs, const int* dims, const int* geo,
+                                const float* muls, const int* blur, const float* luts, float x0,
+                                float lut_scale, const float* ch_gain, float sens_corr,
+                                int coding, float log_a, float log_b, const float* ek,
+                                const float* qs, float p, const float* xcm, float max_v,
+                                float blur_scale, const float* taps, int ntaps, float beta,
+                                float* partials, float* out, void* stream) {
   if (n_bands < 1 || n_bands > BM_MAX_BANDS || C < 1 || C > BM_MAX_C || B < 1 || F < 1 ||
-      nk < 2 || nk > BP_MAX_NK || ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1)
+      nk < 2 || nk > BP_MAX_NK || ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1 ||
+      coding < BP_WEBER_G1 || coding > BP_LOG || (geo && dptrs))
     return (int)cudaErrorInvalidValue;
   PooledParams P;
   P.n_bands = n_bands;
@@ -549,15 +638,34 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
     d.h = dims[2 * k];
     d.w = dims[2 * k + 1];
     if (d.h < 1 || d.w < 1) return (int)cudaErrorInvalidValue;
-    d.hn = (d.h + 1) / 2;
-    d.wn = (d.w + 1) / 2;
-    d.mul = muls[k];
     d.r = blur[k] ? (ntaps - 1) / 2 : 0;
     r_max = d.r > r_max ? d.r : r_max;
+    d.row_off = geo ? geo[5 * k] : 0;
+    const int y0 = geo ? geo[5 * k + 1] : 0;
+    d.h_glob = geo ? geo[5 * k + 2] : d.h;
+    d.hn = (d.h_glob + 1) / 2;
+    d.wn = (d.w + 1) / 2;
+    d.gn_row0 = geo ? geo[5 * k + 3] : 0;
+    d.hn_buf = geo ? geo[5 * k + 4] : d.hn;
+    d.g_off = y0 - d.row_off;
+    const int h_valid = d.h - 2 * d.row_off;
+    d.y_end = d.row_off + h_valid;
+    // The halo mode: the halo covers the blur, the owned rows lie in the
+    // band, the buffer's rows reflect once at most, and gn's rows cover
+    // what the expand of the buffer reads.
+    if (geo) {
+      int gr0, gr1;
+      if (d.row_off < d.r || h_valid < 1 || y0 < 0 || y0 + h_valid > d.h_glob ||
+          d.g_off < -(d.h_glob - 1) || d.g_off + d.h - 1 > 2 * (d.h_glob - 1))
+        return (int)cudaErrorInvalidValue;
+      gn_rows_of(0, d.h - 1, d.g_off, d.h_glob, d.hn, &gr0, &gr1);
+      if (gr0 < d.gn_row0 || gr1 >= d.gn_row0 + d.hn_buf) return (int)cudaErrorInvalidValue;
+    }
+    d.mul = muls[k];
     d.vec_gi = (d.w % 4 == 0) && ((uintptr_t)d.gi % 16 == 0);
     d.vec_gn = (d.wn % 4 == 0) && ((uintptr_t)d.gn % 16 == 0);
     d.tiles_x = (d.w + BM_TW - 1) / BM_TW;
-    d.tiles_y = (d.h + BM_TH - 1) / BM_TH;
+    d.tiles_y = (h_valid + BM_TH - 1) / BM_TH;
     d.tile_off = tiles;
     d.plane_off = planes;
     tiles += (long long)B * F * d.tiles_x * d.tiles_y;
@@ -568,10 +676,14 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
   P.luts = luts;
   P.x0 = x0;
   P.lut_scale = lut_scale;
-  P.ref_only = ref_only;
+  P.coding = coding;
+  P.log_a = log_a;
+  P.log_b = log_b;
+  P.sens_corr = sens_corr;
   for (int k = 0; k < 5; ++k) P.ek[k] = ek[k];
   for (int c = 0; c < BM_MAX_C; ++c) {
     const float g = c < C ? ch_gain[c] : 0.0f;
+    P.ch_gain[c] = g;
     P.gains[c] = g * sens_corr;
     P.qs[c] = c < C ? qs[c] : 1.0f;
     for (int e = 0; e < BM_MAX_C; ++e)
@@ -586,8 +698,8 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
 
   const int smem = pooled_smem_floats(r_max, C, nk, &P) * (int)sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = dptrs ? launch_tiles<true>(P, smem, st, partials)
-                        : launch_tiles<false>(P, smem, st, partials);
+  cudaError_t e = dptrs ? launch_coding<true>(P, smem, st, partials)
+                        : launch_coding<false>(P, smem, st, partials);
   if (e != cudaSuccess) return (int)e;
   pooled_stage_c<<<(unsigned int)planes, BM_STAGE_C_THREADS, 0, st>>>(P, partials, out);
   return (int)cudaGetLastError();
@@ -599,5 +711,5 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
 CVVDP_API int cvvdp_band_pooled_occupancy(int r_max, int C, int nk) {
   const int smem = pooled_smem_floats(r_max, C, nk, nullptr) * (int)sizeof(float);
   int per_sm = 0;
-  return configure<false>(smem, &per_sm) == cudaSuccess ? per_sm : 0;
+  return configure<false, BP_WEBER_G1>(smem, &per_sm) == cudaSuccess ? per_sm : 0;
 }

@@ -457,7 +457,8 @@ class cvvdp(vq_metric):
             x0, x1 = self.csf.lut_range()
             consts = (bm.BandConsts.make(params, all_ch, x0, x1,
                                          10.0 ** (self.sensitivity_correction / 20.0),
-                                         self.contrast.endswith("ref"), self.beta)
+                                         self.contrast.endswith("ref"), self.beta,
+                                         coding=self.contrast)
                       if params.fusable() else None)
             self._cache[key] = (consts, torch.as_tensor(luts, device=self.device))
         return self._cache[key]
@@ -472,12 +473,14 @@ class cvvdp(vq_metric):
 
         Interior bands take the JAX package's routes (its
         ``metrics/cvvdp.py:1224-1246``, ``:1487-1519``): with the band
-        kernel's configuration, raw pairs for weber_g1 and weber_g1_ref
-        (``band_pooled``, one pass from each band's level and the next; with
+        kernel's configuration, raw pairs for every contrast coding
+        (``band_pooled``, one pass from each band's level and the next, the
+        coding formed inside: the JAX raw-pair route for weber_g1 and
+        weber_g1_ref, its contrast-band route for weber_g0_ref and log; with
         a heatmap its D mode ``band_pooled_d``, whose pooled sums give the
-        Q columns, so the JOD is the pooled-only JOD) and contrast bands
-        otherwise (``band_masking.cu``); with any other configuration the
-        generic chain, the CSF LUT then ``apply_masking_model``.
+        Q columns, so the JOD is the pooled-only JOD); with any other
+        configuration the generic chain, the CSF LUT then
+        ``apply_masking_model``.
 
         ``mesh`` (``parallel/sharding.py``): R is this rank's pairs and rows;
         see ``_process_block_sharded``."""
@@ -491,7 +494,7 @@ class cvvdp(vq_metric):
         params = self._masking_params()
         consts, luts = self._band_tables(all_ch)
         sens_corr = 10.0 ** (self.sensitivity_correction / 20.0)
-        raw_pairs = consts is not None and self.contrast in ("weber_g1", "weber_g1_ref")
+        raw_pairs = consts is not None
         bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=raw_pairs, use_kernel=use_k)
 
         Q_cols = [None] * n_bands
@@ -526,7 +529,8 @@ class cvvdp(vq_metric):
                 put_D(bb, mk.apply_masking_model(band[:, 0::2], band[:, 1::2], S * sens_corr,
                                                  params, use_k))
         else:
-            mega = self._mega_bands(shapes, all_ch, params) if raw_pairs else []
+            raw = consts.coding in bm.RAW_CODINGS  # the mega route takes the raw codings
+            mega = self._mega_bands(shapes, all_ch, params) if raw else []
             for bb in mega:
                 gi, gn = bands[bb]
                 if heatmap:
@@ -539,34 +543,22 @@ class cvvdp(vq_metric):
             d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
                        if heatmap else None)
             for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
-                                      contrast=not raw_pairs, gn=raw_pairs):
+                                      gn=True):
+                # One pass from gi and gn: the expand and the coding are
+                # inside the kernel.
                 sel = [rest[i] for i in sel]
-                if raw_pairs:
-                    # One pass from gi and gn: the expand is inside the kernel.
-                    args = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
-                            luts[sel], [muls[bb] for bb in sel], consts)
-                    if heatmap:
-                        fn = bp.band_pooled_d if use_k else bp.band_pooled_d_plain
-                        Ds, sums = fn(*args)
-                        for j, bb in enumerate(sel):
-                            put_D(bb, Ds[j], sums[j])
-                        del Ds
-                        continue
-                    sums = bp.band_pooled_sums(*args, use_k)
-                    for j, bb in enumerate(sel):
-                        Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
-                    continue
-                xs = [LaplacianPyramid.get_band(bands, bb) for bb in sel]
-                ys = [L_bkg_pyr[bb] for bb in sel]
-                args = (xs, ys, luts[sel], [muls[bb] for bb in sel], consts, use_k)
+                args = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
+                        luts[sel], [muls[bb] for bb in sel], consts)
                 if heatmap:
-                    for bb, D in zip(sel, bm.band_D(*args, contrast=True)):
-                        put_D(bb, D)
-                else:
-                    sums = bm.band_sums(*args, contrast=True)
+                    fn = bp.band_pooled_d if use_k else bp.band_pooled_d_plain
+                    Ds, sums = fn(*args)
                     for j, bb in enumerate(sel):
-                        Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
-                del xs, ys, args
+                        put_D(bb, Ds[j], sums[j])
+                    del Ds
+                    continue
+                sums = bp.band_pooled_sums(*args, use_k)
+                for j, bb in enumerate(sel):
+                    Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
 
         Q_cols[-1], D = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
         Q = torch.stack(Q_cols, dim=-1)
@@ -599,14 +591,16 @@ class cvvdp(vq_metric):
         on their slabs, and their pooled sums are summed over the space group
         before the norm over the band's global size; the other bands and the
         baseband run whole on every rank and are not summed; Q is gathered
-        over the batch group. The band kernel's raw-pair configuration only."""
+        over the batch group. The halo bands go to ``band_pooled_halo`` as
+        slabs of gi (``halo_rows``) and the rows of gn their expand reads
+        (``halo_gn``). The band kernel's raw codings only."""
         from ..parallel import sharding as sh
 
         all_ch = 2 + temp_ch
         use_k = self.enable_fused_kernels
         params = self._masking_params()
         consts, luts = self._band_tables(all_ch)
-        if consts is None or self.contrast not in ("weber_g1", "weber_g1_ref"):
+        if consts is None or consts.coding not in bm.RAW_CODINGS:
             raise NotImplementedError(
                 "sharded scoring takes the band kernel's raw-pair configuration only")
         sens_corr = 10.0 ** (self.sensitivity_correction / 20.0)
@@ -618,21 +612,25 @@ class cvvdp(vq_metric):
         halo = [bb for bb in range(n_bands - 1)
                 if bands[bb][0].sharded and sh.band_shardable(params, *shapes[bb], mesh)]
         whole = [bb for bb in range(n_bands - 1) if bb not in halo]
-        # The route of the last block: the row-sharded levels, the halo bands.
+        # The route of the last block: the row-sharded levels, the halo bands
+        # and, per halo band, the rows of gn handed to the kernel (count, first).
         levels = [pair[0] for pair in bands[:-1]] + [bands[-2][1]]
         self.sharded_route = {"levels": [i for i, lv in enumerate(levels) if lv.sharded],
-                              "halo_bands": halo}
+                              "halo_bands": halo, "halo_gn_rows": []}
         Q_cols = [None] * n_bands
         sums = []
         slab_h = [shapes[bb][0] // mesh.n_space for bb in halo]
         for sel in bm.band_groups([(hv + 2 * bm.HALO_ROWS, shapes[bb][1])
-                                   for bb, hv in zip(halo, slab_h)], B, all_ch, F):
-            xs = [sh.halo_rows(bands[halo[i]][0].x, mesh) for i in sel]
-            ys = [sh.halo_rows(sh.expand_slab(bands[halo[i]][1], mesh, *shapes[halo[i]]), mesh)
-                  for i in sel]
-            fn = bm.band_masking_halo if use_k else bm.band_masking_halo_plain
-            sums.append(fn(xs, ys, luts[[halo[i] for i in sel]], [muls[halo[i]] for i in sel],
-                           consts, [slab_h[i] for i in sel]))
+                                   for bb, hv in zip(halo, slab_h)], B, all_ch, F, gn=True):
+            sel = [halo[i] for i in sel]
+            xs = [sh.halo_rows(bands[bb][0].x, mesh) for bb in sel]
+            ys, row0s = zip(*[sh.halo_gn(bands[bb][1], mesh) for bb in sel])
+            slabs = [(mesh.s * (shapes[bb][0] // mesh.n_space), shapes[bb][0], row0)
+                     for bb, row0 in zip(sel, row0s)]
+            fn = bp.band_pooled_halo if use_k else bp.band_pooled_halo_plain
+            sums.append(fn(xs, list(ys), luts[sel], [muls[bb] for bb in sel], consts, slabs))
+            self.sharded_route["halo_gn_rows"] += [(y.shape[-2], row0)
+                                                   for y, row0 in zip(ys, row0s)]
             del xs, ys
         if halo:
             total = sh.sum_space(torch.cat(sums), mesh)

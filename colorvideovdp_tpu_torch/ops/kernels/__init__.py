@@ -13,6 +13,7 @@ def counted_wrappers() -> dict:
             "pyramid_reduce": pyramid_reduce.pyramid_reduce,
             "pyramid_reduce_slab": pyramid_reduce.pyramid_reduce_slab,
             "band_pooled": band_pooled.band_pooled, "band_pooled_d": band_pooled.band_pooled_d,
+            "band_pooled_halo": band_pooled.band_pooled_halo,
             "band_masking": mf.band_masking, "band_masking_halo": mf.band_masking_halo,
             "band_masking_d": mf.band_masking_d, "band_masking_d_noblur": mf.band_masking_d_noblur,
             "band_masking_contrast": mf.band_masking_contrast,

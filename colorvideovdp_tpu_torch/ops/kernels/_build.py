@@ -51,8 +51,8 @@ SIGNATURES = {
     "cvvdp_concat": [_P, _P, _P, _L, _I, _P],
     "cvvdp_band_masking": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _I,
                            _P, _F, _P, _F, _F, _P, _I, _F, _I, _P, _P, _P],
-    "cvvdp_band_pooled": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _P, _P,
-                          _F, _P, _F, _F, _P, _I, _F, _P, _P, _P],
+    "cvvdp_band_pooled": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _F,
+                          _F, _P, _P, _F, _P, _F, _F, _P, _I, _F, _P, _P, _P],
     "cvvdp_band_pooled_occupancy": [_I, _I, _I],
 }
 RESTYPES = {"cvvdp_band_masking_tiles": _L}

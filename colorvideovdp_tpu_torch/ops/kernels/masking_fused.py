@@ -28,6 +28,8 @@ Stage A has two input modes:
   at full band gain, and its adaptation field ``logL`` (B, 1, F, h, w). The
   JAX package takes this route (``make_fused_mult_mutual``) for every
   interior band off the raw-pair route: the weber_g0_ref and log contrasts.
+  The metric forms those codings in ``band_pooled`` from gi and gn instead
+  (``BandConsts.coding``); these two stay as its yardsticks.
 
 Two output modes share stages A and B and one plain chain per input mode
 (``_band_D_plain``, ``_band_D_contrast_plain``):
@@ -46,7 +48,9 @@ Two output modes share stages A and B and one plain chain per input mode
   they are, and only the owned rows are pooled. The counterpart of the halo'd
   shard mode of ``fused_blur_transducer`` (``row_off``/``h_valid``, JAX
   ``masking_fused.py:553-602``). The caller sums the ranks' sums. Forward
-  only; the plain version is ``band_masking_halo_plain``.
+  only; the plain version is ``band_masking_halo_plain``. The sharded
+  route takes ``band_pooled_halo`` (gi slabs and gn rows, the expand
+  inside) instead; this one stays as its yardstick.
 * D: the distortion map D, (B, C, F, h, w) per band, for the heatmap
   (forward only). The JAX package runs ``fused_blur_transducer(pool_beta=
   None)`` on bands its fused blur takes and ``blur_fn`` +
@@ -74,6 +78,11 @@ from . import _build
 from .csf_lut import CsfLut
 
 MAX_BANDS = 8
+# The contrast codings of the band kernels: the raw codings, whose Weber
+# contrast band_masking.cu forms from gi and E, then those it takes as
+# pre-formed contrast bands; band_pooled.cu forms all four from gi and gn.
+RAW_CODINGS = ("weber_g1", "weber_g1_ref")
+CODINGS = RAW_CODINGS + ("weber_g0_ref", "log")
 # Consecutive interior bands share one launch while the memory the launch
 # holds stays within this budget: per band the expanded next level E (2C
 # planes; a contrast band's logL, 1 plane) and the kernel's M_pre and diff
@@ -108,11 +117,19 @@ class BandConsts:
     taps: np.ndarray
     beta: float
     params: MaskingParams
+    # The contrast coding the one-pass kernel forms from gi and gn: a raw
+    # coding (weber_g1 or weber_g1_ref, which ``ref_only`` tells apart) or a
+    # contrast-band coding (weber_g0_ref, log).
+    coding: str = "weber_g1"
 
     @classmethod
     def make(cls, params: MaskingParams, C: int, x0: float, x1: float, sens_corr: float,
-             ref_only: bool, beta: float):
+             ref_only: bool, beta: float, coding: str | None = None):
         params.check_supported()
+        if coding is None:
+            coding = "weber_g1_ref" if ref_only else "weber_g1"
+        if coding not in CODINGS:
+            raise ValueError(f"band kernel: no contrast coding {coding!r}")
         return cls(
             x0=float(x0), x1=float(x1), sens_corr=float(sens_corr),
             ch_gain=np.array([1.0, 1.45, 1.0, 1.0], np.float32)[:C], ref_only=bool(ref_only),
@@ -120,7 +137,7 @@ class BandConsts:
             xcm=params.xcm(C), max_v=float(10.0 ** float(params.d_max)),
             blur_scale=float(10.0 ** params.mask_c),
             taps=gaussian_kernel1d(params.pu_kernel_size, params.pu_dilate).astype(np.float32),
-            beta=float(beta), params=params,
+            beta=float(beta), params=params, coding=coding,
         )
 
 

@@ -13,7 +13,10 @@ Counterpart of ``colorvideovdp_tpu/ops/pyramid.py``. Parity notes:
   half gain and doubles them on read).
 * ``WeberContrastPyramid`` and ``LogContrastPyramid`` form the contrast
   bands and the CSF's adaptation field for every contrast coding of the
-  JAX package (``ops/pyramid.py:473-579``).
+  JAX package (``ops/pyramid.py:473-579``); ``interior_contrast`` is the
+  interior band's step, shared with the plain versions of the band kernel.
+  Both pyramids also give raw ``(G_i, G_{i+1})`` pairs for the band kernel,
+  which forms every coding from them itself.
 * ``LaplacianPyramid.reconstruct`` collapses the per-band heatmap maps; it
   is XLA in the JAX package too, not a kernel.
 """
@@ -30,6 +33,11 @@ from .clip import clip
 KERNEL_A = 0.4
 K5 = np.array([0.25 - KERNEL_A / 2, 0.25, KERNEL_A, 0.25, 0.25 - KERNEL_A / 2],
               dtype=np.float32)
+# The log contrast's adaptation field a (Y - b) (reference lpyr_dec.py:418-458).
+_LMS_D65 = (0.7347, 0.3163, 0.0208)
+LOG_A = 0.5
+LOG_B = (math.log10(_LMS_D65[0]) - math.log10(_LMS_D65[1])
+         + math.log10(_LMS_D65[0] + _LMS_D65[1]))
 
 
 def ceildiv(a: int, b: int) -> int:
@@ -139,6 +147,27 @@ def gausspyr_expand(x: torch.Tensor, sz=None) -> torch.Tensor:
     return _expand_1d(_expand_1d(x, -2, sz[0]), -1, sz[1])
 
 
+def expand_rows(src: torch.Tensor, row0: int, hn: int, y: torch.Tensor, w: int) -> torch.Tensor:
+    """Rows ``y`` (global row indices, any order) of ``gausspyr_expand(gn,
+    (h, w))``, bit for bit, from ``src``, the rows of gn from global row
+    ``row0`` on (a slab of it, or all of it with ``row0`` = 0); ``hn`` is gn's
+    global row count. Each row is formed from its edge-clamped rows of gn as
+    ``_expand_1d`` forms it, then the columns are expanded whole."""
+    even = (y % 2) == 0
+    m_e, m_o = y[even] // 2, y[~even] // 2
+
+    def rows(idx):
+        return src.index_select(-2, idx.clamp(0, hn - 1) - row0)
+
+    k = [2.0 * float(K5[t]) for t in range(5)]
+    ev = (k[0] * rows(m_e - 1) + k[2] * rows(m_e)) + k[4] * rows(m_e + 1)
+    od = k[1] * rows(m_o) + k[3] * rows(m_o + 1)
+    out = src.new_empty(src.shape[:-2] + (y.numel(), src.shape[-1]))
+    out[..., even, :] = ev
+    out[..., ~even, :] = od
+    return _expand_1d(out, -1, w)
+
+
 class LaplacianPyramid:
     """Static-shape decimated pyramid geometry and the Gaussian levels."""
 
@@ -238,32 +267,49 @@ class WeberContrastPyramid(LaplacianPyramid):
     def _contrast(self, g, g_next):
         """The contrast band of level ``g`` and its log10 adaptation field;
         ``g_next``, the next level, is None at the baseband."""
-        if g_next is None:
-            layer = g
-            if self.contrast.endswith("ref"):
-                L_bkg = clip(layer[..., 1:2, :, :, :], 0.01)
-            else:
-                # Sustained channels adapt to the image mean; otherwise the
-                # baseband would divide by itself.
-                L_bkg = torch.mean(clip(layer[..., 0:2, :, :, :], 0.01), dim=(-1, -2),
-                                   keepdim=True)
+        if g_next is not None:
+            return interior_contrast(g, gausspyr_expand(g_next, g.shape[-2:]), self.contrast)
+        if self.contrast.endswith("ref"):
+            L_bkg = clip(g[..., 1:2, :, :, :], 0.01)
         else:
-            glayer_ex = gausspyr_expand(g_next, g.shape[-2:])
-            layer = g - glayer_ex
-            if self.contrast == "weber_g1_ref":
-                L_bkg = clip(glayer_ex[..., 1:2, :, :, :], 0.01)
-            elif self.contrast == "weber_g1":
-                L_bkg = clip(glayer_ex[..., 0:2, :, :, :], 0.01)
-            else:
-                L_bkg = clip(g[..., 1:2, :, :, :], 0.01)
-        if L_bkg.shape[-4] == 2:
-            t = clip(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], hi=1000.0)
-            r = clip(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], hi=1000.0)
-            contrast = torch.stack([t, r], dim=-4).reshape(layer.shape)
-            L_bkg = L_bkg[..., 1:2, :, :, :]
-        else:
-            contrast = clip(layer / L_bkg, hi=1000.0)
-        return contrast, torch.log10(L_bkg)
+            # Sustained channels adapt to the image mean; otherwise the
+            # baseband would divide by itself.
+            L_bkg = torch.mean(clip(g[..., 0:2, :, :, :], 0.01), dim=(-1, -2), keepdim=True)
+        return _weber(g, L_bkg)
+
+
+def _weber(layer, L_bkg):
+    """clip(layer / L_bkg, 1000) and log10 of the reference's L_bkg; a
+    two-channel L_bkg adapts test (even) and reference (odd) channels apart."""
+    if L_bkg.shape[-4] == 2:
+        t = clip(layer[..., 0::2, :, :, :] / L_bkg[..., 0:1, :, :, :], hi=1000.0)
+        r = clip(layer[..., 1::2, :, :, :] / L_bkg[..., 1:2, :, :, :], hi=1000.0)
+        contrast = torch.stack([t, r], dim=-4).reshape(layer.shape)
+        L_bkg = L_bkg[..., 1:2, :, :, :]
+    else:
+        contrast = clip(layer / L_bkg, hi=1000.0)
+    return contrast, torch.log10(L_bkg)
+
+
+def interior_contrast(g, E, coding: str):
+    """(contrast band, adaptation field) of an interior level ``g`` (axis -4
+    interleaved test/reference) and ``E``, the expand of the next level, in
+    ``coding``: Weber contrast (g - E) / L_bkg clipped at 1000 with log10
+    L_bkg, where ``weber_g1_ref`` adapts to the reference Y of E,
+    ``weber_g1`` each side to its own Y of E and ``weber_g0_ref`` to the
+    reference Y of g itself; or ``log``, g - E with a (E_Y - b), the
+    reference's Y of E, as the field (no log10)."""
+    if coding == "log":
+        return g - E, LOG_A * (E[..., 1:2, :, :, :] - LOG_B)
+    if coding == "weber_g1_ref":
+        L_bkg = clip(E[..., 1:2, :, :, :], 0.01)
+    elif coding == "weber_g1":
+        L_bkg = clip(E[..., 0:2, :, :, :], 0.01)
+    elif coding == "weber_g0_ref":
+        L_bkg = clip(g[..., 1:2, :, :, :], 0.01)
+    else:
+        raise RuntimeError(f"Contrast {coding} not supported")
+    return _weber(g - E, L_bkg)
 
 
 class LogContrastPyramid(LaplacianPyramid):
@@ -275,24 +321,24 @@ class LogContrastPyramid(LaplacianPyramid):
     def __init__(self, W, H, ppd, contrast: str = "log"):
         super().__init__(W, H, ppd)
         self.contrast = contrast
-        lms_d65 = [0.7347, 0.3163, 0.0208]
-        self.a = 0.5
-        self.b = (math.log10(lms_d65[0]) - math.log10(lms_d65[1])
-                  + math.log10(lms_d65[0] + lms_d65[1]))
+        self.a, self.b = LOG_A, LOG_B
 
     def decompose(self, image, raw_pairs=False, use_kernel: bool = True):
-        if raw_pairs:
-            raise ValueError("the log contrast has no raw-pair decomposition")
+        """``(bands, L_bkg_bands)``; with ``raw_pairs`` the interior levels
+        come back as raw ``(G_i, G_{i+1})`` pairs with ``None`` fields (the
+        band kernel forms the log contrast itself); the baseband is the same
+        either way."""
         gpyr = self.gaussian_pyramid(image, self.height + 1, use_kernel)
         lpyr, L_bkg_pyr = [], []
-        for i in range(len(gpyr)):
-            if i == len(gpyr) - 1:
-                contrast = gpyr[i]
-                Y = gpyr[i][..., 1:2, :, :, :]
-            else:
-                glayer_ex = gausspyr_expand(gpyr[i + 1], gpyr[i].shape[-2:])
-                contrast = gpyr[i] - glayer_ex
-                Y = glayer_ex[..., 1:2, :, :, :]
+        for i in range(len(gpyr) - 1):
+            if raw_pairs:
+                lpyr.append((gpyr[i], gpyr[i + 1]))
+                L_bkg_pyr.append(None)
+                continue
+            contrast, L_bkg = interior_contrast(
+                gpyr[i], gausspyr_expand(gpyr[i + 1], gpyr[i].shape[-2:]), "log")
             lpyr.append(contrast)
-            L_bkg_pyr.append(self.a * (Y - self.b))
+            L_bkg_pyr.append(L_bkg)
+        lpyr.append(gpyr[-1])
+        L_bkg_pyr.append(self.a * (gpyr[-1][..., 1:2, :, :, :] - self.b))
         return lpyr, L_bkg_pyr

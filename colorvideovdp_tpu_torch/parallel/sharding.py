@@ -14,11 +14,13 @@ its pairs and rows, (B / n_batch, F, 3, H / n_space, W). Its steps:
   does not admit is gathered and reduced whole, and every level below it is
   replicated (the same on every rank of a space group);
 * each interior band of a row-sharded level that passes ``band_shardable``
-  takes the band kernel's halo mode on its slab (``halo_rows``: 8 rows from
-  each neighbour, the exclude-edge reflection at a global edge), with E
-  expanded on the slab (``expand_slab``, the full expand's rows bit for bit);
-  the ranks' pooled sums are summed over the space group, then normalised
-  by the band's global size. The other bands, and the baseband, run whole on
+  takes the one-pass band kernel's halo mode (``band_pooled_halo``) on its
+  slab of gi (``halo_rows``: 8 rows from each neighbour, the exclude-edge
+  reflection at a global edge) and the rows of the next level gn its
+  expand reads (``halo_gn``: 5 rows from each neighbour of a sharded gn);
+  the kernel expands gn at each slab row's reflected global row. The ranks'
+  pooled sums are summed over the space group, then normalised by the
+  band's global size. The other bands, and the baseband, run whole on
   every rank and are not summed;
 * ``Q`` is gathered over the batch group, so it is the same on every rank.
 
@@ -42,9 +44,10 @@ import torch
 import torch.distributed as dist
 
 from ..ops.kernels import ingest as ing
+from ..ops.kernels import band_pooled as bp
 from ..ops.kernels import masking_fused as bm
 from ..ops.kernels import pyramid_reduce as prd
-from ..ops.pyramid import K5, _expand_1d, _reduce_1d, gausspyr_reduce, reduce_slab_plain
+from ..ops.pyramid import K5, _reduce_1d, expand_rows, gausspyr_reduce, reduce_slab_plain
 from ..ops.temporal import get_temporal_filters
 from .launch import rank_device
 
@@ -247,32 +250,30 @@ def sharded_levels(image: torch.Tensor, n_levels: int, mesh: Mesh, use_kernel: b
 
 def expand_slab(gn: Level, mesh: Mesh, h: int, w: int) -> torch.Tensor:
     """This rank's rows [s h_loc, (s + 1) h_loc) of ``gausspyr_expand(gn,
-    (h, w))``, h_loc = h / n_space, bit for bit: each row is formed from its
-    edge-clamped rows of gn as ``ops/pyramid.py:_expand_1d`` forms it, then
-    the columns are expanded whole. A sharded gn gives 1 row to each
-    neighbour; a replicated one is read where the rows lie."""
+    (h, w))``, h_loc = h / n_space, bit for bit (``ops/pyramid.py``
+    ``expand_rows``). A sharded gn gives 1 row to each neighbour; a
+    replicated one is read where the rows lie."""
     h_loc = h // mesh.n_space
-    hn = gn.H
     if gn.sharded:
         above, below = exchange_rows(gn.x, 1, mesh)
         src, row0 = torch.cat([above, gn.x, below], dim=-2), mesh.s * gn.x.shape[-2] - 1
     else:
         src, row0 = gn.x, 0
-    dev = gn.x.device
-    y = torch.arange(mesh.s * h_loc, (mesh.s + 1) * h_loc, device=dev)
-    even = (y % 2) == 0
-    m_e, m_o = y[even] // 2, y[~even] // 2
+    y = torch.arange(mesh.s * h_loc, (mesh.s + 1) * h_loc, device=gn.x.device)
+    return expand_rows(src, row0, gn.H, y, w)
 
-    def rows(idx):
-        return src.index_select(-2, idx.clamp(0, hn - 1) - row0)
 
-    k = [2.0 * float(K5[t]) for t in range(5)]
-    ev = (k[0] * rows(m_e - 1) + k[2] * rows(m_e)) + k[4] * rows(m_e + 1)
-    od = k[1] * rows(m_o) + k[3] * rows(m_o + 1)
-    out = src.new_empty(src.shape[:-2] + (h_loc, src.shape[-1]))
-    out[..., even, :] = ev
-    out[..., ~even, :] = od
-    return _expand_1d(out, -1, w)
+def halo_gn(gn: Level, mesh: Mesh):
+    """(rows, row0): the rows of gn that the expand of this rank's halo'd
+    band slab reads (``halo_rows`` of the band, the reflection included),
+    from global row ``row0`` on. A sharded gn gives ``GN_HALO_ROWS`` rows to
+    each neighbour (zeros past a global edge, where the expand clamps and
+    never reads them); a replicated one is passed whole."""
+    if not gn.sharded:
+        return gn.x, 0
+    r = bp.GN_HALO_ROWS
+    above, below = exchange_rows(gn.x, r, mesh)
+    return torch.cat([above, gn.x, below], dim=-2), mesh.s * gn.x.shape[-2] - r
 
 
 def halo_rows(x: torch.Tensor, mesh: Mesh, r: int = bm.HALO_ROWS) -> torch.Tensor:

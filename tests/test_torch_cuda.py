@@ -480,18 +480,21 @@ def test_configurations_kernels_match_plain(dev, tmp_path, over):
     pix = 96 * 320
     gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 5.5) / 1e9  # 5-frame blocks
     contrast_mode = "contrast" in over
-    counter = bm.band_masking_contrast if contrast_mode else lut.csf_lut
+    counter = bp.band_pooled if contrast_mode else lut.csf_lut
     out = []
     for fused in (True, False):
         m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp, gpu_mem=gpu_mem)
         m.enable_fused_kernels = fused
-        before = counter.launches, ing.ingest.launches, bl.blur.launches
+        before = (counter.launches, ing.ingest.launches, bl.blur.launches,
+                  bm.band_masking_contrast.launches)
         Qv, _ = m.predict(test, ref, dim_order="HWCF", frames_per_second=30)
         Qi, _ = m.predict(test[..., 0], ref[..., 0], dim_order="HWC")
-        after = counter.launches, ing.ingest.launches, bl.blur.launches
+        after = (counter.launches, ing.ingest.launches, bl.blur.launches,
+                 bm.band_masking_contrast.launches)
         grew = [a > b for a, b in zip(after, before)]
-        # The generic chain blurs with the blur kernel; the band kernel in-kernel.
-        assert grew == ([True, True, not contrast_mode] if fused else [False] * 3)
+        # The generic chain blurs with the blur kernel; the band kernel in-kernel,
+        # from gi and gn for every coding (the contrast-band mode never launches).
+        assert grew == ([True, True, not contrast_mode, False] if fused else [False] * 4)
         out.append((float(Qv), float(Qi)))
     assert np.abs(np.subtract(out[0], out[1])).max() <= 1e-4 * max(1.0, abs(10 - out[1][1]))
 
@@ -506,10 +509,11 @@ def test_weber_g0_ref_loss_kernels_match_plain(dev, tmp_path):
         m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp)
         m.enable_fused_kernels = fused
         x = torch.from_numpy(test).to(dev).requires_grad_()
-        before = bm.band_masking_contrast.launches
+        before = bp.band_pooled.launches, bm.band_masking_contrast.launches
         v = m.get_loss_fn(96, 320)(x, torch.from_numpy(ref).to(dev))
         (g,) = torch.autograd.grad(v, x)
-        assert (bm.band_masking_contrast.launches > before) == fused
+        assert (bp.band_pooled.launches > before[0]) == fused
+        assert bm.band_masking_contrast.launches == before[1]
         out.append((float(v.detach()), g))
     assert abs(out[0][0] - out[1][0]) <= 1e-4
     assert _rel(out[0][1], out[1][1]) <= 1e-4
@@ -752,10 +756,120 @@ def test_band_masking_halo_kernel(dev, C):
     assert _rel(got, bm.band_masking_halo_plain(*args)) <= 1e-4
 
 
+def _contrast_levels(C, B, shapes, coding, dev):
+    """Seeded levels gi of the given shapes (log-like values for the log
+    coding, luminance-like otherwise) and their reduces gn."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    gis = [torch.rand(B, 2 * C, 3, h, w, device=dev, generator=g) for h, w in shapes]
+    gis = [x * 2 - 1 if coding == "log" else x * 20 + 0.005 for x in gis]
+    return gis, [pyramid_reduce(x) for x in gis]
+
+
+def _previous_contrast_route(gis, gns, muls, coding):
+    """The contrast bands and fields as the decomposition wrote them for the
+    contrast-band mode: plain ``interior_contrast`` x the band gain."""
+    out = [pyr.interior_contrast(g, pyr.gausspyr_expand(n, g.shape[-2:]), coding)
+           for g, n in zip(gis, gns)]
+    return [b * m for (b, _), m in zip(out, muls)], [L for _, L in out]
+
+
+@pytest.mark.parametrize("coding", ["weber_g0_ref", "log"])
+@pytest.mark.parametrize("C", [4, 3])
+def test_band_pooled_contrast_codings_kernel(dev, C, coding):
+    """The contrast-band codings of the one-pass kernel, pooled and D,
+    against the previous route (the plain contrast bands and fields +
+    ``band_masking_contrast`` / ``_d``) and against their plain versions:
+    an odd 1081x1921 band of B = 2, an aligned 96x512 band, and one launch
+    over narrow bands whose 4-row band takes no blur."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(1921, 1081)
+    consts, luts = m._band_tables(C)
+    k = dataclasses.replace(consts, coding=coding, ref_only=coding.endswith("ref"))
+    for B, shapes in ((2, [(1081, 1921)]), (1, [(96, 512)]),
+                      (1, [(135, 240), (68, 120), (34, 60), (17, 30), (9, 15), (4, 17)])):
+        gis, gns = _contrast_levels(C, B, shapes, coding, dev)
+        lt = luts[:len(shapes)].contiguous()
+        muls = [1.0] + [2.0] * (len(shapes) - 1)
+        before = bp.band_pooled.launches, bp.band_pooled_d.launches
+        s = bp.band_pooled(gis, gns, lt, muls, k)
+        Ds, s_d = bp.band_pooled_d(gis, gns, lt, muls, k)
+        assert (bp.band_pooled.launches, bp.band_pooled_d.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+        assert torch.equal(s_d, s)
+        assert _rel(s, bp.band_pooled_plain(gis, gns, lt, muls, k)) <= 1e-4
+        bands, logLs = _previous_contrast_route(gis, gns, muls, coding)
+        assert _rel(s, bm.band_masking_contrast(bands, logLs, lt, k)) <= 1e-4
+        D_p, _ = bp.band_pooled_d_plain(gis, gns, lt, muls, k)
+        for i, D in enumerate(Ds):
+            assert _rel_planes(D, D_p[i]) <= 1e-5
+            D_r = bm.band_masking_contrast_d([bands[i]], [logLs[i]], lt[i:i + 1], k)[0]
+            assert _rel_planes(D, D_r) <= 1e-5
+
+
+def _halo_slab(x, s, n, edge_rows):
+    """Rank s's slab of x (rows axis -2, n ranks) with ``edge_rows`` rows of
+    each neighbour, and past a global edge the exclude-edge reflection."""
+    h_loc = x.shape[-2] // n
+    lo, hi, r = s * h_loc, (s + 1) * h_loc, edge_rows
+    above = x[..., lo - r:lo, :] if s > 0 else x[..., 1:r + 1, :].flip(-2)
+    below = x[..., hi:hi + r, :] if s < n - 1 else x[..., -r - 1:-1, :].flip(-2)
+    return torch.cat([above, x[..., lo:hi, :], below], dim=-2).contiguous()
+
+
+def _gn_rows(gn, s, n, sharded):
+    """(rows, row0) of gn as ``parallel/sharding.py`` ``halo_gn`` hands them
+    over: a sharded gn's slab with GN_HALO_ROWS rows of each neighbour (zeros
+    past a global edge), or a replicated gn whole."""
+    if not sharded:
+        return gn, 0
+    r, hn_loc = bp.GN_HALO_ROWS, gn.shape[-2] // n
+    z = torch.zeros_like(gn[..., :r, :])
+    above = gn[..., s * hn_loc - r:s * hn_loc, :] if s > 0 else z
+    below = gn[..., (s + 1) * hn_loc:(s + 1) * hn_loc + r, :] if s < n - 1 else z
+    return torch.cat([above, gn[..., s * hn_loc:(s + 1) * hn_loc, :], below], -2), s * hn_loc - r
+
+
+@pytest.mark.parametrize("C", [4, 3])
+def test_band_pooled_halo_kernel(dev, C):
+    """The one-pass kernel's halo mode against its plain version and, bit
+    for bit, against the previous route (``band_masking_halo`` fed the slab
+    of the plain expand): a 2-band launch (a sharded gn, and a replicated one
+    with an unaligned width) on the first, a middle and the last of 4 slabs;
+    the slabs' sums add up to the whole bands' pooled sums."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(517, 256)
+    consts, luts = m._band_tables(C)
+    n, r = 4, bm.HALO_ROWS
+    shapes, sharded = [(256, 512), (128, 259)], [True, False]
+    g = torch.Generator(device=dev).manual_seed(5)
+    gis = [torch.rand(1, 2 * C, 3, h, w, device=dev, generator=g) * 20 + 30 for h, w in shapes]
+    gns = [pyramid_reduce(x) for x in gis]
+    lt, muls = luts[0:2].contiguous(), [1.0, 2.0]
+    total = 0
+    for s in range(n):
+        xs = [_halo_slab(x, s, n, r) for x in gis]
+        ys, row0s = zip(*[_gn_rows(gn, s, n, sh) for gn, sh in zip(gns, sharded)])
+        slabs = [(s * (h // n), h, row0) for (h, _), row0 in zip(shapes, row0s)]
+        before = bp.band_pooled_halo.launches, bm.band_masking_halo.launches
+        got = bp.band_pooled_halo(xs, list(ys), lt, muls, consts, slabs)
+        assert (bp.band_pooled_halo.launches, bm.band_masking_halo.launches) == (
+            before[0] + 1, before[1])
+        assert _rel(got, bp.band_pooled_halo_plain(xs, list(ys), lt, muls, consts, slabs)) <= 1e-4
+        Es = [_halo_slab(pyr.gausspyr_expand(gn, x.shape[-2:]), s, n, r)
+              for x, gn in zip(gis, gns)]
+        assert torch.equal(got, bm.band_masking_halo(xs, Es, lt, muls, consts,
+                                                     [h // n for h, _ in shapes]))
+        total = total + got
+    assert _rel(total, bp.band_pooled(gis, gns, lt, muls, consts)) <= 1e-5
+    with pytest.raises(ValueError):  # gn rows that do not cover the slab's expand
+        bp.band_pooled_halo([xs[0]], [ys[0][..., :-6, :]], lt[:1], [1.0], consts, [slabs[0]])
+
+
 def test_sharded_scoring_on_the_card(dev, tmp_path):
     """A 192x512 image and a 2-block 128x256 video on a (1, 2) mesh of two
     ranks on the card(s): the JODs of single-device scoring, and the slab
-    reduce and halo band mode launched on every rank."""
+    reduce and the one-pass kernel's halo mode launched on every rank (the
+    previous halo mode never)."""
     from colorvideovdp_tpu_torch.parallel import run_ranks
     from colorvideovdp_tpu_torch.parallel import sharding as sh
 
@@ -776,4 +890,5 @@ def test_sharded_scoring_on_the_card(dev, tmp_path):
         for r in res:
             assert abs(float(r["jod"]) - float(Q1)) <= 2e-4, (name, float(r["jod"]), float(Q1))
             assert r["launches"]["pyramid_reduce_slab"] > 0
-            assert r["launches"]["band_masking_halo"] > 0
+            assert r["launches"]["band_pooled_halo"] > 0
+            assert r["launches"]["band_masking_halo"] == 0
