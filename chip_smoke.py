@@ -9,10 +9,19 @@ Phase 0  card, power limit, torch and CUDA versions; constructing a metric
 Phase 1  build the kernel library.
 Phase 2  every kernel against its plain PyTorch version on the card, at the
          shapes the 4K main path gives it (the first block of the 4K clip),
-         on seeded random frames, and the loss path's CSF LUT, its backward
-         and the blur at the shapes of phase 5: the worst relative error of
-         any channel against the stated tolerance, kernel and plain times
-         (CUDA events, median of 5). The ingest kernel also on uint16 and
+         on seeded random frames, and the loss path's CSF LUT, its backward,
+         the blur and its adjoint mode at the shapes of phase 5: the worst
+         relative error of any channel against the stated tolerance, kernel
+         and plain times (CUDA events around one call, median of 5). The
+         LUT (bit for bit) also on the ML trunk's 4K band-0 field (C = 4)
+         and the baseband; the blur (bit for bit) and its adjoint (bit for
+         bit ``blur_adjoint_plain``, within 1e-5 of autograd of
+         ``blur_plain``) also at (3, 135, 241), the ML trunk's 4K band 0
+         (1, 4, 8, 2160, 3840) and at 33 taps, each beside a depthwise
+         n x n reflect convolution (the library yardstick). These rows add
+         the device time (``tools/kernel_times.py`` ``device_ms``: the CUDA
+         kernels' time under ``torch.profiler``, the wrapper's host work
+         left out), which is their ``ms``. The ingest kernel also on uint16 and
          float16 frames, its code-value table route against the same frames
          as float32 (v / 255, v / 65535 correctly rounded, float16 widened)
          through the per-sample path, bit for bit. The reduce at every
@@ -42,9 +51,12 @@ Phase 5  a training step at full width: ``get_loss_fn(1080, 1920)`` on
          pyramid level and band launch of that batch. Loss and gradient
          with the kernels, then with ``enable_fused_kernels = False``; every
          kernel of the loss path (reduce, band masking, CSF LUT forward and
-         backward, blur) must have launched; then three Adam steps on a leaf
-         copy of the test batch must lower the loss. Forward+backward ms per
-         step (median of 5) both ways, and the peak memory.
+         backward, blur, and the blur's adjoint as often as the blur) must
+         have launched; then three Adam steps on a leaf copy of the test
+         batch must lower the loss. Forward+backward ms per step (median of
+         5) both ways, and the peak memory; with the kernels, the device
+         time of ``Blur.backward`` within a step (CUDA events around each
+         call) and the step's device time by kernel (``torch.profiler``).
 Phase 6  the heatmap. First the D modes against their plain versions at
          the shapes of the runs below: 4K band 0 at the block length, the
          launch that takes the smallest 4K bands together (C = 4), and band 0
@@ -159,8 +171,11 @@ Phase 11 multi-device scoring (``colorvideovdp_tpu_torch/parallel``). First
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
 read once, each output written once) over the HBM rate and its float32
-operations (a transcendental counts as one) over the non-tensor float32
-peak, both from the published H100 SXM figures at 700 W.
+operations counted as instructions (the kernels issue no fused
+multiply-add; a powf as the 25 instructions of its SASS) over 33.5 T
+instructions a second, half the non-tensor float32 peak of 67 TFLOP/s,
+which counts an FMA as two; both from the published H100 SXM figures at
+700 W.
 
 The previous routes' kernels (``band_masking``, ``band_masking_d``,
 ``band_masking_d_noblur``, ``band_masking_contrast``, ``_contrast_d``,
@@ -187,14 +202,21 @@ CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 PORT_JOD = 7.877874  # the port's JOD for it before the one-pass band kernel
 PORT_JOD_TOL = 1e-4
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_pooled": 1e-4,
-       "csf_lut": 1e-5, "band_pooled_d": 1e-5,
+       "csf_lut": 1e-5, "band_pooled_d": 1e-5, "blur_adjoint": 1e-5,
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
        "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
        "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
        "interleave": 0.0, "concat": 0.0, "deinterleave": 0.0,
        "pyramid_reduce_slab": 0.0, "band_masking_halo": 1e-4, "band_pooled_halo": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+# Float32 instructions a second outside the tensor cores: the data sheet's 67
+# TFLOP/s counts a fused multiply-add as two operations, and the kernels issue
+# none (each multiply and add is rounded apart), so every operation counted
+# below is one instruction at half that rate.
+FP32_INSTR_PER_S = 33.5e12
+# powf(10, v): the instructions of its inlined body in the SASS of
+# csrc/csf_lut.cu (`cuobjdump -sass`, tools/kernel_times.py --sass; PERF.md).
+POWF_INSTR = 25
 # Training step bounds (phase 5): kernels against plain on the card.
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-4
 # Heatmap bounds (phase 6): float16 heatmaps kernels against plain, and the
@@ -249,9 +271,24 @@ def max_abs(a, b):
 
 
 def bound(n_bytes, n_ops):
-    """(ms, "bytes" or "operations"): the least time for the work."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    """(ms, "bytes" or "operations"): the least time for the work, its float32
+    operations counted as instructions."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_INSTR_PER_S
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def blur_instr(n_taps):
+    """Instructions an element of the separable blur (or its adjoint): each
+    pass n_taps multiplies and n_taps - 1 adds."""
+    return 2 * (2 * n_taps - 1)
+
+
+def lut_instr(C, backward=False):
+    """Instructions an element of the CSF LUT: the index (7: subtract, scale,
+    clamp, floor, fraction; backward 10 with the gradient's range test) and
+    per channel the lerp (4) and powf; backward also the slope and the
+    four-product term (7)."""
+    return (10 + C * (4 + POWF_INSTR + 7)) if backward else (7 + C * (4 + POWF_INSTR))
 
 
 def nbytes(*ts):
@@ -771,7 +808,7 @@ def phase_configs(m, fps, rows, record, counters, gen):
         y_k, y_p = blr.blur(xb, taps33), blur_plain(xb, taps33)
         check("blur 33 taps (3, 1080, 1920)", float((y_k - y_p).abs().max() / y_p.abs().max()),
               TOL["blur"])
-        b33 = bound(nbytes(xb, y_k), 132 * xb.numel())
+        b33 = bound(nbytes(xb, y_k), blur_instr(33) * xb.numel())
         k33 = time_ms(lambda: blr.blur(xb, taps33))
         log(f"  blur 33 taps (3, 1080, 1920): max abs error {max_abs(y_k, y_p):.3e}, kernel "
             f"{k33:.3f} ms, plain {time_ms(lambda: blur_plain(xb, taps33)):.3f} ms, bound "
@@ -942,8 +979,12 @@ def phase_configs(m, fps, rows, record, counters, gen):
             f"{ {k: v for k, v in launches['train_fhd_weber_g0_ref'].items() if v} }")
         if not (d_loss <= LOSS_TOL and d_grad <= GRAD_TOL and res[True][1].abs().max() > 0):
             raise AssertionError("weber_g0_ref training step: kernels disagree with plain")
-        if launches["train_fhd_weber_g0_ref"]["band_pooled"] <= 0:
+        g0t = launches["train_fhd_weber_g0_ref"]
+        if g0t["band_pooled"] <= 0:
             raise AssertionError("band_pooled was not launched on the training path")
+        if not g0t["blur_adjoint"] == g0t["blur"] > 0:
+            raise AssertionError(f"weber_g0_ref training step: blur {g0t['blur']}, blur_adjoint "
+                                 f"{g0t['blur_adjoint']} launches")
         for path, counts in launches.items():
             for k in ("band_masking_contrast", "band_masking_contrast_d"):
                 if counts[k]:
@@ -1667,12 +1708,14 @@ def main():
 
     import colorvideovdp_tpu_torch as cvt
     from colorvideovdp_tpu_torch.ops import pyramid as pyr
-    from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
+    from colorvideovdp_tpu_torch.ops.blur import blur_adjoint_plain, blur_plain, gaussian_kernel1d
     from colorvideovdp_tpu_torch.ops.kernels import (_build, counted_wrappers, csf_lut, ingest,
                                                      masking_fused)
     from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
+    from colorvideovdp_tpu_torch.tools.kernel_times import timed_backward
+    from colorvideovdp_tpu_torch.tools.path_times import profile_device
 
     # ---- phase 0 ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1736,13 +1779,17 @@ def main():
     log(f"phase 2: shapes at blk={blk}, filter_len={m.filter_len}")
     rows = {}
 
-    def record(name, err, abs_err, k_ms, p_ms, bnd, lib_ms=None):
+    def record(name, err, abs_err, k_ms, p_ms, bnd, lib_ms=None, dev_ms=None):
+        """A kernel's row: ``ms`` is its device time where ``dev_ms`` was
+        measured (rows 9-12 and the adjoint), else the call time ``k_ms``."""
         check(name, err, TOL[name])
         b_ms, b_by = bnd
-        log(f"  {name}: max abs error {abs_err:.3e}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by}, {100 * b_ms / k_ms:.1f}% of it), library "
-            + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
-        rows[name] = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        ms = k_ms if dev_ms is None else dev_ms
+        log(f"  {name}: max abs error {abs_err:.3e}, kernel "
+            + (f"{k_ms:.3f} ms" if dev_ms is None else f"device {dev_ms:.4f} ms, call {k_ms:.4f} ms")
+            + f", plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it), "
+            "library " + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
+        rows[name] = dict(max_abs_err=abs_err, ms=ms, call_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms)
 
     args = (tails[0], tails[1], raws[0], raws[1], dm, filt)
@@ -1907,59 +1954,137 @@ def main():
     c_p = csf_lut.csf_lut_plain(logL, lut_b, x0, x1)
     check(f"csf_lut baseband {tuple(logL.shape)}",
           float(((c_k - c_p).abs() / c_p.abs()).max()), TOL["csf_lut"])
-    log(f"  csf_lut baseband: kernel "
-        f"{time_ms(lambda: csf_lut.csf_lut(logL, lut_b, x0, x1)):.3f} ms, plain "
-        f"{time_ms(lambda: csf_lut.csf_lut_plain(logL, lut_b, x0, x1)):.3f} ms")
     del R_k, bands, L_bkg
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     # The loss path's kernels at the shapes of phase 5 (B = 4, C = 3, FHD):
     # the CSF LUT over band 0's full log-luminance field (the recompute in the
-    # band masking backward), its backward, and the phase-uncertainty blur.
+    # band masking backward), its backward, and the phase-uncertainty blur
+    # and its adjoint (``Blur``'s backward); then the ML trunk's 4K band 0
+    # (C = 4, 8 frames) and the texture models' 33-tap blur. Each timed as
+    # its device time (``tools/kernel_times.py`` ``device_ms``: the CUDA
+    # kernels' time under the profiler, the host's work between launches
+    # left out) and as one call (CUDA events around it).
+    from colorvideovdp_tpu_torch.tools.kernel_times import device_ms
+
+    def shape_row(k_fn, p_fn, bnd, lib_fn=None):
+        row = {"device_ms": device_ms(k_fn), "call_ms": time_ms(k_fn),
+               "plain_ms": time_ms(p_fn), "bound_ms": bnd[0], "bound_by": bnd[1],
+               "library_ms": None if lib_fn is None else time_ms(lib_fn)}
+        row["share"] = row["bound_ms"] / row["device_ms"]
+        return row
+
+    def log_shapes(name, shapes):
+        for key, r in shapes.items():
+            log(f"  {name} {key}: device {r['device_ms']:.4f} ms, call {r['call_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{100 * r['share']:.1f}% of it), library "
+                + ("none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"))
+
     field = torch.empty((1, 1, 1080, 1920), device=dev).uniform_(x0 - 0.5, x1 + 0.5,
                                                                 generator=gen)
     lut3 = lut_b[:3].contiguous()
     c_k = csf_lut.csf_lut(field, lut3, x0, x1)
     c_p = csf_lut.csf_lut_plain(field, lut3, x0, x1)
+    check("csf_lut bit for bit", max_abs(c_k, c_p), 0.0)
     n = field.numel()
     record("csf_lut", float(((c_k - c_p).abs() / c_p.abs()).max()), max_abs(c_k, c_p),
            time_ms(lambda: csf_lut.csf_lut(field, lut3, x0, x1)),
            time_ms(lambda: csf_lut.csf_lut_plain(field, lut3, x0, x1)),
-           bound(nbytes(field, c_k, lut3), n * (4 + 5 * 3)))
+           bound(nbytes(field, c_k, lut3), n * lut_instr(3)),
+           dev_ms=device_ms(lambda: csf_lut.csf_lut(field, lut3, x0, x1)))
     g = torch.randn((3,) + tuple(field.shape), device=dev, generator=gen)
     d_k = csf_lut.csf_lut_bwd(field, g, lut3, x0, x1)
     d_p = csf_lut.csf_lut_bwd_plain(field, g, lut3, x0, x1)
+    check("csf_lut_bwd bit for bit", max_abs(d_k, d_p), 0.0)
     record("csf_lut_bwd", float((d_k - d_p).abs().max() / d_p.abs().max()), max_abs(d_k, d_p),
            time_ms(lambda: csf_lut.csf_lut_bwd(field, g, lut3, x0, x1)),
            time_ms(lambda: csf_lut.csf_lut_bwd_plain(field, g, lut3, x0, x1)),
-           bound(nbytes(field, g, lut3, d_k), n * (6 + 10 * 3)))
+           bound(nbytes(field, g, lut3, d_k), n * lut_instr(3, backward=True)),
+           dev_ms=device_ms(lambda: csf_lut.csf_lut_bwd(field, g, lut3, x0, x1)))
     del field, g, c_k, c_p, d_k, d_p
-    taps = gaussian_kernel1d(13, 3.0)
-    for shape in ((3, 135, 241), (12, 1080, 1920)):
+    # The ML trunk's band-0 field at 4K (8 frames, C = 4) and the baseband.
+    field = torch.empty((1, 1, 8, 2160, 3840), device=dev).uniform_(x0 - 0.5, x1 + 0.5,
+                                                                   generator=gen)
+    c_k = csf_lut.csf_lut(field, lut_b, x0, x1)
+    check(f"csf_lut {tuple(field.shape)} C=4 bit for bit",
+          max_abs(c_k, csf_lut.csf_lut_plain(field, lut_b, x0, x1)), 0.0)
+    rows["csf_lut"]["shapes"] = {
+        "(1,1,8,2160,3840) C=4": shape_row(
+            lambda: csf_lut.csf_lut(field, lut_b, x0, x1),
+            lambda: csf_lut.csf_lut_plain(field, lut_b, x0, x1),
+            bound(nbytes(field, c_k, lut_b), field.numel() * lut_instr(4))),
+        f"baseband {tuple_str(logL.shape)} C=4": shape_row(
+            lambda: csf_lut.csf_lut(logL, lut_b, x0, x1),
+            lambda: csf_lut.csf_lut_plain(logL, lut_b, x0, x1),
+            bound(nbytes(logL, lut_b) + 4 * nbytes(logL), logL.numel() * lut_instr(4)))}
+    log_shapes("csf_lut", rows["csf_lut"]["shapes"])
+    del field, c_k
+    torch.cuda.empty_cache()
+
+    def blur_case(shape, n_taps, sigma):
+        """The blur and its adjoint at one shape against their plain versions
+        (the adjoint also against autograd of blur_plain), with the library
+        yardstick: a depthwise n x n convolution with the outer-product taps
+        and reflect padding (cuDNN, TF32 off)."""
+        taps = gaussian_kernel1d(n_taps, sigma)
         xb = torch.rand(shape, device=dev, generator=gen)
         y_k, y_p = blr.blur(xb, taps), blur_plain(xb, taps)
-        err = float((y_k - y_p).abs().max() / y_p.abs().max())
-        # The library yardstick: a depthwise 13x13 convolution with the
-        # outer-product taps and reflect padding (cuDNN, TF32 off).
-        conv = torch.nn.Conv2d(shape[0], shape[0], 13, groups=shape[0], padding=6,
+        check(f"blur {shape} {n_taps} taps bit for bit", max_abs(y_k, y_p), 0.0)
+        P = xb.numel() // (shape[-2] * shape[-1])
+        conv = torch.nn.Conv2d(P, P, n_taps, groups=P, padding=n_taps // 2,
                                padding_mode="reflect", bias=False).to(dev)
+        xc = xb.reshape(1, P, *shape[-2:])
         with torch.no_grad():
             conv.weight.copy_(torch.as_tensor(np.outer(taps, taps), device=dev)
-                              .expand(shape[0], 1, 13, 13))
-            y_l = conv(xb[None])[0]
-            lib_ms = time_ms(lambda: conv(xb[None]))
-        log(f"  blur {shape}: library conv max abs difference {max_abs(y_l, y_p):.3e}")
-        k_ms = time_ms(lambda: blr.blur(xb, taps))
-        p_ms = time_ms(lambda: blur_plain(xb, taps))
-        b = bound(nbytes(xb, y_k), 52 * xb.numel())
-        if shape[0] == 12:
-            record("blur", err, max_abs(y_k, y_p), k_ms, p_ms, b, lib_ms)
-        else:
-            check(f"blur {shape}", err, TOL["blur"])
-            log(f"  blur {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                f"bound {b[0]:.4f} ms, library {lib_ms:.3f} ms")
-        del xb, y_k, y_p, y_l, conv
+                              .expand(P, 1, n_taps, n_taps))
+            log(f"  blur {shape} {n_taps} taps: library conv max abs difference "
+                f"{max_abs(conv(xc).reshape(shape), y_p):.3e}")
+            b = bound(nbytes(xb, y_k), blur_instr(n_taps) * xb.numel())
+            fwd = shape_row(lambda: blr.blur(xb, taps), lambda: blur_plain(xb, taps), b,
+                            lambda: conv(xc))
+        del y_k, y_p, conv, xc
+        gb = torch.randn(shape, device=dev, generator=gen)
+        a_k = blr.blur_adjoint(gb, taps)
+        check(f"blur_adjoint {shape} {n_taps} taps vs blur_adjoint_plain bit for bit",
+              max_abs(a_k, blur_adjoint_plain(gb, taps)), 0.0)
+        x0b = torch.zeros(shape, device=dev, requires_grad=True)
+        (a_ref,) = torch.autograd.grad(blur_plain(x0b, taps), x0b, gb)
+        err = float((a_k - a_ref).abs().max() / a_ref.abs().max())
+        check(f"blur_adjoint {shape} {n_taps} taps vs autograd of blur_plain", err,
+              TOL["blur_adjoint"])
+        abs_err = max_abs(a_k, a_ref)
+        del a_ref, x0b
+        adj = shape_row(lambda: blr.blur_adjoint(gb, taps), lambda: blur_adjoint_plain(gb, taps),
+                        bound(nbytes(gb, a_k), blur_instr(n_taps) * gb.numel()))
+
+        def autograd_adjoint():
+            with torch.enable_grad():
+                x0a = torch.zeros(shape, device=dev, requires_grad=True)
+                return torch.autograd.grad(blur_plain(x0a, taps), x0a, gb)[0]
+
+        adj["autograd_ms"] = time_ms(autograd_adjoint)
+        del xb, gb, a_k
+        torch.cuda.empty_cache()
+        return fwd, adj, err, abs_err
+
+    blur_shapes, adj_shapes = {}, {}
+    for shape, n_taps, sigma in (((12, 1080, 1920), 13, 3.0), ((3, 135, 241), 13, 3.0),
+                                 ((1, 4, 8, 2160, 3840), 13, 3.0), ((3, 1080, 1920), 33, 8.0)):
+        key = f"{tuple_str(shape)} {n_taps} taps"
+        blur_shapes[key], adj_shapes[key], err_a, abs_a = blur_case(shape, n_taps, sigma)
+        if key == "(12,1080,1920) 13 taps":
+            f, a = blur_shapes.pop(key), adj_shapes.pop(key)
+            record("blur", 0.0, 0.0, f["call_ms"], f["plain_ms"], (f["bound_ms"], f["bound_by"]),
+                   f["library_ms"], dev_ms=f["device_ms"])
+            record("blur_adjoint", err_a, abs_a, a["call_ms"], a["plain_ms"],
+                   (a["bound_ms"], a["bound_by"]), None, dev_ms=a["device_ms"])
+            rows["blur_adjoint"]["autograd_ms"] = a["autograd_ms"]
+            log(f"  blur_adjoint (12,1080,1920): autograd of blur_plain {a['autograd_ms']:.3f} ms")
+    rows["blur"]["shapes"], rows["blur_adjoint"]["shapes"] = blur_shapes, adj_shapes
+    log_shapes("blur", blur_shapes)
+    log_shapes("blur_adjoint", adj_shapes)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2048,7 +2173,7 @@ def main():
     del mi
 
     # ---- phase 5 ------------------------------------------------------------
-    train_path = ("pyramid_reduce", "band_pooled", "csf_lut", "csf_lut_bwd", "blur")
+    train_path = ("pyramid_reduce", "band_pooled", "csf_lut", "csf_lut_bwd", "blur", "blur_adjoint")
     Ht, Wt, Bt = 1080, 1920, 4
     rng = np.random.RandomState(11)
     ref_np = rng.rand(Bt, 3, 1, Ht, Wt).astype(np.float32)
@@ -2133,12 +2258,31 @@ def main():
         log(f"phase 5: {'kernels' if fused else 'plain  '}: loss {float(v):.6f}, "
             f"forward+backward {step_ms:.3f} ms per step (B={Bt}, {Ht}x{Wt}), peak memory "
             f"{peak:.2f} GiB, launches {counts}")
+        if fused:
+            # The blur's backward within the step (CUDA events around each
+            # Blur.backward), and the step's device time by kernel.
+            blur_bwd = []
+            for _ in range(5):
+                with timed_backward(blr.Blur) as pairs:
+                    loss_and_grad()
+                torch.cuda.synchronize()
+                blur_bwd.append(sum(a.elapsed_time(b) for a, b in pairs))
+            bwd_ms = float(np.median(blur_bwd))
+            prof, busy, wall = profile_device(loss_and_grad)
+            log(f"phase 5: Blur.backward {bwd_ms:.3f} ms a step over {len(pairs)} calls "
+                f"({100 * bwd_ms / step_ms:.1f}% of the step); profiled step {1e3 * wall:.3f} ms, "
+                f"device busy {busy:.3f} ms")
+            for ms, count, name in prof[:10]:
+                log(f"  {ms:9.3f} ms {count:5d}x  {name[:100]}")
     (v_k, g_k, train_launches), (v_p, g_p, _) = train[True], train[False]
     for k in train_path:
         if train_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the training path")
     if train_launches["band_masking"] != 0:
         raise AssertionError("the training step's raw bands went through band_masking")
+    if train_launches["blur_adjoint"] != train_launches["blur"]:
+        raise AssertionError(f"the training step's blur backward did not take the adjoint kernel "
+                             f"at every blur: {train_launches}")
     d_loss = abs(v_k - v_p)
     d_grad = float((g_k - g_p).abs().max() / g_p.abs().max())
     if not torch.isfinite(g_k).all() or not g_k.abs().max() > 0:
@@ -2197,6 +2341,7 @@ def main():
         "csf_lut": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:114"),
         "csf_lut_bwd": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:156"),
         "blur": ("blur.cu", "colorvideovdp_tpu/ops/kernels/blur_halo.py:209"),
+        "blur_adjoint": ("blur.cu", "colorvideovdp_tpu/ops/kernels/blur_halo.py:209"),
         "band_masking_d": ("band_masking.cu",
                            "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
         "band_masking_d_noblur": ("band_masking.cu",

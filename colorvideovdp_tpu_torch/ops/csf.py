@@ -33,6 +33,7 @@ class CastleCSF:
             [np.asarray(lut[f"o{self.omega[1]}_c1"], np.float32)],
         ]
         self._rho_cache: dict[str, np.ndarray] = {}
+        self._table_cache: dict[tuple, torch.Tensor] = {}
 
     def logS_of_logL(self, rho: float, omega: float, cc: int) -> np.ndarray:
         """log10-sensitivity sampled over the LUT's L_bkg grid for one
@@ -51,8 +52,13 @@ class CastleCSF:
     def sensitivity_multi_channel(self, rho_per_ch, omega_per_ch, logL_bkg: torch.Tensor,
                                   channels, use_kernel: bool = True) -> torch.Tensor:
         """Sensitivities for several channels sharing one ``logL_bkg`` field,
-        differentiable in it (``CsfLut``). Returns (n_ch, *logL_bkg.shape)."""
-        luts = np.stack([self.logS_of_logL(rho, om, cc)
-                         for rho, om, cc in zip(rho_per_ch, omega_per_ch, channels)])
-        luts_t = torch.as_tensor(luts, device=logL_bkg.device)
+        differentiable in it (``CsfLut``). Returns (n_ch, *logL_bkg.shape).
+        The (n_ch, nk) table is uploaded once per (rho, omega, channel) rows
+        and device: a copy from pageable memory would wait for the stream."""
+        key = (tuple(rho_per_ch), tuple(omega_per_ch), tuple(channels), logL_bkg.device)
+        luts_t = self._table_cache.get(key)
+        if luts_t is None:
+            luts = np.stack([self.logS_of_logL(rho, om, cc)
+                             for rho, om, cc in zip(rho_per_ch, omega_per_ch, channels)])
+            luts_t = self._table_cache[key] = torch.as_tensor(luts, device=logL_bkg.device)
         return CsfLut.apply(logL_bkg, luts_t, *self.lut_range(), use_kernel)

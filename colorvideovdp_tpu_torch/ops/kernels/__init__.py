@@ -20,5 +20,6 @@ def counted_wrappers() -> dict:
             "band_masking_contrast_d": mf.band_masking_contrast_d,
             "band_fused": band_fused.band_fused, "band_fused_d": band_fused.band_fused_d,
             "csf_lut": csf_lut.csf_lut, "csf_lut_bwd": csf_lut.csf_lut_bwd, "blur": blur.blur,
+            "blur_adjoint": blur.blur_adjoint,
             "interleave": interleave.interleave, "concat": interleave.concat,
             "deinterleave": interleave.deinterleave}

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "cvvdp_csf_lut": [_P, _P, _L, _I, _I, _P, _F, _F, _P],
     "cvvdp_csf_lut_bwd": [_P, _P, _P, _L, _I, _I, _P, _F, _F, _P],
-    "cvvdp_blur": [_P, _P, _I, _I, _I, _P, _I, _P],
+    "cvvdp_blur": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     "cvvdp_pyramid_reduce": [_P, _P, _I, _I, _I, _P, _P],
     "cvvdp_pyramid_reduce_slab": [_P, _P, _I, _I, _I, _I, _P, _P],
     "cvvdp_ingest": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _I,
@@ -148,6 +148,11 @@ def check_cuda(rc: int, name: str):
 
 
 def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, read without building
+    a ``torch.cuda.Stream`` object where PyTorch exposes the getter."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index if device.index is not None else torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -215,17 +215,19 @@ def test_log_contrast_heatmap_matches_jax(configs):
         assert abs(float(Qj) - float(Qt)) <= 1e-4
 
 
-def test_weber_g0_ref_loss_and_gradient_match_jax(jax_metrics, configs):
-    """get_loss_fn on the contrast-band route: loss within 1e-4, gradient
+@pytest.mark.parametrize("contrast", ["weber_g0_ref", "log"])
+def test_weber_g0_ref_loss_and_gradient_match_jax(jax_metrics, configs, contrast):
+    """get_loss_fn on the contrast codings' route (weber_g0_ref, and log,
+    whose loss no other test holds against JAX): loss within 1e-4, gradient
     within 1e-3 of max|g| of ``jax.value_and_grad``."""
     B, Hl, Wl = 1, 48, 160
     rng = np.random.RandomState(17)
     ref = rng.rand(B, 3, 1, Hl, Wl).astype(np.float32)
     test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
-    mj = jax_metrics["weber_g0_ref"]
+    mj = jax_metrics[contrast]
     fn = jax.jit(jax.value_and_grad(mj.get_loss_fn(Hl, Wl, remat=False), argnums=(0, 1)))
     v_j, (gt_j, gr_j) = fn(jnp.asarray(test), jnp.asarray(ref))
-    mt = ct.cvvdp(display_name="standard_4k", device="cpu", config_paths=configs["weber_g0_ref"])
+    mt = ct.cvvdp(display_name="standard_4k", device="cpu", config_paths=configs[contrast])
     x, y = (torch.from_numpy(a).requires_grad_() for a in (test, ref))
     v = mt.get_loss_fn(Hl, Wl)(x, y)
     gt, gr = torch.autograd.grad(v, (x, y))

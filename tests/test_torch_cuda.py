@@ -13,7 +13,7 @@ import torch
 
 import colorvideovdp_tpu_torch as ct
 from colorvideovdp_tpu_torch.ops import pyramid as pyr
-from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
+from colorvideovdp_tpu_torch.ops.blur import blur_adjoint_plain, blur_plain, gaussian_kernel1d
 from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
 from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
 from colorvideovdp_tpu_torch.ops.kernels import blur as bl
@@ -312,24 +312,88 @@ def test_csf_lut_bwd_kernel(dev):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n", [4097, 2 * 1080 * 1920 + 3])
+@pytest.mark.parametrize("C", [3, 4])
+def test_csf_lut_kernels_odd_length_and_offset_view(dev, n, C):
+    """Forward and backward bit for bit at n % 4 != 0 and on views one
+    element into their storage (a pointer off 16-byte alignment)."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    x0, x1 = m.csf.lut_range()
+    luts = torch.as_tensor(np.stack([m.csf.logS_of_logL(2.0, 0, c) for c in range(3)]
+                                    + [m.csf.logS_of_logL(2.0, 5, 0)])[:C], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    base = torch.empty(n + 1, device=dev).uniform_(x0 - 0.5, x1 + 0.5, generator=gen)
+    g_base = torch.randn(C * (n + 1), device=dev, generator=gen)
+    for logL, g in ((base[:n], g_base[:C * n].view(C, n)),
+                    (base[1:], g_base[1:C * n + 1].view(C, n))):
+        assert logL.is_contiguous() and g.is_contiguous()
+        assert torch.equal(lut.csf_lut(logL, luts, x0, x1), lut.csf_lut_plain(logL, luts, x0, x1))
+        assert torch.equal(lut.csf_lut_bwd(logL, g, luts, x0, x1),
+                           lut.csf_lut_bwd_plain(logL, g, luts, x0, x1))
+
+
 @pytest.mark.parametrize("shape", [(12, 270, 481), (3, 135, 241), (2, 17, 129),
-                                   (1, 4, 2, 33, 40)])
+                                   (1, 4, 2, 33, 40), (2, 70, 520), (1, 7, 30), (3, 131, 258),
+                                   (1, 1080, 1920)])
 def test_blur_kernel(dev, shape):
+    """Several strips (16-byte copies inside, 4-byte at the reflected edges)
+    and runs, W % 4 != 0 (4-byte copies), H = r + 1, lead dimensions, and a
+    non-contiguous input (a transposed view)."""
     taps = gaussian_kernel1d(13, 3.0)
     x = torch.rand(shape, device=dev)
     before = bl.blur.launches
     y = bl.blur(x, taps)
     assert bl.blur.launches == before + 1
     assert torch.equal(y, blur_plain(x, taps))
+    xt = torch.rand(shape[:-2] + shape[-2:][::-1], device=dev).transpose(-1, -2)
+    assert not xt.is_contiguous()
+    assert torch.equal(bl.blur(xt, taps), blur_plain(xt, taps))
     with pytest.raises(ValueError):
         bl.blur(x[..., :6, :], taps)  # H <= radius: one reflection is not enough
+
+
+@pytest.mark.parametrize("n", list(range(1, 34, 2)))
+def test_blur_kernel_every_tap_count(dev, n):
+    """Every odd tap count up to 33 (the radius is a template argument), on
+    planes of several strips and runs, W % 4 != 0, and H = W = r + 1."""
+    taps = gaussian_kernel1d(n, max(1.0, (n - 1) / 4))
+    r = (n - 1) // 2
+    for shape in ((2, 150, 600), (1, 67, 301), (1, r + 1, r + 1)):
+        x = torch.rand(shape, device=dev)
+        assert torch.equal(bl.blur(x, taps), blur_plain(x, taps)), shape
+
+
+@pytest.mark.parametrize("n", [13, 33, 3, 1])
+@pytest.mark.parametrize("shape", [(12, 270, 481), (2, 17, 129), (1, 70, 520), (1, 1080, 1920)])
+def test_blur_adjoint_kernel(dev, n, shape):
+    """The adjoint mode within 1e-5 of max|x_bar| of autograd of blur_plain
+    and bit for bit ``blur_adjoint_plain`` (the same steps and order), with
+    its launch counted; ``Blur``'s backward on the card launches it."""
+    taps = gaussian_kernel1d(n, max(1.0, (n - 1) / 4))
+    r = (n - 1) // 2
+    for shp in (shape, (1, r + 1, r + 1)):
+        g = torch.randn(shp, device=dev)
+        x0 = torch.zeros(shp, device=dev, requires_grad=True)
+        (ref,) = torch.autograd.grad(blur_plain(x0, taps), x0, g)
+        before = bl.blur_adjoint.launches
+        a = bl.blur_adjoint(g, taps)
+        assert bl.blur_adjoint.launches == before + 1
+        assert _rel(a, ref) <= 1e-5, shp
+        assert torch.equal(a, blur_adjoint_plain(g, taps)), shp
+    x = torch.rand(shape, device=dev, requires_grad=True)
+    g = torch.randn(shape, device=dev)
+    before = bl.blur_adjoint.launches
+    (dx,) = torch.autograd.grad(bl.Blur.apply(x, taps), x, g)
+    assert bl.blur_adjoint.launches == before + 1
+    assert torch.equal(dx, blur_adjoint_plain(g, taps))
 
 
 def test_loss_kernels_match_plain(dev):
     rng = np.random.RandomState(4)
     ref = rng.rand(2, 3, 1, 96, 320).astype(np.float32)
     test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
-    counters = [pyramid_reduce, bp.band_pooled, lut.csf_lut, lut.csf_lut_bwd, bl.blur]
+    counters = [pyramid_reduce, bp.band_pooled, lut.csf_lut, lut.csf_lut_bwd, bl.blur,
+                bl.blur_adjoint]
     out = []
     for fused in (True, False):
         m = ct.cvvdp(display_name="standard_4k", device="cuda")
