@@ -21,7 +21,8 @@ Phase 2  every kernel against its plain PyTorch version on the card, at the
          n x n reflect convolution (the library yardstick). These rows add
          the device time (``tools/kernel_times.py`` ``device_ms``: the CUDA
          kernels' time under ``torch.profiler``, the wrapper's host work
-         left out), which is their ``ms``. The ingest kernel also on uint16 and
+         left out) as ``device_ms`` beside ``ms``, which is the call time in
+         every row. The ingest kernel also on uint16 and
          float16 frames, its code-value table route against the same frames
          as float32 (v / 255, v / 65535 correctly rounded, float16 widened)
          through the per-sample path, bit for bit. The reduce at every
@@ -198,6 +199,9 @@ import time
 import numpy as np
 import torch
 
+from colorvideovdp_tpu_torch.tools.kernel_times import blur_backward_split, device_ms, timing_row
+from colorvideovdp_tpu_torch.tools.kernel_times import call_ms as time_ms
+
 CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 PORT_JOD = 7.877874  # the port's JOD for it before the one-pass band kernel
 PORT_JOD_TOL = 1e-4
@@ -243,20 +247,6 @@ def clip_content(H, W, N, rng):
     from colorvideovdp_tpu_torch.tools.clips import hdr_clip
 
     return hdr_clip(H, W, N, rng)
-
-
-def time_ms(fn, reps=5):
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def rel_err_per(a, b, dim):
@@ -1714,8 +1704,6 @@ def main():
     from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
-    from colorvideovdp_tpu_torch.tools.kernel_times import timed_backward
-    from colorvideovdp_tpu_torch.tools.path_times import profile_device
 
     # ---- phase 0 ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1780,17 +1768,20 @@ def main():
     rows = {}
 
     def record(name, err, abs_err, k_ms, p_ms, bnd, lib_ms=None, dev_ms=None):
-        """A kernel's row: ``ms`` is its device time where ``dev_ms`` was
-        measured (rows 9-12 and the adjoint), else the call time ``k_ms``."""
+        """A kernel's row: ``ms`` is the call time ``k_ms``; ``device_ms``,
+        where measured (rows 9-12 and the adjoint), its device time."""
         check(name, err, TOL[name])
         b_ms, b_by = bnd
-        ms = k_ms if dev_ms is None else dev_ms
-        log(f"  {name}: max abs error {abs_err:.3e}, kernel "
-            + (f"{k_ms:.3f} ms" if dev_ms is None else f"device {dev_ms:.4f} ms, call {k_ms:.4f} ms")
-            + f", plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it), "
-            "library " + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
-        rows[name] = dict(max_abs_err=abs_err, ms=ms, call_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        log(f"  {name}: max abs error {abs_err:.3e}, kernel {k_ms:.4f} ms "
+            f"({100 * b_ms / k_ms:.1f}% of the bound)"
+            + ("" if dev_ms is None else
+               f", device {dev_ms:.4f} ms ({100 * b_ms / dev_ms:.1f}% of the bound)")
+            + f", plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+            + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
+        rows[name] = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms)
+        if dev_ms is not None:
+            rows[name]["device_ms"] = dev_ms
 
     args = (tails[0], tails[1], raws[0], raws[1], dm, filt)
     R_k, nt_k, _ = ingest.ingest(*args)
@@ -1966,20 +1957,16 @@ def main():
     # its device time (``tools/kernel_times.py`` ``device_ms``: the CUDA
     # kernels' time under the profiler, the host's work between launches
     # left out) and as one call (CUDA events around it).
-    from colorvideovdp_tpu_torch.tools.kernel_times import device_ms
-
     def shape_row(k_fn, p_fn, bnd, lib_fn=None):
-        row = {"device_ms": device_ms(k_fn), "call_ms": time_ms(k_fn),
-               "plain_ms": time_ms(p_fn), "bound_ms": bnd[0], "bound_by": bnd[1],
-               "library_ms": None if lib_fn is None else time_ms(lib_fn)}
-        row["share"] = row["bound_ms"] / row["device_ms"]
+        row = timing_row(k_fn, p_fn, lib_fn)
+        row.update(bound_ms=bnd[0], bound_by=bnd[1], device_share=bnd[0] / row["device_ms"])
         return row
 
     def log_shapes(name, shapes):
         for key, r in shapes.items():
             log(f"  {name} {key}: device {r['device_ms']:.4f} ms, call {r['call_ms']:.4f} ms, "
                 f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                f"{100 * r['share']:.1f}% of it), library "
+                f"{100 * r['device_share']:.1f}% of the device time), library "
                 + ("none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"))
 
     field = torch.empty((1, 1, 1080, 1920), device=dev).uniform_(x0 - 0.5, x1 + 0.5,
@@ -2031,7 +2018,9 @@ def main():
         taps = gaussian_kernel1d(n_taps, sigma)
         xb = torch.rand(shape, device=dev, generator=gen)
         y_k, y_p = blr.blur(xb, taps), blur_plain(xb, taps)
-        check(f"blur {shape} {n_taps} taps bit for bit", max_abs(y_k, y_p), 0.0)
+        abs_f = max_abs(y_k, y_p)
+        check(f"blur {shape} {n_taps} taps bit for bit", abs_f, 0.0)
+        err_f = abs_f / float(y_p.abs().max())
         P = xb.numel() // (shape[-2] * shape[-1])
         conv = torch.nn.Conv2d(P, P, n_taps, groups=P, padding=n_taps // 2,
                                padding_mode="reflect", bias=False).to(dev)
@@ -2067,18 +2056,18 @@ def main():
         adj["autograd_ms"] = time_ms(autograd_adjoint)
         del xb, gb, a_k
         torch.cuda.empty_cache()
-        return fwd, adj, err, abs_err
+        return fwd, adj, (err_f, abs_f), (err, abs_err)
 
     blur_shapes, adj_shapes = {}, {}
     for shape, n_taps, sigma in (((12, 1080, 1920), 13, 3.0), ((3, 135, 241), 13, 3.0),
                                  ((1, 4, 8, 2160, 3840), 13, 3.0), ((3, 1080, 1920), 33, 8.0)):
         key = f"{tuple_str(shape)} {n_taps} taps"
-        blur_shapes[key], adj_shapes[key], err_a, abs_a = blur_case(shape, n_taps, sigma)
+        blur_shapes[key], adj_shapes[key], errs_f, errs_a = blur_case(shape, n_taps, sigma)
         if key == "(12,1080,1920) 13 taps":
             f, a = blur_shapes.pop(key), adj_shapes.pop(key)
-            record("blur", 0.0, 0.0, f["call_ms"], f["plain_ms"], (f["bound_ms"], f["bound_by"]),
+            record("blur", *errs_f, f["call_ms"], f["plain_ms"], (f["bound_ms"], f["bound_by"]),
                    f["library_ms"], dev_ms=f["device_ms"])
-            record("blur_adjoint", err_a, abs_a, a["call_ms"], a["plain_ms"],
+            record("blur_adjoint", *errs_a, a["call_ms"], a["plain_ms"],
                    (a["bound_ms"], a["bound_by"]), None, dev_ms=a["device_ms"])
             rows["blur_adjoint"]["autograd_ms"] = a["autograd_ms"]
             log(f"  blur_adjoint (12,1080,1920): autograd of blur_plain {a['autograd_ms']:.3f} ms")
@@ -2261,19 +2250,14 @@ def main():
         if fused:
             # The blur's backward within the step (CUDA events around each
             # Blur.backward), and the step's device time by kernel.
-            blur_bwd = []
-            for _ in range(5):
-                with timed_backward(blr.Blur) as pairs:
-                    loss_and_grad()
-                torch.cuda.synchronize()
-                blur_bwd.append(sum(a.elapsed_time(b) for a, b in pairs))
-            bwd_ms = float(np.median(blur_bwd))
-            prof, busy, wall = profile_device(loss_and_grad)
-            log(f"phase 5: Blur.backward {bwd_ms:.3f} ms a step over {len(pairs)} calls "
-                f"({100 * bwd_ms / step_ms:.1f}% of the step); profiled step {1e3 * wall:.3f} ms, "
-                f"device busy {busy:.3f} ms")
-            for ms, count, name in prof[:10]:
-                log(f"  {ms:9.3f} ms {count:5d}x  {name[:100]}")
+            split = blur_backward_split(loss_and_grad)
+            bwd_ms = split["blur_backward_ms"]
+            log(f"phase 5: Blur.backward {bwd_ms:.3f} ms a step over "
+                f"{split['blur_backward_calls']} calls ({100 * bwd_ms / step_ms:.1f}% of the "
+                f"step); profiled step {split['profiled_wall_ms']:.3f} ms, device busy "
+                f"{split['device_busy_ms']:.3f} ms")
+            for ms, count, name in split["device_ms_by_kernel"][:10]:
+                log(f"  {ms:9.3f} ms {count:5d}x  {name}")
     (v_k, g_k, train_launches), (v_p, g_p, _) = train[True], train[False]
     for k in train_path:
         if train_launches[k] <= 0:

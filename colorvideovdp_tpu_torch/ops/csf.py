@@ -54,7 +54,11 @@ class CastleCSF:
         """Sensitivities for several channels sharing one ``logL_bkg`` field,
         differentiable in it (``CsfLut``). Returns (n_ch, *logL_bkg.shape).
         The (n_ch, nk) table is uploaded once per (rho, omega, channel) rows
-        and device: a copy from pageable memory would wait for the stream."""
+        and device: a copy from pageable memory would wait for the stream.
+        This cache serves the callers that take one band at a time (the
+        generic masking chain, the ML trunk); the band kernels take every
+        interior band's rows in one (bands, C, nk) tensor, which
+        ``metrics/cvvdp.py`` ``_band_tables`` stacks and keeps itself."""
         key = (tuple(rho_per_ch), tuple(omega_per_ch), tuple(channels), logL_bkg.device)
         luts_t = self._table_cache.get(key)
         if luts_t is None:

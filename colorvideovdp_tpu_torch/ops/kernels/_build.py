@@ -148,11 +148,6 @@ def check_cuda(rc: int, name: str):
 
 
 def stream_handle(device: torch.device) -> int:
-    """The raw handle of ``device``'s current stream, read without building
-    a ``torch.cuda.Stream`` object where PyTorch exposes the getter."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(device.index if device.index is not None else torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream
 
 

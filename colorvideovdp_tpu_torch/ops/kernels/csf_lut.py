@@ -8,8 +8,10 @@ slab (:134, any shape), and the backward kernel ``_make_lookup.backward``
 (:156, ``_bwd_kernel`` :63), the analytic d(10^interp)/dlogL. Kernels:
 ``csrc/csf_lut.cu``. Both are bound by memory: the forward reads 4 bytes and
 writes 4*C per element, the backward reads 4*(1 + C) and writes 4; each
-evaluates the table as a segment lerp with a direct knot read, where the TPU
-ran a select chain because it has no per-lane gather.
+evaluates the table as a segment lerp with a direct knot read from the table
+a block stages in shared memory, where the TPU ran a select chain because it
+has no per-lane gather. A thread takes 4 consecutive elements with 16-byte
+accesses where the planes are aligned, a scalar loop takes the rest.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch.autograd.function import once_differentiable
 from . import _build
 
 LN10 = math.log(10.0)
+MAX_TABLE = 12288  # C * nk floats: the kernels' 48 KiB of shared memory
 
 
 def _index(logL, nk: int, x0: float, x1: float):
@@ -69,7 +72,7 @@ def csf_lut_bwd_plain(logL: torch.Tensor, g: torch.Tensor, luts: torch.Tensor,
 
 def _check_table(name: str, luts: torch.Tensor):
     C, nk = luts.shape
-    if not 1 <= C <= 4 or nk < 2:
+    if not 1 <= C <= 4 or nk < 2 or C * nk > MAX_TABLE:
         raise ValueError(f"{name}: unsupported table shape {tuple(luts.shape)}")
     return C, nk
 

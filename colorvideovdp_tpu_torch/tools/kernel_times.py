@@ -14,15 +14,16 @@ it reports:
 - ``call_ms``: CUDA events around a single call, median of 5 (the host work
   of the wrapper between the events included), as ``chip_smoke.py`` times
   every kernel;
-- the plain PyTorch version's device time and, for the blur, a depthwise
-  convolution's (the library yardstick, cuDNN with TF32 off).
+- the plain PyTorch version's call and device times and, for the blur, a
+  depthwise convolution's (the library yardstick, cuDNN with TF32 off).
 
-The blur's adjoint is ``blur_adjoint`` where the package has it; else (and
-always as the yardstick) autograd of ``blur_plain``, which is ``Blur``'s
-backward on the card before the adjoint kernel. Then the training step of
+The blur's adjoint is timed as ``Blur.backward`` (the adjoint kernel on the
+card; autograd of ``blur_plain`` in checkouts before it), beside autograd of
+``blur_plain`` as its plain version. Then the training step of
 ``chip_smoke.py`` phase 5 (``get_loss_fn(1080, 1920)``, 4 seeded sRGB pairs):
 its time, the device time of ``Blur.backward`` within it (``timed_backward``,
-CUDA events around each call) and the step's device time by kernel.
+CUDA events around each call) and the step's device time by kernel
+(``blur_backward_split``, which phase 5 also uses).
 ``--sass DIR`` writes ``cuobjdump -sass`` of the CSF LUT kernels to DIR and
 prints each kernel's instructions by opcode.
 
@@ -92,15 +93,38 @@ def timed_backward(function_cls):
         function_cls.backward = orig
 
 
-def _row(fn, plain, reps, lib=None):
-    row = {"device_ms": round(device_ms(fn, reps), 5), "call_ms": round(call_ms(fn), 5),
-           "plain_device_ms": round(device_ms(plain, max(2, reps // 4)), 5)}
-    if lib is not None:
-        row["library_device_ms"] = round(device_ms(lib, max(2, reps // 4)), 5)
-    return row
+def timing_row(fn, plain, lib=None, reps=20):
+    """A kernel call ``fn`` beside its plain version and the library call
+    ``lib`` (or None): each one's call time and device time."""
+    short = max(2, reps // 4)
+    return {"call_ms": call_ms(fn), "device_ms": device_ms(fn, reps),
+            "plain_ms": call_ms(plain), "plain_device_ms": device_ms(plain, short),
+            "library_ms": None if lib is None else call_ms(lib),
+            "library_device_ms": None if lib is None else device_ms(lib, short)}
+
+
+def blur_backward_split(step, reps=5):
+    """``Blur.backward``'s time within ``step`` (CUDA events around each of
+    its calls, the median over ``reps`` steps), and one profiled step: its
+    device time by kernel, the device's busy time and the wall time."""
+    from colorvideovdp_tpu_torch.ops.kernels.blur import Blur
+    from colorvideovdp_tpu_torch.tools.path_times import profile_device
+
+    per_step = []
+    for _ in range(reps):
+        with timed_backward(Blur) as pairs:
+            step()
+        torch.cuda.synchronize()
+        per_step.append(sum(a.elapsed_time(b) for a, b in pairs))
+    rows, busy, wall = profile_device(step)
+    return {"blur_backward_ms": float(np.median(per_step)), "blur_backward_calls": len(pairs),
+            "device_busy_ms": busy, "profiled_wall_ms": 1e3 * wall,
+            "device_ms_by_kernel": [[ms, count, name[:100]] for ms, count, name in rows[:14]]}
 
 
 def blur_rows(reps):
+    from types import SimpleNamespace
+
     from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
 
@@ -122,22 +146,20 @@ def blur_rows(reps):
                               .expand(P, 1, n, n))
         xc = x.reshape(1, P, H, W)
         with torch.no_grad():
-            out[name] = _row(lambda: blr.blur(x, taps), lambda: blur_plain(x, taps), reps,
-                             lambda: conv(xc))
-        # The adjoint at the same shape: autograd of blur_plain (the previous
-        # Blur backward), and the adjoint kernel where the package has it.
+            out[name] = timing_row(lambda: blr.blur(x, taps), lambda: blur_plain(x, taps),
+                                   lambda: conv(xc), reps)
+        # The adjoint at the same shape: Blur's backward, against autograd
+        # of blur_plain.
         g = torch.randn(shape, device=dev, generator=gen)
+        ctx = SimpleNamespace(taps=taps, shape=g.shape)
 
         def autograd_adjoint():
             with torch.enable_grad():
                 x0 = g.new_zeros(shape, requires_grad=True)
                 return torch.autograd.grad(blur_plain(x0, taps), x0, g)[0]
 
-        adj = {"autograd_device_ms": round(device_ms(autograd_adjoint, max(2, reps // 4)), 5)}
-        if hasattr(blr, "blur_adjoint"):
-            adj.update(_row(lambda: blr.blur_adjoint(g, taps),
-                            lambda: blr.blur_adjoint_plain(g, taps), reps))
-        out[name + "_adjoint"] = adj
+        out[name + "_adjoint"] = timing_row(lambda: blr.Blur.backward(ctx, g),
+                                            autograd_adjoint, None, reps)
         del x, g, conv, xc
         torch.cuda.empty_cache()
     return out
@@ -160,23 +182,20 @@ def lut_rows(reps):
                            ("lut_(1,1,29,1,1)_C4", (1, 1, 29, 1, 1), 4)):
         luts = lut4[:C].contiguous()
         logL = torch.empty(shape, device=dev).uniform_(x0 - 0.5, x1 + 0.5, generator=gen)
-        out[name] = _row(lambda: csf_lut.csf_lut(logL, luts, x0, x1),
-                         lambda: csf_lut.csf_lut_plain(logL, luts, x0, x1), reps)
+        out[name] = timing_row(lambda: csf_lut.csf_lut(logL, luts, x0, x1),
+                               lambda: csf_lut.csf_lut_plain(logL, luts, x0, x1), None, reps)
         if C == 3:
             g = torch.randn((C,) + shape, device=dev, generator=gen)
-            out[name + "_bwd"] = _row(lambda: csf_lut.csf_lut_bwd(logL, g, luts, x0, x1),
-                                      lambda: csf_lut.csf_lut_bwd_plain(logL, g, luts, x0, x1),
-                                      reps)
+            out[name + "_bwd"] = timing_row(
+                lambda: csf_lut.csf_lut_bwd(logL, g, luts, x0, x1),
+                lambda: csf_lut.csf_lut_bwd_plain(logL, g, luts, x0, x1), None, reps)
         torch.cuda.empty_cache()
     return out
 
 
 def train_step(reps=5):
-    """Phase 5's step: its time, ``Blur.backward``'s device time within it,
-    and the step's device time by kernel."""
+    """Phase 5's step: its time and peak memory, and ``blur_backward_split``."""
     import colorvideovdp_tpu_torch as cvt
-    from colorvideovdp_tpu_torch.ops.kernels.blur import Blur
-    from colorvideovdp_tpu_torch.tools.path_times import profile_device
 
     dev = torch.device("cuda")
     Ht, Wt, Bt = 1080, 1920, 4
@@ -196,19 +215,8 @@ def train_step(reps=5):
     torch.cuda.reset_peak_memory_stats()
     step_ms = call_ms(step, reps)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    blur_bwd = []
-    for _ in range(reps):
-        with timed_backward(Blur) as pairs:
-            step()
-        torch.cuda.synchronize()
-        blur_bwd.append(sum(a.elapsed_time(b) for a, b in pairs))
-    rows, busy, wall = profile_device(step)
-    return {"loss": float(v), "step_ms": round(step_ms, 4), "peak_gib": round(peak, 3),
-            "blur_backward_calls": len(pairs),
-            "blur_backward_ms": round(float(np.median(blur_bwd)), 4),
-            "device_busy_ms": round(busy, 3), "profiled_wall_ms": round(1e3 * wall, 3),
-            "device_ms_by_kernel": {name[:90]: [round(ms, 3), count]
-                                    for ms, count, name in rows[:14]}}
+    return {"loss": float(v), "step_ms": step_ms, "peak_gib": peak,
+            **blur_backward_split(step, reps)}
 
 
 def sass_counts(out_dir):

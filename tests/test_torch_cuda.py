@@ -312,11 +312,12 @@ def test_csf_lut_bwd_kernel(dev):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [4097, 2 * 1080 * 1920 + 3])
+@pytest.mark.parametrize("n", [4096, 4097, 2 * 1080 * 1920 + 3])
 @pytest.mark.parametrize("C", [3, 4])
 def test_csf_lut_kernels_odd_length_and_offset_view(dev, n, C):
-    """Forward and backward bit for bit at n % 4 != 0 and on views one
-    element into their storage (a pointer off 16-byte alignment)."""
+    """Forward and backward bit for bit at n % 4 == 0 and != 0 and on views
+    one element into their storage (a pointer off 16-byte alignment): logL
+    and g both, and g alone (the vector body with scalar loads of g)."""
     m = ct.cvvdp(display_name="standard_4k", device="cuda")
     x0, x1 = m.csf.lut_range()
     luts = torch.as_tensor(np.stack([m.csf.logS_of_logL(2.0, 0, c) for c in range(3)]
@@ -325,7 +326,8 @@ def test_csf_lut_kernels_odd_length_and_offset_view(dev, n, C):
     base = torch.empty(n + 1, device=dev).uniform_(x0 - 0.5, x1 + 0.5, generator=gen)
     g_base = torch.randn(C * (n + 1), device=dev, generator=gen)
     for logL, g in ((base[:n], g_base[:C * n].view(C, n)),
-                    (base[1:], g_base[1:C * n + 1].view(C, n))):
+                    (base[1:], g_base[1:C * n + 1].view(C, n)),
+                    (base[:n], g_base[1:C * n + 1].view(C, n))):
         assert logL.is_contiguous() and g.is_contiguous()
         assert torch.equal(lut.csf_lut(logL, luts, x0, x1), lut.csf_lut_plain(logL, luts, x0, x1))
         assert torch.equal(lut.csf_lut_bwd(logL, g, luts, x0, x1),

@@ -190,3 +190,63 @@ def test_csf_lut_matches_pallas_lookup(metrics, shape):
     assert S_t.shape == S_pallas.shape == (4,) + shape
     assert float(np.max(np.abs(S_t - S_pallas) / S_pallas)) <= 1e-5
     assert float(np.max(np.abs(S_t - S_jnp) / S_jnp)) <= 1e-5
+
+
+def _lut_kernel_model(n, C, offset, sms):
+    """The element split of ``csrc/csf_lut.cu`` for n elements whose logL
+    starts ``offset`` floats past a 16-byte boundary (output and gradient
+    planes start on one): the grid (``lut_blocks``, 256 threads, at most 8
+    blocks an SM), the vector body over groups of 4 where logL is aligned,
+    then the scalar loop. Returns, in the order the threads take them, each
+    channel's access as (element indices, channel, whether it is one 16-byte
+    access: a group of 4 in a plane that starts on a 16-byte boundary)."""
+    vec = offset % 4 == 0
+    n4 = n // 4 if vec else 0
+    work = n4 + n % 4 if vec else n
+    blocks = min(-(-work // 256), sms * 8)
+    threads = blocks * 256
+    steps = []
+    for tid in range(threads):
+        for q in range(tid, n4, threads):
+            idx = list(range(4 * q, 4 * q + 4))
+            for c in range(C):
+                # forward: out plane c; backward: g plane c (the output is
+                # one plane, aligned)
+                steps.append((idx, c, (c * n + 4 * q) % 4 == 0))
+        for i in range(4 * n4 + tid, n, threads):
+            for c in range(C):
+                steps.append(([i], c, False))
+    return steps
+
+
+@pytest.mark.parametrize("n, offset", [(1, 0), (3, 0), (4, 0), (4097, 0), (4097, 1),
+                                       (20003, 0), (20000, 3), (8192, 0)])
+@pytest.mark.parametrize("C", [3, 4])
+def test_csf_lut_kernel_model_matches_plain(metrics, n, offset, C):
+    """Every element taken once, by the vector body or the scalar loop, each
+    16-byte access aligned, and the results, computed in the
+    order the threads take the elements, within 1e-6 of ``csf_lut_plain`` /
+    ``csf_lut_bwd_plain`` (torch's CPU pow rounds the lanes of its vector
+    body and its tail apart, so a reordered call can differ by an ulp; the
+    card tests hold the kernel to the plain versions bit for bit)."""
+    mj, _ = metrics
+    luts = torch.from_numpy(_luts(mj, [0.1], 4)[0][:C].copy())
+    x0, x1 = float(mj.csf.log_L_bkg[0]), float(mj.csf.log_L_bkg[-1])
+    rng = np.random.RandomState(n + offset)
+    logL = torch.from_numpy(rng.uniform(x0 - 0.5, x1 + 0.5, n).astype(np.float32))
+    g = torch.from_numpy(rng.randn(C, n).astype(np.float32))
+    steps = _lut_kernel_model(n, C, offset, sms=1)
+    seen = torch.zeros((C, n), dtype=torch.int64)
+    for idx, c, is_vec in steps:
+        assert not is_vec or len(idx) == 4
+        seen[c, torch.tensor(idx)] += 1
+    assert bool((seen == 1).all())
+    vec_groups = sum(1 for idx, c, _ in steps if len(idx) == 4 and c == 0)
+    assert vec_groups == (n // 4 if offset % 4 == 0 else 0)
+    order = torch.tensor([i for idx, c, _ in steps if c == 0 for i in idx])
+    out = torch.full((C, n), float("nan"))
+    d_out = torch.full((n,), float("nan"))
+    out[:, order] = lut_t.csf_lut_plain(logL[order], luts, x0, x1)
+    d_out[order] = lut_t.csf_lut_bwd_plain(logL[order], g[:, order], luts, x0, x1)
+    assert _rel(out, lut_t.csf_lut_plain(logL, luts, x0, x1)) <= 1e-6
+    assert _rel(d_out, lut_t.csf_lut_bwd_plain(logL, g, luts, x0, x1)) <= 1e-6
