@@ -168,6 +168,20 @@ Phase 11 multi-device scoring (``colorvideovdp_tpu_torch/parallel``). First
          ``band_masking_halo`` on none. Each rank's set-up (groups,
          metric, kernel library, one collective per group) is timed apart
          from its block loop, and each block is timed.
+Phase 12 file sources: the first 12 frames of the phase-3 clip as a
+         10-bit 4:2:0 BT.2020 limited-range .yuv pair (2x2 chroma means,
+         about 300 MB a file in a temporary directory, removed at the end)
+         through ``video_source_file`` and ``predict_video_source``, with
+         the kernels and plain (JODs within 1e-3; ingest, the reduce,
+         ``band_pooled`` and the CSF LUT launched, no yardstick); one
+         block's host read, upload and unpack on the card timed; the
+         array route fed the port's own unpacked float32 frames within
+         1e-4 of the file route; a FHD crop (8 frames at 24 fps): 4 frames
+         through the per-frame route (``get_raw_block`` hidden; no ingest)
+         within 1e-4 of the block route, and ``temp_resample=True``
+         kernels against plain within 1e-3; PSNR-RGB, PU21-PSNR-Y,
+         PU21-PSNR-RGB2020 and SSIM on the 4K pair on the card, timed,
+         and on 2 frames against the CPU (1e-4 dB, SSIM 1e-5).
 
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
@@ -1615,6 +1629,224 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     return {k: sum(rr["launches"][k] for rr in res) for k in res[0]["launches"]}
 
 
+# The file route (phase 12): the .yuv pair's JOD with the kernels against
+# plain, against the array route fed the port's own unpacked frames, and the
+# per-frame route against the block route; the aux metrics on the card
+# against the CPU.
+FILE_JOD_TOL, UNPACK_JOD_TOL, FRAME_ROUTE_JOD_TOL = 1e-3, 1e-4, 1e-4
+FILE_FRAMES = 12  # frames of the phase-3 clip in the 4K .yuv pair
+AUX_DB_TOL, AUX_SSIM_TOL = 1e-4, 1e-5
+# The kernels the file route launches (packed frames unpacked on the card go
+# through ingest as float32 frames); the per-frame route skips ingest.
+FILE_PATH = ("ingest", "pyramid_reduce", "band_pooled", "csf_lut")
+FRAME_PATH = ("pyramid_reduce", "band_pooled", "csf_lut")
+
+
+def write_yuv_pair(dirname, V_test, V_ref, fps):
+    """10-bit 4:2:0 BT.2020 limited-range .yuv files of uint8 display-encoded
+    (H, W, 3, N) RGB, each chroma sample the mean of its 2x2 block, named by
+    ``create_yuv_fname``. Returns the (test, reference) paths."""
+    import os
+
+    from colorvideovdp_tpu_torch.io.ffcodec import rgb_to_ycbcr_coeffs
+    from colorvideovdp_tpu_torch.io.yuv import create_yuv_fname
+
+    H, W, _, N = V_ref.shape
+    rows = [c.astype(np.float32) for c in rgb_to_ycbcr_coeffs("2020")]
+    names = []
+    for tag, V in (("test", V_test), ("ref", V_ref)):
+        name = os.path.join(dirname, create_yuv_fname(tag, dict(
+            width=W, height=H, fps=fps, bit_depth=10, chroma_ss="420", color_space="2020")))
+        with open(name, "wb") as f:
+            for i in range(N):
+                rgb = V[:, :, :, i].astype(np.float32) / 255.0
+                planes = [rgb @ rows[0] * 219.0 + 16.0]
+                for row in rows[1:]:
+                    c = (rgb @ row).reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3))
+                    planes.append(c * 224.0 + 128.0)
+                for plane in planes:
+                    np.clip(np.round(plane * 4.0), 0, 1023).astype("<u2").tofile(f)
+        names.append(name)
+    return names
+
+
+class FrameByFrame:
+    """A source with its raw-block methods hidden, so that the metric reads it
+    through ``get_test_frame``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        if name in ("get_raw_block", "get_raw_frame_list", "unpack_raw_block"):
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+
+def phase_files(V_test, V_ref, fps, counters, smi):
+    """Phase 12: file sources. Returns the launches per path."""
+    import os
+    import shutil
+    import tempfile
+
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
+
+    t_phase = time.time()
+    H, W, _, N = V_ref.shape
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="cvvdp_files_")
+
+    def run(m, vs):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.time()
+        Q, st = m.predict_video_source(vs)
+        jod = float(Q)
+        torch.cuda.synchronize()
+        return jod, st, time.time() - t0, {k: fn.launches for k, fn in counters.items()}
+
+    def expect(name, launches, path, off=()):
+        for k in path:
+            if launches[k] <= 0:
+                raise AssertionError(f"phase 12: kernel {k} was not launched on {name}")
+        for k in YARDSTICKS + tuple(off):
+            if launches[k] != 0:
+                raise AssertionError(f"phase 12: {k} launched on {name}: {launches}")
+
+    try:
+        t0 = time.time()
+        names = write_yuv_pair(tmp, V_test, V_ref, fps)
+        log(f"phase 12: 10-bit 4:2:0 BT.2020 .yuv pair, {N} frames of {W}x{H} "
+            f"({os.path.getsize(names[0]) / 1e6:.1f} MB a file), written in "
+            f"{time.time() - t0:.1f} s")
+        res = {}
+        # In turns, kernels first: the first run also pays one-time set-up
+        # (the matrix-product library, the LUT tables).
+        for turn, fused in enumerate((True, False, True)):
+            m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+            m.enable_fused_kernels = fused
+            vs = video_source_file(*names, display_photometry="standard_hdr_pq")
+            jod, st, dt, launches = run(m, vs)
+            res[fused] = (jod, st["block_N_frames"], launches, dt)
+            if fused:
+                paths["files_4k_yuv"] = launches
+            log(f"phase 12: .yuv {'kernels' if fused else 'plain  '} (turn {turn + 1}): JOD "
+                f"{jod:.6f}, blk {st['block_N_frames']}, wall {dt:.3f} s = {N / dt:.2f} "
+                f"frames/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"({smi}), launches { {k: v for k, v in launches.items() if v} }")
+        (jod_k, blk, launches, dt_k), jod_p = res[True], res[False][0]
+        from colorvideovdp_tpu_torch.tools.path_times import profile_device
+
+        m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+        prof, busy, wall = profile_device(lambda: m.predict_video_source(
+            video_source_file(*names, display_photometry="standard_hdr_pq")))
+        log(f"phase 12: profiled file route {wall:.3f} s, device busy {busy:.3f} ms "
+            f"({100 * busy / (1e3 * wall):.1f}%), by kernel:")
+        for ms, count, name in prof[:8]:
+            log(f"  {ms:9.3f} ms {count:5d}x  {name[:100]}")
+        expect("the file route", launches, FILE_PATH)
+        if not (math.isfinite(jod_k) and abs(jod_k - jod_p) <= FILE_JOD_TOL):
+            raise AssertionError(f"phase 12: .yuv JOD kernels {jod_k} vs plain {jod_p}")
+        # One block's host read and unpack on the card, against the block.
+        m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+        vs = video_source_file(*names, display_photometry="standard_hdr_pq")
+        t0 = time.time()
+        packed = vs.get_raw_block("test", 0, blk)
+        t_read = time.time() - t0
+        t0 = time.time()
+        x = m._upload(packed)
+        torch.cuda.synchronize()
+        t_up = time.time() - t0
+        unpack_ms = time_ms(lambda: vs.unpack_raw_block(x))
+        unpack_dev = device_ms(lambda: vs.unpack_raw_block(x), reps=3)
+        n_blocks = math.ceil(N / blk)
+        block_ms, block_dev = 1e3 * dt_k / n_blocks, busy / n_blocks
+        log(f"phase 12: one {blk}-frame block of one file: host read {1e3 * t_read:.1f} ms, "
+            f"upload {1e3 * t_up:.1f} ms, unpack on the card {unpack_ms:.3f} ms, device "
+            f"{unpack_dev:.3f} ms ({unpack_ms / blk:.3f} ms a frame); both files' unpack "
+            f"{2 * unpack_ms:.3f} ms = {100 * 2 * unpack_ms / block_ms:.1f}% of the "
+            f"{block_ms:.1f} ms a block of the kernels' wall time, device "
+            f"{100 * 2 * unpack_dev / block_dev:.1f}% of the block's {block_dev:.3f} ms "
+            f"({smi})")
+        del x, packed
+        # The array route fed the port's own unpacked float32 RGB.
+        rgb = [vs.unpack_raw_block(m._upload(vs.get_raw_block(s, 0, N))).cpu().numpy()
+               for s in ("test", "reference")]
+        jod_a, _, dt_a, _ = run(m, cvt.video_source_array(
+            rgb[0], rgb[1], fps, dim_order="BCFHW", display_photometry="standard_hdr_pq"))
+        del rgb
+        log(f"phase 12: array route on the unpacked frames: JOD {jod_a:.6f} ({dt_a:.3f} s), "
+            f"|JOD - file route| {abs(jod_a - jod_k):.2e} (tolerance {UNPACK_JOD_TOL:.0e})")
+        if not abs(jod_a - jod_k) <= UNPACK_JOD_TOL:
+            raise AssertionError(f"phase 12: unpacked array route {jod_a} vs file route {jod_k}")
+
+        # FHD: 8 frames at 24 fps (a crop of the same content).
+        fhd = write_yuv_pair(tmp, V_test[:1080, :1920, :, :8], V_ref[:1080, :1920, :, :8], 24)
+        vs4 = video_source_file(*fhd, display_photometry="standard_hdr_pq", frames=4)
+        jods = {}
+        for route, src in (("block", vs4), ("per-frame", FrameByFrame(vs4))):
+            m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+            jods[route], _, dt, launches = run(m, src)
+            paths[f"files_fhd_{route}"] = launches
+            log(f"phase 12: FHD 4 frames, {route} route: JOD {jods[route]:.6f} ({dt:.3f} s), "
+                f"launches { {k: v for k, v in launches.items() if v} }")
+        expect("the per-frame route", paths["files_fhd_per-frame"], FRAME_PATH,
+               off=("ingest", "ingest_replicate", "ingest_head"))
+        if not abs(jods["block"] - jods["per-frame"]) <= FRAME_ROUTE_JOD_TOL:
+            raise AssertionError(f"phase 12: per-frame route {jods['per-frame']} vs block "
+                                 f"route {jods['block']}")
+        vs8 = video_source_file(*fhd, display_photometry="standard_hdr_pq")
+        res = {}
+        for fused in (True, False):
+            m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                          temp_resample=True)
+            m.enable_fused_kernels = fused
+            jod, st, dt, launches = run(m, vs8)
+            res[fused] = jod
+            if fused:
+                paths["files_fhd_temp_resample"] = launches
+                expect("temp_resample", launches, FILE_PATH)
+            if st["N_frames"] != math.ceil(8 / 24 * m.nominal_fps):
+                raise AssertionError(f"phase 12: temp_resample gave {st['N_frames']} frames")
+            log(f"phase 12: FHD 8 frames at 24 fps, temp_resample to {m.nominal_fps} fps "
+                f"({st['N_frames']} frames) {'kernels' if fused else 'plain  '}: JOD {jod:.6f} "
+                f"({dt:.3f} s)")
+        if not abs(res[True] - res[False]) <= FILE_JOD_TOL:
+            raise AssertionError(f"phase 12: temp_resample kernels {res[True]} vs plain "
+                                 f"{res[False]}")
+
+        # The aux metrics: the 4K pair on the card, then 2 frames on the card
+        # against the CPU.
+        vs2 = video_source_file(*names, display_photometry="standard_hdr_pq", frames=2)
+        for cls, tol in ((cvt.psnr_rgb, AUX_DB_TOL), (cvt.pu_psnr_y, AUX_DB_TOL),
+                         (cvt.pu_psnr_rgb2020, AUX_DB_TOL), (cvt.ssim_metric, AUX_SSIM_TOL)):
+            metric = cls(display_name="standard_hdr_pq")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            q, _ = metric.predict_video_source(video_source_file(
+                *names, display_photometry="standard_hdr_pq"))
+            q = float(q.reshape(-1)[0])
+            dt = time.time() - t0
+            q2 = float(metric.predict_video_source(vs2)[0].reshape(-1)[0])
+            t0 = time.time()
+            q2_cpu = float(cls(display_name="standard_hdr_pq", device="cpu")
+                           .predict_video_source(vs2)[0].reshape(-1)[0])
+            dt_cpu = time.time() - t0
+            log(f"phase 12: {metric.short_name()}: {q:.6f} on {N} frames of {W}x{H} in {dt:.3f} s "
+                f"= {N / dt:.2f} frames/s ({smi}); 2 frames {q2:.6f}, on the CPU {q2_cpu:.6f} "
+                f"({dt_cpu:.1f} s), difference {abs(q2 - q2_cpu):.2e} (tolerance {tol:.0e})")
+            if not (math.isfinite(q) and abs(q2 - q2_cpu) <= tol):
+                raise AssertionError(f"phase 12: {metric.short_name()} card vs CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 12: {time.time() - t_phase:.1f} s")
+    return paths
+
+
 def block_loop_split(cvt, vs, N, pix, fps, split_blk):
     """Where phase 3's block loop spends its time. First the loop from an
     emptied allocator cache, at the split's blocks (pinned with ``gpu_mem``)
@@ -2139,6 +2371,8 @@ def main():
             f"({st['block_N_frames']}-frame blocks)")
         if fused:
             block_loop_split(cvt, vs, N, H * W, fps, st["block_N_frames"])
+    # Phase 12's content: the clip's first FILE_FRAMES frames.
+    V_files = (V_test[..., :FILE_FRAMES].copy(), V_ref[..., :FILE_FRAMES].copy())
     del V_test, V_ref, vs
 
     # ---- phase 4 ------------------------------------------------------------
@@ -2312,6 +2546,10 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     shard_launches = phase_sharded(m, fps, rows, record, jod_k, gen)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    file_launches = phase_files(*V_files, fps, counters, smi)
+    del V_files
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -2360,7 +2598,8 @@ def main():
                    **{p: c[k] for p, c in ml_launches.items()},
                    **{p: c[k] for p, c in mega_launches.items()},
                    **{p: c[k] for p, c in il_launches.items()},
-                   "sharded_4k_video": shard_launches[k]}
+                   "sharded_4k_video": shard_launches[k],
+                   **{p: c[k] for p, c in file_launches.items()}}
         if k in ("pyramid_reduce_slab", "band_masking_halo", "band_pooled_halo"):
             n_main = shard_launches[k]
         elif k in ("interleave", "concat", "deinterleave"):

@@ -1,8 +1,9 @@
 """Display photometry (EOTF -> absolute cd/m^2) and geometry (pixels-per-degree).
 
 PyTorch counterpart of ``colorvideovdp_tpu/display.py``: the photometric
-forward model (:190-238), the colour pipeline to DKLd65 (:89-147) and the
-viewing geometry (:261-448). Display parameters are Python floats.
+forward model (:190-238), the colour pipeline to every target colour space
+(:89-147) and the viewing geometry (:261-448). Display parameters are Python
+floats.
 """
 
 from __future__ import annotations
@@ -70,7 +71,26 @@ class vvdp_display_photometry:
         return obj
 
     def source_2_target_colorspace(self, I_src: torch.Tensor, target_colorspace):
-        """Source frame (BCFHW, float) -> metric colour space."""
+        """Source (display-encoded or linear) frame (BCFHW) -> the target colour
+        space: a metric space, a linear space of ``linear_2_target_colorspace``,
+        or a display-encoded 0..1 space for the aux metrics (HDR and linear
+        content PU21-encoded and divided by the code of 10000 cd/m^2, of 100
+        cd/m^2 or of the display's peak)."""
+        if target_colorspace in ("display_encoded_01", "display_encoded_dmax",
+                                 "display_encoded_100nit"):
+            if self.is_input_display_encoded() and not (
+                    isinstance(self, vvdp_display_photo_eotf) and self.EOTF == "PQ"):
+                return I_src.to(torch.float32)
+            if not hasattr(self, "PU"):
+                self.PU = cs.PU()
+            if target_colorspace == "display_encoded_01":
+                PU_max = self.PU.encode(10000.0)
+            elif target_colorspace == "display_encoded_100nit":
+                PU_max = self.PU.encode(100.0)
+            else:
+                PU_max = self.PU.encode(self.get_peak_luminance())
+            return self.PU.encode(self.forward(I_src)) / float(PU_max)
+
         I_lin = self.forward(I_src)
         if I_src.shape[-4] == 3:
             return self.linear_2_target_colorspace(I_lin, target_colorspace)
@@ -78,14 +98,33 @@ class vvdp_display_photometry:
         return I_lin
 
     def linear_2_target_colorspace(self, RGB_lin: torch.Tensor, target_colorspace):
-        """Display-native linear RGB -> DKLd65 via one fused 3x3 matrix, or
-        -> logLMS_DKLd65: LMS2006, log10 (``cs.log10_rn``), then LMS -> DKL."""
+        """Display-native linear RGB -> the target space via one fused 3x3
+        matrix: Y, XYZ, LMS2006, DKLd65, RGB709, RGB2020, RGB2020pq (then PQ
+        encoded) or logLMS_DKLd65 (LMS2006, log10 (``cs.log10_rn``), then
+        LMS -> DKL)."""
+        rgb2xyz = np.asarray(self.rgb2xyz, np.float32)
+        if target_colorspace == "Y":
+            w = torch.as_tensor(rgb2xyz[1], dtype=RGB_lin.dtype, device=RGB_lin.device)
+            return torch.sum(RGB_lin * w.reshape(3, 1, 1, 1), dim=-4, keepdim=True)
         if target_colorspace == "DKLd65":
             return cs.apply_color_matrix(RGB_lin, self.rgb2dkl())
         if target_colorspace == "logLMS_DKLd65":
             LMS = cs.apply_color_matrix(RGB_lin, self.rgb2lms())
             return cs.lms2006_to_dkld65(cs.log10_rn(LMS))
-        raise NotImplementedError(f"colorspace '{target_colorspace}' is not ported yet")
+        if target_colorspace == "XYZ":
+            rgb2abc = rgb2xyz
+        elif target_colorspace == "LMS2006":
+            rgb2abc = self.rgb2lms()
+        elif target_colorspace == "RGB709":
+            rgb2abc = cs.XYZ_to_RGB709 @ rgb2xyz
+        elif target_colorspace in ("RGB2020", "RGB2020pq"):
+            rgb2abc = cs.XYZ_to_RGB2020 @ rgb2xyz
+        else:
+            raise RuntimeError(f"Unknown colorspace '{target_colorspace}'")
+        ABC = cs.apply_color_matrix(RGB_lin, rgb2abc)
+        if target_colorspace == "RGB2020pq":
+            ABC = cs.lin2pq(ABC)
+        return ABC
 
     def rgb2dkl(self) -> np.ndarray:
         """The fused RGB -> DKLd65 3x3 of the display's primaries."""
@@ -112,6 +151,9 @@ class vvdp_display_photo_eotf(vvdp_display_photometry):
         self.k_refl = k_refl
         self.name = name
         self.exposure = exposure
+
+    def is_input_display_encoded(self):
+        return self.EOTF != "linear"
 
     def hlg_gamma(self):
         """System gamma of the HLG OOTF (BBC WHP 369 extension above 1000 nit)."""
@@ -214,12 +256,60 @@ class vvdp_display_geometry:
             height_m = 2 * math.tan(math.radians(height_deg / 2)) * self.distance_m
             self.display_size_m = (height_m * ar, height_m)
 
-    def get_ppd(self):
+    def get_ppd(self, eccentricity=None):
+        """Pixels per degree at the centre, or (a float32 tensor) at each
+        ``eccentricity`` in degrees."""
         if self.fixed_ppd is not None:
             return self.fixed_ppd
         pix_deg = 2 * math.degrees(
             math.atan(0.5 * self.display_size_m[0] / self.resolution[0] / self.distance_m))
-        return 1 / pix_deg
+        base_ppd = 1 / pix_deg
+        if eccentricity is None:
+            return base_ppd
+        # tan(a + delta) - tan(a) cancels: float32 tangents one ulp apart
+        # move the result by up to 1e-3, so it is taken in float64 (from the
+        # float32 eccentricity) and rounded once.
+        delta = pix_deg / 2
+        tan_delta = math.tan(math.radians(delta))
+        ecc = torch.as_tensor(eccentricity, dtype=torch.float32).to(torch.float64)
+        tan_a = torch.tan(torch.deg2rad(ecc))
+        return (base_ppd * (torch.tan(torch.deg2rad(ecc + delta)) - tan_a)
+                / tan_delta).to(torch.float32)
+
+    def pix2eccentricity(self, resolution_pix, x_pix, y_pix, gaze_pix):
+        """Eccentricity in degrees (float32) of the pixels (x_pix, y_pix) from
+        the gaze point ``gaze_pix``, all in pixels of a ``resolution_pix``
+        image."""
+        x_pix, y_pix = (torch.as_tensor(v, dtype=torch.float32) for v in (x_pix, y_pix))
+        if self.fixed_ppd is not None:
+            return torch.sqrt((x_pix - float(gaze_pix[0])) ** 2
+                              + (y_pix - float(gaze_pix[1])) ** 2) / self.fixed_ppd
+        shift_to_centre = -np.asarray(resolution_pix) / 2
+        x_m = ((x_pix + float(shift_to_centre[0])) * self.display_size_m[0]
+               / self.resolution[0])
+        y_m = ((y_pix + float(shift_to_centre[1])) * self.display_size_m[1]
+               / self.resolution[1])
+        gaze_m = ((np.asarray(gaze_pix) + shift_to_centre) * np.asarray(self.display_size_m)
+                  / np.asarray(self.resolution))
+        gaze_deg = np.degrees(np.arctan(gaze_m / self.distance_m))
+        return torch.sqrt(
+            (torch.rad2deg(torch.arctan(x_m / self.distance_m)) - float(gaze_deg[0])) ** 2
+            + (torch.rad2deg(torch.arctan(y_m / self.distance_m)) - float(gaze_deg[1])) ** 2)
+
+    def get_resolution_magnification(self, eccentricity):
+        """How much larger a pixel looks at ``eccentricity`` (degrees) than at
+        the centre."""
+        if self.fixed_ppd is not None:
+            return torch.ones_like(torch.as_tensor(eccentricity, dtype=torch.float32))
+        # Taken in float64 and rounded once, as ``get_ppd``.
+        ecc = torch.clamp(torch.as_tensor(eccentricity, dtype=torch.float32), max=89.9)
+        pix_rad = 2 * math.atan(0.5 * self.display_size_m[0] / self.resolution[0]
+                                / self.distance_m)
+        delta = pix_rad / 2
+        tan_delta = math.tan(delta)
+        tan_a = torch.tan(torch.deg2rad(ecc.to(torch.float64)))
+        return ((torch.tan(torch.deg2rad(ecc.to(torch.float64)) + delta) - tan_a)
+                / tan_delta).to(torch.float32)
 
     @classmethod
     def load(cls, display_name, config_paths=None):

@@ -1,16 +1,23 @@
-"""In-memory frame source: the ``predict()`` path.
+"""Frame sources: the pull-based interface the metrics consume, and the
+in-memory source of the ``predict()`` path.
 
 Counterpart of ``colorvideovdp_tpu/io/video_source.py``. Frames stay on the
-host as numpy arrays in their source dtype; the metric uploads raw frame
+host as numpy arrays in their source dtype. The metric uploads raw frame
 blocks and converts them on its device (the dtype ladder is
-``ops/kernels/ingest.py:raw_to_float``).
+``ops/kernels/ingest.py:raw_to_float``); the per-frame API
+(``get_test_frame``) uploads one raw frame and converts it and applies the
+display model on the device it is given.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
+import torch
 
 from ..display import vvdp_display_photometry
+from ..ops.kernels.ingest import raw_to_float
 
 
 def reshuffle_dims(a: np.ndarray, in_dims: str, out_dims: str = "BCFHW") -> np.ndarray:
@@ -39,11 +46,89 @@ def reshuffle_dims(a: np.ndarray, in_dims: str, out_dims: str = "BCFHW") -> np.n
     return a.reshape(out_sh)
 
 
-class video_source_array:
-    """Test/reference arrays with a display model; supports a batch axis."""
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device`` as it is, uint16 as its int16 bits (the
+    dtype ladder and the unpacks read them back)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.from_numpy(a).to(device)
 
-    def __init__(self, test_video, reference_video, fps, dim_order="BCFHW",
-                 display_photometry="sdr_4k_30", config_paths=None):
+
+def frame_to_float32(frame: np.ndarray, device) -> torch.Tensor:
+    """Source dtype ladder -> float32 on ``device``: uint8 / uint16 to [0, 1],
+    float16 / float32 in their own range. The raw frame is uploaded and
+    converted there."""
+    if frame.dtype not in (np.uint8, np.uint16, np.int16, np.float16, np.float32):
+        raise RuntimeError(
+            f"Only uint8, uint16 and float32 is currently supported. "
+            f"{frame.dtype} encountered.")
+    return raw_to_float(upload(frame, device))
+
+
+def frame_device(device) -> torch.device:
+    """The device of the per-frame API: ``device``, or the card when None."""
+    return torch.device("cuda" if device is None else device)
+
+
+class video_source:
+    """Abstract frame source."""
+
+    def get_video_size(self):
+        """(height, width, frames)."""
+        raise NotImplementedError
+
+    def get_frames_per_second(self) -> float:
+        raise NotImplementedError
+
+    def get_test_frame(self, frame, device=None, colorspace="DKLd65"):
+        raise NotImplementedError
+
+    def get_reference_frame(self, frame, device=None, colorspace="DKLd65"):
+        raise NotImplementedError
+
+    def get_frame_count(self):
+        return self.get_video_size()[2]
+
+    def get_batch_size(self):
+        return 1
+
+    def check_if_valid(self, frame: torch.Tensor, target_colorspace):
+        """Log a warning about the first frame once: NaN or Inf values, or a
+        mean below 1 where absolute units are expected. One small reduction
+        on the frame's device, read back together."""
+        if getattr(self, "_warning_shown", False):
+            return
+        if getattr(self, "_first_frame_checked", False):
+            return
+        self._first_frame_checked = True
+        f = frame[:, 0]
+        has_nan, has_inf, f_mean, f_max, f_min = torch.stack([
+            torch.isnan(f).any().float(), torch.isinf(f).any().float(), f.mean(), f.max(),
+            f.min()]).tolist()
+        if has_nan:
+            self._warning_shown = True
+            logging.warning("Image contains one or more NaN values")
+            return
+        if has_inf:
+            self._warning_shown = True
+            logging.warning("Image contains one or more Inf values")
+            return
+        if not target_colorspace.startswith("display_encoded") and (
+                target_colorspace != "RGB2020pq"):
+            logging.debug(f"Content mean={f_mean}, max={f_max}, min={f_min}")
+            if f_mean <= 1:
+                self._warning_shown = True
+                logging.warning(
+                    "The mean color value is less than 1 - the image may not "
+                    "be scaled in absolute photometric units!")
+
+
+class video_source_dm(video_source):
+    """A source with a photometric display model, applied on the device to
+    each frame of the per-frame API."""
+
+    def __init__(self, display_photometry="sdr_4k_30", config_paths=None):
         if isinstance(display_photometry, str):
             self.dm_photometry = vvdp_display_photometry.load(display_photometry,
                                                               config_paths or [])
@@ -52,6 +137,19 @@ class video_source_array:
         else:
             raise RuntimeError(
                 "display_model must be a string or vvdp_display_photometry subclass")
+
+    def apply_dm_and_color_transform(self, frame: torch.Tensor, target_colorspace):
+        I = self.dm_photometry.source_2_target_colorspace(frame, target_colorspace)
+        self.check_if_valid(I, target_colorspace)
+        return I
+
+
+class video_source_array(video_source_dm):
+    """Test/reference arrays with a display model; supports a batch axis."""
+
+    def __init__(self, test_video, reference_video, fps, dim_order="BCFHW",
+                 display_photometry="sdr_4k_30", config_paths=None):
+        super().__init__(display_photometry=display_photometry, config_paths=config_paths)
 
         test_video = np.asarray(test_video)
         reference_video = np.asarray(reference_video)
@@ -88,6 +186,17 @@ class video_source_array:
 
     def get_batch_size(self):
         return max(self.test_video.shape[0], self.reference_video.shape[0])
+
+    def get_test_frame(self, frame, device=None, colorspace="DKLd65"):
+        return self._get_frame(self.test_video, frame, device, colorspace)
+
+    def get_reference_frame(self, frame, device=None, colorspace="DKLd65"):
+        return self._get_frame(self.reference_video, frame, device, colorspace)
+
+    def _get_frame(self, from_array, frame, device, colorspace):
+        """Frame ``frame`` as (B, C, 1, H, W) in ``colorspace`` on ``device``."""
+        raw = frame_to_float32(from_array[:, :, frame:frame + 1], frame_device(device))
+        return self.apply_dm_and_color_transform(raw, colorspace)
 
     def _bfchw(self, which: str) -> np.ndarray:
         if which not in self._raw_fmajor:

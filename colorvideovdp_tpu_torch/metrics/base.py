@@ -30,6 +30,18 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def metric_device(device) -> torch.device:
+    """A metric's device: "cuda" (the default of every entry point, never
+    replaced by the CPU) or "cpu"."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 class vq_metric:
     """Abstract video-quality metric."""
 

@@ -33,6 +33,17 @@ display-encoded image pairs. Every kernel on its path is a
 adjoint of the plain reduce and blur, the analytic CSF LUT derivative
 (a kernel), and a recompute of the plain band chain for the band masking.
 
+Sources: a source with ``get_raw_block`` streams raw frame blocks (arrays,
+images, ``.mat``, OpenCV-decoded video); one that also has
+``unpack_raw_block`` (``.yuv`` and natively decoded video files) hands
+packed planar blocks, unpacked on the device to display-encoded float32 RGB
+that goes through the ingest kernel as float32 frames; the host decodes the
+next block on a worker thread meanwhile. A source without
+``get_raw_block`` is read frame by frame through ``get_test_frame`` in the
+metric colour space, and its blocks skip the ingest kernel (the temporal
+filter in plain PyTorch). ``temp_resample`` resamples ``Q_per_ch``'s frame
+axis to ``nominal_fps`` before pooling.
+
 With ``enable_fused_kernels = False`` every kernel is replaced by its plain
 PyTorch version on the same device (the reference the kernels are held to).
 """
@@ -41,14 +52,17 @@ from __future__ import annotations
 
 import json
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
+from ..io.video_source import upload
 from ..ops import masking as mk
 from ..ops.csf import CastleCSF
+from ..ops.interp import interp1dim2, linspace32
 from ..ops.kernels import band_fused as bf
 from ..ops.kernels import band_pooled as bp
 from ..ops.kernels import ingest as ing
@@ -57,7 +71,7 @@ from ..ops.kernels.csf_lut import CsfLut
 from ..ops.pyramid import LaplacianPyramid, LogContrastPyramid, WeberContrastPyramid
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import config_files, json2dict
-from .base import no_tf32, register_metric, vq_exception, vq_metric
+from .base import metric_device, no_tf32, register_metric, vq_exception, vq_metric
 
 # Host memory budget (bytes) for the block-size model on the CPU when
 # ``gpu_mem`` is unset (the reference metric assumes the same 4 GB).
@@ -95,29 +109,25 @@ class cvvdp(vq_metric):
     def __init__(self, display_name="standard_4k", display_photometry=None,
                  display_geometry=None, config_paths=None, heatmap=None, quiet=False,
                  device="cuda", temp_padding="replicate", use_checkpoints=False,
-                 dump_channels=None, gpu_mem=None, temp_resample=False):
+                 dump_channels=None, gpu_mem=None, temp_resample=False, nominal_fps=240):
         if heatmap not in ("threshold", "supra-threshold", "raw", "none", None):
             raise AssertionError("Unknown heatmap type")
         self.heatmap = heatmap
         self.do_heatmap = heatmap is not None and heatmap != "none"
         if dump_channels:
             raise NotImplementedError("dump_channels is not ported yet")
-        if temp_resample:
-            raise NotImplementedError("temp_resample is not ported yet")
         if temp_padding not in ("replicate", "symmetric"):
             raise RuntimeError(f'Unknown padding method "{temp_padding}"')
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("device 'cuda' requested but CUDA is not available")
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = metric_device(device)
         self.quiet = quiet
         # Stored as the JAX package stores it; nothing reads it.
         self.use_checkpoints = use_checkpoints
         self.training_mode = False
         self.temp_padding = temp_padding
         self.gpu_mem = gpu_mem
+        # Resampling of Q_per_ch's frame axis to a nominal frame rate.
+        self.temp_resample = temp_resample
+        self.nominal_fps = nominal_fps
         self.set_display_model(display_name, display_photometry=display_photometry,
                                display_geometry=display_geometry,
                                config_paths=config_paths)
@@ -329,10 +339,20 @@ class cvvdp(vq_metric):
         self._cache = {}
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint16:
-            a = a.view(np.int16)  # uint16 bits; the dtype ladder reads them back
-        return torch.from_numpy(a).to(self.device)
+        return upload(a, self.device)
+
+    def _raw(self, vid_source, a: np.ndarray) -> torch.Tensor:
+        """A raw block of ``vid_source`` on the device as (B, F, C, H, W)
+        frames: uploaded as it is, or, for a packed source, unpacked to
+        display-encoded float32 RGB, luminance-only broadcast to three
+        channels."""
+        x = self._upload(a)
+        if not hasattr(vid_source, "unpack_raw_block"):
+            return x
+        rgb = vid_source.unpack_raw_block(x)  # (B, C, F, H, W)
+        if rgb.shape[1] == 1:
+            rgb = rgb.expand(-1, 3, -1, -1, -1)
+        return rgb.transpose(1, 2).contiguous()
 
     @staticmethod
     def _get_symmetric_frame_index(frame_ind, frame_count):
@@ -351,7 +371,8 @@ class cvvdp(vq_metric):
             return [ing.raw_to_met(dm, raw[:, 0:1], met_cs).expand(-1, -1, fl - 1, -1, -1)
                     .contiguous() for raw in raws]
         idx = [self._get_symmetric_frame_index(fi, N_frames) for fi in range(-fl + 1, 0)]
-        return [ing.raw_to_met(dm, self._upload(vid_source.get_raw_frame_list(which, idx)),
+        return [ing.raw_to_met(dm, self._raw(vid_source,
+                                             vid_source.get_raw_frame_list(which, idx)),
                                met_cs).contiguous() for which in ("test", "reference")]
 
     @no_tf32()
@@ -363,59 +384,49 @@ class cvvdp(vq_metric):
             raise vq_exception("Heatmaps not supported when batches are used")
         self._ensure_pyramids(w, h)
         is_image = N_frames == 1
-        dm = vid_source.dm_photometry
         met_cs = self.met_colorspace()
-        use_k = self.enable_fused_kernels
         heatmap = None
         if self.do_heatmap:
             dmap_channels = 1 if self.heatmap == "raw" else 3
             heatmap = np.zeros((1, dmap_channels, N_frames, h, w), dtype=np.float16)
-
-        Q_blocks = []
-        if is_image:
-            block_N = 1
-            raws = [self._upload(vid_source.get_raw_block(s, 0, 1)) for s in ("test", "reference")]
-            T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
-                    for raw in raws)
-            Q, hm, context = self._process_block(ing.interleave_tr(T, R), temp_ch=1,
-                                                 is_image=True, heatmap=self.do_heatmap)
-            self._check_finite(Q, 0)
-            Q_blocks.append(Q)
-            if heatmap is not None:
-                heatmap[:, :, 0:1] = self._heatmap_frames(hm, context)
-        else:
+        if not is_image:
             fps = vid_source.get_frames_per_second()
             self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
             self.filter_len = int(self.F[0].shape[0])
-            filt = np.stack([f[::-1] for f in self.F])
-            block_N = self.estimate_block_N(h * w * batch_sz, N_frames)
-            tails = None
-            for ff in range(0, N_frames, block_N):
-                cur = min(block_N, N_frames - ff)
-                # The source pads a trailing partial block to the full block by
-                # repeating its last frame; the padded frames' outputs are trimmed.
-                raws = [self._upload(vid_source.get_raw_block(s, ff, block_N))
-                        for s in ("test", "reference")]
-                if tails is None:
-                    tails = self._initial_tails(vid_source, dm, raws, N_frames, met_cs)
-                fn = ing.ingest if use_k else ing.ingest_plain
-                R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm, filt,
-                                           met_cs)
-                Q, hm, context = self._process_block(R, temp_ch=2, is_image=False,
-                                                     heatmap=self.do_heatmap)
-                del R
-                self._check_finite(Q, ff)
-                Q_blocks.append(Q[:, :, :cur])
-                if heatmap is not None:
-                    heatmap[:, :, ff:ff + cur] = self._heatmap_frames(
-                        hm[:, :, :cur], context[:, :cur])
+
+        blocks = (self._raw_blocks if hasattr(vid_source, "get_raw_block")
+                  else self._frame_blocks)
+        Q_blocks = []
+        block_N = 1 if is_image else self.estimate_block_N(h * w * batch_sz, N_frames)
+        for ff, cur, R, temp_ch in blocks(vid_source, N_frames, block_N, batch_sz, met_cs):
+            Q, hm, context = self._process_block(R, temp_ch=temp_ch, is_image=is_image,
+                                                 heatmap=self.do_heatmap)
+            del R
+            self._check_finite(Q, ff)
+            Q_blocks.append(Q[:, :, :cur])
+            if heatmap is not None:
+                heatmap[:, :, ff:ff + cur] = self._heatmap_frames(hm[:, :, :cur],
+                                                                  context[:, :cur])
 
         Q_per_ch = torch.cat(Q_blocks, dim=2) if len(Q_blocks) > 1 else Q_blocks[0]
+        fps = vid_source.get_frames_per_second()
+        if self.temp_resample:
+            # The frame axis resampled linearly to nominal_fps, as the JAX
+            # package does (the reference metric's own resampling is dead
+            # code that would resample the channel axis).
+            t_end = N_frames / fps
+            t_org = torch.as_tensor(linspace32(t_end, N_frames), device=Q_per_ch.device)
+            N_res = math.ceil(t_end * self.nominal_fps)
+            t_res = torch.as_tensor(linspace32(N_res / self.nominal_fps, N_res),
+                                    device=Q_per_ch.device)
+            Q_per_ch = interp1dim2(t_org, Q_per_ch.movedim(2, 1), t_res).movedim(1, 2)
+            N_frames = N_res
+            fps = self.nominal_fps
         Q_jod = self.do_pooling_and_jods(Q_per_ch)
         stats = {
             "Q_per_ch": Q_per_ch.cpu().numpy(),
             "rho_band": self.lpyr.get_freqs(),
-            "frames_per_second": vid_source.get_frames_per_second(),
+            "frames_per_second": fps,
             "width": w,
             "height": h,
             "N_frames": N_frames,
@@ -424,6 +435,92 @@ class cvvdp(vq_metric):
         if heatmap is not None:
             stats["heatmap"] = heatmap
         return Q_jod, stats
+
+    def _raw_blocks(self, vid_source, N_frames, block_N, batch_sz, met_cs):
+        """(first frame, frames, R, temp_ch) of each block of a raw-block
+        source: its frames through the ingest kernel (or its plain version),
+        the temporal tails carried between blocks. The next block is read on
+        a worker thread while this one is scored, except while symmetric
+        padding still reads head frames from the source."""
+        dm = vid_source.dm_photometry
+        if N_frames == 1:
+            raws = [self._raw(vid_source, vid_source.get_raw_block(s, 0, 1))
+                    for s in ("test", "reference")]
+            T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
+                    for raw in raws)
+            yield 0, 1, ing.interleave_tr(T, R), 1
+            return
+        filt = np.stack([f[::-1] for f in self.F])
+        fn = ing.ingest if self.enable_fused_kernels else ing.ingest_plain
+
+        def read(start):
+            # The source repeats its last frame to fill a trailing partial
+            # block; the padded frames' outputs are trimmed.
+            return [vid_source.get_raw_block(s, start, block_N) for s in ("test", "reference")]
+
+        tails = None
+        prefetch = None  # the future of this block's host arrays
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            for ff in range(0, N_frames, block_N):
+                host = prefetch.result() if prefetch is not None else read(ff)
+                nxt = ff + block_N
+                prefetch = None
+                if nxt < N_frames and (ff > 0 or self.temp_padding == "replicate"):
+                    prefetch = pool.submit(read, nxt)
+                raws = [self._raw(vid_source, a) for a in host]
+                del host
+                if tails is None:
+                    tails = self._initial_tails(vid_source, dm, raws, N_frames, met_cs)
+                R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm, filt,
+                                           met_cs)
+                del raws
+                yield ff, min(block_N, N_frames - ff), R, 2
+                # Free the scored block before the next one is uploaded.
+                del R
+
+    def _frame_blocks(self, vid_source, N_frames, block_N, batch_sz, met_cs):
+        """(first frame, frames, R, temp_ch) of each block of a source read
+        frame by frame in the metric colour space (the JAX package's generic
+        route): sliding windows of fl-1 + block_N frames, padded as the
+        temporal padding says, a partial last block with zero frames, then
+        the temporal filter and the interleave in plain PyTorch."""
+        def fetch(s, idx):
+            get = vid_source.get_test_frame if s == 0 else vid_source.get_reference_frame
+            I = get(idx, device=self.device, colorspace=met_cs)
+            return I.expand(-1, 3, -1, -1, -1) if I.shape[1] == 1 else I
+
+        if N_frames == 1:
+            T, R = (fetch(s, 0).expand(batch_sz, -1, -1, -1, -1) for s in (0, 1))
+            yield 0, 1, ing.interleave_tr(T, R), 1
+            return
+        fl = self.filter_len
+        filt = np.stack([f[::-1] for f in self.F])
+        read_ahead = [[], []]
+        tails = [None, None]
+        for ff in range(0, N_frames, block_N):
+            cur = min(block_N, N_frames - ff)
+            news = []
+            for s in (0, 1):
+                frames = [read_ahead[s].pop(0) if read_ahead[s] else fetch(s, ff + fi)
+                          for fi in range(cur)]
+                if ff == 0:
+                    if self.temp_padding == "replicate":
+                        head = [frames[0]] * (fl - 1)
+                    else:
+                        # Read ahead where the first block is shorter than the filter.
+                        read_ahead[s] = [fetch(s, cur + fi) for fi in range(max(fl - cur, 0))]
+                        head = []
+                        for fi in range(-fl + 1, 0):
+                            pos = self._get_symmetric_frame_index(fi, N_frames)
+                            head.append(frames[pos] if pos < cur else read_ahead[s][pos - cur])
+                    tails[s] = torch.cat(head, dim=2)
+                if cur < block_N:
+                    frames += [torch.zeros_like(frames[0])] * (block_N - cur)
+                news.append(torch.cat(frames, dim=2))
+            R, tails[0], tails[1] = ing.temporal_fir(tails, news, filt)
+            del news
+            yield ff, cur, R, 2
+            del R
 
     def _check_finite(self, Q, ff):
         """With ``debug``, the JAX package's numeric check of each block."""

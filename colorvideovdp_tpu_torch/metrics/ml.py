@@ -433,7 +433,10 @@ class cvvdp_ml_base(cvvdp):
     def predict_video_source(self, vid_source):
         """Score a video source; returns (Q_jod, stats). The first video block
         pads in the ingest kernel ("replicate" or "head" mode), later blocks
-        carry tails."""
+        carry tails. Packed sources (``.yuv``, decoded video files) are
+        unpacked on the device; a source must have ``get_raw_block``."""
+        if not hasattr(vid_source, "get_raw_block"):
+            raise NotImplementedError("the ML metrics read sources with get_raw_block only")
         h, w, N_frames = vid_source.get_video_size()
         batch_sz = vid_source.get_batch_size()
         self._ensure_pyramids(w, h)
@@ -445,7 +448,7 @@ class cvvdp_ml_base(cvvdp):
 
         if is_image:
             block_N = 1
-            raws = [self._upload(vid_source.get_raw_block(s, 0, 1)) for s in sources]
+            raws = [self._raw(vid_source, vid_source.get_raw_block(s, 0, 1)) for s in sources]
             T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
                     for raw in raws)
             features = self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)[0]
@@ -458,7 +461,7 @@ class cvvdp_ml_base(cvvdp):
             feats, tails = [], None
             for ff in range(0, N_frames, block_N):
                 cur = min(block_N, N_frames - ff)
-                raws = [self._upload(vid_source.get_raw_block(s, ff, block_N)) for s in sources]
+                raws = [self._raw(vid_source, vid_source.get_raw_block(s, ff, block_N)) for s in sources]
                 if tails is not None:
                     fn = ing.ingest if use_k else ing.ingest_plain
                     R, *tails = fn(*tails, *raws, dm, filt, met_cs)
@@ -468,7 +471,7 @@ class cvvdp_ml_base(cvvdp):
                 else:
                     idx = [self._get_symmetric_frame_index(fi, N_frames)
                            for fi in range(-self.filter_len + 1, 0)]
-                    heads = [self._upload(vid_source.get_raw_frame_list(s, idx)) for s in sources]
+                    heads = [self._raw(vid_source, vid_source.get_raw_frame_list(s, idx)) for s in sources]
                     if use_k:
                         R, *tails = ing.ingest_head(*heads, *raws, dm, filt, met_cs)
                     else:

@@ -71,8 +71,9 @@ def interleave_tr(T: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return torch.stack([T, R], dim=2).reshape((B, 2 * C) + tuple(T.shape[2:]))
 
 
-def _fir(pads, news, filt):
-    """The temporal FIR over [pad, new] per source; returns (R, next tail_t,
+def temporal_fir(pads, news, filt):
+    """The temporal FIR over [pad, new] per source, pads and new frames
+    (B, 3, F, H, W) in the metric colour space; returns (R, next tail_t,
     next tail_r)."""
     outs, tails = [], []
     for pad, new in zip(pads, news):
@@ -86,7 +87,7 @@ def ingest_plain(tail_t, tail_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
     """tails (B, 3, fl-1, H, W) DKL; raws (B, blk, C, H, W) source frames.
     Returns (R (B, 8, blk, H, W), next tail_t, next tail_r)."""
     news = [raw_to_met(dm, raw, colorspace) for raw in (raw_t, raw_r)]
-    return _fir((tail_t, tail_r), news, filt)
+    return temporal_fir((tail_t, tail_r), news, filt)
 
 
 def ingest_first_plain(raw_t, raw_r, dm, filt, colorspace="DKLd65", head_t=None, head_r=None):
@@ -100,7 +101,7 @@ def ingest_first_plain(raw_t, raw_r, dm, filt, colorspace="DKLd65", head_t=None,
         pads = [new[:, :, :1].expand(-1, -1, fl - 1, -1, -1) for new in news]
     else:
         pads = [raw_to_met(dm, head, colorspace) for head in (head_t, head_r)]
-    return _fir(pads, news, filt)
+    return temporal_fir(pads, news, filt)
 
 
 def _code_index(raw: torch.Tensor) -> torch.Tensor:

@@ -958,3 +958,83 @@ def test_sharded_scoring_on_the_card(dev, tmp_path):
             assert r["launches"]["pyramid_reduce_slab"] > 0
             assert r["launches"]["band_pooled_halo"] > 0
             assert r["launches"]["band_masking_halo"] == 0
+
+
+def _yuv_pair_files(tmp_path, h, w, n, seed=2):
+    """A 10-bit 4:2:0 BT.2020 .yuv pair (test = reference + noise)."""
+    from colorvideovdp_tpu_torch.io.yuv import create_yuv_fname
+
+    rng = np.random.RandomState(seed)
+    ref = rng.randint(64, 940, n * h * w * 3 // 2)
+    test = np.clip(ref + rng.randint(-30, 30, ref.shape), 0, 1023)
+    names = []
+    for tag, data in (("test", test), ("ref", ref)):
+        name = str(tmp_path / create_yuv_fname(tag, dict(width=w, height=h, fps=30,
+                                                         bit_depth=10, chroma_ss="420",
+                                                         color_space="2020")))
+        data.astype("<u2").tofile(name)
+        names.append(name)
+    return names
+
+
+@pytest.mark.parametrize("fsr", [None, "bicubic"])
+def test_yuv_unpack_on_the_card_matches_cpu(dev, tmp_path, fsr):
+    from colorvideovdp_tpu_torch.io.yuv import video_source_yuv_file
+
+    vs = video_source_yuv_file(*_yuv_pair_files(tmp_path, 270, 482, 3),
+                               display_photometry="standard_hdr_pq")
+    vs.full_screen_resize, vs.resize_resolution = fsr, (301, 150)
+    raw = vs.get_raw_block("test", 0, 3).view(np.int16)
+    cpu = vs.unpack_raw_block(torch.from_numpy(raw))
+    card = vs.unpack_raw_block(torch.from_numpy(raw).to(dev))
+    assert card.is_cuda and card.shape == cpu.shape
+    # The card divides by a constant through its reciprocal: an ulp or two.
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("route", ["file", "per-frame"])
+def test_file_route_kernels_match_plain(dev, tmp_path, route):
+    """A .yuv pair through video_source_file in two blocks, kernels against
+    plain; the file route launches ingest, the per-frame route does not."""
+    from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
+
+    names = _yuv_pair_files(tmp_path, 192, 320, 7)
+    jods = []
+    for fused in (True, False):
+        vs = video_source_file(*names, display_photometry="standard_hdr_pq")
+        if route == "per-frame":
+            vs = _HideRaw(vs)  # read frame by frame
+        m = ct.cvvdp(display_name="standard_hdr_pq", device="cuda")
+        m.gpu_mem = m.block_gpu_mem(192 * 320, 4, 30)
+        m.enable_fused_kernels = fused
+        before = (ing.ingest.launches, prd.pyramid_reduce.launches, bp.band_pooled.launches)
+        Q, st = m.predict_video_source(vs)
+        assert st["block_N_frames"] == 4
+        after = (ing.ingest.launches, prd.pyramid_reduce.launches, bp.band_pooled.launches)
+        launched = [a > b for a, b in zip(after, before)]
+        assert launched == ([route == "file", True, True] if fused else [False] * 3)
+        jods.append(float(Q))
+    assert abs(jods[0] - jods[1]) <= 1e-4, jods
+
+
+class _HideRaw:
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        if name in ("get_raw_block", "get_raw_frame_list", "unpack_raw_block"):
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+
+def test_aux_metrics_on_the_card_match_cpu(dev, tmp_path):
+    from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
+
+    vs = video_source_file(*_yuv_pair_files(tmp_path, 136, 242, 2),
+                           display_photometry="standard_hdr_pq")
+    for cls, tol in ((ct.psnr_rgb, 1e-4), (ct.pu_psnr_y, 1e-4), (ct.pu_psnr_rgb2020, 1e-4),
+                     (ct.ssim_metric, 1e-5)):
+        card, _ = cls(display_name="standard_hdr_pq").predict_video_source(vs)
+        cpu, _ = cls(display_name="standard_hdr_pq", device="cpu").predict_video_source(vs)
+        assert card.is_cuda
+        assert float((card.cpu() - cpu).abs().max()) <= tol, cls

@@ -59,6 +59,19 @@ assert torch.equal(ingest.eotf_from_table(dm, table, raw),
 from colorvideovdp_tpu_torch.tools import shard_check
 assert shard_check.main(["--cpu", "--ranks", "2", "--size", "48x256", "--frames", "3",
                          "--block-frames", "2"]) == 0
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    names = []
+    for tag in ("t", "r"):
+        name = f"{d}/{tag}_48x32p24_420_10b_2020.yuv"
+        with open(name, "wb") as f:
+            f.write((rng.rand(3 * 48 * 32 * 3 // 2) * 1023).astype("<u2").tobytes())
+        names.append(name)
+    vs = ct.video_source_file(*names, display_photometry="standard_hdr_pq")
+    Q_yuv, st_yuv = ct.cvvdp(display_name="standard_hdr_pq", device="cpu").predict_video_source(vs)
+    psnr, _ = ct.psnr_rgb(display_name="standard_hdr_pq", device="cpu").predict_video_source(vs)
+assert np.isfinite(float(Q_yuv)) and st_yuv["N_frames"] == 3, float(Q_yuv)
+assert np.isfinite(float(psnr)), float(psnr)
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("colorvideovdp_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("JOD", float(Q), float(Q_ml))

@@ -170,6 +170,4 @@ def test_blur_and_masking_match_jax():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        ct.cvvdp(display_name="standard_4k", device="cpu", temp_resample=True)
-    with pytest.raises(NotImplementedError):
         ct.cvvdp(display_name="standard_4k", device="cpu", dump_channels=["difference"])
