@@ -182,6 +182,25 @@ Phase 12 file sources: the first 12 frames of the phase-3 clip as a
          kernels against plain within 1e-3; PSNR-RGB, PU21-PSNR-Y,
          PU21-PSNR-RGB2020 and SSIM on the 4K pair on the card, timed,
          and on 2 frames against the CPU (1e-4 dB, SSIM 1e-5).
+Phase 13 the file-driven entry points on phase 12's files (phase 0 prints
+         which of cv2, imageio, PIL and matplotlib import): the CLI
+         in-process on the 4K pair (cvvdp, PU21-PSNR-Y, SSIM, --result,
+         --features) with the kernels and plain (``cvvdp`` registered with
+         its kernels off), its CSV within 1e-4 of the API's JOD
+         (``video_source_file`` + ``predict_video_source``, symmetric
+         padding as the CLI's) and of phase 12's aux metrics (1e-4 dB,
+         SSIM 1e-5), kernels against plain within 1e-3, the features file
+         with the API's keys; ``python -m colorvideovdp_tpu_torch.cli -q``
+         in a process of its own, timed from its start, printing the same
+         value; a supra-threshold heatmap through the CLI in one block,
+         its file byte for byte what ``np2vid`` writes of the API's
+         heatmap (scoring and writing timed apart); the three channel
+         dumps of the FHD pair, kernels against plain within 1 code value,
+         the JOD within 1e-4 of the pooled-only JOD; the HDR (.y4m) and
+         EXR previews of 2 FHD frames read back; the clip-list runner's
+         two workers, a resume and a merge on the 4K pair, the FHD pair
+         and a missing file, whose row alone reads "error". Without
+         matplotlib the distogram is left to the CPU tests.
 
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
@@ -204,10 +223,13 @@ power limit, and the one before that lists the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1683,11 +1705,11 @@ class FrameByFrame:
         return getattr(self.inner, name)
 
 
-def phase_files(V_test, V_ref, fps, counters, smi):
-    """Phase 12: file sources. Returns the launches per path."""
+def phase_files(V_test, V_ref, fps, counters, smi, tmp):
+    """Phase 12: file sources, written to ``tmp``. Returns the launches per
+    path and the files for phase 13: the 4K pair, the FHD pair and the aux
+    metrics' values on the 4K pair."""
     import os
-    import shutil
-    import tempfile
 
     import colorvideovdp_tpu_torch as cvt
     from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
@@ -1695,7 +1717,7 @@ def phase_files(V_test, V_ref, fps, counters, smi):
     t_phase = time.time()
     H, W, _, N = V_ref.shape
     paths = {}
-    tmp = tempfile.mkdtemp(prefix="cvvdp_files_")
+    aux = {}
 
     def run(m, vs):
         torch.cuda.empty_cache()
@@ -1717,133 +1739,469 @@ def phase_files(V_test, V_ref, fps, counters, smi):
             if launches[k] != 0:
                 raise AssertionError(f"phase 12: {k} launched on {name}: {launches}")
 
-    try:
-        t0 = time.time()
-        names = write_yuv_pair(tmp, V_test, V_ref, fps)
-        log(f"phase 12: 10-bit 4:2:0 BT.2020 .yuv pair, {N} frames of {W}x{H} "
-            f"({os.path.getsize(names[0]) / 1e6:.1f} MB a file), written in "
-            f"{time.time() - t0:.1f} s")
-        res = {}
-        # In turns, kernels first: the first run also pays one-time set-up
-        # (the matrix-product library, the LUT tables).
-        for turn, fused in enumerate((True, False, True)):
-            m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
-            m.enable_fused_kernels = fused
-            vs = video_source_file(*names, display_photometry="standard_hdr_pq")
-            jod, st, dt, launches = run(m, vs)
-            res[fused] = (jod, st["block_N_frames"], launches, dt)
-            if fused:
-                paths["files_4k_yuv"] = launches
-            log(f"phase 12: .yuv {'kernels' if fused else 'plain  '} (turn {turn + 1}): JOD "
-                f"{jod:.6f}, blk {st['block_N_frames']}, wall {dt:.3f} s = {N / dt:.2f} "
-                f"frames/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-                f"({smi}), launches { {k: v for k, v in launches.items() if v} }")
-        (jod_k, blk, launches, dt_k), jod_p = res[True], res[False][0]
-        from colorvideovdp_tpu_torch.tools.path_times import profile_device
-
+    t0 = time.time()
+    names = write_yuv_pair(tmp, V_test, V_ref, fps)
+    log(f"phase 12: 10-bit 4:2:0 BT.2020 .yuv pair, {N} frames of {W}x{H} "
+        f"({os.path.getsize(names[0]) / 1e6:.1f} MB a file), written in "
+        f"{time.time() - t0:.1f} s")
+    res = {}
+    # In turns, kernels first: the first run also pays one-time set-up
+    # (the matrix-product library, the LUT tables).
+    for turn, fused in enumerate((True, False, True)):
         m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
-        prof, busy, wall = profile_device(lambda: m.predict_video_source(
-            video_source_file(*names, display_photometry="standard_hdr_pq")))
-        log(f"phase 12: profiled file route {wall:.3f} s, device busy {busy:.3f} ms "
-            f"({100 * busy / (1e3 * wall):.1f}%), by kernel:")
-        for ms, count, name in prof[:8]:
-            log(f"  {ms:9.3f} ms {count:5d}x  {name[:100]}")
-        expect("the file route", launches, FILE_PATH)
-        if not (math.isfinite(jod_k) and abs(jod_k - jod_p) <= FILE_JOD_TOL):
-            raise AssertionError(f"phase 12: .yuv JOD kernels {jod_k} vs plain {jod_p}")
-        # One block's host read and unpack on the card, against the block.
-        m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+        m.enable_fused_kernels = fused
         vs = video_source_file(*names, display_photometry="standard_hdr_pq")
-        t0 = time.time()
-        packed = vs.get_raw_block("test", 0, blk)
-        t_read = time.time() - t0
-        t0 = time.time()
-        x = m._upload(packed)
+        jod, st, dt, launches = run(m, vs)
+        res[fused] = (jod, st["block_N_frames"], launches, dt)
+        if fused:
+            paths["files_4k_yuv"] = launches
+        log(f"phase 12: .yuv {'kernels' if fused else 'plain  '} (turn {turn + 1}): JOD "
+            f"{jod:.6f}, blk {st['block_N_frames']}, wall {dt:.3f} s = {N / dt:.2f} "
+            f"frames/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({smi}), launches { {k: v for k, v in launches.items() if v} }")
+    (jod_k, blk, launches, dt_k), jod_p = res[True], res[False][0]
+    from colorvideovdp_tpu_torch.tools.path_times import profile_device
+
+    m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+    prof, busy, wall = profile_device(lambda: m.predict_video_source(
+        video_source_file(*names, display_photometry="standard_hdr_pq")))
+    log(f"phase 12: profiled file route {wall:.3f} s, device busy {busy:.3f} ms "
+        f"({100 * busy / (1e3 * wall):.1f}%), by kernel:")
+    for ms, count, name in prof[:8]:
+        log(f"  {ms:9.3f} ms {count:5d}x  {name[:100]}")
+    expect("the file route", launches, FILE_PATH)
+    if not (math.isfinite(jod_k) and abs(jod_k - jod_p) <= FILE_JOD_TOL):
+        raise AssertionError(f"phase 12: .yuv JOD kernels {jod_k} vs plain {jod_p}")
+    # One block's host read and unpack on the card, against the block.
+    m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+    vs = video_source_file(*names, display_photometry="standard_hdr_pq")
+    t0 = time.time()
+    packed = vs.get_raw_block("test", 0, blk)
+    t_read = time.time() - t0
+    t0 = time.time()
+    x = m._upload(packed)
+    torch.cuda.synchronize()
+    t_up = time.time() - t0
+    unpack_ms = time_ms(lambda: vs.unpack_raw_block(x))
+    unpack_dev = device_ms(lambda: vs.unpack_raw_block(x), reps=3)
+    n_blocks = math.ceil(N / blk)
+    block_ms, block_dev = 1e3 * dt_k / n_blocks, busy / n_blocks
+    log(f"phase 12: one {blk}-frame block of one file: host read {1e3 * t_read:.1f} ms, "
+        f"upload {1e3 * t_up:.1f} ms, unpack on the card {unpack_ms:.3f} ms, device "
+        f"{unpack_dev:.3f} ms ({unpack_ms / blk:.3f} ms a frame); both files' unpack "
+        f"{2 * unpack_ms:.3f} ms = {100 * 2 * unpack_ms / block_ms:.1f}% of the "
+        f"{block_ms:.1f} ms a block of the kernels' wall time, device "
+        f"{100 * 2 * unpack_dev / block_dev:.1f}% of the block's {block_dev:.3f} ms "
+        f"({smi})")
+    del x, packed
+    # The array route fed the port's own unpacked float32 RGB.
+    rgb = [vs.unpack_raw_block(m._upload(vs.get_raw_block(s, 0, N))).cpu().numpy()
+           for s in ("test", "reference")]
+    jod_a, _, dt_a, _ = run(m, cvt.video_source_array(
+        rgb[0], rgb[1], fps, dim_order="BCFHW", display_photometry="standard_hdr_pq"))
+    del rgb
+    log(f"phase 12: array route on the unpacked frames: JOD {jod_a:.6f} ({dt_a:.3f} s), "
+        f"|JOD - file route| {abs(jod_a - jod_k):.2e} (tolerance {UNPACK_JOD_TOL:.0e})")
+    if not abs(jod_a - jod_k) <= UNPACK_JOD_TOL:
+        raise AssertionError(f"phase 12: unpacked array route {jod_a} vs file route {jod_k}")
+
+    # FHD: 8 frames at 24 fps (a crop of the same content).
+    fhd = write_yuv_pair(tmp, V_test[:1080, :1920, :, :8], V_ref[:1080, :1920, :, :8], 24)
+    vs4 = video_source_file(*fhd, display_photometry="standard_hdr_pq", frames=4)
+    jods = {}
+    for route, src in (("block", vs4), ("per-frame", FrameByFrame(vs4))):
+        m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+        jods[route], _, dt, launches = run(m, src)
+        paths[f"files_fhd_{route}"] = launches
+        log(f"phase 12: FHD 4 frames, {route} route: JOD {jods[route]:.6f} ({dt:.3f} s), "
+            f"launches { {k: v for k, v in launches.items() if v} }")
+    expect("the per-frame route", paths["files_fhd_per-frame"], FRAME_PATH,
+           off=("ingest", "ingest_replicate", "ingest_head"))
+    if not abs(jods["block"] - jods["per-frame"]) <= FRAME_ROUTE_JOD_TOL:
+        raise AssertionError(f"phase 12: per-frame route {jods['per-frame']} vs block "
+                             f"route {jods['block']}")
+    vs8 = video_source_file(*fhd, display_photometry="standard_hdr_pq")
+    res = {}
+    for fused in (True, False):
+        m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                      temp_resample=True)
+        m.enable_fused_kernels = fused
+        jod, st, dt, launches = run(m, vs8)
+        res[fused] = jod
+        if fused:
+            paths["files_fhd_temp_resample"] = launches
+            expect("temp_resample", launches, FILE_PATH)
+        if st["N_frames"] != math.ceil(8 / 24 * m.nominal_fps):
+            raise AssertionError(f"phase 12: temp_resample gave {st['N_frames']} frames")
+        log(f"phase 12: FHD 8 frames at 24 fps, temp_resample to {m.nominal_fps} fps "
+            f"({st['N_frames']} frames) {'kernels' if fused else 'plain  '}: JOD {jod:.6f} "
+            f"({dt:.3f} s)")
+    if not abs(res[True] - res[False]) <= FILE_JOD_TOL:
+        raise AssertionError(f"phase 12: temp_resample kernels {res[True]} vs plain "
+                             f"{res[False]}")
+
+    # The aux metrics: the 4K pair on the card, then 2 frames on the card
+    # against the CPU.
+    vs2 = video_source_file(*names, display_photometry="standard_hdr_pq", frames=2)
+    for cls, tol in ((cvt.psnr_rgb, AUX_DB_TOL), (cvt.pu_psnr_y, AUX_DB_TOL),
+                     (cvt.pu_psnr_rgb2020, AUX_DB_TOL), (cvt.ssim_metric, AUX_SSIM_TOL)):
+        metric = cls(display_name="standard_hdr_pq")
         torch.cuda.synchronize()
-        t_up = time.time() - t0
-        unpack_ms = time_ms(lambda: vs.unpack_raw_block(x))
-        unpack_dev = device_ms(lambda: vs.unpack_raw_block(x), reps=3)
-        n_blocks = math.ceil(N / blk)
-        block_ms, block_dev = 1e3 * dt_k / n_blocks, busy / n_blocks
-        log(f"phase 12: one {blk}-frame block of one file: host read {1e3 * t_read:.1f} ms, "
-            f"upload {1e3 * t_up:.1f} ms, unpack on the card {unpack_ms:.3f} ms, device "
-            f"{unpack_dev:.3f} ms ({unpack_ms / blk:.3f} ms a frame); both files' unpack "
-            f"{2 * unpack_ms:.3f} ms = {100 * 2 * unpack_ms / block_ms:.1f}% of the "
-            f"{block_ms:.1f} ms a block of the kernels' wall time, device "
-            f"{100 * 2 * unpack_dev / block_dev:.1f}% of the block's {block_dev:.3f} ms "
-            f"({smi})")
-        del x, packed
-        # The array route fed the port's own unpacked float32 RGB.
-        rgb = [vs.unpack_raw_block(m._upload(vs.get_raw_block(s, 0, N))).cpu().numpy()
-               for s in ("test", "reference")]
-        jod_a, _, dt_a, _ = run(m, cvt.video_source_array(
-            rgb[0], rgb[1], fps, dim_order="BCFHW", display_photometry="standard_hdr_pq"))
-        del rgb
-        log(f"phase 12: array route on the unpacked frames: JOD {jod_a:.6f} ({dt_a:.3f} s), "
-            f"|JOD - file route| {abs(jod_a - jod_k):.2e} (tolerance {UNPACK_JOD_TOL:.0e})")
-        if not abs(jod_a - jod_k) <= UNPACK_JOD_TOL:
-            raise AssertionError(f"phase 12: unpacked array route {jod_a} vs file route {jod_k}")
-
-        # FHD: 8 frames at 24 fps (a crop of the same content).
-        fhd = write_yuv_pair(tmp, V_test[:1080, :1920, :, :8], V_ref[:1080, :1920, :, :8], 24)
-        vs4 = video_source_file(*fhd, display_photometry="standard_hdr_pq", frames=4)
-        jods = {}
-        for route, src in (("block", vs4), ("per-frame", FrameByFrame(vs4))):
-            m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
-            jods[route], _, dt, launches = run(m, src)
-            paths[f"files_fhd_{route}"] = launches
-            log(f"phase 12: FHD 4 frames, {route} route: JOD {jods[route]:.6f} ({dt:.3f} s), "
-                f"launches { {k: v for k, v in launches.items() if v} }")
-        expect("the per-frame route", paths["files_fhd_per-frame"], FRAME_PATH,
-               off=("ingest", "ingest_replicate", "ingest_head"))
-        if not abs(jods["block"] - jods["per-frame"]) <= FRAME_ROUTE_JOD_TOL:
-            raise AssertionError(f"phase 12: per-frame route {jods['per-frame']} vs block "
-                                 f"route {jods['block']}")
-        vs8 = video_source_file(*fhd, display_photometry="standard_hdr_pq")
-        res = {}
-        for fused in (True, False):
-            m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
-                          temp_resample=True)
-            m.enable_fused_kernels = fused
-            jod, st, dt, launches = run(m, vs8)
-            res[fused] = jod
-            if fused:
-                paths["files_fhd_temp_resample"] = launches
-                expect("temp_resample", launches, FILE_PATH)
-            if st["N_frames"] != math.ceil(8 / 24 * m.nominal_fps):
-                raise AssertionError(f"phase 12: temp_resample gave {st['N_frames']} frames")
-            log(f"phase 12: FHD 8 frames at 24 fps, temp_resample to {m.nominal_fps} fps "
-                f"({st['N_frames']} frames) {'kernels' if fused else 'plain  '}: JOD {jod:.6f} "
-                f"({dt:.3f} s)")
-        if not abs(res[True] - res[False]) <= FILE_JOD_TOL:
-            raise AssertionError(f"phase 12: temp_resample kernels {res[True]} vs plain "
-                                 f"{res[False]}")
-
-        # The aux metrics: the 4K pair on the card, then 2 frames on the card
-        # against the CPU.
-        vs2 = video_source_file(*names, display_photometry="standard_hdr_pq", frames=2)
-        for cls, tol in ((cvt.psnr_rgb, AUX_DB_TOL), (cvt.pu_psnr_y, AUX_DB_TOL),
-                         (cvt.pu_psnr_rgb2020, AUX_DB_TOL), (cvt.ssim_metric, AUX_SSIM_TOL)):
-            metric = cls(display_name="standard_hdr_pq")
-            torch.cuda.synchronize()
-            t0 = time.time()
-            q, _ = metric.predict_video_source(video_source_file(
-                *names, display_photometry="standard_hdr_pq"))
-            q = float(q.reshape(-1)[0])
-            dt = time.time() - t0
-            q2 = float(metric.predict_video_source(vs2)[0].reshape(-1)[0])
-            t0 = time.time()
-            q2_cpu = float(cls(display_name="standard_hdr_pq", device="cpu")
-                           .predict_video_source(vs2)[0].reshape(-1)[0])
-            dt_cpu = time.time() - t0
-            log(f"phase 12: {metric.short_name()}: {q:.6f} on {N} frames of {W}x{H} in {dt:.3f} s "
-                f"= {N / dt:.2f} frames/s ({smi}); 2 frames {q2:.6f}, on the CPU {q2_cpu:.6f} "
-                f"({dt_cpu:.1f} s), difference {abs(q2 - q2_cpu):.2e} (tolerance {tol:.0e})")
-            if not (math.isfinite(q) and abs(q2 - q2_cpu) <= tol):
-                raise AssertionError(f"phase 12: {metric.short_name()} card vs CPU")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        t0 = time.time()
+        q, _ = metric.predict_video_source(video_source_file(
+            *names, display_photometry="standard_hdr_pq"))
+        q = float(q.reshape(-1)[0])
+        dt = time.time() - t0
+        aux[metric.short_name()] = q
+        q2 = float(metric.predict_video_source(vs2)[0].reshape(-1)[0])
+        t0 = time.time()
+        q2_cpu = float(cls(display_name="standard_hdr_pq", device="cpu")
+                       .predict_video_source(vs2)[0].reshape(-1)[0])
+        dt_cpu = time.time() - t0
+        log(f"phase 12: {metric.short_name()}: {q:.6f} on {N} frames of {W}x{H} in {dt:.3f} s "
+            f"= {N / dt:.2f} frames/s ({smi}); 2 frames {q2:.6f}, on the CPU {q2_cpu:.6f} "
+            f"({dt_cpu:.1f} s), difference {abs(q2 - q2_cpu):.2e} (tolerance {tol:.0e})")
+        if not (math.isfinite(q) and abs(q2 - q2_cpu) <= tol):
+            raise AssertionError(f"phase 12: {metric.short_name()} card vs CPU")
     log(f"phase 12: {time.time() - t_phase:.1f} s")
+    return paths, {"4k": names, "fhd": fhd, "aux": aux}
+
+
+# The file-driven entry points (phase 13): the CLI, its heatmap, the channel
+# dumps, the previews and the clip-list runner on phase 12's files. The
+# CLI's CSV against the API on the same files (the CLI's temporal padding,
+# symmetric), the aux metrics against phase 12's, kernels against plain.
+CLI_JOD_TOL, CLI_PLAIN_TOL = 1e-4, 1e-3
+DUMP_CODE_TOL = 1  # dumped 8-bit frames, kernels against plain
+# The kernels a heatmap and the dumps launch (the D route).
+D_PATH = ("ingest", "pyramid_reduce", "band_pooled_d", "csf_lut")
+OPTIONAL_MODULES = ("cv2", "imageio", "PIL", "matplotlib")
+
+
+def optional_imports():
+    """{module: whether it imports} for the writers' optional back ends."""
+    import importlib
+
+    have = {}
+    for name in OPTIONAL_MODULES:
+        try:
+            importlib.import_module(name)
+            have[name] = True
+        except ImportError:
+            have[name] = False
+    return have
+
+
+def video_frames(path):
+    """(frame count, height, width) of a written video: an .mp4 decoded with
+    OpenCV, a .y4m from its header and frame markers."""
+    if path.endswith(".y4m"):
+        with open(path, "rb") as f:
+            header = f.readline().split()
+            data = f.read()
+        tags = {t[:1]: t[1:] for t in header[1:]}
+        W, H = int(tags[b"W"]), int(tags[b"H"])
+        size = (H * W + 2 * (H // 2) * (W // 2)) * (2 if b"p10" in tags[b"C"] else 1)
+        if len(data) % (6 + size) or data[:6] != b"FRAME\n":
+            raise AssertionError(f"{path}: not a 4:2:0 YUV4MPEG2 stream")
+        return len(data) // (6 + size), H, W
+    frames = decode_mp4(path)
+    return len(frames), *frames[0].shape[:2]
+
+
+def decode_mp4(path):
+    """Every frame of an .mp4 (OpenCV), as BGR uint8 arrays."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return frames
+
+
+@contextlib.contextmanager
+def plain_cvvdp():
+    """The CLI's "cvvdp" with its kernels off (``enable_fused_kernels =
+    False``: the plain versions on the card) while the block runs."""
+    from colorvideovdp_tpu_torch.metrics.base import vq_metric_dict
+    from colorvideovdp_tpu_torch.metrics.cvvdp import cvvdp
+
+    class cvvdp_plain(cvvdp):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.enable_fused_kernels = False
+
+    vq_metric_dict["cvvdp"] = cvvdp_plain
+    try:
+        yield
+    finally:
+        vq_metric_dict["cvvdp"] = cvvdp
+
+
+@contextlib.contextmanager
+def recorded_dumps(frames):
+    """The channel dumps' video writers also keep each frame they are given,
+    in ``frames`` by file stem."""
+    import os
+
+    from colorvideovdp_tpu_torch import dump_channels
+
+    writer = dump_channels.VideoWriter
+
+    class Tee(writer):
+        def __init__(self, fname, **kw):
+            super().__init__(fname, **kw)
+            self.stem = os.path.splitext(os.path.basename(fname))[0]
+            frames[self.stem] = []
+
+        def write_frame_rgb(self, rgb):
+            frames[self.stem].append(np.array(rgb))
+            super().write_frame_rgb(rgb)
+
+    dump_channels.VideoWriter = Tee
+    try:
+        yield
+    finally:
+        dump_channels.VideoWriter = writer
+
+
+def phase_cli(files, fps, counters, smi, tmp, have):
+    """Phase 13: the port's entry points on phase 12's files. Returns the
+    launches per path."""
+    import contextlib as cl
+    import csv
+    import glob
+    import os
+
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch import cli
+    from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
+    from colorvideovdp_tpu_torch.io.writers import np2vid
+    from colorvideovdp_tpu_torch.tools import run_cluster
+
+    t_phase = time.time()
+    log("phase 13: optional modules: " + ", ".join(
+        f"{k} {'imports' if v else 'absent'}" for k, v in have.items()))
+    names, fhd = files["4k"], files["fhd"]
+    stem4k, stemfhd = (os.path.splitext(os.path.basename(p[0]))[0] for p in (names, fhd))
+    (H, W, N), (Hf, Wf, Nf) = (video_source_file(*p).get_video_size() for p in (names, fhd))
+    fps_fhd = video_source_file(*fhd).get_frames_per_second()
+    hdr = ["--display", "standard_hdr_pq"]
+    paths, walls = {}, {}
+
+    def launched():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def run_cli(argv):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli.run_on_args(cli.parse_args(argv))
+        torch.cuda.synchronize()
+        return time.time() - t0, launched()
+
+    def expect(name, launches, path):
+        for k in path:
+            if launches[k] <= 0:
+                raise AssertionError(f"phase 13: kernel {k} was not launched on {name}")
+        for k in YARDSTICKS:
+            if launches[k] != 0:
+                raise AssertionError(f"phase 13: {k} launched on {name}: {launches}")
+
+    def read_csv(path):
+        with open(path, newline="") as f:
+            rows = [[c.strip() for c in r] for r in csv.reader(f)]
+        return dict(zip(rows[0][2:], (float(v) for v in rows[1][2:])))
+
+    def api(pair, **kw):
+        """(JOD, stats, scoring seconds, metric) through video_source_file and
+        predict_video_source with the CLI's temporal padding."""
+        m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                      temp_padding="symmetric", **kw)
+        vs = video_source_file(*pair, display_photometry="standard_hdr_pq")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        Q, st = m.predict_video_source(vs)
+        jod = float(Q)
+        torch.cuda.synchronize()
+        return jod, st, time.time() - t0, m
+
+    # The CLI in-process on the 4K pair, with the kernels and plain.
+    jod_api, st_api, _, m_api = api(names)
+    m_api.write_features_to_json(st_api, os.path.join(tmp, "api_fmap.json"))
+    with open(os.path.join(tmp, "api_fmap.json")) as f:
+        api_keys = sorted(json.load(f))
+    res = {}
+    for fused in (True, False):
+        out = os.path.join(tmp, f"cli_{int(fused)}")
+        csv_path = out + ".csv"
+        argv = ["-t", *names[:1], "-r", names[1], *hdr, "-m", "cvvdp", "pu-psnr-y",
+                "ssim-metric", "--result", csv_path, "--features", "-o", out]
+        with cl.nullcontext() if fused else plain_cvvdp():
+            walls[f"cli {'kernels' if fused else 'plain'}"], launches = run_cli(argv)
+        res[fused] = read_csv(csv_path)
+        if fused:
+            paths["cli_4k_yuv"] = launches
+            expect("the CLI", launches, FILE_PATH)
+            with open(os.path.join(out, f"{stem4k}_fmap.json")) as f:
+                if sorted(json.load(f)) != api_keys:
+                    raise AssertionError("phase 13: the CLI's features are not the API's keys")
+        elif any(launches[k] for k in FILE_PATH):
+            raise AssertionError(f"phase 13: the plain CLI run launched kernels: {launches}")
+    q = res[True]
+    log(f"phase 13: CLI on the 4K pair: {q} (kernels {walls['cli kernels']:.3f} s, plain "
+        f"{walls['cli plain']:.3f} s); API JOD {jod_api:.6f}; phase 12's PU21-PSNR-Y "
+        f"{files['aux']['PU21-PSNR-Y']:.6f}, SSIM {files['aux']['SSIM']:.6f}")
+    if not abs(q["cvvdp"] - jod_api) <= CLI_JOD_TOL:
+        raise AssertionError(f"phase 13: CLI JOD {q['cvvdp']} vs the API's {jod_api}")
+    if not abs(q["cvvdp"] - res[False]["cvvdp"]) <= CLI_PLAIN_TOL:
+        raise AssertionError(f"phase 13: CLI kernels {q['cvvdp']} vs plain {res[False]['cvvdp']}")
+    if not (abs(q["PU21-PSNR-Y"] - files["aux"]["PU21-PSNR-Y"]) <= AUX_DB_TOL
+            and abs(q["SSIM"] - files["aux"]["SSIM"]) <= AUX_SSIM_TOL):
+        raise AssertionError(f"phase 13: the CLI's aux metrics {q} vs phase 12's {files['aux']}")
+
+    # The console entry point, a process of its own, timed from its start.
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "colorvideovdp_tpu_torch.cli", "-t", names[0],
+                           "-r", names[1], *hdr, "-q"], capture_output=True, text=True,
+                          cwd=root, env=dict(os.environ, PYTHONPATH=root), timeout=600)
+    walls["console"] = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 13: the console entry point failed: {proc.stderr[-2000:]}")
+    printed = proc.stdout.split()
+    log(f"phase 13: python -m colorvideovdp_tpu_torch.cli -q printed {printed} in "
+        f"{walls['console']:.3f} s from the process's start ({smi})")
+    if printed != [f"{q['cvvdp']:.4f}"]:
+        raise AssertionError(f"phase 13: the console printed {printed}, the CLI {q['cvvdp']}")
+
+    # The heatmap through the CLI, in one block on both sides, and the API's
+    # heatmap written by np2vid.
+    gpu_mem = m_api.block_gpu_mem(H * W, N, fps)
+    out = os.path.join(tmp, "cli_heatmap")
+    walls["cli heatmap"], launches = run_cli(
+        ["-t", names[0], "-r", names[1], *hdr, "--heatmap", "supra-threshold", "--gpu-mem",
+         str(gpu_mem), "-o", out])
+    paths["cli_heatmap_4k_yuv"] = launches
+    expect("the CLI's heatmap", launches, D_PATH)
+    (written,) = glob.glob(os.path.join(out, f"{stem4k}_heatmap.*"))
+    n, h, w = video_frames(written)
+    if (n, h, w) != (N, H, W):
+        raise AssertionError(f"phase 13: {written} holds {n} frames of {w}x{h}")
+    _, st, walls["api heatmap scoring"], _ = api(names, heatmap="supra-threshold",
+                                                 gpu_mem=gpu_mem)
+    if st["block_N_frames"] != N:
+        raise AssertionError(f"phase 13: heatmap blocks of {st['block_N_frames']} frames")
+    t0 = time.time()
+    frames = np.asarray(st["heatmap"], np.float32)[0].transpose(1, 2, 3, 0)
+    api_file = np2vid(frames, os.path.join(tmp, "api_heatmap.mp4"), fps)
+    walls["heatmap writing"] = time.time() - t0
+    if os.path.splitext(api_file)[1] != os.path.splitext(written)[1]:
+        raise AssertionError(f"phase 13: the CLI wrote {written}, np2vid {api_file}")
+    with open(written, "rb") as f, open(api_file, "rb") as g:
+        same_bytes = f.read() == g.read()
+    log(f"phase 13: CLI heatmap {os.path.basename(written)}: {n} frames of {w}x{h}, "
+        f"{'the same bytes' if same_bytes else 'OTHER BYTES'} as np2vid of the API's heatmap; "
+        f"CLI {walls['cli heatmap']:.3f} s, API scoring {walls['api heatmap scoring']:.3f} s, "
+        f"writing {N} frames {walls['heatmap writing']:.3f} s (the transpose and np2vid on "
+        "the host)")
+    if not same_bytes:
+        raise AssertionError("phase 13: the CLI's heatmap is not np2vid of the API's")
+    del st, frames
+
+    # The channel dumps on the FHD pair (one block), kernels and plain.
+    jod_fhd, _, _, m_fhd = api(fhd)
+    gpu_mem = m_fhd.block_gpu_mem(Hf * Wf, Nf, fps_fhd)
+    dumped, jods = {}, {}
+    for fused in (True, False):
+        out = os.path.join(tmp, f"dumps_{int(fused)}")
+        dumped[fused] = {}
+        argv = ["-t", fhd[0], "-r", fhd[1], *hdr, "--dump-channels", "temporal", "lpyr",
+                "difference", "--gpu-mem", str(gpu_mem), "--result", out + ".csv", "-o", out]
+        with cl.nullcontext() if fused else plain_cvvdp(), recorded_dumps(dumped[fused]):
+            walls[f"dumps {'kernels' if fused else 'plain'}"], launches = run_cli(argv)
+        jods[fused] = read_csv(out + ".csv")["cvvdp"]
+        for stem in ("temp_channels", "lpyr", "diff"):
+            (f,) = glob.glob(os.path.join(out, stem + ".*"))
+            n, h, w = video_frames(f)
+            if n != Nf or len(dumped[fused][stem]) != Nf:
+                raise AssertionError(f"phase 13: {f} holds {n} frames")
+        if fused:
+            paths["cli_dumps_fhd_yuv"] = launches
+            expect("the dumps", launches, D_PATH)
+    d_code = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                 for stem in dumped[True] for a, b in zip(dumped[True][stem], dumped[False][stem]))
+    log(f"phase 13: dumps of the FHD pair: JOD {jods[True]:.6f} (plain {jods[False]:.6f}), "
+        f"pooled-only {jod_fhd:.6f}; dumped frames kernels against plain within {d_code} code "
+        f"values; {walls['dumps kernels']:.3f} s with the kernels, {walls['dumps plain']:.3f} s "
+        "plain")
+    if not (abs(jods[True] - jod_fhd) <= CLI_JOD_TOL and d_code <= DUMP_CODE_TOL):
+        raise AssertionError("phase 13: the dumps disagree")
+    del dumped
+
+    # The previews on the FHD pair's first 2 frames.
+    out = os.path.join(tmp, "previews")
+    walls["previews"], _ = run_cli(["-t", fhd[0], "-r", fhd[1], *hdr, "--nframes", "2", "-m",
+                                    "dm-preview", "dm-preview-exr", "-o", out])
+    from colorvideovdp_tpu_torch.utils import exr
+
+    for side in ("test", "reference"):
+        (f,) = glob.glob(os.path.join(out, f"{stemfhd}-{side}.*"))
+        if video_frames(f) != (2, Hf, Wf):
+            raise AssertionError(f"phase 13: {f} holds {video_frames(f)}")
+        for ff in range(2):
+            img = exr.read(os.path.join(out, f"{stemfhd}-{ff:04d}-{side}.exr"))
+            if img.shape != (Hf, Wf, 3) or not np.isfinite(img).all():
+                raise AssertionError(f"phase 13: preview frame {ff} of {side}: {img.shape}")
+    log(f"phase 13: dm-preview wrote {sorted(os.listdir(out))} in {walls['previews']:.3f} s")
+
+    if have["matplotlib"]:
+        out = os.path.join(tmp, "distogram")
+        run_cli(["-t", fhd[0], "-r", fhd[1], *hdr, "--distogram", "-o", out])
+        if not os.path.getsize(os.path.join(out, f"{stemfhd}_distogram.png")):
+            raise AssertionError("phase 13: no distogram")
+    else:
+        log("phase 13: matplotlib does not import here, so --distogram is not run on the "
+            "card (the CPU tests write one)")
+
+    # The clip-list runner: two workers, a resume, a merge.
+    clips = os.path.join(tmp, "clips.csv")
+    missing = os.path.join(tmp, os.path.basename(fhd[0]).replace("test", "missing"))
+    with open(clips, "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["test", "reference", "display", "tag"])
+        wr.writerows([[*names, "standard_hdr_pq", "4k"], [*fhd, "", "fhd"],
+                      [missing, fhd[1], "", "missing"]])
+    result = os.path.join(tmp, "scores.csv")
+    common = ["--list", clips, "--result", result, "--display", "standard_hdr_pq"]
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    for argv in (["--worker", "0/2"], ["--worker", "1/2"], ["--worker", "0/2", "--resume"]):
+        run_cluster.main(common + argv)
+    run_cluster.main(["--merge", "--result", result, "--nshards", "2"])
+    torch.cuda.synchronize()
+    walls["runner"] = time.time() - t0
+    paths["run_cluster"] = launched()
+    expect("the runner", paths["run_cluster"], FILE_PATH)
+    with open(result, newline="") as f:
+        rows = {r["tag"]: r["Q_JOD"] for r in csv.DictReader(f)}
+    log(f"phase 13: runner rows {rows} in {walls['runner']:.3f} s")
+    if sorted(rows) != ["4k", "fhd", "missing"] or rows["missing"] != "error":
+        raise AssertionError(f"phase 13: runner rows {rows}")
+    if not (abs(float(rows["4k"]) - jod_api) <= CLI_JOD_TOL
+            and abs(float(rows["fhd"]) - jod_fhd) <= CLI_JOD_TOL):
+        raise AssertionError(f"phase 13: runner rows {rows} vs the API {jod_api}, {jod_fhd}")
+
+    log("phase 13: wall times " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + f" ({smi})")
+    log(f"phase 13: {time.time() - t_phase:.1f} s")
     return paths
 
 
@@ -1942,6 +2300,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     log(f"phase 0: card: {smi}")
+    have = optional_imports()
+    log("phase 0: optional modules: " + ", ".join(
+        f"{k} {'imports' if v else 'absent'}" for k, v in have.items()))
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
@@ -2548,8 +2909,15 @@ def main():
     shard_launches = phase_sharded(m, fps, rows, record, jod_k, gen)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    file_launches = phase_files(*V_files, fps, counters, smi)
-    del V_files
+    tmp = tempfile.mkdtemp(prefix="cvvdp_files_")
+    try:
+        file_launches, files = phase_files(*V_files, fps, counters, smi, tmp)
+        del V_files
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cli_launches = phase_cli(files, fps, counters, smi, tmp, have)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -2599,7 +2967,8 @@ def main():
                    **{p: c[k] for p, c in mega_launches.items()},
                    **{p: c[k] for p, c in il_launches.items()},
                    "sharded_4k_video": shard_launches[k],
-                   **{p: c[k] for p, c in file_launches.items()}}
+                   **{p: c[k] for p, c in file_launches.items()},
+                   **{p: c[k] for p, c in cli_launches.items()}}
         if k in ("pyramid_reduce_slab", "band_masking_halo", "band_pooled_halo"):
             n_main = shard_launches[k]
         elif k in ("interleave", "concat", "deinterleave"):

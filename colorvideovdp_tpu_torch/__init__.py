@@ -11,8 +11,11 @@ search path, or ``random_init=True``). Files are scored through
 ``video_source_file(test, ref, display_photometry=...)`` (``.yuv``, images
 and frame sequences, ``.mat``, decoded video) and
 ``metric.predict_video_source``; ``psnr_rgb``, ``pu_psnr_y``,
-``pu_psnr_rgb2020`` and ``ssim_metric`` are the aux metrics. This package
-never imports jax; it reads the calibration files of the JAX package by path.
+``pu_psnr_rgb2020`` and ``ssim_metric`` are the aux metrics. The command
+line is ``python -m colorvideovdp_tpu_torch.cli`` (the JAX package's flags;
+``cli.py``) and a clip list is scored by ``tools/run_cluster.py``. This
+package never imports jax; it reads the calibration files of the JAX package
+by path.
 """
 
 from .display import vvdp_display_geometry, vvdp_display_photo_eotf, vvdp_display_photometry

@@ -39,6 +39,18 @@ class vvdp_display_photometry:
     def forward(self, V):
         raise NotImplementedError
 
+    def print(self):
+        raise NotImplementedError
+
+    @classmethod
+    def list_displays(cls, config_paths=None):
+        """Log every display model of display_models.json (the CLI's
+        ``--display ?``)."""
+        models_file = config_files.find("display_models.json", config_paths or [])
+        logging.info(f"JSON file with display models: {models_file}")
+        for display_name in json2dict(models_file):
+            cls.load(display_name, config_paths).print()
+
     @classmethod
     def load(cls, display_name, config_paths=None):
         """Build a photometric model from display_models.json."""
@@ -202,6 +214,16 @@ class vvdp_display_photo_eotf(vvdp_display_photometry):
         Y_refl = self.E_ambient / math.pi * self.k_refl
         Y_black = self.Y_peak / self.contrast
         return Y_black, Y_refl
+
+    def print(self):
+        Y_black, Y_refl = self.get_black_level()
+        logging.info(f"Photometric display model: {self.name}")
+        logging.info(f"  Peak luminance: {self.Y_peak} cd/m^2")
+        logging.info(f"  EOTF: {self.EOTF}")
+        logging.info(f"  Contrast - theoretical: {round(self.contrast)}:1")
+        logging.info(f"  Contrast - effective: {round(self.Y_peak / (Y_black + Y_refl))}:1")
+        logging.info(f"  Ambient light: {self.E_ambient} lux")
+        logging.info(f"  Display reflectivity: {self.k_refl * 100}%")
 
 
 class vvdp_display_geometry:

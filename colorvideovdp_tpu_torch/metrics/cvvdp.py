@@ -27,6 +27,12 @@ kernel's), the per-band maps are pooled over channels and
 collapsed by the Laplacian reconstruct, and the colour maps are drawn block by
 block on the device (``viz.py``). That path is forward-only.
 
+``dump_channels`` (a ``dump_channels.DumpChannels``) writes each block's
+temporal channels, contrast pyramid and per-band visual differences: a block
+with dumps takes the heatmap's D route (so the JOD is the pooled-only JOD),
+its contrast bands are formed by the plain ``interior_contrast`` from the
+raw pairs, and the tensors are copied to the host once a block.
+
 ``get_loss_fn`` is the training entry point: a differentiable loss over
 display-encoded image pairs. Every kernel on its path is a
 ``torch.autograd.Function`` whose backward is the TPU package's rule: the
@@ -68,6 +74,7 @@ from ..ops.kernels import band_pooled as bp
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import masking_fused as bm
 from ..ops.kernels.csf_lut import CsfLut
+from ..ops import pyramid as pyr
 from ..ops.pyramid import LaplacianPyramid, LogContrastPyramid, WeberContrastPyramid
 from ..ops.temporal import get_temporal_filters
 from ..utils.config import config_files, json2dict
@@ -114,8 +121,7 @@ class cvvdp(vq_metric):
             raise AssertionError("Unknown heatmap type")
         self.heatmap = heatmap
         self.do_heatmap = heatmap is not None and heatmap != "none"
-        if dump_channels:
-            raise NotImplementedError("dump_channels is not ported yet")
+        self.dump_channels = dump_channels
         if temp_padding not in ("replicate", "symmetric"):
             raise RuntimeError(f'Unknown padding method "{temp_padding}"')
         self.device = metric_device(device)
@@ -394,14 +400,21 @@ class cvvdp(vq_metric):
             self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
             self.filter_len = int(self.F[0].shape[0])
 
+        dump = self.dump_channels
+        if dump:
+            dump.open(vid_source.get_frames_per_second())
+
         blocks = (self._raw_blocks if hasattr(vid_source, "get_raw_block")
                   else self._frame_blocks)
         Q_blocks = []
         block_N = 1 if is_image else self.estimate_block_N(h * w * batch_sz, N_frames)
         for ff, cur, R, temp_ch in blocks(vid_source, N_frames, block_N, batch_sz, met_cs):
+            dumped = {} if dump else None
             Q, hm, context = self._process_block(R, temp_ch=temp_ch, is_image=is_image,
-                                                 heatmap=self.do_heatmap)
-            del R
+                                                 heatmap=self.do_heatmap, dump=dumped)
+            if dump:
+                self._dump_block(R, dumped, cur)
+            del R, dumped
             self._check_finite(Q, ff)
             Q_blocks.append(Q[:, :, :cur])
             if heatmap is not None:
@@ -434,7 +447,22 @@ class cvvdp(vq_metric):
         }
         if heatmap is not None:
             stats["heatmap"] = heatmap
+        if dump:
+            dump.close()
         return Q_jod, stats
+
+    def _dump_block(self, R, dumped, cur):
+        """Hand one block's first ``cur`` frames to the dumps: R, the contrast
+        bands and the D bands, each copied to the host once."""
+        dump = self.dump_channels
+
+        def host(x):
+            return x[:, :, :cur].cpu().numpy()
+
+        dump.dump_temp_ch(host(R))
+        dump.dump_lpyr(self.lpyr, [host(b) for b in dumped["bands"]])
+        dump.set_diff_bands([host(b) for b in dumped["D_bands"]])
+        dump.dump_diff()
 
     def _raw_blocks(self, vid_source, N_frames, block_N, batch_sz, met_cs):
         """(first frame, frames, R, temp_ch) of each block of a raw-block
@@ -561,7 +589,7 @@ class cvvdp(vq_metric):
         return self._cache[key]
 
     @no_tf32()
-    def _process_block(self, R, temp_ch, is_image, heatmap=False, mesh=None):
+    def _process_block(self, R, temp_ch, is_image, heatmap=False, mesh=None, dump=None):
         """Pyramid -> CSF -> masking -> spatial pooling for one frame block.
         R: (B, 2 * all_ch, F, H, W) interleaved. Returns (Q_per_ch
         (B, all_ch, F, bands), heatmap block, context); with ``heatmap`` the
@@ -579,11 +607,16 @@ class cvvdp(vq_metric):
         configuration the generic chain, the CSF LUT then
         ``apply_masking_model``.
 
+        ``dump``, a dict, takes the block's contrast bands (``"bands"``, as
+        the non-raw decomposition gives them: interior bands at half gain)
+        and its D bands (``"D_bands"``, D * channel weight / band gain); the
+        interior bands then take the D route, as with a heatmap.
+
         ``mesh`` (``parallel/sharding.py``): R is this rank's pairs and rows;
         see ``_process_block_sharded``."""
         if mesh is not None:
-            if heatmap:
-                raise NotImplementedError("heatmaps are not sharded yet")
+            if heatmap or dump is not None:
+                raise NotImplementedError("heatmaps and dumps are not sharded yet")
             return self._process_block_sharded(R, temp_ch, mesh), None, None
         all_ch = 2 + temp_ch
         use_k = self.enable_fused_kernels
@@ -600,22 +633,33 @@ class cvvdp(vq_metric):
         shapes = [(bands[bb][0] if raw_pairs else bands[bb]).shape[-2:]
                   for bb in range(n_bands - 1)]
         muls = [1.0 if bb == 0 else 2.0 for bb in range(n_bands - 1)]
-        if heatmap:
+        want_D = heatmap or dump is not None
+        if want_D:
             dev = R.device
             w_ch = torch.as_tensor(self.get_ch_weights(all_ch), device=dev).reshape(
                 -1, 1, 1, 1) * (self.image_int if is_image else 1.0)
             w_bb = w_ch * torch.as_tensor(self.baseband_weight[:all_ch], device=dev).reshape(
                 -1, 1, 1, 1)
+        if dump is not None:
+            # The raw pairs' contrast bands in plain torch: only the dumps
+            # read them.
+            dump["bands"] = [
+                pyr.interior_contrast(bands[bb][0], pyr.gausspyr_expand(bands[bb][1], shapes[bb]),
+                                      self.contrast)[0] if raw_pairs else bands[bb]
+                for bb in range(n_bands - 1)] + [bands[-1]]
+            dump["D_bands"] = [None] * n_bands
 
         def put_D(bb, D, sums=None):
             """Band bb's Q column, from the kernel's pooled sums where given,
-            and its heatmap band."""
+            and its heatmap and dump bands."""
             Q_cols[bb] = (mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
                           if sums is None else bm.pooled_norm(sums, *shapes[bb], self.beta))
             if heatmap:
                 # Interior bands are stored at half gain (lpyr_dec.py:308-314).
                 hm_bands[bb] = mk.lp_norm(D * w_ch, self.beta_tch, dim=-4,
                                           normalize=False) / muls[bb]
+            if dump is not None:
+                dump["D_bands"][bb] = D * w_ch / muls[bb]
 
         if consts is None:
             x0, x1 = self.csf.lut_range()
@@ -630,7 +674,7 @@ class cvvdp(vq_metric):
             mega = self._mega_bands(shapes, all_ch, params) if raw else []
             for bb in mega:
                 gi, gn = bands[bb]
-                if heatmap:
+                if want_D:
                     fn = bf.band_fused_d if use_k else bf.band_fused_d_plain
                     put_D(bb, *fn(gi, gn, luts[bb], muls[bb], consts))
                 else:
@@ -638,7 +682,7 @@ class cvvdp(vq_metric):
                     Q_cols[bb] = bm.pooled_norm(sums, *shapes[bb], self.beta)
             rest = [bb for bb in range(n_bands - 1) if bb not in mega]
             d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
-                       if heatmap else None)
+                       if want_D else None)
             for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
                                       gn=True):
                 # One pass from gi and gn: the expand and the coding are
@@ -646,7 +690,7 @@ class cvvdp(vq_metric):
                 sel = [rest[i] for i in sel]
                 args = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
                         luts[sel], [muls[bb] for bb in sel], consts)
-                if heatmap:
+                if want_D:
                     fn = bp.band_pooled_d if use_k else bp.band_pooled_d_plain
                     Ds, sums = fn(*args)
                     for j, bb in enumerate(sel):
@@ -659,6 +703,8 @@ class cvvdp(vq_metric):
 
         Q_cols[-1], D = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
         Q = torch.stack(Q_cols, dim=-1)
+        if dump is not None:
+            dump["D_bands"][-1] = D * w_ch
         if not heatmap:
             return Q, None, None
         hm_bands[-1] = mk.lp_norm(D * w_bb, self.beta_tch, dim=-4, normalize=False)

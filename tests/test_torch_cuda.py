@@ -1038,3 +1038,87 @@ def test_aux_metrics_on_the_card_match_cpu(dev, tmp_path):
         cpu, _ = cls(display_name="standard_hdr_pq", device="cpu").predict_video_source(vs)
         assert card.is_cuda
         assert float((card.cpu() - cpu).abs().max()) <= tol, cls
+
+
+class _Frames:
+    """A writer that keeps the frames it is given, by file stem."""
+
+    frames = {}
+
+    def __init__(self, fname, fps=0, **kw):
+        self.fname = fname
+        self.stem = fname.replace("\\", "/").split("/")[-1].split(".")[0]
+        _Frames.frames[self.stem] = []
+
+    def write_frame_rgb(self, rgb):
+        _Frames.frames[self.stem].append(np.array(rgb))
+
+    def close(self):
+        pass
+
+
+def test_dump_route_kernels_match_plain(dev, tmp_path, monkeypatch):
+    """All three dumps of a 2-block .yuv video: the D route (band_pooled_d),
+    the dumped frames kernels against plain within 1 code value, and the JOD
+    with dumps the pooled-only JOD."""
+    from colorvideovdp_tpu_torch import dump_channels as dc
+    from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
+
+    monkeypatch.setattr(dc, "VideoWriter", _Frames)
+    names = _yuv_pair_files(tmp_path, 136, 242, 6)
+    res = {}
+    for fused in (True, False):
+        m = ct.cvvdp(display_name="standard_hdr_pq", device="cuda",
+                     dump_channels=dc.DumpChannels())
+        m.gpu_mem = m.block_gpu_mem(136 * 242, 3, 30)
+        m.enable_fused_kernels = fused
+        _Frames.frames = {}
+        before = bp.band_pooled_d.launches
+        Q, st = m.predict_video_source(video_source_file(*names,
+                                                         display_photometry="standard_hdr_pq"))
+        assert st["block_N_frames"] == 3
+        assert (bp.band_pooled_d.launches > before) == fused
+        res[fused] = (float(Q), {k: np.stack(v) for k, v in _Frames.frames.items()})
+    m = ct.cvvdp(display_name="standard_hdr_pq", device="cuda")
+    q_pooled, _ = m.predict_video_source(video_source_file(*names,
+                                                           display_photometry="standard_hdr_pq"))
+    assert abs(res[True][0] - float(q_pooled)) <= 1e-4
+    assert abs(res[True][0] - res[False][0]) <= 1e-4
+    assert sorted(res[True][1]) == ["diff", "lpyr", "temp_channels"]
+    for stem, a in res[True][1].items():
+        b = res[False][1][stem]
+        assert a.shape == b.shape and a.shape[0] == 6
+        assert int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) <= 1, stem
+
+
+def test_cli_kernels_match_plain(dev, tmp_path, monkeypatch):
+    """The CLI on the card (its default device) on a .yuv pair: the CSV's JOD
+    against the API's on the same files, and with cvvdp's kernels off."""
+    import csv
+
+    from colorvideovdp_tpu_torch import cli
+    from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
+    from colorvideovdp_tpu_torch.metrics.base import vq_metric_dict
+
+    names = _yuv_pair_files(tmp_path, 136, 242, 5)
+
+    class cvvdp_plain(ct.cvvdp):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.enable_fused_kernels = False
+
+    jods = []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setitem(vq_metric_dict, "cvvdp", cvvdp_plain)
+        res = str(tmp_path / f"res{int(fused)}.csv")
+        before = ing.ingest.launches
+        cli.run_on_args(cli.parse_args(["-t", names[0], "-r", names[1], "--display",
+                                        "standard_hdr_pq", "--result", res, "-q"]))
+        assert (ing.ingest.launches > before) == fused
+        with open(res) as f:
+            jods.append(float(list(csv.reader(f))[1][2]))
+    q_api, _ = ct.cvvdp(display_name="standard_hdr_pq", temp_padding="symmetric"
+                        ).predict_video_source(video_source_file(
+                            *names, display_photometry="standard_hdr_pq"))
+    assert abs(jods[0] - float(q_api)) <= 1e-4 and abs(jods[0] - jods[1]) <= 1e-3, jods

@@ -59,6 +59,7 @@ assert torch.equal(ingest.eotf_from_table(dm, table, raw),
 from colorvideovdp_tpu_torch.tools import shard_check
 assert shard_check.main(["--cpu", "--ranks", "2", "--size", "48x256", "--frames", "3",
                          "--block-frames", "2"]) == 0
+import os
 import tempfile
 with tempfile.TemporaryDirectory() as d:
     names = []
@@ -70,8 +71,14 @@ with tempfile.TemporaryDirectory() as d:
     vs = ct.video_source_file(*names, display_photometry="standard_hdr_pq")
     Q_yuv, st_yuv = ct.cvvdp(display_name="standard_hdr_pq", device="cpu").predict_video_source(vs)
     psnr, _ = ct.psnr_rgb(display_name="standard_hdr_pq", device="cpu").predict_video_source(vs)
+    from colorvideovdp_tpu_torch import cli
+    cli.run_on_args(cli.parse_args(["-t", names[0], "-r", names[1], "--display",
+                                    "standard_hdr_pq", "--device", "cpu", "-q",
+                                    "--dump-channels", "difference", "-o", d]))
+    dumped = sorted(os.listdir(d))
 assert np.isfinite(float(Q_yuv)) and st_yuv["N_frames"] == 3, float(Q_yuv)
 assert np.isfinite(float(psnr)), float(psnr)
+assert any(f.startswith("diff.") for f in dumped), dumped
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("colorvideovdp_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("JOD", float(Q), float(Q_ml))

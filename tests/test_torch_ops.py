@@ -168,6 +168,32 @@ def test_blur_and_masking_match_jax():
                                rtol=1e-6)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ct.cvvdp(display_name="standard_4k", device="cpu", dump_channels=["difference"])
+def test_unported_options_raise(tmp_path):
+    """``dump_channels`` is ported: a ``DumpChannels`` given to the metric is
+    opened before one image ``predict`` and closed after it."""
+    from colorvideovdp_tpu_torch.dump_channels import DumpChannels
+
+    calls = []
+
+    class Spy(DumpChannels):
+        def open(self, fps):
+            calls.append(("open", fps))
+            super().open(fps)
+
+        def dump_diff(self):
+            calls.append("dump")
+            super().dump_diff()
+
+        def close(self):
+            calls.append("close")
+            super().close()
+
+    rng = np.random.RandomState(0)
+    ref = (rng.rand(32, 48, 3) * 255).astype(np.uint8)
+    test = np.clip(ref.astype(np.int16) + 9, 0, 255).astype(np.uint8)
+    dump = Spy(dump_temp_ch=False, dump_lpyr=False, dump_diff=True, output_dir=str(tmp_path))
+    Q, _ = ct.cvvdp(display_name="standard_4k", device="cpu", dump_channels=dump).predict(
+        test, ref, dim_order="HWC")
+    assert np.isfinite(float(Q))
+    assert calls == [("open", 0), "dump", "close"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["diff.png"]
