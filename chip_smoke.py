@@ -167,7 +167,25 @@ Phase 11 multi-device scoring (``colorvideovdp_tpu_torch/parallel``). First
          kernel and the CSF LUT must have launched on every rank, and
          ``band_masking_halo`` on none. Each rank's set-up (groups,
          metric, kernel library, one collective per group) is timed apart
-         from its block loop, and each block is timed.
+         from its block loop, and each block is timed. Between the two,
+         the halo mode in the weber_g0_ref and log codings and its D mode
+         (``band_pooled_d_halo``, all three codings) at the first halo
+         launch of an 8-frame 4K block, both ranks' slabs: sums within 1e-3
+         of the plain version, D within 1e-5, D's owned rows bit for bit the
+         whole bands' ``band_pooled_d`` and its sums the pooled mode's; the
+         D mode and the log coding timed. Last, one more ``run_ranks`` spawn
+         (``run_jobs``) on the same mesh, each part against single-device
+         scoring on the card, each with its launches, block-loop or step
+         time and each rank's peak memory: weber_g0_ref and log on the first
+         8 frames of the phase-3 clip (JOD within 1e-4; the halo mode and
+         the slab reduce on every rank); a "raw" heatmap of a 1280x720
+         image on standard_4k (within 1.1e-3, ``band_pooled_d_halo`` on every
+         rank); the generic chain (mult-transducer-texture) on a 1920x1080
+         image on standard_fhd (JOD within 1e-4; the CSF LUT and blur
+         kernels); a B = 2 FHD ``shard_loss_fn`` step on standard_fhd (loss
+         within 1e-4, the gathered gradient within 1e-3 of max|g|; the halo
+         mode, the slab reduce, the LUT's backward and the blur's adjoint on
+         every rank).
 Phase 12 file sources: the first 12 frames of the phase-3 clip as a
          10-bit 4:2:0 BT.2020 limited-range .yuv pair (2x2 chroma means,
          about 300 MB a file in a temporary directory, removed at the end)
@@ -247,7 +265,8 @@ TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_poole
        "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
        "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
        "interleave": 0.0, "concat": 0.0, "deinterleave": 0.0,
-       "pyramid_reduce_slab": 0.0, "band_masking_halo": 1e-4, "band_pooled_halo": 1e-4}
+       "pyramid_reduce_slab": 0.0, "band_masking_halo": 1e-4, "band_pooled_halo": 1e-4,
+       "band_pooled_d_halo": 1e-5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # Float32 instructions a second outside the tensor cores: the data sheet's 67
 # TFLOP/s counts a fused multiply-add as two operations, and the kernels issue
@@ -1408,11 +1427,45 @@ SHARD_PATH = ("ingest", "ingest_replicate", "pyramid_reduce", "pyramid_reduce_sl
               "band_pooled", "band_pooled_halo", "csf_lut")
 # Frames per block of the sharded run; phase 11 holds the kernels at its shapes.
 SHARD_BLOCK = 16
+# The coded runs' block (weber_g0_ref, log) and the kernels' bound against
+# plain there; the sharded loss step's gradient against single-device.
+SHARD_CODED_FRAMES, SHARD_KERNEL_TOL, SHARD_GRAD_TOL = 8, 1e-3, 1e-3
+# The sharded heatmap's image and the generic chain's and loss step's size.
+SHARD_CFG_SIZES = {"hm": (720, 1280), "fhd": (1080, 1920)}
+
+
+def halo_slab(x, s, n_sp, edge):
+    """Rank s's slab of x with 8 rows of each neighbour, and at a global
+    edge zeros (the reduce) or the exclude-edge reflection (the band)."""
+    from colorvideovdp_tpu_torch.ops.kernels.masking_fused import HALO_ROWS as r
+
+    h_loc = x.shape[-2] // n_sp
+    lo, hi = s * h_loc, (s + 1) * h_loc
+    z = torch.zeros_like(x[..., :r, :])
+    above = x[..., lo - r:lo, :] if s > 0 else (z if edge == "zero"
+                                                 else x[..., 1:r + 1, :].flip(-2))
+    below = x[..., hi:hi + r, :] if s < n_sp - 1 else (z if edge == "zero"
+                                                       else x[..., -r - 1:-1, :].flip(-2))
+    return torch.cat([above, x[..., lo:hi, :], below], dim=-2).contiguous()
+
+
+def halo_gn_slab(gn, s, n_sp, sharded):
+    """(rows, row0) of gn as sharding.halo_gn hands them to rank s."""
+    from colorvideovdp_tpu_torch.ops.kernels.band_pooled import GN_HALO_ROWS as gr
+
+    if not sharded:
+        return gn, 0
+    hn_loc = gn.shape[-2] // n_sp
+    z = torch.zeros_like(gn[..., :gr, :])
+    above = gn[..., s * hn_loc - gr:s * hn_loc, :] if s > 0 else z
+    below = gn[..., (s + 1) * hn_loc:(s + 1) * hn_loc + gr, :] if s < n_sp - 1 else z
+    return (torch.cat([above, gn[..., s * hn_loc:(s + 1) * hn_loc, :], below], -2)
+            .contiguous(), s * hn_loc - gr)
 
 
 def phase_sharded(m, fps, rows, record, jod_single, gen):
-    """Phase 11; returns the launch counts of the sharded run, summed over
-    the ranks."""
+    """Phase 11; returns each sharded path's launch counts, summed over the
+    ranks: the 4K clip's and those of ``sharded_configs``."""
     import os
     import shutil
     import tempfile
@@ -1431,16 +1484,7 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     dev = torch.device("cuda")
 
     def slab(x, s, edge):
-        """Rank s's slab of x with 8 rows of each neighbour, and at a global
-        edge zeros (the reduce) or the exclude-edge reflection (the band)."""
-        h_loc = x.shape[-2] // n_sp
-        lo, hi = s * h_loc, (s + 1) * h_loc
-        z = torch.zeros_like(x[..., :r, :])
-        above = x[..., lo - r:lo, :] if s > 0 else (z if edge == "zero"
-                                                     else x[..., 1:r + 1, :].flip(-2))
-        below = x[..., hi:hi + r, :] if s < n_sp - 1 else (z if edge == "zero"
-                                                           else x[..., -r - 1:-1, :].flip(-2))
-        return torch.cat([above, x[..., lo:hi, :], below], dim=-2).contiguous()
+        return halo_slab(x, s, n_sp, edge)
 
     # The launches of the sharded run, from the global shapes as its routing
     # makes them: levels are slab-reduced while the gate admits them (4K:
@@ -1493,15 +1537,7 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     gr = bp.GN_HALO_ROWS
 
     def gn_rows(gn, s, sharded):
-        """(rows, row0) of gn as sharding.halo_gn hands them over."""
-        if not sharded:
-            return gn, 0
-        hn_loc = gn.shape[-2] // n_sp
-        z = torch.zeros_like(gn[..., :gr, :])
-        above = gn[..., s * hn_loc - gr:s * hn_loc, :] if s > 0 else z
-        below = gn[..., (s + 1) * hn_loc:(s + 1) * hn_loc + gr, :] if s < n_sp - 1 else z
-        return (torch.cat([above, gn[..., s * hn_loc:(s + 1) * hn_loc, :], below], -2)
-                .contiguous(), s * hn_loc - gr)
+        return halo_gn_slab(gn, s, n_sp, sharded)
 
     def previous_E(gn, s, h, w, sharded):
         """E's rows of rank s as expand_slab forms them, with their halo."""
@@ -1601,6 +1637,92 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # The halo mode in the contrast-band codings (band_pooled_halo) at the
+    # first halo launch of an 8-frame 4K block (rank 0's and rank 1's slabs
+    # of bands 0-3, C = 4), against its plain version; the D mode
+    # (band_pooled_d_halo) there too, as an extra check logged only: D's
+    # owned rows bit for bit the whole bands' band_pooled_d, its sums the
+    # pooled mode's. Timed on rank 0's slabs in turns. The D mode's row of
+    # the kernels line comes from the heatmap run's own shapes (below).
+    t0 = time.time()
+    from colorvideovdp_tpu_torch.utils.config import write_parameters
+
+    cfg_tmp = tempfile.mkdtemp(prefix="cvvdp_phase11_cfg_")
+    coded = {}
+    for coding in ("weber_g0_ref", "log"):
+        mc = cvvdp_for(m.display_name, write_parameters(os.path.join(cfg_tmp, coding),
+                                                        contrast=coding))
+        mc._ensure_pyramids(W, H)
+        coded[coding] = mc._band_tables(4)
+    sel, blk_c = groups[0], SHARD_CODED_FRAMES
+    muls = [1.0 if bb == 0 else 2.0 for bb in sel]
+    sharded = [bb + 1 <= n_red for bb in sel]
+    gis = [torch.rand((1, 8, blk_c) + tuple(shapes[bb]), device=dev, generator=gen) * 20 + 30
+           for bb in sel]
+    gns = [prd.pyramid_reduce(gi) for gi in gis]
+    h_valids = [shapes[bb][0] // n_sp for bb in sel]
+    errs_c, abs_c, errs_d, abs_d = [], [], [], []
+    for name, (kc, lc) in [("weber_g1", (consts, luts))] + list(coded.items()):
+        if name == "log":  # log-LMS levels: 0..1 in place of 30..50
+            gis = [gi * 0.05 - 1.5 for gi in gis]
+            gns = [prd.pyramid_reduce(gi) for gi in gis]
+        D_whole, _ = bp.band_pooled_d(gis, gns, lc[sel], muls, kc)
+        for s in range(n_sp):
+            xs = [slab(gi, s, "reflect") for gi in gis]
+            ys, row0s = zip(*[gn_rows(gn, s, sh_) for gn, sh_ in zip(gns, sharded)])
+            slabs = [(s * hv, shapes[bb][0], row0) for bb, hv, row0 in zip(sel, h_valids, row0s)]
+            args = (xs, list(ys), lc[sel], muls, kc, slabs)
+            s_k = bp.band_pooled_halo(*args)
+            Ds, s_d = bp.band_pooled_d_halo(*args)
+            check(f"band_pooled_d_halo {name} rank {s}: sums vs band_pooled_halo",
+                  max_abs(s_d, s_k), 0.0)
+            D_p, s_p = bp.band_pooled_d_halo_plain(*args)
+            if name != "weber_g1":
+                errs_c.append(rel_err_per(s_k, s_p, 2))
+                abs_c.append(max_abs(s_k, s_p))
+            errs_d.append(max(rel_err_per(D, Dp, 1) for D, Dp in zip(Ds, D_p)))
+            abs_d.append(max(max_abs(D, Dp) for D, Dp in zip(Ds, D_p)))
+            for D, Dw, hv in zip(Ds, D_whole, h_valids):
+                check(f"band_pooled_d_halo {name} rank {s} bands {sel}: owned rows vs the whole "
+                      "band's band_pooled_d", max_abs(D, Dw[..., s * hv:(s + 1) * hv, :]), 0.0)
+            log(f"  band_pooled_halo / _d_halo {name} bands {sel} rank {s}: sums vs plain "
+                f"{rel_err_per(s_k, s_p, 2):.3e}, D vs plain {errs_d[-1]:.3e}")
+            if s == 0:
+                # gi's slab and gn's rows read once, the tables, C partials a
+                # tile of the owned rows and the sums written (the D mode adds
+                # D of the owned rows); ~115 operations a pixel and channel of
+                # the owned rows.
+                n_tiles = blk_c * sum(-(-hv // 32) * -(-x.shape[-1] // 32)
+                                      for hv, x in zip(h_valids, xs))
+                n_ops = sum(115 * 4 * blk_c * hv * x.shape[-1] for hv, x in zip(h_valids, xs))
+                b_in = nbytes(*xs, *ys, lc[sel], s_k) + 4 * 4 * n_tiles
+                turns = [time_ms(lambda: bp.band_pooled_halo(*args)),
+                         time_ms(lambda: bp.band_pooled_d_halo(*args)),
+                         time_ms(lambda: bp.band_pooled_d_halo(*args)),
+                         time_ms(lambda: bp.band_pooled_halo(*args))]
+                b_c = bound(b_in, n_ops)
+                log(f"  band_pooled_halo {name} bands {sel} rank 0 {blk_c} frames: pooled "
+                    f"{turns[0]:.3f}/{turns[3]:.3f} ms, D mode {turns[1]:.3f}/{turns[2]:.3f} ms "
+                    f"in turns; pooled bound {b_c[0]:.4f} ms ({b_c[1]})")
+            if s == 0 and name == "weber_g1":
+                d_pms = time_ms(lambda: bp.band_pooled_d_halo_plain(*args))
+                b_dh = bound(b_in + nbytes(*Ds), n_ops)
+                log(f"  band_pooled_d_halo at the 8-frame 4K slab (not on a path): kernel "
+                    f"{(turns[1] + turns[2]) / 2:.3f} ms, plain {d_pms:.3f} ms, bound "
+                    f"{b_dh[0]:.4f} ms ({b_dh[1]})")
+        del D_whole
+    check("band_pooled_halo weber_g0_ref/log vs plain", max(errs_c), SHARD_KERNEL_TOL)
+    check("band_pooled_d_halo at the 8-frame 4K slab vs plain", max(errs_d), SHARD_KERNEL_TOL)
+    log(f"  band_pooled_halo codings: worst sums error {max(errs_c):.3e} (max abs "
+        f"{max(abs_c):.3e}) against plain, tolerance {SHARD_KERNEL_TOL}; band_pooled_d_halo "
+        f"at 4K: D error {max(errs_d):.3e} (max abs {max(abs_d):.3e})")
+    del gis, gns, xs, ys, Ds, D_p, args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 11: coded halo modes held in {time.time() - t0:.1f} s")
+
+    hm_route = heatmap_halo_d(record, gen, n_sp, dev)
+
     # The 4K clip through shard_video_fn on a (1, 2) mesh.
     t0 = time.time()
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
@@ -1608,6 +1730,8 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     paths = [os.path.join(tmp, f"{k}.npy") for k in ("test", "reference")]
     for p, V in zip(paths, (V_test, V_ref)):
         np.save(p, np.ascontiguousarray(V.transpose(3, 2, 0, 1)[None]))  # (1, F, 3, H, W)
+    V8 = [np.ascontiguousarray(V[..., :SHARD_CODED_FRAMES].transpose(3, 2, 0, 1)[None])
+          for V in (V_test, V_ref)]
     del V_test, V_ref
     log(f"phase 11: BFCHW clip written in {time.time() - t0:.1f} s")
     n_cards = torch.cuda.device_count()
@@ -1647,8 +1771,251 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     log(f"phase 11: sharded 4K JOD {float(res[0]['jod']):.6f}, |JOD - single-device| "
         f"{abs(float(res[0]['jod']) - jod_single):.2e}, wall {wall:.3f} s for {N} frames "
         f"(spawn and set-up included)")
+    paths = {"sharded_4k_video": {k: sum(rr["launches"][k] for rr in res)
+                                  for k in res[0]["launches"]}}
+    try:
+        paths.update(sharded_configs(m, fps, V8, cfg_tmp, n_sp, gen, hm_route))
+    finally:
+        shutil.rmtree(cfg_tmp, ignore_errors=True)
     log(f"phase 11: {time.time() - t_phase:.1f} s")
-    return {k: sum(rr["launches"][k] for rr in res) for k in res[0]["launches"]}
+    return paths
+
+
+def heatmap_halo_d(record, gen, n_sp, dev):
+    """band_pooled_d_halo at the launches of the sharded heatmap run
+    (sharded_hm_720p_image: a 1280x720 image on the (1, n_sp) mesh, C = 3,
+    F = 1, the halo groups band_groups makes of its halo bands): both
+    ranks' slabs against the plain version, D's owned rows bit for bit the
+    whole bands' band_pooled_d and its sums the pooled mode's; timed on
+    rank 0 (every launch of a rank, in turns with the plain version), with
+    the bound, into the kernels line. Returns the route the heatmap run
+    must show: its halo bands and each rank's gn rows (count, first)."""
+    from types import SimpleNamespace
+
+    from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
+    from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm
+    from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
+    from colorvideovdp_tpu_torch.parallel import sharding as sh
+
+    r = bm.HALO_ROWS
+    t0 = time.time()
+    hh, hw = SHARD_CFG_SIZES["hm"]
+    mh = cvvdp_for("standard_4k", None, heatmap="raw")
+    mh._ensure_pyramids(hw, hh)
+    shapes_h, params_h = mh.lpyr.pyr_shape, mh._masking_params()
+    n_red_h = 0
+    while sh.slab_reducible(shapes_h[n_red_h][0] // n_sp, shapes_h[n_red_h][1]):
+        n_red_h += 1
+    halo_h = [bb for bb in range(min(n_red_h + 1, len(shapes_h) - 1))
+              if sh.band_shardable(params_h, *shapes_h[bb], SimpleNamespace(n_space=n_sp))]
+    groups_h = [[halo_h[i] for i in sel] for sel in bm.band_groups(
+        [(shapes_h[bb][0] // n_sp + 2 * r, shapes_h[bb][1]) for bb in halo_h], 1, 3, 1,
+        [True] * len(halo_h), gn=True)]
+    kh, lh = mh._band_tables(3)
+    hm_route = {"halo_bands": halo_h, "halo_gn_rows": [[] for _ in range(n_sp)]}
+    errs_d, abs_d, d_turns, b_in, n_ops = [], [], [], 0, 0
+    for sel in groups_h:
+        muls = [1.0 if bb == 0 else 2.0 for bb in sel]
+        sharded = [bb + 1 <= n_red_h for bb in sel]
+        h_valids = [shapes_h[bb][0] // n_sp for bb in sel]
+        gis = [torch.rand((1, 6, 1) + tuple(shapes_h[bb]), device=dev, generator=gen) * 20 + 30
+               for bb in sel]
+        gns = [prd.pyramid_reduce(gi) for gi in gis]
+        D_whole, _ = bp.band_pooled_d(gis, gns, lh[sel], muls, kh)
+        for s in range(n_sp):
+            xs = [halo_slab(gi, s, n_sp, "reflect") for gi in gis]
+            ys, row0s = zip(*[halo_gn_slab(gn, s, n_sp, sh_) for gn, sh_ in zip(gns, sharded)])
+            hm_route["halo_gn_rows"][s] += [(y.shape[-2], row0) for y, row0 in zip(ys, row0s)]
+            slabs = [(s * hv, shapes_h[bb][0], row0)
+                     for bb, hv, row0 in zip(sel, h_valids, row0s)]
+            args = (xs, list(ys), lh[sel], muls, kh, slabs)
+            Ds, s_d = bp.band_pooled_d_halo(*args)
+            check(f"band_pooled_d_halo 720p rank {s} bands {sel}: sums vs band_pooled_halo",
+                  max_abs(s_d, bp.band_pooled_halo(*args)), 0.0)
+            D_p, s_p = bp.band_pooled_d_halo_plain(*args)
+            errs_d.append(max([rel_err_per(D, Dp, 1) for D, Dp in zip(Ds, D_p)]
+                              + [rel_err_per(s_d, s_p, 2)]))
+            abs_d.append(max(max_abs(D, Dp) for D, Dp in zip(Ds, D_p)))
+            for D, Dw, hv in zip(Ds, D_whole, h_valids):
+                check(f"band_pooled_d_halo 720p rank {s} bands {sel}: owned rows vs the whole "
+                      "band's band_pooled_d", max_abs(D, Dw[..., s * hv:(s + 1) * hv, :]), 0.0)
+            log(f"  band_pooled_d_halo 720p bands {sel} rank {s} "
+                f"{[tuple(x.shape) for x in xs]}, gn {[tuple(y.shape) for y in ys]}: D and sums "
+                f"vs plain {errs_d[-1]:.3e} (max abs {abs_d[-1]:.3e})")
+            if s == 0:
+                # As at 4K: gi's slab and gn's rows read once, the tables, C
+                # partials a tile of the owned rows, the sums and D written;
+                # ~115 operations a pixel and channel of the owned rows.
+                n_tiles = sum(-(-hv // 32) * -(-x.shape[-1] // 32) for hv, x in zip(h_valids, xs))
+                b_in += nbytes(*xs, *ys, lh[sel], s_d, *Ds) + 3 * 4 * n_tiles
+                n_ops += sum(115 * 3 * hv * x.shape[-1] for hv, x in zip(h_valids, xs))
+                d_turns.append([time_ms(lambda: bp.band_pooled_d_halo(*args)),
+                                time_ms(lambda: bp.band_pooled_d_halo_plain(*args)),
+                                time_ms(lambda: bp.band_pooled_d_halo_plain(*args)),
+                                time_ms(lambda: bp.band_pooled_d_halo(*args))])
+        del gis, gns, D_whole, xs, ys, Ds, D_p, args
+    d_ms = sum((t[0] + t[3]) / 2 for t in d_turns)
+    d_pms = sum((t[1] + t[2]) / 2 for t in d_turns)
+    b_dh = bound(b_in, n_ops)
+    check("band_pooled_d_halo at the 720p heatmap's launches vs plain", max(errs_d),
+          SHARD_KERNEL_TOL)
+    record("band_pooled_d_halo", max(errs_d), max(abs_d), d_ms, d_pms, b_dh)
+    log(f"phase 11: band_pooled_d_halo at the 720p heatmap's {len(groups_h)} launch(es) a rank "
+        f"(groups {groups_h}): kernel {d_ms:.4f} ms, plain {d_pms:.4f} ms on rank 0 (in turns "
+        f"{[[round(x, 4) for x in t] for t in d_turns]}), bound {b_dh[0]:.4f} ms ({b_dh[1]}), "
+        f"worst error {max(errs_d):.3e}; held in {time.time() - t0:.1f} s")
+    del mh
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return hm_route
+
+
+def cvvdp_for(display, config_paths, **kw):
+    """A metric on the card for ``display`` with ``config_paths``."""
+    import colorvideovdp_tpu_torch as cvt
+
+    return cvt.cvvdp(display_name=display, device="cuda", quiet=True,
+                     config_paths=config_paths, **kw)
+
+
+def sharded_configs(m, fps, V8, cfg_tmp, n_sp, gen, hm_route=None):
+    """Phase 11's other configurations on the (1, n_sp) mesh, in one spawn of
+    ``run_ranks`` (``run_jobs``): weber_g0_ref and log on one 8-frame block of
+    the phase-3 content, a "raw" heatmap of a 1280x720 image, the generic
+    chain (mult-transducer-texture) on a 1920x1080 image and a B = 2 FHD
+    ``shard_loss_fn`` step; each against single-device scoring on the card
+    (computed first in this process). ``hm_route``: the heatmap run's halo
+    bands and each rank's gn rows, as ``phase_sharded`` held the D mode at
+    them (the heatmap's route must match). Returns each path's launches,
+    summed over the ranks."""
+    import os
+
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch.parallel import launch, run_ranks
+    from colorvideovdp_tpu_torch.parallel import sharding as sh
+    from colorvideovdp_tpu_torch.utils.config import write_parameters
+
+    t0 = time.time()
+    rng = np.random.RandomState(23)
+    (hh, hw), (fh, fw) = SHARD_CFG_SIZES["hm"], SHARD_CFG_SIZES["fhd"]
+    img = [rng.randint(0, 255, (hh, hw, 3), dtype=np.uint8) for _ in range(2)]
+    fhd_ref = rng.randint(0, 255, (fh, fw, 3)).astype(np.int16)
+    fhd = [np.clip(fhd_ref + rng.randn(fh, fw, 3) * 12, 0, 255).astype(np.uint8),
+           fhd_ref.astype(np.uint8)]
+    l_ref = rng.rand(2, 3, 1, fh, fw).astype(np.float32)
+    l_test = np.clip(l_ref + rng.randn(*l_ref.shape).astype(np.float32) * 0.1, 0, 1)
+    arrays = {"g0ref": V8, "log": V8, "hm": img, "tex": fhd, "train": (l_test, l_ref)}
+    files = {}
+    for name, pair in arrays.items():
+        files[name] = [os.path.join(cfg_tmp, f"{name}_{i}.npy") for i in range(2)]
+        for p, a in zip(files[name], pair):
+            np.save(p, a)
+    # The displays: the phase-3 clip's, phase 6's for the 720p image and
+    # phase 5's for the FHD work (the PQ display's gradient is NaN where a
+    # display-encoded value is exactly 0, single-device and sharded alike).
+    specs = {
+        "g0ref": dict(dim_order="BFCHW", fps=fps, contrast="weber_g0_ref",
+                      display_name=m.display_name),
+        "log": dict(dim_order="BFCHW", fps=fps, contrast="log", display_name=m.display_name),
+        "hm": dict(dim_order="HWC", fps=0, heatmap="raw", display_name="standard_4k"),
+        "tex": dict(dim_order="HWC", fps=0, masking_model="mult-transducer-texture",
+                    display_name="standard_fhd"),
+        "train": dict(loss=True, steps=3, display_name="standard_fhd"),
+    }
+    # Single-device references on the card.
+    ref = {}
+    for name, over in (("g0ref", {"contrast": "weber_g0_ref"}), ("log", {"contrast": "log"}),
+                       ("tex", {"masking_model": "mult-transducer-texture"})):
+        pair, sp = arrays[name], specs[name]
+        mc = cvvdp_for(sp["display_name"],
+                       write_parameters(os.path.join(cfg_tmp, f"single_{name}"), **over))
+        ref[name] = float(mc.predict(*pair, dim_order=sp["dim_order"],
+                                     frames_per_second=sp["fps"])[0])
+    q_hm, st = cvvdp_for("standard_4k", None, heatmap="raw").predict(*img, dim_order="HWC")
+    ref["hm"] = (float(q_hm), st["heatmap"].astype(np.float32))
+    mt = cvvdp_for("standard_fhd", None)
+    loss_fn, r_dev, step_s = mt.get_loss_fn(fh, fw), torch.from_numpy(l_ref).cuda(), []
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(3):  # as the ranks: the first step cold, the last timed warm
+        t = torch.from_numpy(l_test).cuda().requires_grad_()
+        t1 = time.time()
+        v = loss_fn(t, r_dev)
+        v.backward()
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+    ref["train"] = (float(v.detach()), t.grad.cpu().numpy())
+    log(f"phase 11: single-device B = 2 FHD step {[round(x, 4) for x in step_s]} s, peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB over what this process "
+        "held before")
+    del mt, t, v, loss_fn, r_dev
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 11: single-device references in {time.time() - t0:.1f} s: "
+        + ", ".join(f"{k} {v if isinstance(v, float) else v[0]:.6f}" for k, v in ref.items()))
+
+    jobs = [(sh.score_rank, (dict(test=files[k][0], reference=files[k][1], batch=1, **sp),))
+            for k, sp in specs.items()]
+    t0 = time.time()
+    res = run_ranks(launch.run_jobs, n_sp, (jobs,), device="cuda", timeout_s=400)
+    log(f"phase 11: the configurations' spawn in {time.time() - t0:.3f} s (set-up included)")
+    out = {}
+    labels = {"g0ref": "sharded_g0ref_4k_8f", "log": "sharded_log_4k_8f",
+              "hm": "sharded_hm_720p_image", "tex": "sharded_tex_fhd_image",
+              "train": "sharded_train_fhd"}
+    want_k = {"g0ref": ("band_pooled_halo", "pyramid_reduce_slab"),
+              "log": ("band_pooled_halo", "pyramid_reduce_slab"),
+              "hm": ("band_pooled_d_halo", "pyramid_reduce_slab"),
+              "tex": ("pyramid_reduce", "csf_lut", "blur"),
+              "train": ("band_pooled_halo", "pyramid_reduce_slab", "csf_lut_bwd",
+                        "blur_adjoint")}
+    for j, name in enumerate(specs):
+        rr_all = [r[j] for r in res]
+        for rr in rr_all:
+            for k in want_k[name]:
+                if rr["launches"][k] <= 0:
+                    raise AssertionError(f"{name} rank {rr['rank']}: kernel {k} was not launched")
+            if any(rr["launches"][k] for k in YARDSTICKS):
+                raise AssertionError(f"{name} rank {rr['rank']}: a yardstick launched")
+            peak = rr["peak_bytes"] / 2**30
+            if name == "train":
+                d_loss = abs(rr["loss"] - ref["train"][0])
+                log(f"phase 11: {name} rank {rr['rank']}: loss {rr['loss']:.6f} (|d| "
+                    f"{d_loss:.2e}), steps {[round(x, 4) for x in rr['step_s']]} s, peak "
+                    f"{peak:.2f} GiB, route {rr['route']}")
+                if not d_loss <= LOSS_TOL:
+                    raise AssertionError(f"sharded loss {rr['loss']} vs {ref['train'][0]}")
+                continue
+            jod = float(rr["jod"])
+            want = ref[name][0] if name == "hm" else ref[name]
+            extra = ""
+            if name == "hm":
+                route = rr["route"]
+                if hm_route is not None and (
+                        route["halo_bands"] != hm_route["halo_bands"]
+                        or [tuple(x) for x in route["halo_gn_rows"]]
+                        != hm_route["halo_gn_rows"][rr["s"]]):
+                    raise AssertionError(f"hm rank {rr['rank']}: route {route}, the D mode was "
+                                         f"held at {hm_route}")
+                d_hm = float(np.abs(rr["heatmap"].astype(np.float32) - ref["hm"][1]).max())
+                extra = f", heatmap max |d| {d_hm:.3e}"
+                if not d_hm <= HEATMAP_TOL:
+                    raise AssertionError(f"sharded heatmap differs by {d_hm}")
+            log(f"phase 11: {name} rank {rr['rank']}: JOD {jod:.6f} (single-device {want:.6f}, "
+                f"|d| {abs(jod - want):.2e}{extra}), block loop {rr['block_loop_s']:.3f} s, "
+                f"peak {peak:.2f} GiB, route {rr['route']}")
+            if not abs(jod - want) <= SHARD_JOD_TOL:
+                raise AssertionError(f"{name}: sharded JOD {jod} vs single-device {want}")
+        if name == "train":
+            g1 = ref["train"][1]
+            got = np.concatenate([r["grad"] for r in sorted(rr_all, key=lambda r: r["s"])], -2)
+            d_g = float(np.abs(got - g1).max() / np.abs(g1).max())
+            log(f"phase 11: train: gathered gradient max |d| / max |g| {d_g:.3e}")
+            if not d_g <= SHARD_GRAD_TOL:
+                raise AssertionError(f"sharded gradient differs by {d_g} of max |g|")
+        out[labels[name]] = {k: sum(rr["launches"][k] for rr in rr_all)
+                             for k in rr_all[0]["launches"]}
+    return out
 
 
 # The file route (phase 12): the .yuv pair's JOD with the kernels against
@@ -2954,6 +3321,8 @@ def main():
                               "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
         "band_pooled_halo": ("band_pooled.cu",
                              "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
+        "band_pooled_d_halo": ("band_pooled.cu",
+                               "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
     }
     if set(kernels) != set(counters):
         raise AssertionError(f"the kernels line {sorted(kernels)} and the counted wrappers "
@@ -2966,11 +3335,13 @@ def main():
                    **{p: c[k] for p, c in ml_launches.items()},
                    **{p: c[k] for p, c in mega_launches.items()},
                    **{p: c[k] for p, c in il_launches.items()},
-                   "sharded_4k_video": shard_launches[k],
+                   **{p: c[k] for p, c in shard_launches.items()},
                    **{p: c[k] for p, c in file_launches.items()},
                    **{p: c[k] for p, c in cli_launches.items()}}
         if k in ("pyramid_reduce_slab", "band_masking_halo", "band_pooled_halo"):
-            n_main = shard_launches[k]
+            n_main = shard_launches["sharded_4k_video"][k]
+        elif k == "band_pooled_d_halo":
+            n_main = shard_launches["sharded_hm_720p_image"][k]
         elif k in ("interleave", "concat", "deinterleave"):
             n_main = il_launches["interleave_bench"][k]
         elif k == "band_fused":

@@ -24,13 +24,17 @@
 // (colorvideovdp_tpu/ops/pyramid.py:488-579): here the contrast band, its
 // band gain and its adaptation field are formed per sample, rounded as the
 // pre-formed band route of csrc/band_masking.cu rounds them.
-// The halo mode (per band geometry, pooled only) replaces the halo'd shard
-// mode of `fused_blur_transducer` (`row_off`/`h_valid`, :219-227, :540-602):
-// gi is one rank's row slab with row_off neighbour rows on each side (the
-// exclude-edge reflection past a global edge), gn the rows of the next
-// level the slab's expand reads; the expand is taken at each buffer row's
-// reflected global row, stage B reads the halo rows as they are, and only
-// the owned rows are pooled. The caller sums the ranks' sums.
+// The halo mode (per band geometry, every coding, pooled or with D)
+// replaces the halo'd shard mode of `fused_blur_transducer`
+// (`row_off`/`h_valid`, :219-227, :540-602) and, for a sharded heatmap,
+// its D output there: gi is one rank's row slab with row_off neighbour
+// rows on each side (the exclude-edge reflection past a global edge), gn
+// the rows of the next level the slab's expand reads; the expand is taken
+// at each buffer row's reflected global row (so the log coding's
+// adaptation field and the raw codings' E at a halo row are those of the
+// row it stands for, and weber_g0_ref adapts to gi's reflected row as it
+// is), stage B reads the halo rows as they are, and only the owned rows
+// are pooled and, in the D mode, stored. The caller sums the ranks' sums.
 // The JAX package expands gn in XLA before its band kernels
 // (colorvideovdp_tpu/metrics/cvvdp.py:1400-1410); here the expand is inside.
 //
@@ -511,9 +515,9 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
         for (int dd = 0; dd < BM_MAX_C; ++dd) {
           if (dd >= C) continue;
           const float Dv = band_D(dreg[k][dd], mix[k][dd], P.p, eps_p, P.max_v);
-          if (D_OUT)
-            d.D[(((long long)J.b * C + dd) * P.F + J.f) * h * (long long)w +
-                (long long)gy * w + gx] = Dv;
+          if (D_OUT)  // D holds the owned rows [row_off, y_end): all rows of a whole band
+            d.D[(((long long)J.b * C + dd) * P.F + J.f) * (d.y_end - d.row_off) * (long long)w +
+                (long long)(gy - d.row_off) * w + gx] = Dv;
           part[dd] += pooled_term(Dv, P.beta, eps_b);
         }
       }
@@ -600,7 +604,7 @@ static cudaError_t launch_coding(const PooledParams& P, int smem, cudaStream_t s
 // (B, 2C, F, ceil(h/2), ceil(w/2)); dptrs: null (the pooled mode) or, for
 // the D mode, n_bands device pointers to each band's D (B, C, F, h, w);
 // dims: n_bands x {h, w}; geo: null (whole bands) or, for the halo mode
-// (pooled only), n_bands x {row_off, y0, h_glob, gn_row0, hn_buf}: gi is a
+// (pooled or D), n_bands x {row_off, y0, h_glob, gn_row0, hn_buf}: gi is a
 // row slab of h = h_valid + 2 row_off rows whose owned rows start at global
 // row y0 of a band of h_glob rows, and gn holds hn_buf rows of the next
 // level from global row gn_row0 on; muls, blur: per band; luts: device
@@ -609,7 +613,8 @@ static cudaError_t launch_coding(const PooledParams& P, int smem, cudaStream_t s
 // taps; taps: ntaps floats. partials: (tiles, C) scratch, one per 32x32
 // tile of each (b, f) plane of each band in order (the owned rows' tiles in
 // the halo mode); out receives the (n_bands, B, C, F) pooled sums of
-// safe_pow(D, beta) in both modes.
+// safe_pow(D, beta) in both modes. D (B, C, F, h_valid, w) holds the owned
+// rows in the halo mode, every row of a whole band.
 CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const long long* ptrs,
                                 const long long* dptrs, const int* dims, const int* geo,
                                 const float* muls, const int* blur, const float* luts, float x0,
@@ -620,7 +625,7 @@ CVVDP_API int cvvdp_band_pooled(int n_bands, int B, int C, int F, int nk, const 
                                 float* partials, float* out, void* stream) {
   if (n_bands < 1 || n_bands > BM_MAX_BANDS || C < 1 || C > BM_MAX_C || B < 1 || F < 1 ||
       nk < 2 || nk > BP_MAX_NK || ntaps < 1 || ntaps > BM_MAX_TAPS || (ntaps % 2) != 1 ||
-      coding < BP_WEBER_G1 || coding > BP_LOG || (geo && dptrs))
+      coding < BP_WEBER_G1 || coding > BP_LOG)
     return (int)cudaErrorInvalidValue;
   PooledParams P;
   P.n_bands = n_bands;

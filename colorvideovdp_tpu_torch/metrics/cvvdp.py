@@ -63,7 +63,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..io.video_source import upload
 from ..ops import masking as mk
@@ -108,6 +108,33 @@ class _NoTF32(torch.autograd.Function):
         with no_tf32():
             grads = iter(torch.autograd.grad(out, need, g))
         return (None, *(next(grads) if t.requires_grad else None for t in ins))
+
+
+class _BandMaps:
+    """A block's heatmap, band by band: each band's D (B, C, F, h, w)
+    pooled over the channels with the channel weights (``band``), then the
+    baseband's, collapsed by the plain reconstruct (``heatmap``). The
+    single-device and the sharded block share it."""
+
+    def __init__(self, metric, all_ch, is_image, n_bands, dev):
+        self.metric = metric
+        self.w_ch = torch.as_tensor(metric.get_ch_weights(all_ch), device=dev).reshape(
+            -1, 1, 1, 1) * (metric.image_int if is_image else 1.0)
+        self.w_bb = self.w_ch * torch.as_tensor(metric.baseband_weight[:all_ch],
+                                                device=dev).reshape(-1, 1, 1, 1)
+        self.bands = [None] * n_bands
+
+    def band(self, D, mul):
+        """An interior band's map; interior bands are stored at gain ``mul``
+        (lpyr_dec.py:308-314)."""
+        return mk.lp_norm(D * self.w_ch, self.metric.beta_tch, dim=-4, normalize=False) / mul
+
+    def heatmap(self, D_bb):
+        """1 - JOD / 10 of the reconstructed map, (B, 1, F, H, W), from the
+        interior bands' maps and the baseband's D."""
+        m = self.metric
+        self.bands[-1] = mk.lp_norm(D_bb * self.w_bb, m.beta_tch, dim=-4, normalize=False)
+        return 1.0 - m.met2jod(m.heatmap_pyr.reconstruct(self.bands)) / 10.0
 
 
 class cvvdp(vq_metric):
@@ -271,14 +298,21 @@ class cvvdp(vq_metric):
                                 frames_per_second=frames_per_second)
         return 10.0 - Q_jod
 
-    def get_loss_fn(self, height, width, colorspace="sRGB", remat=True):
+    def get_loss_fn(self, height, width, colorspace="sRGB", remat=True, mesh=None):
         """A differentiable loss over display-encoded (B, 3, 1, H, W) float32
         image pairs on the metric's device: fn(test, ref) -> mean(10 - JOD).
 
         Counterpart of the JAX package's ``get_loss_fn``; ``remat`` wraps the
         per-block compute in ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint``)
         to trade a second forward for activation memory. ``colorspace`` is
-        ignored, as in the JAX package."""
+        ignored, as in the JAX package.
+
+        ``mesh`` (``parallel/sharding.py`` ``shard_loss_fn``): the pairs are
+        this rank's slab (B / n_batch, 3, 1, H / n_space, W) of the global
+        (B, 3, 1, ``height``, ``width``) batch; every rank returns the same
+        loss, and its backward leaves each rank the gradient of its slab.
+        The recompute of a checkpointed block then runs whole (no early
+        stop), so that every rank issues the same collectives."""
         self._ensure_pyramids(width, height)
         dm = self.display_photometry
         met_cs = self.met_colorspace()
@@ -286,11 +320,13 @@ class cvvdp(vq_metric):
         def block(test, ref):
             T = dm.source_2_target_colorspace(test, met_cs)
             R = dm.source_2_target_colorspace(ref, met_cs)
-            return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)[0]
+            return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True,
+                                       mesh=mesh)[0]
 
         def loss(test, ref):
             if remat:
-                Q_per_ch = checkpoint(block, test, ref, use_reentrant=False)
+                with set_checkpoint_early_stop(mesh is None):
+                    Q_per_ch = checkpoint(block, test, ref, use_reentrant=False)
             else:
                 Q_per_ch = block(test, ref)
             return torch.mean(10.0 - self.do_pooling_and_jods(Q_per_ch))
@@ -557,15 +593,19 @@ class cvvdp(vq_metric):
                                "(masking produced NaN/Inf)")
 
     def _heatmap_frames(self, hm, context) -> np.ndarray:
-        """One block's heatmap as the host's float16 frames: the raw map
-        (1, 1, F, H, W), or the colour map (3, F, H, W) drawn on the device
-        against the block's context (test sustained achromatic channel)."""
+        """One block's heatmap as the host's float16 frames (``_heatmap_map``)."""
+        return self._heatmap_map(hm, context).cpu().numpy()
+
+    def _heatmap_map(self, hm, context) -> torch.Tensor:
+        """One block's heatmap as float16 on the device: the raw map
+        (1, 1, F, H, W), or the colour map (3, F, H, W) drawn against the
+        block's context (test sustained achromatic channel)."""
         if self.heatmap == "raw":
-            return hm.to(torch.float16).cpu().numpy()
+            return hm.to(torch.float16)
         from ..viz import visualize_diff_map
 
         return visualize_diff_map(hm, context_image=context,
-                                  colormap_type=self.heatmap).to(torch.float16).cpu().numpy()
+                                  colormap_type=self.heatmap).to(torch.float16)
 
     def _band_tables(self, all_ch):
         """(BandConsts, LUT rows (interior bands, C, nk) on the device),
@@ -613,11 +653,12 @@ class cvvdp(vq_metric):
         interior bands then take the D route, as with a heatmap.
 
         ``mesh`` (``parallel/sharding.py``): R is this rank's pairs and rows;
-        see ``_process_block_sharded``."""
+        see ``_process_block_sharded``. Dumps take no mesh, as in the JAX
+        package, whose sharded steps have no dump route."""
         if mesh is not None:
-            if heatmap or dump is not None:
-                raise NotImplementedError("heatmaps and dumps are not sharded yet")
-            return self._process_block_sharded(R, temp_ch, mesh), None, None
+            if dump is not None:
+                raise ValueError("channel dumps take no mesh")
+            return self._process_block_sharded(R, temp_ch, is_image, mesh, heatmap)
         all_ch = 2 + temp_ch
         use_k = self.enable_fused_kernels
         n_bands = self.lpyr.get_band_count()
@@ -628,18 +669,12 @@ class cvvdp(vq_metric):
         bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=raw_pairs, use_kernel=use_k)
 
         Q_cols = [None] * n_bands
-        hm_bands = [None] * n_bands
         B, _, F = bands[-1].shape[:3]
         shapes = [(bands[bb][0] if raw_pairs else bands[bb]).shape[-2:]
                   for bb in range(n_bands - 1)]
         muls = [1.0 if bb == 0 else 2.0 for bb in range(n_bands - 1)]
         want_D = heatmap or dump is not None
-        if want_D:
-            dev = R.device
-            w_ch = torch.as_tensor(self.get_ch_weights(all_ch), device=dev).reshape(
-                -1, 1, 1, 1) * (self.image_int if is_image else 1.0)
-            w_bb = w_ch * torch.as_tensor(self.baseband_weight[:all_ch], device=dev).reshape(
-                -1, 1, 1, 1)
+        maps = _BandMaps(self, all_ch, is_image, n_bands, R.device) if want_D else None
         if dump is not None:
             # The raw pairs' contrast bands in plain torch: only the dumps
             # read them.
@@ -655,11 +690,9 @@ class cvvdp(vq_metric):
             Q_cols[bb] = (mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
                           if sums is None else bm.pooled_norm(sums, *shapes[bb], self.beta))
             if heatmap:
-                # Interior bands are stored at half gain (lpyr_dec.py:308-314).
-                hm_bands[bb] = mk.lp_norm(D * w_ch, self.beta_tch, dim=-4,
-                                          normalize=False) / muls[bb]
+                maps.bands[bb] = maps.band(D, muls[bb])
             if dump is not None:
-                dump["D_bands"][bb] = D * w_ch / muls[bb]
+                dump["D_bands"][bb] = D * maps.w_ch / muls[bb]
 
         if consts is None:
             x0, x1 = self.csf.lut_range()
@@ -704,14 +737,13 @@ class cvvdp(vq_metric):
         Q_cols[-1], D = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
         Q = torch.stack(Q_cols, dim=-1)
         if dump is not None:
-            dump["D_bands"][-1] = D * w_ch
+            dump["D_bands"][-1] = D * maps.w_ch
         if not heatmap:
             return Q, None, None
-        hm_bands[-1] = mk.lp_norm(D * w_bb, self.beta_tch, dim=-4, normalize=False)
         del bands
-        recon = self.heatmap_pyr.reconstruct(hm_bands)
-        # A copy, so that the caller can free the block's R before drawing.
-        return Q, 1.0 - self.met2jod(recon) / 10.0, R[:, 0].clone()
+        # A copy of the context, so that the caller can free the block's R
+        # before drawing.
+        return Q, maps.heatmap(D), R[:, 0].clone()
 
     def _baseband(self, base, logL, all_ch, sens_corr):
         """(Q column, D) of the baseband: the CSF LUT of its adaptation field."""
@@ -725,27 +757,44 @@ class cvvdp(vq_metric):
         D = torch.abs(base[:, 0::2] - base[:, 1::2]) * S
         return mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False), D
 
-    def _process_block_sharded(self, R, temp_ch, mesh):
-        """Q_per_ch (B, all_ch, F, bands) of one block under ``mesh``, the same
-        on every rank; R is this rank's (B / n_batch, 2 all_ch, F, H / n_space,
-        W) slab. The JAX package's routing under a mesh
-        (``metrics/cvvdp.py:1233-1245``, ``:1478-1490``): bands of row-sharded
-        levels that ``band_shardable`` admits take the band kernel's halo mode
-        on their slabs, and their pooled sums are summed over the space group
-        before the norm over the band's global size; the other bands and the
-        baseband run whole on every rank and are not summed; Q is gathered
-        over the batch group. The halo bands go to ``band_pooled_halo`` as
-        slabs of gi (``halo_rows``) and the rows of gn their expand reads
-        (``halo_gn``). The band kernel's raw codings only."""
+    def _process_block_sharded(self, R, temp_ch, is_image, mesh, heatmap=False):
+        """(Q_per_ch (B, all_ch, F, bands), heatmap block, context) of one
+        block under ``mesh``, each the same on every rank; R is this rank's
+        (B / n_batch, 2 all_ch, F, H / n_space, W) slab. The JAX package's
+        routing under a mesh (``metrics/cvvdp.py:1233-1245``, ``:1478-1515``):
+
+        * with the band kernel's configuration (every contrast coding), the
+          bands of row-sharded levels that ``band_shardable`` admits take
+          its halo mode on their slabs of gi (``halo_rows``) and the rows of
+          gn their expand reads (``halo_gn``), ``band_pooled_halo`` through
+          ``BandPooledHalo``, or with a heatmap ``band_pooled_d_halo``; their
+          pooled sums are summed over the space group before the norm over
+          the band's global size. The other bands run whole
+          (``Level.full``) on every rank and are not summed;
+        * any other configuration (masking model, clamp, the mix off, a
+          per-channel ``d_max``) gathers R's rows and runs the single-device
+          block on every rank, the generic chain on whole levels, the math
+          of the JAX package's GSPMD route;
+        * the baseband is whole on every rank; Q is gathered over the batch
+          group.
+
+        With ``heatmap`` each band's D is pooled over the channels on the
+        rows it has (a halo band's owned rows, then gathered over the space
+        group), the maps are collapsed by the plain reconstruct, and the
+        heatmap block and its context (R[:, 0]) are gathered over the batch
+        group. Every collective is differentiable (``sharding.py``), so the
+        same code is the sharded loss step's forward."""
         from ..parallel import sharding as sh
 
         all_ch = 2 + temp_ch
+        consts, luts = self._band_tables(all_ch)
+        if consts is None:
+            self.sharded_route = {"chain": "generic", "levels": [], "halo_bands": [],
+                                  "halo_gn_rows": []}
+            out = self._process_block(sh.gather_rows(R, mesh), temp_ch, is_image, heatmap)
+            return tuple(None if x is None else sh.gather_batch(x, mesh) for x in out)
         use_k = self.enable_fused_kernels
         params = self._masking_params()
-        consts, luts = self._band_tables(all_ch)
-        if consts is None or consts.coding not in bm.RAW_CODINGS:
-            raise NotImplementedError(
-                "sharded scoring takes the band kernel's raw-pair configuration only")
         sens_corr = 10.0 ** (self.sensitivity_correction / 20.0)
         bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=True, use_kernel=use_k, mesh=mesh)
         n_bands = len(bands)
@@ -755,39 +804,64 @@ class cvvdp(vq_metric):
         halo = [bb for bb in range(n_bands - 1)
                 if bands[bb][0].sharded and sh.band_shardable(params, *shapes[bb], mesh)]
         whole = [bb for bb in range(n_bands - 1) if bb not in halo]
-        # The route of the last block: the row-sharded levels, the halo bands
-        # and, per halo band, the rows of gn handed to the kernel (count, first).
+        # The route of the last block: the chain, the row-sharded levels, the
+        # halo bands and, per halo band, the rows of gn handed to the kernel
+        # (count, first).
         levels = [pair[0] for pair in bands[:-1]] + [bands[-2][1]]
-        self.sharded_route = {"levels": [i for i, lv in enumerate(levels) if lv.sharded],
+        self.sharded_route = {"chain": "band",
+                              "levels": [i for i, lv in enumerate(levels) if lv.sharded],
                               "halo_bands": halo, "halo_gn_rows": []}
         Q_cols = [None] * n_bands
+        maps = _BandMaps(self, all_ch, is_image, n_bands, R.device) if heatmap else None
         sums = []
         slab_h = [shapes[bb][0] // mesh.n_space for bb in halo]
         for sel in bm.band_groups([(hv + 2 * bm.HALO_ROWS, shapes[bb][1])
-                                   for bb, hv in zip(halo, slab_h)], B, all_ch, F, gn=True):
+                                   for bb, hv in zip(halo, slab_h)], B, all_ch, F,
+                                  [True] * len(halo) if heatmap else None, gn=True):
             sel = [halo[i] for i in sel]
             xs = [sh.halo_rows(bands[bb][0].x, mesh) for bb in sel]
             ys, row0s = zip(*[sh.halo_gn(bands[bb][1], mesh) for bb in sel])
             slabs = [(mesh.s * (shapes[bb][0] // mesh.n_space), shapes[bb][0], row0)
                      for bb, row0 in zip(sel, row0s)]
-            fn = bp.band_pooled_halo if use_k else bp.band_pooled_halo_plain
-            sums.append(fn(xs, list(ys), luts[sel], [muls[bb] for bb in sel], consts, slabs))
+            args = (xs, list(ys), luts[sel], [muls[bb] for bb in sel], consts, slabs)
+            if heatmap:
+                Ds, part = (bp.band_pooled_d_halo if use_k else bp.band_pooled_d_halo_plain)(*args)
+                for j, bb in enumerate(sel):
+                    # D holds the owned rows: their map is gathered.
+                    maps.bands[bb] = sh.gather_rows(maps.band(Ds[j], muls[bb]), mesh)
+                del Ds
+            else:
+                part = bp.band_pooled_halo_sums(*args, use_kernel=use_k)
+            sums.append(part)
             self.sharded_route["halo_gn_rows"] += [(y.shape[-2], row0)
                                                    for y, row0 in zip(ys, row0s)]
-            del xs, ys
+            del xs, ys, args
         if halo:
             total = sh.sum_space(torch.cat(sums), mesh)
             for j, bb in enumerate(halo):
                 Q_cols[bb] = bm.pooled_norm(total[j], *shapes[bb], self.beta)
-        for sel in bm.band_groups([shapes[bb] for bb in whole], B, all_ch, F, gn=True):
+        d_blurs = [params.blurs(*shapes[bb]) for bb in whole] if heatmap else None
+        for sel in bm.band_groups([shapes[bb] for bb in whole], B, all_ch, F, d_blurs, gn=True):
             sel = [whole[i] for i in sel]
-            out = bp.band_pooled_sums([bands[bb][0].full(mesh) for bb in sel],
-                                      [bands[bb][1].full(mesh) for bb in sel], luts[sel],
-                                      [muls[bb] for bb in sel], consts, use_k)
+            args = ([bands[bb][0].full(mesh) for bb in sel],
+                    [bands[bb][1].full(mesh) for bb in sel], luts[sel], [muls[bb] for bb in sel],
+                    consts)
+            if heatmap:
+                Ds, out = (bp.band_pooled_d if use_k else bp.band_pooled_d_plain)(*args)
+                for j, bb in enumerate(sel):
+                    maps.bands[bb] = maps.band(Ds[j], muls[bb])
+                del Ds
+            else:
+                out = bp.band_pooled_sums(*args, use_k)
             for j, bb in enumerate(sel):
                 Q_cols[bb] = bm.pooled_norm(out[j], *shapes[bb], self.beta)
-        Q_cols[-1], _ = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
-        return sh.gather_batch(torch.stack(Q_cols, dim=-1), mesh)
+        Q_cols[-1], D = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
+        Q = sh.gather_batch(torch.stack(Q_cols, dim=-1), mesh)
+        if not heatmap:
+            return Q, None, None
+        del bands
+        return (Q, sh.gather_batch(maps.heatmap(D), mesh),
+                sh.gather_batch(sh.gather_rows(R[:, 0].clone(), mesh), mesh))
 
     def _mega_bands(self, shapes, all_ch, params):
         """The interior raw bands that take the mega-kernel route: with

@@ -37,15 +37,23 @@ pre-formed band route (``masking_fused.band_masking_contrast`` fed
   ``band_masking_d_noblur`` fed ``gausspyr_expand(gn)``; the plain version
   ``band_pooled_d_plain`` is ``masking_fused._band_D_plain`` fed the expand
   per frame chunk. Forward only.
-* ``band_pooled_halo``: the halo mode, pooled, raw codings: each band is
-  one rank's row slab of a band sharded over image rows, gi with
-  ``HALO_ROWS`` neighbour rows on each side (``parallel/sharding.py``
-  ``halo_rows``) and the rows of gn its expand reads (``halo_gn``); only the
-  owned rows are pooled, and the caller sums the ranks' sums. It replaces
-  the halo'd shard mode of ``fused_blur_transducer`` (``masking_fused.py``
-  :219-227, :540-602); its plain version ``band_pooled_halo_plain`` equals
-  ``masking_fused.band_masking_halo_plain`` fed the slab of the expand.
-  Forward only.
+* ``band_pooled_halo``: the halo mode, every coding: each band is one
+  rank's row slab of a band sharded over image rows, gi with ``HALO_ROWS``
+  neighbour rows on each side (``parallel/sharding.py`` ``halo_rows``) and
+  the rows of gn its expand reads (``halo_gn``); the expand is taken at each
+  buffer row's reflected global row, only the owned rows are pooled, and
+  the caller sums the ranks' sums. It replaces the halo'd shard mode of
+  ``fused_blur_transducer`` (``masking_fused.py`` :219-227, :540-602); its
+  plain version ``band_pooled_halo_plain`` pools ``masking_fused.halo_D_plain``
+  on stage A in the coding (``_stage_a``), fed ``halo_expand_plain``, and
+  its owned rows' D is, bit for bit, the whole band's. ``BandPooledHalo`` /
+  ``band_pooled_halo_sums`` make it differentiable: the backward recomputes
+  the plain halo chain per frame chunk, its CSF LUT and blur through their
+  kernels on the card.
+* ``band_pooled_d_halo``: the halo mode with D, for a sharded heatmap: D of
+  the owned rows (B, C, F, h_valid, w) and the pooled mode's sums, from one
+  launch of the kernel's D mode with the halo geometry; plain version
+  ``band_pooled_d_halo_plain``. Forward only.
 * ``BandPooled`` / ``band_pooled_sums``: the same sums, differentiable in
   every gi and gn (also ``band_fused.band_fused_sums``, which gives its own
   counted launcher); the backward (``pooled_vjp``) recomputes the plain
@@ -63,8 +71,8 @@ from ..masking import _EPS, _pow_static
 from ..pyramid import K5, LOG_A, LOG_B, expand_rows, gausspyr_expand, interior_contrast
 from . import _build
 from .masking_fused import (HALO_ROWS, MAX_BANDS, RAW_CODINGS, BandConsts, _band_D_contrast_plain,
-                            _band_D_plain, _band_sums_plain, _frame_chunks,
-                            halo_pool_plain, raw_stage_a_plain)
+                            _band_D_plain, _band_sums_plain, _frame_chunks, csf_contrast_plain,
+                            halo_D_plain, raw_stage_a_plain)
 
 # The kernel keeps each band's LUT rows in shared memory.
 MAX_KNOTS = 64
@@ -118,6 +126,11 @@ def band_pooled_plain(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts)
                         for i, (gi, gn) in enumerate(zip(gi_list, gn_list))])
 
 
+def _pooled(D, k: BandConsts):
+    """The (..., B, C, F) sums of safe_pow(D, beta) over each image plane."""
+    return torch.sum(_pow_static(D + _EPS, k.beta) - _EPS ** k.beta, dim=(-2, -1))
+
+
 def _plain_one_d(gi, gn, lut, mul, k: BandConsts):
     """(D, sums) of one band, per frame chunk: the sums are
     ``_band_sums_plain``'s of the same D."""
@@ -125,7 +138,7 @@ def _plain_one_d(gi, gn, lut, mul, k: BandConsts):
     for fs in _frame_chunks(gi):
         D = _D_of(gi[:, :, fs], _expanded(gi[:, :, fs], gn[:, :, fs]), lut, mul, k)
         Ds.append(D)
-        sums.append(torch.sum(_pow_static(D + _EPS, k.beta) - _EPS ** k.beta, dim=(-2, -1)))
+        sums.append(_pooled(D, k))
     return torch.cat(Ds, dim=2), torch.cat(sums, dim=2)
 
 
@@ -165,27 +178,46 @@ def halo_expand_plain(gi, gn, slab):
     return expand_rows(gn, gn_row0, (h + 1) // 2, g, gi.shape[-1])
 
 
+def _stage_a(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False):
+    """Stage A (M_pre, diff) of one band from gi and E in ``k.coding``, each
+    product rounded as the whole band's plain chain rounds it."""
+    if k.coding in RAW_CODINGS:
+        return raw_stage_a_plain(gi, E, lut, mul, k, use_kernel)
+    return csf_contrast_plain(*_contrast_band(gi, E, mul, k), lut, k, use_kernel)
+
+
+def _halo_D_one(gi, gn, lut, mul, k: BandConsts, slab, use_kernel: bool = False):
+    """D (B, C, F, h_valid, w) of one halo'd slab's owned rows, per frame
+    chunk."""
+    E = halo_expand_plain(gi, gn, slab)
+    hv = gi.shape[-2] - 2 * HALO_ROWS
+    return torch.cat([halo_D_plain(*_stage_a(gi[:, :, fs], E[:, :, fs], lut, mul, k, use_kernel),
+                                   k, hv, use_kernel) for fs in _frame_chunks(gi)], dim=2)
+
+
 def band_pooled_halo_plain(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, slabs):
     """Plain version of the halo mode: (n_bands, B, C, F) pooled sums over
-    each slab's owned rows (``masking_fused.halo_pool_plain`` on stage A
-    fed ``halo_expand_plain``)."""
-    out = []
-    for i, (gi, gn) in enumerate(zip(gi_list, gn_list)):
-        E = halo_expand_plain(gi, gn, slabs[i])
-        out.append(torch.cat([halo_pool_plain(*raw_stage_a_plain(gi[:, :, fs], E[:, :, fs],
-                                                                 luts[i], muls[i], k),
-                                              k, gi.shape[-2] - 2 * HALO_ROWS)
-                              for fs in _frame_chunks(gi)], dim=2))
-    return torch.stack(out)
+    each slab's owned rows (``masking_fused.halo_D_plain`` on stage A, in
+    the metric's coding, fed ``halo_expand_plain``, then pooled)."""
+    return band_pooled_d_halo_plain(gi_list, gn_list, luts, muls, k, slabs)[1]
+
+
+def band_pooled_d_halo_plain(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, slabs):
+    """Plain version of the halo mode with D: (list of D (B, C, F, h_valid,
+    w) of each slab's owned rows, (n_bands, B, C, F) pooled sums)."""
+    Ds = [_halo_D_one(gi, gn, luts[i], muls[i], k, slabs[i])
+          for i, (gi, gn) in enumerate(zip(gi_list, gn_list))]
+    return Ds, torch.stack([_pooled(D, k) for D in Ds])
 
 
 def launch(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool = False,
            slabs=None):
     """One ``cvvdp_band_pooled`` launch over the given bands on the card;
     returns the (n_bands, B, C, F) pooled sums, or with ``d_out`` (the D
-    mode) the list of each band's D and the sums. ``slabs`` (the halo mode,
-    pooled only): per band (y0, h, gn_row0), gi a halo'd row slab and gn
-    the rows of the next level from global row gn_row0 on."""
+    mode) the list of each band's D and the sums. ``slabs`` (the halo
+    mode): per band (y0, h, gn_row0), gi a halo'd row slab and gn the rows
+    of the next level from global row gn_row0 on; D then holds the owned
+    rows only."""
     n = len(gi_list)
     if not 1 <= n <= MAX_BANDS or len(gn_list) != n or len(muls) != n:
         raise ValueError(f"band_pooled: 1..{MAX_BANDS} bands, got {n}")
@@ -195,8 +227,8 @@ def launch(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
     if (tuple(luts.shape[:2]) != (n, C) or C > 4 or len(k.taps) > 17
             or luts.shape[2] > MAX_KNOTS):
         raise ValueError("band_pooled: table or channel count mismatch")
-    if slabs is not None and (d_out or len(slabs) != n):
-        raise ValueError("band_pooled: the halo mode is pooled, one slab a band")
+    if slabs is not None and len(slabs) != n:
+        raise ValueError("band_pooled: the halo mode takes one slab a band")
     dims = np.zeros((n, 2), np.int32)
     geo = np.zeros((n, 5), np.int32)
     for i, (gi, gn) in enumerate(zip(gi_list, gn_list)):
@@ -212,13 +244,13 @@ def launch(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, d_out: boo
     ptrs = np.array([[gi.data_ptr(), gn.data_ptr()] for gi, gn in zip(gi_list, gn_list)],
                     np.int64)
     dev = gi_list[0].device
-    Ds = ([torch.empty((B, C, F, int(h), int(w)), dtype=torch.float32, device=dev)
-           for h, w in dims] if d_out else [])
+    rows = [int(h) - (0 if slabs is None else 2 * HALO_ROWS) for h, _ in dims]
+    Ds = ([torch.empty((B, C, F, hv, int(w)), dtype=torch.float32, device=dev)
+           for hv, (_, w) in zip(rows, dims)] if d_out else [])
     dptrs = np.array([D.data_ptr() for D in Ds], np.int64)
     blur = np.array([int(k.params.blurs(int(h), int(w))) for h, w in dims], np.int32)
     muls_a = np.asarray(muls, np.float32)
     lib = _build.library()
-    rows = [int(h) - (0 if slabs is None else 2 * HALO_ROWS) for h, _ in dims]
     n_tiles = B * F * sum(-(-hv // 32) * -(-int(w) // 32) for hv, (_, w) in zip(rows, dims))
     partials = torch.empty(n_tiles * C, dtype=torch.float32, device=dev)
     out = torch.empty((n, B, C, F), dtype=torch.float32, device=dev)
@@ -267,25 +299,30 @@ def band_pooled_d(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts):
 band_pooled_d.launches = 0
 
 
+def _check_halo(name, gi_list, gn_list, k: BandConsts, slabs):
+    """Raise unless each slab holds HALO_ROWS rows on each side of its owned
+    rows, gn's rows hold what the slab's expand reads, and every band takes
+    the masking blur."""
+    for gi, gn, (y0, h, gn_row0) in zip(gi_list, gn_list, slabs):
+        if gi.shape[-2] <= 2 * HALO_ROWS:
+            raise ValueError(f"{name}: each slab needs HALO_ROWS rows on each side")
+        first, last = halo_gn_rows(y0, gi.shape[-2] - 2 * HALO_ROWS, h)
+        if not gn_row0 <= first <= last < gn_row0 + gn.shape[-2]:
+            raise ValueError(f"{name}: gn rows from {gn_row0} ({gn.shape[-2]}) do "
+                             f"not hold the rows [{first}, {last}] the slab's expand reads")
+    if not all(k.params.blurs(h, gi.shape[-1]) for gi, (_, h, _) in zip(gi_list, slabs)):
+        raise ValueError(f"{name}: every band must take the blur")
+
+
 def band_pooled_halo(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, slabs):
     """The halo mode: (n_bands, B, C, F) pooled sums over the owned rows of
     each rank's halo'd slab gi (h_valid + 2 HALO_ROWS rows) from the rows
     of the next level gn that its expand reads; ``slabs``: per band (y0, h,
     gn_row0), the global first owned row, the band's global row count and
-    gn's first global row. Raw codings, bands that take the masking blur.
-    CPU tensors take ``band_pooled_halo_plain``; CUDA tensors launch the
-    kernel over all the given bands at once."""
-    if k.coding not in RAW_CODINGS:
-        raise ValueError(f"band_pooled_halo: raw codings only, not {k.coding}")
-    for gi, gn, (y0, h, gn_row0) in zip(gi_list, gn_list, slabs):
-        if gi.shape[-2] <= 2 * HALO_ROWS:
-            raise ValueError("band_pooled_halo: each slab needs HALO_ROWS rows on each side")
-        first, last = halo_gn_rows(y0, gi.shape[-2] - 2 * HALO_ROWS, h)
-        if not gn_row0 <= first <= last < gn_row0 + gn.shape[-2]:
-            raise ValueError(f"band_pooled_halo: gn rows from {gn_row0} ({gn.shape[-2]}) do "
-                             f"not hold the rows [{first}, {last}] the slab's expand reads")
-    if not all(k.params.blurs(h, gi.shape[-1]) for gi, (_, h, _) in zip(gi_list, slabs)):
-        raise ValueError("band_pooled_halo: every band must take the blur")
+    gn's first global row. Every contrast coding; bands that take the
+    masking blur. CPU tensors take ``band_pooled_halo_plain``; CUDA tensors
+    launch the kernel over all the given bands at once."""
+    _check_halo("band_pooled_halo", gi_list, gn_list, k, slabs)
     if gi_list[0].device.type == "cpu":
         return band_pooled_halo_plain(gi_list, gn_list, luts, muls, k, slabs)
     out = launch(gi_list, gn_list, luts, muls, k, slabs=slabs)
@@ -294,6 +331,23 @@ def band_pooled_halo(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, 
 
 
 band_pooled_halo.launches = 0
+
+
+def band_pooled_d_halo(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, slabs):
+    """The halo mode with D, for a sharded heatmap: (list of D (B, C, F,
+    h_valid, w) of each slab's owned rows, the (n_bands, B, C, F) pooled
+    sums, those of ``band_pooled_halo``); arguments as ``band_pooled_halo``.
+    CPU tensors take ``band_pooled_d_halo_plain``; CUDA tensors launch the
+    kernel's D mode over all the given bands at once."""
+    _check_halo("band_pooled_d_halo", gi_list, gn_list, k, slabs)
+    if gi_list[0].device.type == "cpu":
+        return band_pooled_d_halo_plain(gi_list, gn_list, luts, muls, k, slabs)
+    out = launch(gi_list, gn_list, luts, muls, k, d_out=True, slabs=slabs)
+    band_pooled_d_halo.launches += 1
+    return out
+
+
+band_pooled_d_halo.launches = 0
 
 
 def pooled_vjp(gi, gn, lut, mul, k: BandConsts, use_kernel: bool, g):
@@ -341,3 +395,48 @@ def band_pooled_sums(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts,
                      use_kernel: bool = True, kernel=band_pooled):
     """(n_bands, B, C, F) pooled sums through ``BandPooled``."""
     return BandPooled.apply(luts, muls, k, use_kernel, kernel, *gi_list, *gn_list)
+
+
+class BandPooledHalo(torch.autograd.Function):
+    """The halo mode's pooled sums (n_bands, B, C, F), differentiable in
+    every gi slab and gn's rows: ``band_pooled_halo`` (or its plain version
+    without ``use_kernel``) forward; the backward recomputes each band's
+    plain halo chain per frame chunk (under ``use_kernel`` the CSF LUT and
+    the blur through their kernels, backward ``csf_lut_bwd`` and
+    ``blur_adjoint``: the blur runs over the whole slab, ``halo_D_plain``)
+    and returns its vector-Jacobian product. The caller's row exchanges
+    send the halo rows' gradients to their owners."""
+
+    @staticmethod
+    def forward(ctx, luts, muls, k, slabs, use_kernel, *gi_and_gn):
+        n = len(gi_and_gn) // 2
+        ctx.save_for_backward(luts, *gi_and_gn)
+        ctx.args = (muls, k, slabs, use_kernel)
+        x, y = list(gi_and_gn[:n]), list(gi_and_gn[n:])
+        fn = band_pooled_halo if use_kernel else band_pooled_halo_plain
+        return fn(x, y, luts, muls, k, slabs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        luts, *gi_and_gn = ctx.saved_tensors
+        muls, k, slabs, use_kernel = ctx.args
+        n = len(gi_and_gn) // 2
+        d_gi = [torch.zeros_like(gi) for gi in gi_and_gn[:n]]
+        d_gn = [torch.zeros_like(gn) for gn in gi_and_gn[n:]]
+        for i, (gi, gn) in enumerate(zip(gi_and_gn[:n], gi_and_gn[n:])):
+            for fs in _frame_chunks(gi):
+                with torch.enable_grad():
+                    gi_c = gi[:, :, fs].detach().requires_grad_()
+                    gn_c = gn[:, :, fs].detach().requires_grad_()
+                    s = _pooled(_halo_D_one(gi_c, gn_c, luts[i], muls[i], k, slabs[i],
+                                            use_kernel), k)
+                    d_gi[i][:, :, fs], d_gn[i][:, :, fs] = torch.autograd.grad(
+                        s, (gi_c, gn_c), g[i][:, :, fs])
+        return (None, None, None, None, None, *d_gi, *d_gn)
+
+
+def band_pooled_halo_sums(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts, slabs,
+                          use_kernel: bool = True):
+    """(n_bands, B, C, F) halo-mode pooled sums through ``BandPooledHalo``."""
+    return BandPooledHalo.apply(luts, muls, k, slabs, use_kernel, *gi_list, *gn_list)

@@ -75,6 +75,7 @@ from ..clip import clip
 from ..masking import (_EPS, MaskingParams, _pow_static, _safe_pow_static,
                        apply_masking_model, clamp_diffs, mask_pool, safe_pow)
 from . import _build
+from .blur import Blur
 from .csf_lut import CsfLut
 
 MAX_BANDS = 8
@@ -160,40 +161,56 @@ def _band_D_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False) -> t
                                use_kernel)
 
 
-def raw_stage_a_plain(gi, E, lut, mul, k: BandConsts):
+def raw_stage_a_plain(gi, E, lut, mul, k: BandConsts, use_kernel: bool = False):
     """Stage A on raw pairs: (M_pre, diff), each (B, C, F, h, w), with the
-    products rounded as ``masking.apply_masking_model`` rounds them."""
-    T, R, S = _raw_contrast(gi, E, lut, mul, k)
+    products rounded as ``masking.apply_masking_model`` rounds them
+    (``use_kernel``: the CSF LUT through its kernel)."""
+    T, R, S = _raw_contrast(gi, E, lut, mul, k, use_kernel)
     g = torch.as_tensor(k.ch_gain, device=gi.device).reshape(1, -1, 1, 1, 1)
     T_p, R_p = T * S * g, R * S * g
     return torch.minimum(torch.abs(T_p), torch.abs(R_p)), torch.abs(T_p - R_p)
 
 
-def halo_pool_plain(m_h, d_h, k: BandConsts, h_valid: int) -> torch.Tensor:
-    """Stages B and C of the halo mode: (B, C, F) sums of safe_pow(D, beta)
-    over the owned rows [HALO_ROWS, HALO_ROWS + h_valid) of a row slab's
-    M_pre and diff, (B, C, F, h_valid + 2 HALO_ROWS, w). The vertical blur
-    reads the neighbour rows as they are (no reflection); the horizontal one
-    reflects as ``ops/blur.py`` does. The JAX package's
-    ``fused_blur_transducer(..., row_off=8, h_valid=h_valid)``."""
+def halo_D_plain(m_h, d_h, k: BandConsts, h_valid: int, use_kernel: bool = False) -> torch.Tensor:
+    """Stage B of the halo mode: D (B, C, F, h_valid, w) of the owned rows
+    [HALO_ROWS, HALO_ROWS + h_valid) of a row slab's M_pre and diff,
+    (B, C, F, h_valid + 2 HALO_ROWS, w). The vertical blur reads the
+    neighbour rows as they are (no reflection); the horizontal one reflects
+    as ``ops/blur.py`` does. The JAX package's
+    ``fused_blur_transducer(..., row_off=8, h_valid=h_valid, pool_beta=None)``.
+    ``use_kernel`` blurs the whole slab with the blur kernel (``Blur``, whose
+    backward is its adjoint mode) and keeps the owned rows: the radius is at
+    most HALO_ROWS, so no owned row reads a reflected one, and the rows are
+    the tap loop's bit for bit."""
     r, rb = HALO_ROWS, (len(k.taps) - 1) // 2
-    y = None
-    for i, t in enumerate(k.taps):
-        term = float(t) * m_h[..., r - rb + i:r - rb + i + h_valid, :]
-        y = term if y is None else y + term
-    M_mm = _blur_1d(y, k.taps, y.ndim - 1) * k.blur_scale
+    if use_kernel:
+        M_mm = Blur.apply(m_h, k.taps)[..., r:r + h_valid, :] * k.blur_scale
+    else:
+        y = None
+        for i, t in enumerate(k.taps):
+            term = float(t) * m_h[..., r - rb + i:r - rb + i + h_valid, :]
+            y = term if y is None else y + term
+        M_mm = _blur_1d(y, k.taps, y.ndim - 1) * k.blur_scale
     q = torch.as_tensor(k.qs, device=m_h.device).reshape(-1, 1, 1, 1)
     M = mask_pool(safe_pow(torch.abs(M_mm), q), k.params)
-    D = clamp_diffs(safe_pow(d_h[..., r:r + h_valid, :], k.p) / (1.0 + M), k.params)
+    return clamp_diffs(safe_pow(d_h[..., r:r + h_valid, :], k.p) / (1.0 + M), k.params)
+
+
+def halo_pool_plain(m_h, d_h, k: BandConsts, h_valid: int) -> torch.Tensor:
+    """Stages B and C of the halo mode: (B, C, F) sums of safe_pow(D, beta)
+    over the owned rows of ``halo_D_plain``. The JAX package's
+    ``fused_blur_transducer(..., row_off=8, h_valid=h_valid)``."""
+    D = halo_D_plain(m_h, d_h, k, h_valid)
     return torch.sum(_pow_static(D + _EPS, k.beta) - _EPS ** k.beta, dim=(-2, -1))
 
 
-def csf_contrast_plain(band, logL, lut, k: BandConsts):
+def csf_contrast_plain(band, logL, lut, k: BandConsts, use_kernel: bool = False):
     """Stage A on contrast bands, the JAX package's ``fused_csf_contrast``:
     (M_pre, diff), each (B, C, F, h, w), from the band (B, 2C, F, h, w) and
     its logL (B, 1, F, h, w), with the products rounded as
-    ``masking.apply_masking_model`` rounds them."""
-    S = CsfLut.apply(logL[:, 0], lut, k.x0, k.x1, False).movedim(0, 1) * k.sens_corr
+    ``masking.apply_masking_model`` rounds them (``use_kernel``: the CSF LUT
+    through its kernel)."""
+    S = CsfLut.apply(logL[:, 0], lut, k.x0, k.x1, use_kernel).movedim(0, 1) * k.sens_corr
     g = torch.as_tensor(k.ch_gain, device=band.device).reshape(1, -1, 1, 1, 1)
     T_p = band[:, 0::2] * S * g
     R_p = band[:, 1::2] * S * g

@@ -16,7 +16,9 @@ transpose.
 ``colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:238`` (``reduce_slab_tpu``):
 one rank's halo'd row slab of a level sharded over image rows
 (``parallel/sharding.py`` ``sharded_reduce``), with the plain version
-``ops/pyramid.py:reduce_slab_plain`` and the same bits. Forward only.
+``ops/pyramid.py:reduce_slab_plain`` and the same bits. ``ReduceSlab`` is
+the slab mode with the adjoint of ``reduce_slab_plain`` as its backward, as
+``Reduce`` is for the whole level.
 """
 
 from __future__ import annotations
@@ -95,3 +97,22 @@ class Reduce(torch.autograd.Function):
             x0 = g.new_zeros(ctx.shape, requires_grad=True)
             (dx,) = torch.autograd.grad(reduce_plain(x0), x0, g)
         return dx
+
+
+class ReduceSlab(torch.autograd.Function):
+    """``pyramid_reduce_slab`` forward; the adjoint of ``reduce_slab_plain``
+    backward (the slab's 16 halo rows get their share, which the sharded
+    reduce's row exchange sends back to their owners)."""
+
+    @staticmethod
+    def forward(ctx, x, rows_odd):
+        ctx.shape, ctx.rows_odd = x.shape, rows_odd
+        return pyramid_reduce_slab(x, rows_odd)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        with torch.enable_grad():
+            x0 = g.new_zeros(ctx.shape, requires_grad=True)
+            (dx,) = torch.autograd.grad(reduce_slab_plain(x0, ctx.rows_odd), x0, g)
+        return dx, None

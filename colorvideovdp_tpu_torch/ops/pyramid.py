@@ -213,6 +213,20 @@ class LaplacianPyramid:
             res.append(gausspyr_reduce(res[-1], use_kernel))
         return res
 
+    def decompose_sharded(self, image, mesh, use_kernel: bool = True):
+        """The raw-pair decomposition of this rank's row slab ``image`` under
+        ``mesh`` (``parallel/sharding.py``): the interior levels as pairs of
+        ``sharding.Level`` objects, each the rank's slab of a row-sharded
+        level or a whole, replicated one, with ``None`` fields, then the
+        baseband and its field, whole on every rank."""
+        from ..parallel.sharding import sharded_levels
+
+        levels = sharded_levels(image, self.height + 1, mesh, use_kernel)
+        base, field = self._contrast(levels[-1].full(mesh), None)
+        n = len(levels)
+        return ([(levels[i], levels[i + 1]) for i in range(n - 1)] + [base],
+                [None] * (n - 1) + [field])
+
 
 class WeberContrastPyramid(LaplacianPyramid):
     """Pyramid + Weber contrast for interleaved test/reference channels at
@@ -238,20 +252,11 @@ class WeberContrastPyramid(LaplacianPyramid):
         Y of the expanded next level, ``weber_g1`` each side to its own
         expanded Y, ``weber_g0_ref`` to the reference Y of G_i itself.
 
-        ``mesh`` (``parallel/sharding.py``; raw pairs only): ``image`` is this
-        rank's row slab, and the pairs hold ``sharding.Level`` objects, each
-        the rank's slab of a row-sharded level or a whole, replicated one;
-        the baseband is whole on every rank."""
+        ``mesh`` (raw pairs only): ``decompose_sharded``."""
         if mesh is not None:
             if not raw_pairs:
                 raise ValueError("a mesh takes the raw-pair decomposition only")
-            from ..parallel.sharding import sharded_levels
-
-            levels = sharded_levels(image, self.height + 1, mesh, use_kernel)
-            contrast, logL = self._contrast(levels[-1].full(mesh), None)
-            n = len(levels)
-            return ([(levels[i], levels[i + 1]) for i in range(n - 1)] + [contrast],
-                    [None] * (n - 1) + [logL])
+            return self.decompose_sharded(image, mesh, use_kernel)
         gpyr = self.gaussian_pyramid(image, self.height + 1, use_kernel)
         lpyr, L_bkg_pyr = [], []
         for i in range(len(gpyr)):
@@ -323,22 +328,30 @@ class LogContrastPyramid(LaplacianPyramid):
         self.contrast = contrast
         self.a, self.b = LOG_A, LOG_B
 
-    def decompose(self, image, raw_pairs=False, use_kernel: bool = True):
+    def decompose(self, image, raw_pairs=False, use_kernel: bool = True, mesh=None):
         """``(bands, L_bkg_bands)``; with ``raw_pairs`` the interior levels
         come back as raw ``(G_i, G_{i+1})`` pairs with ``None`` fields (the
         band kernel forms the log contrast itself); the baseband is the same
-        either way."""
+        either way. ``mesh`` (raw pairs only): ``decompose_sharded``."""
+        if mesh is not None:
+            if not raw_pairs:
+                raise ValueError("a mesh takes the raw-pair decomposition only")
+            return self.decompose_sharded(image, mesh, use_kernel)
         gpyr = self.gaussian_pyramid(image, self.height + 1, use_kernel)
         lpyr, L_bkg_pyr = [], []
-        for i in range(len(gpyr) - 1):
-            if raw_pairs:
+        for i in range(len(gpyr)):
+            if raw_pairs and i < len(gpyr) - 1:
                 lpyr.append((gpyr[i], gpyr[i + 1]))
                 L_bkg_pyr.append(None)
                 continue
-            contrast, L_bkg = interior_contrast(
-                gpyr[i], gausspyr_expand(gpyr[i + 1], gpyr[i].shape[-2:]), "log")
+            contrast, L_bkg = self._contrast(gpyr[i], gpyr[i + 1] if i < len(gpyr) - 1 else None)
             lpyr.append(contrast)
             L_bkg_pyr.append(L_bkg)
-        lpyr.append(gpyr[-1])
-        L_bkg_pyr.append(self.a * (gpyr[-1][..., 1:2, :, :, :] - self.b))
         return lpyr, L_bkg_pyr
+
+    def _contrast(self, g, g_next):
+        """The band of level ``g`` and its adaptation field; ``g_next``, the
+        next level, is None at the baseband (the level itself, a (Y - b))."""
+        if g_next is not None:
+            return interior_contrast(g, gausspyr_expand(g_next, g.shape[-2:]), "log")
+        return g, self.a * (g[..., 1:2, :, :, :] - self.b)

@@ -14,7 +14,8 @@ its pairs and rows, (B / n_batch, F, 3, H / n_space, W). Its steps:
   does not admit is gathered and reduced whole, and every level below it is
   replicated (the same on every rank of a space group);
 * each interior band of a row-sharded level that passes ``band_shardable``
-  takes the one-pass band kernel's halo mode (``band_pooled_halo``) on its
+  takes the one-pass band kernel's halo mode (``band_pooled_halo``, in every
+  contrast coding) on its
   slab of gi (``halo_rows``: 8 rows from each neighbour, the exclude-edge
   reflection at a global edge) and the rows of the next level gn its
   expand reads (``halo_gn``: 5 rows from each neighbour of a sharded gn);
@@ -30,8 +31,19 @@ sharing a card and gloo on the CPU; with gloo, CUDA tensors are staged
 through host memory. Every routing decision follows from global shapes, so
 all ranks issue the same collectives in the same order.
 
-Pooled scoring only: a heatmap, ``use_band_mega`` or a configuration off
-the band kernel's raw-pair route raises under a mesh.
+Every configuration of the metric runs: the band kernel's, in every
+contrast coding, as above; any other (another masking model or clamp, the
+cross-channel mix off) gathers the block's rows (``gather_rows``) and runs
+the single-device block, the generic chain, on every rank. An image's heatmap takes the halo mode's D
+output on the halo bands (``band_pooled_d_halo``), each band's map pooled
+over the channels on its rows, then gathered. The collectives are
+``torch.autograd.Function``s (``_ExchangeRows``, ``_GatherRows``,
+``_SumSpace``, ``_GatherBatch``), so ``shard_loss_fn`` differentiates the
+same step: each halo row's gradient goes back to its owner, a gathered
+level keeps the rank's rows, the space group's sum passes its gradient to
+every rank's term unchanged, and a replicated level read by a halo band
+(``_Partial``) sums the ranks' gradients. ``use_band_mega``, channel dumps
+and a video's heatmap raise under a mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import band_pooled as bp
@@ -73,6 +86,9 @@ class Mesh:
         self.b, self.s = divmod(rank, n_space)
         self.backend = dist.get_backend() if world > 1 else None
         self.space_group = self.batch_group = None
+        # The last backward collective's token in a differentiable step
+        # (``_chained``); ``sharded_levels`` starts each block's chain.
+        self.token = None
         if n_space > 1:
             for b in range(n_batch):
                 g = dist.new_group([b * n_space + s for s in range(n_space)])
@@ -140,13 +156,8 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM, group=None):
     return buf.to(x.device)
 
 
-def exchange_rows(x: torch.Tensor, r: int, mesh: Mesh):
-    """(above, below): the last ``r`` rows (axis -2) of the rank above and the
-    first ``r`` of the rank below in this rank's space group, zeros at the
-    global edges. One ``all_gather`` of every rank's edge rows."""
+def _exchange(x: torch.Tensor, r: int, mesh: Mesh):
     zeros = x.new_zeros(x.shape[:-2] + (r, x.shape[-1]))
-    if mesh.n_space == 1:
-        return zeros, zeros
     edges = torch.cat([x[..., :r, :], x[..., -r:, :]], dim=-2)
     parts = _all_gather(edges, mesh.space_group, mesh.n_space, mesh)
     above = parts[mesh.s - 1][..., r:, :] if mesh.s > 0 else zeros
@@ -154,23 +165,137 @@ def exchange_rows(x: torch.Tensor, r: int, mesh: Mesh):
     return above, below
 
 
-def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The whole level on every rank of the space group (rows, axis -2)."""
+class _ExchangeRows(torch.autograd.Function):
+    """``exchange_rows`` with its adjoint: each halo row's gradient goes back
+    to the rank that owns the row and is added there (one ``all_gather`` of
+    every rank's two halo gradients). ``token`` orders the backward passes
+    that run collectives (this one's and ``_Partial``'s): each takes the
+    previous one's token and gives a new one, so every rank runs them in
+    the same order, the reverse of the forward's, whatever order the
+    autograd engine finds the rest of the graph in."""
+
+    @staticmethod
+    def forward(ctx, x, token, r, mesh):
+        ctx.r, ctx.mesh, ctx.shape = r, mesh, x.shape
+        return (*_exchange(x, r, mesh), token.clone())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_above, g_below, g_token):
+        r, mesh = ctx.r, ctx.mesh
+        parts = _all_gather(torch.cat([g_above, g_below], dim=-2), mesh.space_group,
+                            mesh.n_space, mesh)
+        dx = g_above.new_zeros(ctx.shape)
+        if mesh.s > 0:  # the rank above read my first rows as its halo below
+            dx[..., :r, :] += parts[mesh.s - 1][..., r:, :]
+        if mesh.s < mesh.n_space - 1:  # the rank below read my last rows
+            dx[..., -r:, :] += parts[mesh.s + 1][..., :r, :]
+        return dx, g_token, None, None
+
+
+def _chained(fn, x, mesh: Mesh, *args):
+    """``fn.apply(x, token, *args, mesh)``, a Function whose backward runs a
+    collective, with the step's token chain threaded through it."""
+    token = mesh.token if mesh.token is not None else x.new_zeros((), requires_grad=True)
+    *outs, mesh.token = fn.apply(x, token, *args, mesh)
+    return outs
+
+
+def exchange_rows(x: torch.Tensor, r: int, mesh: Mesh):
+    """(above, below): the last ``r`` rows (axis -2) of the rank above and the
+    first ``r`` of the rank below in this rank's space group, zeros at the
+    global edges. One ``all_gather`` of every rank's edge rows;
+    differentiable (``_ExchangeRows``)."""
     if mesh.n_space == 1:
-        return x
-    return torch.cat(_all_gather(x, mesh.space_group, mesh.n_space, mesh), dim=-2)
+        zeros = x.new_zeros(x.shape[:-2] + (r, x.shape[-1]))
+        return zeros, zeros
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _exchange(x, r, mesh)
+    return tuple(_chained(_ExchangeRows, x, mesh, r))
+
+
+class _GatherRows(torch.autograd.Function):
+    """The whole level from every rank's slab; the adjoint keeps this
+    rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.h = mesh, x.shape[-2]
+        return torch.cat(_all_gather(x, mesh.space_group, mesh.n_space, mesh), dim=-2)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        s, h = ctx.mesh.s, ctx.h
+        return g[..., s * h:(s + 1) * h, :].contiguous(), None
+
+
+class _SumSpace(torch.autograd.Function):
+    """The sum over the space group. The adjoint is the identity: every rank
+    evaluates the same loss from the summed total, so each passes the
+    total's gradient to its own term (an ``all_reduce`` of the gradients
+    would count it ``n_space`` times)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce(x, mesh, group=mesh.space_group)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherBatch(torch.autograd.Function):
+    """The whole batch from every batch group's pairs; the adjoint keeps
+    this rank's pairs."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, x.shape[0]
+        return torch.cat(_all_gather(x, mesh.batch_group, mesh.n_batch, mesh), dim=0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        b, n = ctx.mesh.b, ctx.n
+        return g[b * n:(b + 1) * n].contiguous(), None
+
+
+class _Partial(torch.autograd.Function):
+    """The identity from a replicated tensor (the same on every rank of the
+    space group) into a computation whose result differs by rank and is
+    summed over the space group later (a halo band's pooled sums). The
+    adjoint sums the ranks' gradients, so that the replicated tensor's
+    gradient is again the same on every rank; ``token`` as
+    ``_ExchangeRows``'s."""
+
+    @staticmethod
+    def forward(ctx, x, token, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x), token.clone()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, g_token):
+        return _all_reduce(g, ctx.mesh, group=ctx.mesh.space_group), g_token, None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole level on every rank of the space group (rows, axis -2);
+    differentiable."""
+    return x if mesh.n_space == 1 else _GatherRows.apply(x, mesh)
 
 
 def sum_space(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``x`` over the space group."""
-    return x if mesh.n_space == 1 else _all_reduce(x, mesh, group=mesh.space_group)
+    """The sum of ``x`` over the space group; differentiable."""
+    return x if mesh.n_space == 1 else _SumSpace.apply(x, mesh)
 
 
 def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The whole batch (axis 0) on every rank of the batch group."""
-    if mesh.n_batch == 1:
-        return x
-    return torch.cat(_all_gather(x, mesh.batch_group, mesh.n_batch, mesh), dim=0)
+    """The whole batch (axis 0) on every rank of the batch group;
+    differentiable."""
+    return x if mesh.n_batch == 1 else _GatherBatch.apply(x, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +343,7 @@ def sharded_reduce(x: torch.Tensor, mesh: Mesh, use_kernel: bool = True) -> torc
     # last-sample corrections (trap 1).
     above, below = exchange_rows(x, REDUCE_HALO, mesh)
     xh = torch.cat([above, x, below], dim=-2)
-    y = (prd.pyramid_reduce_slab if use_kernel else reduce_slab_plain)(xh, False)
+    y = prd.ReduceSlab.apply(xh, False) if use_kernel else reduce_slab_plain(xh, False)
     k0, k1, k4 = (float(K5[t]) for t in (0, 1, 4))
 
     def hrow(row):
@@ -235,7 +360,10 @@ def sharded_levels(image: torch.Tensor, n_levels: int, mesh: Mesh, use_kernel: b
     """The Gaussian pyramid of this rank's slab as ``Level`` objects: levels
     stay row-sharded while ``slab_reducible`` admits them; the first level it
     does not admit is gathered and reduced whole, and the levels below it
-    are replicated."""
+    are replicated. Every sharded block starts here, the checkpoint's
+    recompute too, so a new chain of backward collectives
+    (``_chained``) starts here."""
+    mesh.token = None
     levels = [Level(image, mesh.n_space > 1, image.shape[-2] * mesh.n_space)]
     for _ in range(1, n_levels):
         lv = levels[-1]
@@ -268,8 +396,11 @@ def halo_gn(gn: Level, mesh: Mesh):
     band slab reads (``halo_rows`` of the band, the reflection included),
     from global row ``row0`` on. A sharded gn gives ``GN_HALO_ROWS`` rows to
     each neighbour (zeros past a global edge, where the expand clamps and
-    never reads them); a replicated one is passed whole."""
+    never reads them); a replicated one is passed whole (through
+    ``_Partial``, whose adjoint sums the ranks' gradients)."""
     if not gn.sharded:
+        if mesh.n_space > 1 and torch.is_grad_enabled() and gn.x.requires_grad:
+            return _chained(_Partial, gn.x, mesh)[0], 0
         return gn.x, 0
     r = bp.GN_HALO_ROWS
     above, below = exchange_rows(gn.x, r, mesh)
@@ -303,19 +434,25 @@ def band_shardable(params, h: int, w: int, mesh: Mesh) -> bool:
 # Scoring steps
 
 
-def _check_metric(metric):
-    if metric.do_heatmap:
-        raise NotImplementedError("heatmaps are not sharded yet")
+def _check_metric(metric, video: bool = False):
     if metric.use_band_mega:
         raise ValueError("use_band_mega takes no mesh (the JAX gate admits it without one)")
+    if metric.dump_channels:
+        raise ValueError("channel dumps take no mesh")
+    if video and metric.do_heatmap:
+        raise ValueError("the sharded video step gives no heatmap (the JAX package's discards "
+                         "it); score the heatmap of a video on one device")
 
 
 def shard_scoring_fn(metric, vid_source, met_colorspace, raw_shape, dtype, mesh: Mesh):
-    """The image step under ``mesh``: ``fn(raw_t, raw_r) -> Q_per_ch (B, C,
-    1, bands)``, the same on every rank, where the raws are this rank's
-    blocks (B / n_batch, 1, C, H / n_space, W) of the global ``raw_shape``
-    (``image_pair_sharding``), on the metric's device. ``dtype`` keeps the
-    JAX package's signature; the conversion reads the tensors' own."""
+    """The image step under ``mesh``: ``fn(raw_t, raw_r) -> (Q_per_ch (B, C,
+    1, bands), heatmap)``, both the same on every rank, where the raws are
+    this rank's blocks (B / n_batch, 1, C, H / n_space, W) of the global
+    ``raw_shape`` (``image_pair_sharding``), on the metric's device.
+    ``heatmap`` is None unless the metric has one, else the float16 map
+    (B, 1 or 3, 1, H, W) on the device, as ``predict`` draws it. ``dtype``
+    keeps the JAX package's signature; the conversion reads the tensors'
+    own."""
     _check_metric(metric)
     B, _, _, H, W = (int(v) for v in raw_shape)
     _slices(mesh, B, H)
@@ -325,10 +462,28 @@ def shard_scoring_fn(metric, vid_source, met_colorspace, raw_shape, dtype, mesh:
     def fn(raw_t, raw_r):
         T = ing.raw_to_met(dm, raw_t, met_colorspace)
         R = ing.raw_to_met(dm, raw_r, met_colorspace)
-        return metric._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True,
-                                     mesh=mesh)[0]
+        Q, hm, context = metric._process_block(ing.interleave_tr(T, R), temp_ch=1,
+                                               is_image=True, heatmap=metric.do_heatmap,
+                                               mesh=mesh)
+        return Q, None if hm is None else metric._heatmap_map(hm, context)
 
     return fn
+
+
+def shard_loss_fn(metric, height: int, width: int, mesh: Mesh, remat: bool = True):
+    """The training step under ``mesh``, the counterpart of the JAX package's
+    sharded gradient step (``__graft_entry__.py:115-140``): ``fn(test, ref)
+    -> loss`` over this rank's slab (B / n_batch, 3, 1, height / n_space,
+    width) of display-encoded float32 pairs on the metric's device. The
+    loss, mean(10 - JOD) over the whole batch, is the same on every rank;
+    its ``backward()`` leaves on each rank the gradient of the rank's own
+    slab. ``get_loss_fn(mesh=)``: the colour conversion, the interleave,
+    ``_process_block`` under ``torch.utils.checkpoint`` with ``remat``,
+    the pooling, TF32 off."""
+    _check_metric(metric)
+    if height % mesh.n_space:
+        raise ValueError(f"height {height} must divide by the mesh's {mesh.n_space} row slabs")
+    return metric.get_loss_fn(height, width, remat=remat, mesh=mesh)
 
 
 def _temporal_taps(metric, vid_source):
@@ -346,8 +501,9 @@ def shard_video_fn(metric, vid_source, met_colorspace, raw_shape, dtype, mesh: M
     (B / n_batch, 3, fl - 1, H / n_space, W) this rank's rows. The ingest is
     row-local (the ingest kernel on the slab). As in the JAX package
     (``sharding.py:280-284``), the first block pads by repeating frame 0
-    whatever ``temp_padding`` says. ``dtype`` as in ``shard_scoring_fn``."""
-    _check_metric(metric)
+    whatever ``temp_padding`` says. ``dtype`` as in ``shard_scoring_fn``. A
+    heatmap metric is refused (the JAX package's step discards the map)."""
+    _check_metric(metric, video=True)
     B, _, _, H, W = (int(v) for v in raw_shape)
     _slices(mesh, B, H)
     metric._ensure_pyramids(W, H)
@@ -403,7 +559,9 @@ def predict_video_source(metric, vid_source, mesh: Mesh):
     every rank reads its pairs and rows of each block, and all get the same
     ``(Q_jod, stats)``. ``stats`` holds ``Q_per_ch``, ``block_N_frames``,
     ``block_loop_s``, the block loop's wall time on this rank, and
-    ``block_s``, each block's (the device synchronised after each)."""
+    ``block_s``, each block's (the device synchronised after each); for an
+    image with a heatmap metric also ``heatmap``, the host's float16 map
+    (a video's is refused, as ``shard_video_fn`` refuses it)."""
     h, w, N = vid_source.get_video_size()
     B = vid_source.get_batch_size()
     if vid_source.test_video.shape[0] != vid_source.reference_video.shape[0]:
@@ -428,13 +586,15 @@ def predict_video_source(metric, vid_source, mesh: Mesh):
         return time.time()
 
     t0 = t = time.time()
+    heatmap = None
     if N == 1:
         raws = [block(s, 0, 1) for s in ("test", "reference")]
         fn = shard_scoring_fn(metric, vid_source, met_cs, global_shape(raws[0]), raws[0].dtype,
                               mesh)
-        Q_per_ch, block_N = fn(*raws), 1
+        (Q_per_ch, heatmap), block_N = fn(*raws), 1
         lap(t)
     else:
+        _check_metric(metric, video=True)
         _temporal_taps(metric, vid_source)  # the block model reads filter_len
         block_N = agreed_block_N(metric, (bs.stop - bs.start) * (hs.stop - hs.start) * w,
                                  N, mesh)
@@ -452,9 +612,11 @@ def predict_video_source(metric, vid_source, mesh: Mesh):
         Q_per_ch = torch.cat(Q_blocks, dim=2)
     loop_s = time.time() - t0
     Q_jod = metric.do_pooling_and_jods(Q_per_ch)
-    return Q_jod, {"Q_per_ch": Q_per_ch.cpu().numpy(), "block_N_frames": block_N,
-                   "block_loop_s": loop_s, "block_s": block_s, "width": w, "height": h,
-                   "N_frames": N}
+    stats = {"Q_per_ch": Q_per_ch.cpu().numpy(), "block_N_frames": block_N,
+             "block_loop_s": loop_s, "block_s": block_s, "width": w, "height": h, "N_frames": N}
+    if heatmap is not None:
+        stats["heatmap"] = heatmap.cpu().numpy()
+    return Q_jod, stats
 
 
 # ---------------------------------------------------------------------------
@@ -473,27 +635,44 @@ def warm_up(mesh: Mesh, device: torch.device):
 
 
 def score_rank(rank: int, world: int, spec: dict) -> dict:
-    """Rank target: score the pair in ``spec`` under a mesh of ``world``
-    ranks, on the device ``launch.run_ranks`` gave this rank. ``spec``:
-    ``test`` and ``reference``, paths of .npy arrays (read memory-mapped, so
-    a rank reads only its rows), ``dim_order``, ``fps``, ``display_name``,
-    and optionally ``batch`` (the mesh's batch groups), ``gpu_mem``,
-    ``temp_padding``, ``enable_fused_kernels``. Returns the JOD, Q_per_ch,
-    this rank's launches of every kernel wrapper, block length, set-up
-    seconds (the mesh's groups, the metric, the kernel library and one
-    collective on each group), block-loop seconds and each block's, and
-    peak device memory."""
+    """Rank target: score the pair in ``spec`` under a mesh of ``world`` ranks, on
+    the device ``launch.run_ranks`` gave this rank. ``spec``: ``test`` and
+    ``reference``, paths of .npy arrays (read memory-mapped, so a rank reads
+    only its rows), ``dim_order``, ``fps``, ``display_name``, and optionally
+    ``batch`` (the mesh's batch groups), ``gpu_mem``, ``temp_padding``,
+    ``enable_fused_kernels``, ``heatmap`` (an image's), and ``contrast``,
+    ``masking_model`` or ``dclamp_type``, a configuration (the default
+    parameters with those keys, written to a directory of the rank's own).
+    With ``loss`` the arrays are display-encoded float32 (B, 3, 1, H, W)
+    pairs and the rank runs ``shard_loss_fn`` steps instead (``steps``, 1 by
+    default): it returns the loss and its slab's gradient. Returns the JOD,
+    Q_per_ch, this rank's launches of every kernel wrapper, block length,
+    set-up seconds (the mesh's groups, the metric, the kernel library and
+    one collective on each group), block-loop seconds and each block's, and
+    peak device memory; with a heatmap the host's float16 map."""
+    import shutil
+    import tempfile
+
     from ..io.video_source import video_source_array
     from ..metrics.cvvdp import cvvdp
     from ..ops.kernels import _build, counted_wrappers
+    from ..utils.config import write_parameters
 
     if "device" in spec:
         raise ValueError("score_rank: the rank's device is run_ranks's `device`, not spec's")
     t0 = time.time()
     dev = rank_device()
     mesh = make_mesh(spec.get("batch"))
-    m = cvvdp(display_name=spec["display_name"], device=str(dev), quiet=True,
-              gpu_mem=spec.get("gpu_mem"), temp_padding=spec.get("temp_padding", "replicate"))
+    overrides = {k: spec[k] for k in ("contrast", "masking_model", "dclamp_type") if k in spec}
+    cfg_dir = tempfile.mkdtemp(prefix="cvvdp_rank_") if overrides else None
+    try:
+        m = cvvdp(display_name=spec["display_name"], device=str(dev), quiet=True,
+                  gpu_mem=spec.get("gpu_mem"), temp_padding=spec.get("temp_padding", "replicate"),
+                  heatmap=spec.get("heatmap"),
+                  config_paths=write_parameters(cfg_dir, **overrides) if overrides else None)
+    finally:
+        if cfg_dir:
+            shutil.rmtree(cfg_dir, ignore_errors=True)
     m.enable_fused_kernels = spec.get("enable_fused_kernels", True)
     if dev.type == "cuda":
         _build.library()
@@ -503,21 +682,51 @@ def score_rank(rank: int, world: int, spec: dict) -> dict:
     setup_s = time.time() - t0
     test = np.load(spec["test"], mmap_mode="r")
     ref = np.load(spec["reference"], mmap_mode="r")
-    vs = video_source_array(test, ref, spec["fps"], dim_order=spec["dim_order"],
-                            display_photometry=m.display_photometry)
     counters = counted_wrappers()
     for fn in counters.values():
         fn.launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    Q, stats = predict_video_source(m, vs, mesh)
-    return {"rank": rank, "b": mesh.b, "s": mesh.s, "jod": np.asarray(Q.cpu()),
-            "Q_per_ch": stats["Q_per_ch"], "block_N": stats["block_N_frames"],
-            "setup_s": setup_s, "block_loop_s": stats["block_loop_s"],
-            "block_s": stats["block_s"], "route": m.sharded_route,
-            "launches": {k: fn.launches for k, fn in counters.items()},
-            "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
-            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+    out = {"rank": rank, "b": mesh.b, "s": mesh.s,
+           "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+    if spec.get("loss"):
+        out.update(loss_step(m, test, ref, mesh, dev, spec.get("steps", 1)))
+    else:
+        vs = video_source_array(test, ref, spec["fps"], dim_order=spec["dim_order"],
+                                display_photometry=m.display_photometry)
+        Q, stats = predict_video_source(m, vs, mesh)
+        out.update(jod=np.asarray(Q.cpu()), Q_per_ch=stats["Q_per_ch"],
+                   block_N=stats["block_N_frames"], block_loop_s=stats["block_loop_s"],
+                   block_s=stats["block_s"], heatmap=stats.get("heatmap"))
+    out.update(setup_s=setup_s, route=m.sharded_route,
+               launches={k: fn.launches for k, fn in counters.items()},
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+    return out
+
+
+def loss_step(metric, test, ref, mesh: Mesh, dev, steps: int = 1) -> dict:
+    """``steps`` ``shard_loss_fn`` steps (forward and backward) on this
+    rank's slab of the global (B, 3, 1, H, W) arrays ``test`` and ``ref``:
+    the loss and the gradient of the rank's test slab (on the host) of the
+    last, and each step's wall seconds (the device synchronised)."""
+    B, H, W = test.shape[0], test.shape[-2], test.shape[-1]
+    bs, hs = _slices(mesh, B, H)
+
+    def slab(a):
+        return torch.from_numpy(np.ascontiguousarray(a[bs, ..., hs, :], np.float32)).to(dev)
+
+    r_loc = slab(ref)
+    fn = shard_loss_fn(metric, H, W, mesh)
+    step_s = []
+    for _ in range(steps):
+        t_loc = slab(test).requires_grad_()
+        t0 = time.time()
+        loss = fn(t_loc, r_loc)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        step_s.append(time.time() - t0)
+    return {"loss": float(loss.detach()), "grad": t_loc.grad.cpu().numpy(), "step_s": step_s}
 
 
 def reduce_rank(rank: int, world: int, x: np.ndarray, batch: int, use_kernel: bool) -> dict:

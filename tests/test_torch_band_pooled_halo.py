@@ -98,7 +98,8 @@ def test_halo_mode_plain_is_the_previous_route(monkeypatch, s, gn_sharded):
 
 def test_halo_mode_guards():
     """gn rows that do not hold what the slab's expand reads, a slab without
-    its halo rows and a contrast-band coding are refused."""
+    its halo rows and a band without the masking blur are refused (every
+    contrast coding is taken)."""
     k, luts, gi, gn = _band(seed=1)
     r, h_loc = bm.HALO_ROWS, H // N_SPACE
     x = gi[..., :h_loc + 2 * r, :]
@@ -108,9 +109,13 @@ def test_halo_mode_guards():
         bp.band_pooled_halo([x[..., :2 * r, :]], [gn], luts[:1], [1.0], k, [(0, H, 0)])
     import dataclasses
 
-    with pytest.raises(ValueError, match="raw codings"):
-        bp.band_pooled_halo([x], [gn], luts[:1], [1.0], dataclasses.replace(k, coding="log"),
-                            [(h_loc, H, 0)])
+    no_blur = dataclasses.replace(k, params=dataclasses.replace(k.params, pu_dilate=0))
+    for fn in (bp.band_pooled_halo, bp.band_pooled_d_halo):
+        with pytest.raises(ValueError, match="blur"):
+            fn([x], [gn], luts[:1], [1.0], no_blur, [(h_loc, H, 0)])
+    got = bp.band_pooled_halo([x], [gn], luts[:1], [1.0], dataclasses.replace(k, coding="log"),
+                              [(h_loc, H, 0)])
+    assert got.shape == (1, B, C, F) and bool(torch.isfinite(got).all())
 
 
 def test_sharded_image_1x2_hands_gn_rows_to_the_halo_mode(tmp_path):

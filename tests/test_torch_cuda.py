@@ -931,6 +931,132 @@ def test_band_pooled_halo_kernel(dev, C):
         bp.band_pooled_halo([xs[0]], [ys[0][..., :-6, :]], lt[:1], [1.0], consts, [slabs[0]])
 
 
+@pytest.mark.parametrize("coding", bm.CODINGS)
+def test_band_pooled_halo_codings_and_d_kernel(dev, tmp_path, coding):
+    """The halo mode in every contrast coding, pooled (``band_pooled_halo``)
+    and with D (``band_pooled_d_halo``), on the first, a middle and the last
+    of 4 slabs of a 2-band launch (a sharded gn, and a replicated one with
+    an unaligned width): sums within 1e-4 of the plain version, D within
+    1e-5 per plane, the D mode's sums those of the pooled mode, and the
+    owned rows' D and sums bit for bit the whole bands' (``band_pooled_d``
+    on the card)."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda",
+                 config_paths=write_parameters(str(tmp_path), contrast=coding))
+    m._ensure_pyramids(517, 256)
+    consts, luts = m._band_tables(4)
+    assert consts.coding == coding
+    n, r = 4, bm.HALO_ROWS
+    shapes, sharded = [(256, 512), (128, 259)], [True, False]
+    g = torch.Generator(device=dev).manual_seed(7)
+    lo, span = (-1.0, 2.0) if coding == "log" else (30.0, 20.0)
+    gis = [torch.rand(1, 8, 3, h, w, device=dev, generator=g) * span + lo for h, w in shapes]
+    gns = [pyramid_reduce(x) for x in gis]
+    lt, muls = luts[0:2].contiguous(), [1.0, 2.0]
+    D_whole, s_whole = bp.band_pooled_d(gis, gns, lt, muls, consts)
+    for s in (0, 1, n - 1):
+        xs = [_halo_slab(x, s, n, r) for x in gis]
+        ys, row0s = zip(*[_gn_rows(gn, s, n, sh) for gn, sh in zip(gns, sharded)])
+        slabs = [(s * (h // n), h, row0) for (h, _), row0 in zip(shapes, row0s)]
+        args = (xs, list(ys), lt, muls, consts, slabs)
+        before = bp.band_pooled_halo.launches, bp.band_pooled_d_halo.launches
+        got = bp.band_pooled_halo(*args)
+        Ds, s_d = bp.band_pooled_d_halo(*args)
+        assert (bp.band_pooled_halo.launches, bp.band_pooled_d_halo.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(s_d, got)
+        assert _rel(got, bp.band_pooled_halo_plain(*args)) <= 1e-4
+        D_p, _ = bp.band_pooled_d_halo_plain(*args)
+        for i, (h, _) in enumerate(shapes):
+            h_loc = h // n
+            assert Ds[i].shape == D_p[i].shape and _rel_planes(Ds[i], D_p[i]) <= 1e-5
+            own = D_whole[i][..., s * h_loc:(s + 1) * h_loc, :]
+            assert torch.equal(Ds[i], own)
+
+
+def test_band_pooled_halo_backward_kernels(dev):
+    """``BandPooledHalo``'s backward on the card recomputes the halo chain
+    with the blur kernel over the whole slab (``halo_D_plain`` with
+    ``use_kernel``: the owned rows bit for bit the plain tap loop's) and
+    differentiates it through ``blur_adjoint`` and ``csf_lut_bwd``; its
+    gradients within 1e-5 of max|g| of the plain chain's autograd."""
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m._ensure_pyramids(517, 256)
+    consts, luts = m._band_tables(3)
+    n, r, s = 4, bm.HALO_ROWS, 1
+    g = torch.Generator(device=dev).manual_seed(9)
+    gi = torch.rand(1, 6, 2, 256, 512, device=dev, generator=g) * 20 + 30
+    gn = pyramid_reduce(gi)
+    x = _halo_slab(gi, s, n, r)
+    y, row0 = _gn_rows(gn, s, n, True)
+    slab, lt = (s * 64, 256, row0), luts[0:1].contiguous()
+    E = bp.halo_expand_plain(x, y, slab)
+    m_h, d_h = bp._stage_a(x, E, lt[0], 1.0, consts)
+    assert torch.equal(bm.halo_D_plain(m_h, d_h, consts, 64, use_kernel=True),
+                       bm.halo_D_plain(m_h, d_h, consts, 64))
+    w = torch.rand(1, 1, 3, 2, device=dev, generator=g)
+    grads = []
+    for use_k in (True, False):
+        xs, ys = x.clone().requires_grad_(), y.clone().requires_grad_()
+        before = bl.blur_adjoint.launches, lut.csf_lut_bwd.launches
+        sums = bp.band_pooled_halo_sums([xs], [ys], lt, [1.0], consts, [slab], use_kernel=use_k)
+        torch.sum(torch.sqrt(sums) * w).backward()
+        grew = bl.blur_adjoint.launches > before[0], lut.csf_lut_bwd.launches > before[1]
+        assert grew == (use_k, use_k)
+        grads.append((xs.grad, ys.grad))
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("world,batch", [(2, 1), (4, 2)])
+def test_sharded_heatmap_and_loss_on_the_card(dev, tmp_path, world, batch):
+    """On ``world`` ranks on the card(s) (NCCL with a card each, else gloo
+    sharing them): a raw heatmap of a 192x512 image on a (1, world) mesh
+    (``band_pooled_d_halo`` on every rank, the heatmap within 1.1e-3 of
+    single-device scoring's) and a B = 2 ``shard_loss_fn`` step on a
+    (batch, world / batch) mesh (loss within 1e-4, the gathered gradient
+    within 1e-3 of max|g| of the single-device ``get_loss_fn`` on the
+    card)."""
+    from colorvideovdp_tpu_torch.parallel import run_ranks
+    from colorvideovdp_tpu_torch.parallel import sharding as sh
+
+    rng = np.random.RandomState(6)
+    img = [rng.randint(0, 255, (192, 512, 3), dtype=np.uint8) for _ in range(2)]
+    ref = rng.rand(2, 3, 1, 192, 512).astype(np.float32)
+    test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
+    specs = []
+    for name, pair, extra in (("hm", img, dict(heatmap="raw", dim_order="HWC", fps=0, batch=1)),
+                              ("loss", (test, ref), dict(loss=True, batch=batch))):
+        paths = [str(tmp_path / f"{name}{i}.npy") for i in range(2)]
+        for p, a in zip(paths, pair):
+            np.save(p, a)
+        specs.append(dict(test=paths[0], reference=paths[1], display_name="standard_4k",
+                          **extra))
+    from colorvideovdp_tpu_torch.parallel import launch
+
+    res = run_ranks(launch.run_jobs, world, ([(sh.score_rank, (sp,)) for sp in specs],),
+                    device="cuda", timeout_s=300)
+    Q1, st = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap="raw").predict(
+        *img, dim_order="HWC")
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    t = torch.from_numpy(test).to(dev).requires_grad_()
+    v = m.get_loss_fn(192, 512)(t, torch.from_numpy(ref).to(dev))
+    v.backward()
+    g1 = t.grad.cpu().numpy()
+    got = np.full_like(g1, np.nan)
+    for _, loss in res:
+        g = loss["grad"]
+        bl, hl = g.shape[0], g.shape[-2]
+        got[loss["b"] * bl:(loss["b"] + 1) * bl, ..., loss["s"] * hl:(loss["s"] + 1) * hl, :] = g
+    for hm, loss in res:
+        assert abs(float(hm["jod"]) - float(Q1)) <= 2e-4
+        assert hm["launches"]["band_pooled_d_halo"] > 0
+        assert np.abs(hm["heatmap"].astype(np.float32) - st["heatmap"].astype(np.float32)
+                      ).max() <= 1.1e-3
+        assert abs(loss["loss"] - float(v.detach())) <= 1e-4
+        assert loss["launches"]["band_pooled_halo"] > 0
+    assert np.abs(got - g1).max() <= 1e-3 * np.abs(g1).max()
+
+
 def test_sharded_scoring_on_the_card(dev, tmp_path):
     """A 192x512 image and a 2-block 128x256 video on a (1, 2) mesh of two
     ranks on the card(s): the JODs of single-device scoring, and the slab

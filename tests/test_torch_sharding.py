@@ -234,7 +234,9 @@ def test_block_gpu_mem_inverts_the_block_model():
 
 
 def test_mesh_and_heatmap_guards():
-    """A mesh needs the ranks it names; heatmaps and the mega route take none."""
+    """A mesh needs the ranks it names; a video's heatmap, channel dumps and
+    the mega route take none (an image's heatmap does: shard_scoring_fn
+    returns it beside Q)."""
     with pytest.raises(ValueError):
         sh.make_mesh(3)  # 1 rank does not split into 3 batch groups
     with pytest.raises(ValueError):
@@ -242,11 +244,21 @@ def test_mesh_and_heatmap_guards():
     mesh = sh.make_mesh()
     assert (mesh.n_batch, mesh.n_space, mesh.b, mesh.s) == (1, 1, 0, 0)
     m = ct.cvvdp(display_name="standard_4k", device="cpu", heatmap="raw")
-    vs = ct.video_source_array(np.zeros((16, 64, 3), np.uint8), np.zeros((16, 64, 3), np.uint8),
-                               0, dim_order="HWC", display_photometry=m.display_photometry)
-    with pytest.raises(NotImplementedError):
-        sh.shard_scoring_fn(m, vs, "DKLd65", (1, 1, 3, 16, 64), np.uint8, mesh)
+    img = np.random.RandomState(0).randint(0, 255, (16, 64, 3), dtype=np.uint8)
+    vs = ct.video_source_array(img, img, 0, dim_order="HWC",
+                               display_photometry=m.display_photometry)
+    with pytest.raises(ValueError, match="heatmap"):
+        sh.shard_video_fn(m, vs, "DKLd65", (1, 4, 3, 16, 64), np.uint8, mesh, first=True)
+    raws = [m._upload(vs.get_raw_block(s, 0, 1)) for s in ("test", "reference")]
+    Q, hm = sh.shard_scoring_fn(m, vs, "DKLd65", (1, 1, 3, 16, 64), np.uint8, mesh)(*raws)
+    assert hm.dtype == torch.float16 and tuple(hm.shape) == (1, 1, 1, 16, 64)
+    with pytest.raises(ValueError, match="dumps"):
+        m._process_block(torch.zeros(1, 6, 1, 16, 64), temp_ch=1, is_image=True, mesh=mesh,
+                         dump={})
     m = ct.cvvdp(display_name="standard_4k", device="cpu")
+    assert sh.shard_scoring_fn(m, vs, "DKLd65", (1, 1, 3, 16, 64), np.uint8, mesh)(*raws)[1] is None
     m.use_band_mega = True
     with pytest.raises(ValueError):
         sh.shard_video_fn(m, vs, "DKLd65", (1, 4, 3, 16, 64), np.uint8, mesh, first=True)
+    with pytest.raises(ValueError):
+        sh.shard_loss_fn(m, 16, 64, mesh)
