@@ -219,6 +219,28 @@ Phase 13 the file-driven entry points on phase 12's files (phase 0 prints
          two workers, a resume and a merge on the 4K pair, the FHD pair
          and a missing file, whose row alone reads "error". Without
          matplotlib the distogram is left to the CPU tests.
+Phase 14 calibration (``colorvideovdp_tpu_torch.calibration``) on a seeded
+         rated dataset in a temporary directory: 3 contents x 3 noise levels
+         of FHD 10-bit 4:2:0 BT.2020 PQ .yuv pairs (8 frames, about 50 MB a
+         file) on standard_hdr_pq and one sRGB PNG pair per content on
+         standard_fhd, the CSV's header naming the per-row display, the
+         content split, 67 % train and seed 0. Extraction worker 1/2
+         in-process (its launches are the kernels line's ``calib`` path:
+         ingest, the reduce, ``band_pooled`` and the CSF LUT), worker 2/2
+         as ``python -m``, then ``--resume`` (no file rewritten, no
+         launch); the files are the CSV's rows in the split of numpy's
+         seeded permutation. Every row's features bit for bit the API's
+         ``Q_per_ch`` for the pair; one video and one image row plain,
+         their JODs within 1e-3 of the kernels'. The refit (30 epochs,
+         batch 2, ``--save best-rmse``) on the card and on the CPU: every
+         fitted float within 1e-5, no kernel launched; a pair scored with
+         the fitted config within 1e-4 JOD of the trainer's prediction from
+         its features. Both ML families' seeded weights through a
+         Lightning-style checkpoint, the port's converter and
+         ``--validate``: the converted npz scores a FHD image pair bit for
+         bit as the seeded metric. Extraction seconds a pair, one pair's
+         host read, the refit's ms an epoch on each device, the phase's
+         wall time.
 
 Every kernel's row also carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move (each input
@@ -1043,13 +1065,14 @@ def phase_configs(m, fps, rows, record, counters, gen):
 
 
 def seeded_ml_weights(seed):
-    """Weights with every key and shape of the published checkpoints
-    (``tools/cvvdp_ml_manifest.json``, both ML families): Linear weights
-    uniform in +-1/sqrt(fan_in) (non-negative in the MLPs' last layers, so
+    """Weights with every key and shape of the published checkpoints (the
+    port's ``tools/cvvdp_ml_manifest.json``, both ML families): Linear
+    weights uniform in +-1/sqrt(fan_in) (non-negative in the MLPs' last layers, so
     that the saliency head's two ReLU outputs respond), biases uniform in
     +-0.3, LayerNorm gains near 1, the class token standard normal."""
-    with open("tools/cvvdp_ml_manifest.json") as f:
-        manifest = json.load(f)
+    from colorvideovdp_tpu_torch.tools.convert_ml_ckpt import load_manifest
+
+    manifest = load_manifest()
     shapes = {**manifest["cvvdp_ml_saliency"], **manifest["cvvdp_ml_transformer"]}
     rng = np.random.RandomState(seed)
     out = {}
@@ -2031,32 +2054,35 @@ FILE_PATH = ("ingest", "pyramid_reduce", "band_pooled", "csf_lut")
 FRAME_PATH = ("pyramid_reduce", "band_pooled", "csf_lut")
 
 
-def write_yuv_pair(dirname, V_test, V_ref, fps):
-    """10-bit 4:2:0 BT.2020 limited-range .yuv files of uint8 display-encoded
-    (H, W, 3, N) RGB, each chroma sample the mean of its 2x2 block, named by
-    ``create_yuv_fname``. Returns the (test, reference) paths."""
+def write_yuv(dirname, tag, V, fps):
+    """A 10-bit 4:2:0 BT.2020 limited-range .yuv file of uint8
+    display-encoded (H, W, 3, N) RGB, each chroma sample the mean of its 2x2
+    block, named by ``create_yuv_fname``. Returns its path."""
     import os
 
     from colorvideovdp_tpu_torch.io.ffcodec import rgb_to_ycbcr_coeffs
     from colorvideovdp_tpu_torch.io.yuv import create_yuv_fname
 
-    H, W, _, N = V_ref.shape
+    H, W, _, N = V.shape
     rows = [c.astype(np.float32) for c in rgb_to_ycbcr_coeffs("2020")]
-    names = []
-    for tag, V in (("test", V_test), ("ref", V_ref)):
-        name = os.path.join(dirname, create_yuv_fname(tag, dict(
-            width=W, height=H, fps=fps, bit_depth=10, chroma_ss="420", color_space="2020")))
-        with open(name, "wb") as f:
-            for i in range(N):
-                rgb = V[:, :, :, i].astype(np.float32) / 255.0
-                planes = [rgb @ rows[0] * 219.0 + 16.0]
-                for row in rows[1:]:
-                    c = (rgb @ row).reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3))
-                    planes.append(c * 224.0 + 128.0)
-                for plane in planes:
-                    np.clip(np.round(plane * 4.0), 0, 1023).astype("<u2").tofile(f)
-        names.append(name)
-    return names
+    name = os.path.join(dirname, create_yuv_fname(tag, dict(
+        width=W, height=H, fps=fps, bit_depth=10, chroma_ss="420", color_space="2020")))
+    with open(name, "wb") as f:
+        for i in range(N):
+            rgb = V[:, :, :, i].astype(np.float32) / 255.0
+            planes = [rgb @ rows[0] * 219.0 + 16.0]
+            for row in rows[1:]:
+                c = (rgb @ row).reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3))
+                planes.append(c * 224.0 + 128.0)
+            for plane in planes:
+                np.clip(np.round(plane * 4.0), 0, 1023).astype("<u2").tofile(f)
+    return name
+
+
+def write_yuv_pair(dirname, V_test, V_ref, fps):
+    """``write_yuv`` of the test and the reference. Returns the (test,
+    reference) paths."""
+    return [write_yuv(dirname, tag, V, fps) for tag, V in (("test", V_test), ("ref", V_ref))]
 
 
 class FrameByFrame:
@@ -2570,6 +2596,281 @@ def phase_cli(files, fps, counters, smi, tmp, have):
         + f" ({smi})")
     log(f"phase 13: {time.time() - t_phase:.1f} s")
     return paths
+
+
+# Calibration on the card (phase 14): a seeded rated dataset, feature
+# extraction by two workers and a resume, the features against the API,
+# the refit on the card and on the CPU, and the ML checkpoint converter.
+CALIB_PATH = FILE_PATH
+CALIB_H, CALIB_W, CALIB_N, CALIB_FPS = 1080, 1920, 8, 30.0
+CALIB_SIGMAS = (2.0, 6.0, 14.0)  # noise levels (8-bit code values) of the distortions
+CALIB_EPOCHS = 30
+CALIB_PLAIN_JOD_TOL = 1e-3  # a pair's JOD from plain features against the kernels'
+CALIB_FIT_TOL = 1e-5  # every fitted float, the card's refit against the CPU's
+CALIB_CONFIG_JOD_TOL = 1e-4  # the fitted config's JOD against the trainer's prediction
+
+
+def write_calib_dataset(d):
+    """Phase 14's rated dataset in ``d``: for each of 3 contents a FHD
+    10-bit 4:2:0 BT.2020 PQ .yuv reference (a gradient with a sinusoidal
+    texture, 8 static frames at 30 fps) and 3 tests with one dynamic noise
+    field at growing strength on standard_hdr_pq, and one sRGB PNG pair on
+    standard_fhd; the CSV with its header (per-row display, split by
+    content, 67 % train, seed 0). Returns the CSV path and its rows
+    (test, reference, jod, display, content)."""
+    import os
+
+    import cv2
+
+    H, W, N = CALIB_H, CALIB_W, CALIB_N
+    rng = np.random.default_rng(14)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    rows = []
+    for c in range(3):
+        tex = np.sin(xx / (6.0 + 4 * c)) * np.cos(yy / (9.0 + 3 * c))
+        ref = np.stack([0.15 + 0.5 * xx / W + 0.1 * c + k * tex
+                        for k in (0.06, 0.04, 0.08)], axis=-1)
+        ref = np.clip(np.round(ref * 255), 0, 255).astype(np.uint8)
+        V_ref = np.repeat(ref[..., None], N, axis=3)
+        ref_name = os.path.basename(write_yuv(d, f"c{c}_ref", V_ref, CALIB_FPS))
+        # One noise field a content, scaled to each level.
+        noise = rng.standard_normal((H, W, 3, N), dtype=np.float32)
+        for lvl, sigma in enumerate(CALIB_SIGMAS):
+            V_test = np.clip(V_ref + np.round(noise * sigma), 0, 255).astype(np.uint8)
+            test_name = os.path.basename(write_yuv(d, f"c{c}_d{lvl}", V_test, CALIB_FPS))
+            rows.append((test_name, ref_name, round(9.6 - 1.3 * lvl - 0.25 * c, 2),
+                         "standard_hdr_pq", f"c{c}"))
+        noise = rng.standard_normal((H, W, 3), dtype=np.float32) * (4.0 + 4 * c)
+        img = np.clip(ref + np.round(noise), 0, 255).astype(np.uint8)
+        for tag, I in (("test", img), ("ref", ref)):
+            cv2.imwrite(os.path.join(d, f"c{c}_img_{tag}.png"), I[..., ::-1],
+                        [cv2.IMWRITE_PNG_COMPRESSION, 1])
+        rows.append((f"c{c}_img_test.png", f"c{c}_img_ref.png", round(8.8 - 0.4 * c, 2),
+                     "standard_fhd", f"c{c}"))
+    csv = os.path.join(d, "ratings.csv")
+    with open(csv, "w") as f:
+        f.write("display: per-row\nsplit-column: content\ntrain-ratio: 67\nseed: 0\n")
+        f.write("test,reference,jod,display,content\n")
+        f.writelines(",".join(map(str, r)) + "\n" for r in rows)
+    return csv, rows
+
+
+def phase_calib(counters, smi):
+    """Phase 14: calibration on the card. Returns the extraction's launches
+    (the in-process worker's) as the ``calib`` path."""
+    import glob
+    import os
+
+    import pandas as pd
+
+    import colorvideovdp_tpu_torch as cvt
+    from colorvideovdp_tpu_torch.calibration import data, extract_features, train
+    from colorvideovdp_tpu_torch.io.video_source_file import video_source_file
+    from colorvideovdp_tpu_torch.tools import convert_ml_ckpt
+
+    t_phase = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix="cvvdp_calib_")
+    try:
+        t0 = time.time()
+        csv, rows = write_calib_dataset(d)
+        log(f"phase 14: {len(rows)} rated pairs ({3 * len(CALIB_SIGMAS)} FHD {CALIB_N}-frame "
+            f".yuv, {os.path.getsize(os.path.join(d, rows[0][0])) / 1e6:.1f} MB a file; 3 FHD "
+            f"PNG) written in {time.time() - t0:.1f} s")
+        # The split of the JAX scripts: numpy's permutation of the contents
+        # under seed 0, the first 67 % train.
+        contents = list(dict.fromkeys(r[4] for r in rows))
+        train_cond = set(np.random.RandomState(0).permutation(contents)[: 3 * 67 // 100])
+        want = {os.path.join("train" if r[4] in train_cond else "test",
+                             os.path.splitext(r[0])[0] + "_fmap.json") for r in rows}
+        feats = os.path.join(d, "features")
+
+        def written():
+            return {os.path.relpath(f, feats): os.stat(f).st_mtime_ns
+                    for f in glob.glob(os.path.join(feats, "*", "*_fmap.json"))}
+
+        # Worker 1 of 2 in-process, its launches counted; worker 2 of 2 in
+        # a process of its own; then a resume of the whole list.
+        argv = [csv, "-p", d]
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.chdir(d):
+            extract_features.main(argv + ["-w", "1/2"])
+        torch.cuda.synchronize()
+        t_w1 = time.time() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        n_w1 = len(range(0, len(rows), 2))
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m",
+                               "colorvideovdp_tpu_torch.calibration.extract_features", *argv,
+                               "-w", "2/2"], cwd=d, env=dict(os.environ, PYTHONPATH=root),
+                              capture_output=True, text=True, timeout=300)
+        t_w2 = time.time() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 14: worker 2/2 failed: {proc.stderr[-3000:]}")
+        before = written()
+        for fn in counters.values():
+            fn.launches = 0
+        with contextlib.chdir(d):
+            extract_features.main(argv + ["--resume"])
+        resumed = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        vs = video_source_file(*(os.path.join(d, n) for n in rows[0][:2]),
+                               display_photometry=rows[0][3])
+        t0 = time.time()
+        for side in ("test", "reference"):
+            vs.get_raw_block(side, 0, CALIB_N)
+        t_read = time.time() - t0
+        log(f"phase 14: extraction worker 1/2 in-process {t_w1:.3f} s for {n_w1} pairs "
+            f"({t_w1 / n_w1:.3f} s a pair, the metric's set-up included); worker 2/2 as "
+            f"python -m {t_w2:.3f} s for {len(rows) - n_w1} pairs from the process's start; "
+            f"launches of worker 1/2 { {k: v for k, v in launches.items() if v} }; host read of "
+            f"one .yuv pair's {CALIB_N} packed frames {1e3 * t_read:.1f} ms ({smi})")
+        for k in CALIB_PATH:
+            if launches[k] <= 0:
+                raise AssertionError(f"phase 14: kernel {k} was not launched by the extraction")
+        for k in YARDSTICKS:
+            if launches[k] != 0:
+                raise AssertionError(f"phase 14: {k} launched by the extraction: {launches}")
+        if set(before) != want:
+            raise AssertionError(f"phase 14: feature files {sorted(before)}, want {sorted(want)}")
+        if written() != before or resumed:
+            raise AssertionError(f"phase 14: --resume rewrote files or launched {resumed}")
+        log(f"phase 14: the two workers wrote the {len(want)} rows' features, "
+            f"{sum(f.startswith('train') for f in want)} train (contents "
+            f"{sorted(map(str, train_cond))}); --resume rewrote none")
+
+        # The features against the API, bit for bit; one video and one
+        # image row plain.
+        def api(r, fused=True):
+            display = r[3]
+            geom = cvt.vvdp_display_geometry.load(display)
+            m = cvt.cvvdp(display_name=display, device="cuda", quiet=True,
+                          temp_padding="replicate")
+            m.enable_fused_kernels = fused
+            vs = video_source_file(os.path.join(d, r[0]), os.path.join(d, r[1]),
+                                   display_photometry=display, resize_resolution=geom.resolution)
+            _, st = m.predict_video_source(vs)
+            return m, np.asarray(st["Q_per_ch"])
+
+        # The features as the trainer reads them (float32, exactly the
+        # JSON's values), by test file.
+        table = pd.read_csv(csv, skiprows=4)
+        feat = {}
+        for split in ("train", "test"):
+            sub = table[table["content"].isin(train_cond) == (split == "train")]
+            ds = data.VideoDataset(feats, sub, split, False)
+            feat.update((t, ds[i][0]) for i, t in enumerate(sub["test"]))
+
+        t0 = time.time()
+        for r in rows:
+            _, Q = api(r)
+            if not np.array_equal(feat[r[0]], Q):
+                raise AssertionError(f"phase 14: the features of {r[0]} are not the API's "
+                                     f"Q_per_ch (max |d| {np.abs(feat[r[0]] - Q).max()})")
+        t_api = time.time() - t0
+        msgs = []
+        for r in (rows[0], rows[3]):
+            Q = feat[r[0]]
+            m, Q_p = api(r, fused=False)
+            jk, jp = (float(m.do_pooling_and_jods(torch.as_tensor(q, dtype=torch.float32,
+                                                                  device=m.device)))
+                      for q in (Q, Q_p))
+            rel = float(np.abs(Q.astype(np.float64) - Q_p).max() / np.abs(Q_p).max())
+            msgs.append(f"{r[0]}: JOD kernels {jk:.6f} plain {jp:.6f}, max relative feature "
+                        f"difference {rel:.3e}")
+            if not abs(jk - jp) <= CALIB_PLAIN_JOD_TOL:
+                raise AssertionError(f"phase 14: {r[0]}: JOD kernels {jk} vs plain {jp}")
+        log(f"phase 14: every row's features are the API's Q_per_ch bit for bit ({len(rows)} "
+            f"pairs scored again in {t_api:.3f} s); " + "; ".join(msgs))
+
+        # The refit on the card and on the CPU, on the same features.
+        fits = {}
+        for device in ("cuda", "cpu"):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.time()
+            with contextlib.chdir(d):
+                fits[device] = train.main([csv, "-e", str(CALIB_EPOCHS), "-b", "2", "--save",
+                                           "best-rmse", "-o", os.path.join(d, f"fitted_{device}"),
+                                           "--device", device])
+            wall = time.time() - t0
+            ran = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            ep = fits[device]["epoch_s"]
+            log(f"phase 14: refit on {device}: {CALIB_EPOCHS} epochs in {wall:.3f} s, "
+                f"{1e3 * float(np.median(ep)):.3f} ms per epoch (median; min "
+                f"{1e3 * min(ep):.3f}, max {1e3 * max(ep):.3f}), kernel launches {ran}")
+            if ran:
+                raise AssertionError(f"phase 14: the refit launched kernels: {ran}")
+        cfg = {}
+        for device, fit in fits.items():
+            with open(fit["config"]) as f:
+                cfg[device] = {k: np.asarray(v, np.float64) for k, v in json.load(f).items()
+                               if k not in ("__comment", "calibration_date")
+                               and not isinstance(v, (str, int))}
+        if sorted(cfg["cuda"]) != sorted(cfg["cpu"]):
+            raise AssertionError("phase 14: the fitted configs hold other keys")
+        d_fit = max(float(np.abs(cfg["cuda"][k] - cfg["cpu"][k]).max()) for k in cfg["cpu"])
+        with open(os.path.join(root, "colorvideovdp_tpu", "vvdp_data",
+                               "cvvdp_parameters.json")) as f:
+            init = json.load(f)
+        moved = {k: round(float(np.abs(cfg["cuda"][k] - np.asarray(init[k])).max()), 6)
+                 for k in train.PARAMS}
+        log(f"phase 14: fitted floats card against CPU within {d_fit:.3e} (tolerance "
+            f"{CALIB_FIT_TOL:.0e}); moved from the default by {moved}")
+        if not d_fit <= CALIB_FIT_TOL:
+            raise AssertionError(f"phase 14: fitted configs differ by {d_fit}")
+
+        # A pair scored with the fitted config against the trainer's
+        # prediction from its features.
+        out_dir = os.path.dirname(fits["cuda"]["config"])
+        r = rows[1]
+        m_fit = cvt.cvvdp(display_name=r[3], device="cuda", quiet=True,
+                          temp_padding="replicate", config_paths=[out_dir])
+        geom = cvt.vvdp_display_geometry.load(r[3])
+        vs = video_source_file(os.path.join(d, r[0]), os.path.join(d, r[1]),
+                               display_photometry=r[3], resize_resolution=geom.resolution)
+        jod_api = float(m_fit.predict_video_source(vs)[0])
+        jod_fit = train.predict(train.init_params(m_fit, m_fit.device), feat[r[0]],
+                                train.pool_kwargs(m_fit))
+        log(f"phase 14: {r[0]} with the fitted config: JOD {jod_api:.6f}, the trainer's "
+            f"prediction {jod_fit:.6f} (|d| {abs(jod_api - jod_fit):.2e}, tolerance "
+            f"{CALIB_CONFIG_JOD_TOL:.0e})")
+        if not abs(jod_api - jod_fit) <= CALIB_CONFIG_JOD_TOL:
+            raise AssertionError(f"phase 14: fitted config JOD {jod_api} vs {jod_fit}")
+
+        # The ML checkpoint converter: seeded weights (phase 8's, whose
+        # saliency head responds) through a checkpoint, the port's tool and
+        # config_paths score as the seeded metric.
+        img = [os.path.join(d, n) for n in rows[3][:2]]
+        manifest = convert_ml_ckpt.load_manifest()
+        weights = seeded_ml_weights(14)
+        for family, cls in (("cvvdp_ml_saliency", cvt.cvvdp_ml_saliency),
+                            ("cvvdp_ml_transformer", cvt.cvvdp_ml_transformer)):
+            fam_dir = os.path.join(d, family)
+            os.makedirs(fam_dir)
+            m_seed = cls(display_name="standard_fhd", device="cuda", random_init=True)
+            m_seed.load_weights({k: weights[k] for k in manifest[family]})
+            ckpt = os.path.join(fam_dir, "cvvdp.ckpt")
+            torch.save({"state_dict": {k: torch.from_numpy(v)
+                                       for k, v in m_seed.ml_weights().items()}}, ckpt)
+            npz = os.path.join(fam_dir, "cvvdp_ml.npz")
+            convert_ml_ckpt.main([ckpt, npz])
+            convert_ml_ckpt.main(["--validate", npz, family])
+            m_conv = cls(display_name="standard_fhd", device="cuda", config_paths=[fam_dir])
+            jods = []
+            for m in (m_seed, m_conv):
+                vs = video_source_file(*img, display_photometry="standard_fhd")
+                jods.append(float(m.predict_video_source(vs)[0]))
+            log(f"phase 14: {family}: converted checkpoint JOD {jods[1]!r}, seeded metric "
+                f"{jods[0]!r}")
+            if jods[1] != jods[0] or not 0.0 < jods[0] < 10.0:
+                raise AssertionError(f"phase 14: {family}: converted JOD {jods[1]} vs {jods[0]}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"phase 14: {time.time() - t_phase:.1f} s ({smi})")
+    return {"calib": launches}
 
 
 def block_loop_split(cvt, vs, N, pix, fps, split_blk):
@@ -3285,6 +3586,9 @@ def main():
         cli_launches = phase_cli(files, fps, counters, smi, tmp, have)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    calib_launches = phase_calib(counters, smi)
 
     src = "colorvideovdp_tpu_torch/csrc/"
     kernels = {
@@ -3337,7 +3641,8 @@ def main():
                    **{p: c[k] for p, c in il_launches.items()},
                    **{p: c[k] for p, c in shard_launches.items()},
                    **{p: c[k] for p, c in file_launches.items()},
-                   **{p: c[k] for p, c in cli_launches.items()}}
+                   **{p: c[k] for p, c in cli_launches.items()},
+                   **{p: c[k] for p, c in calib_launches.items()}}
         if k in ("pyramid_reduce_slab", "band_masking_halo", "band_pooled_halo"):
             n_main = shard_launches["sharded_4k_video"][k]
         elif k == "band_pooled_d_halo":

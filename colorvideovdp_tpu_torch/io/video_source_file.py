@@ -5,8 +5,9 @@ prefers the native codec library (``io/ffcodec.py``: in-process libavcodec,
 8/10/12-bit planar YUV, converted on the metric's device by
 ``io/yuv.py`` ``unpack_planar``) and falls back to OpenCV's bundled FFmpeg
 (``cv2.VideoCapture``, 8-bit RGB) where the library is not built or cannot
-open the file. Images use imageio, ``.hdr`` cv2, and ``.exr`` the package's
-own EXR codec (``utils/exr.py``). ``.mat`` files use scipy.
+open the file. Images use imageio (OpenCV where imageio is not installed),
+``.hdr`` cv2, and ``.exr`` the package's own EXR codec (``utils/exr.py``).
+``.mat`` files use scipy.
 
 Decoded frames stream into the metric through the raw-block protocol
 (``get_raw_block``): the host decodes a block of frames into one contiguous
@@ -36,6 +37,23 @@ IMG_EXTENSIONS = [
 ]
 
 
+def _imread_cv2(imgfile: str) -> np.ndarray:
+    """An image as imageio reads it, through OpenCV where imageio is not
+    installed: RGB(A) order, one plane for a grey image, the stored depth
+    (8 or 16 bits), except that a 16-bit colour PNG keeps its high bytes,
+    as imageio's Pillow reader gives it."""
+    import cv2
+
+    img = cv2.imread(imgfile, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise vq_exception(f"Cannot read image '{imgfile}'")
+    if img.ndim == 3:
+        img = img[:, :, [2, 1, 0, 3][: img.shape[2]]]  # BGR(A) -> RGB(A)
+        if img.dtype == np.uint16 and imgfile.lower().endswith(".png"):
+            img = (img >> 8).astype(np.uint8)
+    return np.ascontiguousarray(img)
+
+
 def load_image_as_array(imgfile: str) -> np.ndarray:
     """Image file -> numpy array (H, W, C); 16-bit PNG kept, EXR/HDR as
     float32 linear."""
@@ -59,9 +77,12 @@ def load_image_as_array(imgfile: str) -> np.ndarray:
             img = img[:, :, [2, 1, 0]]  # BGR -> RGB
         img = np.ascontiguousarray(img.astype(np.float32))
     else:
-        import imageio.v2 as iio
-
-        img = np.asarray(iio.imread(imgfile))
+        try:
+            import imageio.v2 as iio
+        except ImportError:
+            img = _imread_cv2(imgfile)
+        else:
+            img = np.asarray(iio.imread(imgfile))
 
     if img.ndim == 3 and img.shape[2] > 3:
         logging.warning(

@@ -17,12 +17,12 @@ package leaves them to XLA.
 
 Weights: the published checkpoints are not in the repository. They are read
 from a ``cvvdp_ml.npz`` in the checkpoint's flat key layout
-(``"<net>.<key>"``, ``tools/cvvdp_ml_manifest.json``), searched on
-``config_paths``, the family's directory
+(``"<net>.<key>"``, ``tools/cvvdp_ml_manifest.json`` of this package),
+searched on ``config_paths``, the family's directory
 ``vvdp_data/cvvdp_ml_{saliency,transformer}/``, ``$CVVDP_PATH`` and
-``vvdp_data/``; the JAX package's ``tools/convert_ml_ckpt.py`` writes one
-from a torch checkpoint. ``random_init=True`` runs with random weights
-instead.
+``vvdp_data/``; ``python -m colorvideovdp_tpu_torch.tools.convert_ml_ckpt
+cvvdp.ckpt cvvdp_ml.npz`` writes one from a torch checkpoint.
+``random_init=True`` runs with random weights instead.
 """
 
 from __future__ import annotations
@@ -365,8 +365,9 @@ class cvvdp_ml_base(cvvdp):
                 raise vq_exception(
                     "ML-head weights not found. The reference downloads "
                     "torch checkpoints from huggingface.co/gfxdisp/cvvdp_ml; "
-                    "convert one with tools/convert_ml_ckpt.py and place the "
-                    "resulting cvvdp_ml.npz on a config path, or pass "
+                    "convert one with python -m "
+                    "colorvideovdp_tpu_torch.tools.convert_ml_ckpt and place "
+                    "the resulting cvvdp_ml.npz on a config path, or pass "
                     f"random_init=True. ({e})"
                 ) from e
             self.load_weights(flat)

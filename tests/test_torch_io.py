@@ -4,6 +4,7 @@ unpack, .mat, image and EXR files, the dispatch, the per-frame API, and the
 JOD of each kind of file pair and of the per-frame route."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -290,6 +291,31 @@ def test_image_mat_and_exr_sources_match_jax(tmp_path):
             b = getattr(st, "get_" + which)(size[2] - 1, device="cpu", colorspace="DKLd65")
             assert b.device.type == "cpu"
             assert np.abs(b.numpy() - a).max() <= 1e-5 * np.abs(a).max()
+
+
+@pytest.mark.parametrize("kind", ["rgb8", "rgb16", "rgba8", "rgba16", "grey8", "grey16"])
+def test_png_without_imageio_reads_as_imageio_and_jax(tmp_path, monkeypatch, kind):
+    """Where imageio is not installed, PNGs are read
+    through OpenCV: the same array as imageio's and the JAX package's (a
+    16-bit colour PNG as its high bytes, as imageio's Pillow reader gives
+    it)."""
+    import cv2
+
+    rng = np.random.RandomState(len(kind))
+    dt = np.uint16 if kind.endswith("16") else np.uint8
+    shape = (H, W) if kind.startswith("grey") else (H, W, 4 if kind in ("rgba8", "rgba16") else 3)
+    img = rng.randint(0, np.iinfo(dt).max + 1, shape).astype(dt)
+    path = str(tmp_path / f"{kind}.png")
+    assert cv2.imwrite(path, img if img.ndim == 2 else img[..., [2, 1, 0, 3][: shape[2]]])
+    want = vsf_j.load_image_as_array(path)
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    got = vsf_t.load_image_as_array(path)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if img.ndim == 3 and dt == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    np.testing.assert_array_equal(got, img[..., :3] if img.ndim == 3 else img[..., None])
 
 
 def test_per_frame_api_of_yuv_and_array_sources_match_jax(tmp_path):
