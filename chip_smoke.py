@@ -1774,7 +1774,7 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
         jod = float(rr["jod"])
         log(f"phase 11: rank {rr['rank']} (b {rr['b']}, s {rr['s']}) on {rr['device']}: JOD "
             f"{jod:.6f}, blk {rr['block_N']}, set-up {rr['setup_s']:.3f} s, block loop "
-            f"{rr['block_loop_s']:.3f} s (blocks {[round(t, 3) for t in rr['block_s']]} s), "
+            f"{rr['block_loop_s']:.3f} s, "
             f"peak memory {rr['peak_bytes'] / 2**30:.2f} GiB, route {rr['route']}, launches "
             f"{rr['launches']}")
         if rr["block_N"] != blk:

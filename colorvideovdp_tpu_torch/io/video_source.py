@@ -18,6 +18,7 @@ import torch
 
 from ..display import vvdp_display_photometry
 from ..ops.kernels.ingest import raw_to_float
+from ..utils import spans
 
 
 def reshuffle_dims(a: np.ndarray, in_dims: str, out_dims: str = "BCFHW") -> np.ndarray:
@@ -49,10 +50,11 @@ def reshuffle_dims(a: np.ndarray, in_dims: str, out_dims: str = "BCFHW") -> np.n
 def upload(a: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device`` as it is, uint16 as its int16 bits (the
     dtype ladder and the unpacks read them back)."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint16:
-        a = a.view(np.int16)
-    return torch.from_numpy(a).to(device)
+    with spans.span("cvvdp.upload", bytes=a.nbytes):
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint16:
+            a = a.view(np.int16)
+        return torch.from_numpy(a).to(device)
 
 
 def frame_to_float32(frame: np.ndarray, device) -> torch.Tensor:
@@ -201,7 +203,8 @@ class video_source_array(video_source_dm):
     def _bfchw(self, which: str) -> np.ndarray:
         if which not in self._raw_fmajor:
             src = self.test_video if which == "test" else self.reference_video
-            self._raw_fmajor[which] = np.ascontiguousarray(np.transpose(src, (0, 2, 1, 3, 4)))
+            with spans.span("cvvdp.relayout", bytes=src.nbytes):
+                self._raw_fmajor[which] = np.ascontiguousarray(np.transpose(src, (0, 2, 1, 3, 4)))
         return self._raw_fmajor[which]
 
     def get_raw_block(self, which: str, start: int, count: int, batch=slice(None),
@@ -209,13 +212,14 @@ class video_source_array(video_source_dm):
         """Raw source-dtype frames (B, count, C, H, W); short tails are padded
         by repeating the last frame (the metric trims the padded outputs).
         ``batch`` and ``rows`` select one rank's pairs and rows under a mesh."""
-        src = self._bfchw(which)[batch, :, :, rows]
+        src = self._bfchw(which)
         end = min(start + count, src.shape[1])
-        block = src[:, start:end]
-        if end - start < count:
-            pad = np.repeat(block[:, -1:], count - (end - start), axis=1)
-            block = np.concatenate([block, pad], axis=1)
-        return block
+        with spans.span("cvvdp.read", frames=count, padded=count - (end - start)):
+            block = src[batch, start:end, :, rows]
+            if end - start < count:
+                pad = np.repeat(block[:, -1:], count - (end - start), axis=1)
+                block = np.concatenate([block, pad], axis=1)
+            return block
 
     def get_raw_frame_list(self, which: str, indices) -> np.ndarray:
         """Arbitrary raw frames (B, len(indices), C, H, W): the symmetric head."""

@@ -8,6 +8,7 @@ import torch
 
 from ..display import vvdp_display_geometry, vvdp_display_photometry
 from ..io.video_source import video_source_array
+from ..utils import spans
 
 
 class vq_exception(Exception):
@@ -46,10 +47,11 @@ class vq_metric:
     """Abstract video-quality metric."""
 
     def predict(self, test_cont, reference_cont, dim_order="BCFHW", frames_per_second=0):
-        test_vs = video_source_array(
-            test_cont, reference_cont, frames_per_second, dim_order=dim_order,
-            display_photometry=self.display_photometry)
-        return self.predict_video_source(test_vs)
+        with spans.request("cvvdp.predict"):
+            test_vs = video_source_array(
+                test_cont, reference_cont, frames_per_second, dim_order=dim_order,
+                display_photometry=self.display_photometry)
+            return self.predict_video_source(test_vs)
 
     def predict_video_source(self, vid_source):
         raise NotImplementedError

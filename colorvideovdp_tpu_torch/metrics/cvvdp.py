@@ -77,6 +77,7 @@ from ..ops.kernels.csf_lut import CsfLut
 from ..ops import pyramid as pyr
 from ..ops.pyramid import LaplacianPyramid, LogContrastPyramid, WeberContrastPyramid
 from ..ops.temporal import get_temporal_filters
+from ..utils import spans
 from ..utils.config import config_files, json2dict
 from .base import metric_device, no_tf32, register_metric, vq_exception, vq_metric
 
@@ -97,6 +98,9 @@ class _NoTF32(torch.autograd.Function):
         with no_tf32(), torch.enable_grad():
             out = fn(*ins)
         ctx.ins, ctx.out = ins, out
+        # The backward's spans join the forward's request (autograd may run
+        # the backward on a thread of its own).
+        ctx.spans = spans.carry()
         return out.detach()
 
     @staticmethod
@@ -105,7 +109,7 @@ class _NoTF32(torch.autograd.Function):
         ins, out = ctx.ins, ctx.out
         ctx.ins = ctx.out = None
         need = [t for t in ins if t.requires_grad]
-        with no_tf32():
+        with spans.resume(ctx.spans), spans.span("cvvdp.loss.backward"), no_tf32():
             grads = iter(torch.autograd.grad(out, need, g))
         return (None, *(next(grads) if t.requires_grad else None for t in ins))
 
@@ -318,10 +322,16 @@ class cvvdp(vq_metric):
         met_cs = self.met_colorspace()
 
         def block(test, ref):
-            T = dm.source_2_target_colorspace(test, met_cs)
-            R = dm.source_2_target_colorspace(ref, met_cs)
-            return self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True,
-                                       mesh=mesh)[0]
+            # Run again inside the backward, the block is the checkpoint's
+            # recompute.
+            name = ("cvvdp.loss.recompute" if spans.inside("cvvdp.loss.backward")
+                    else "cvvdp.block")
+            with spans.span(name):
+                with spans.span("cvvdp.ingest"):
+                    T = dm.source_2_target_colorspace(test, met_cs)
+                    R = dm.source_2_target_colorspace(ref, met_cs)
+                    R = ing.interleave_tr(T, R)
+                return self._process_block(R, temp_ch=1, is_image=True, mesh=mesh)[0]
 
         def loss(test, ref):
             if remat:
@@ -332,10 +342,11 @@ class cvvdp(vq_metric):
             return torch.mean(10.0 - self.do_pooling_and_jods(Q_per_ch))
 
         def loss_fn(test, ref):
-            if not torch.is_grad_enabled():
-                with no_tf32():
-                    return loss(test, ref)
-            return _NoTF32.apply(loss, test, ref)
+            with spans.span("cvvdp.loss.forward"):
+                if not torch.is_grad_enabled():
+                    with no_tf32():
+                        return loss(test, ref)
+                return _NoTF32.apply(loss, test, ref)
 
         return loss_fn
 
@@ -420,6 +431,10 @@ class cvvdp(vq_metric):
     @no_tf32()
     def predict_video_source(self, vid_source):
         """Score a video source; returns (Q_jod, stats)."""
+        with spans.request("cvvdp.predict") as root:
+            return self._predict_video_source(vid_source, root)
+
+    def _predict_video_source(self, vid_source, root):
         h, w, N_frames = vid_source.get_video_size()
         batch_sz = vid_source.get_batch_size()
         if batch_sz > 1 and self.do_heatmap:
@@ -444,6 +459,7 @@ class cvvdp(vq_metric):
                   else self._frame_blocks)
         Q_blocks = []
         block_N = 1 if is_image else self.estimate_block_N(h * w * batch_sz, N_frames)
+        root.set(frames=N_frames, block_N=block_N)
         for ff, cur, R, temp_ch in blocks(vid_source, N_frames, block_N, batch_sz, met_cs):
             dumped = {} if dump else None
             Q, hm, context = self._process_block(R, temp_ch=temp_ch, is_image=is_image,
@@ -457,23 +473,25 @@ class cvvdp(vq_metric):
                 heatmap[:, :, ff:ff + cur] = self._heatmap_frames(hm[:, :, :cur],
                                                                   context[:, :cur])
 
-        Q_per_ch = torch.cat(Q_blocks, dim=2) if len(Q_blocks) > 1 else Q_blocks[0]
         fps = vid_source.get_frames_per_second()
-        if self.temp_resample:
-            # The frame axis resampled linearly to nominal_fps, as the JAX
-            # package does (the reference metric's own resampling is dead
-            # code that would resample the channel axis).
-            t_end = N_frames / fps
-            t_org = torch.as_tensor(linspace32(t_end, N_frames), device=Q_per_ch.device)
-            N_res = math.ceil(t_end * self.nominal_fps)
-            t_res = torch.as_tensor(linspace32(N_res / self.nominal_fps, N_res),
-                                    device=Q_per_ch.device)
-            Q_per_ch = interp1dim2(t_org, Q_per_ch.movedim(2, 1), t_res).movedim(1, 2)
-            N_frames = N_res
-            fps = self.nominal_fps
-        Q_jod = self.do_pooling_and_jods(Q_per_ch)
+        with spans.span("cvvdp.readback"):
+            Q_per_ch = torch.cat(Q_blocks, dim=2) if len(Q_blocks) > 1 else Q_blocks[0]
+            if self.temp_resample:
+                # The frame axis resampled linearly to nominal_fps, as the JAX
+                # package does (the reference metric's own resampling is dead
+                # code that would resample the channel axis).
+                t_end = N_frames / fps
+                t_org = torch.as_tensor(linspace32(t_end, N_frames), device=Q_per_ch.device)
+                N_res = math.ceil(t_end * self.nominal_fps)
+                t_res = torch.as_tensor(linspace32(N_res / self.nominal_fps, N_res),
+                                        device=Q_per_ch.device)
+                Q_per_ch = interp1dim2(t_org, Q_per_ch.movedim(2, 1), t_res).movedim(1, 2)
+                N_frames = N_res
+                fps = self.nominal_fps
+            Q_jod = self.do_pooling_and_jods(Q_per_ch)
+            Q_host = Q_per_ch.cpu().numpy()
         stats = {
-            "Q_per_ch": Q_per_ch.cpu().numpy(),
+            "Q_per_ch": Q_host,
             "rho_band": self.lpyr.get_freqs(),
             "frames_per_second": fps,
             "width": w,
@@ -510,9 +528,14 @@ class cvvdp(vq_metric):
         if N_frames == 1:
             raws = [self._raw(vid_source, vid_source.get_raw_block(s, 0, 1))
                     for s in ("test", "reference")]
-            T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
-                    for raw in raws)
-            yield 0, 1, ing.interleave_tr(T, R), 1
+            with spans.span("cvvdp.block"):
+                with spans.span("cvvdp.ingest"):
+                    T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
+                            for raw in raws)
+                    R = ing.interleave_tr(T, R)
+                del raws
+                # The consumer scores the block inside its span.
+                yield 0, 1, R, 1
             return
         filt = np.stack([f[::-1] for f in self.F])
         fn = ing.ingest if self.enable_fused_kernels else ing.ingest_plain
@@ -526,21 +549,33 @@ class cvvdp(vq_metric):
         prefetch = None  # the future of this block's host arrays
         with ThreadPoolExecutor(max_workers=1) as pool:
             for ff in range(0, N_frames, block_N):
-                host = prefetch.result() if prefetch is not None else read(ff)
+                if prefetch is not None:
+                    with spans.span("cvvdp.prefetch_wait"):
+                        host = prefetch.result()
+                else:
+                    host = read(ff)
                 nxt = ff + block_N
                 prefetch = None
                 if nxt < N_frames and (ff > 0 or self.temp_padding == "replicate"):
-                    prefetch = pool.submit(read, nxt)
+                    task = spans.carried(read)  # the read's parent: this request
+                    # Starting the worker hands it the interpreter lock: while
+                    # its read runs a copy that keeps the lock, this thread
+                    # waits here.
+                    with spans.span("cvvdp.prefetch_submit"):
+                        prefetch = pool.submit(task, nxt)
                 raws = [self._raw(vid_source, a) for a in host]
                 del host
-                if tails is None:
-                    tails = self._initial_tails(vid_source, dm, raws, N_frames, met_cs)
-                R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm, filt,
-                                           met_cs)
-                del raws
-                yield ff, min(block_N, N_frames - ff), R, 2
-                # Free the scored block before the next one is uploaded.
-                del R
+                with spans.span("cvvdp.block"):
+                    with spans.span("cvvdp.ingest"):
+                        if tails is None:
+                            tails = self._initial_tails(vid_source, dm, raws, N_frames, met_cs)
+                        R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm,
+                                                   filt, met_cs)
+                    del raws
+                    # The consumer scores the block inside its span.
+                    yield ff, min(block_N, N_frames - ff), R, 2
+                    # Free the scored block before the next one is uploaded.
+                    del R
 
     def _frame_blocks(self, vid_source, N_frames, block_N, batch_sz, met_cs):
         """(first frame, frames, R, temp_ch) of each block of a source read
@@ -555,7 +590,11 @@ class cvvdp(vq_metric):
 
         if N_frames == 1:
             T, R = (fetch(s, 0).expand(batch_sz, -1, -1, -1, -1) for s in (0, 1))
-            yield 0, 1, ing.interleave_tr(T, R), 1
+            with spans.span("cvvdp.block"):
+                with spans.span("cvvdp.ingest"):
+                    R = ing.interleave_tr(T, R)
+                del T
+                yield 0, 1, R, 1
             return
         fl = self.filter_len
         filt = np.stack([f[::-1] for f in self.F])
@@ -581,10 +620,12 @@ class cvvdp(vq_metric):
                 if cur < block_N:
                     frames += [torch.zeros_like(frames[0])] * (block_N - cur)
                 news.append(torch.cat(frames, dim=2))
-            R, tails[0], tails[1] = ing.temporal_fir(tails, news, filt)
-            del news
-            yield ff, cur, R, 2
-            del R
+            with spans.span("cvvdp.block"):
+                with spans.span("cvvdp.ingest"):
+                    R, tails[0], tails[1] = ing.temporal_fir(tails, news, filt)
+                del news
+                yield ff, cur, R, 2
+                del R
 
     def _check_finite(self, Q, ff):
         """With ``debug``, the JAX package's numeric check of each block."""
@@ -666,76 +707,80 @@ class cvvdp(vq_metric):
         consts, luts = self._band_tables(all_ch)
         sens_corr = 10.0 ** (self.sensitivity_correction / 20.0)
         raw_pairs = consts is not None
-        bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=raw_pairs, use_kernel=use_k)
+        with spans.span("cvvdp.pyramid"):
+            bands, L_bkg_pyr = self.lpyr.decompose(R, raw_pairs=raw_pairs, use_kernel=use_k)
 
-        Q_cols = [None] * n_bands
-        B, _, F = bands[-1].shape[:3]
-        shapes = [(bands[bb][0] if raw_pairs else bands[bb]).shape[-2:]
-                  for bb in range(n_bands - 1)]
-        muls = [1.0 if bb == 0 else 2.0 for bb in range(n_bands - 1)]
-        want_D = heatmap or dump is not None
-        maps = _BandMaps(self, all_ch, is_image, n_bands, R.device) if want_D else None
-        if dump is not None:
-            # The raw pairs' contrast bands in plain torch: only the dumps
-            # read them.
-            dump["bands"] = [
-                pyr.interior_contrast(bands[bb][0], pyr.gausspyr_expand(bands[bb][1], shapes[bb]),
-                                      self.contrast)[0] if raw_pairs else bands[bb]
-                for bb in range(n_bands - 1)] + [bands[-1]]
-            dump["D_bands"] = [None] * n_bands
-
-        def put_D(bb, D, sums=None):
-            """Band bb's Q column, from the kernel's pooled sums where given,
-            and its heatmap and dump bands."""
-            Q_cols[bb] = (mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
-                          if sums is None else bm.pooled_norm(sums, *shapes[bb], self.beta))
-            if heatmap:
-                maps.bands[bb] = maps.band(D, muls[bb])
+        with spans.span("cvvdp.bands"):
+            Q_cols = [None] * n_bands
+            B, _, F = bands[-1].shape[:3]
+            shapes = [(bands[bb][0] if raw_pairs else bands[bb]).shape[-2:]
+                      for bb in range(n_bands - 1)]
+            muls = [1.0 if bb == 0 else 2.0 for bb in range(n_bands - 1)]
+            want_D = heatmap or dump is not None
+            maps = _BandMaps(self, all_ch, is_image, n_bands, R.device) if want_D else None
             if dump is not None:
-                dump["D_bands"][bb] = D * maps.w_ch / muls[bb]
+                # The raw pairs' contrast bands in plain torch: only the dumps
+                # read them.
+                dump["bands"] = [
+                    pyr.interior_contrast(bands[bb][0],
+                                          pyr.gausspyr_expand(bands[bb][1], shapes[bb]),
+                                          self.contrast)[0] if raw_pairs else bands[bb]
+                    for bb in range(n_bands - 1)] + [bands[-1]]
+                dump["D_bands"] = [None] * n_bands
 
-        if consts is None:
-            x0, x1 = self.csf.lut_range()
-            for bb in range(n_bands - 1):
-                band = LaplacianPyramid.get_band(bands, bb)
-                # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w)
-                S = CsfLut.apply(L_bkg_pyr[bb], luts[bb], x0, x1, use_k).movedim(0, 1)[:, :, 0]
-                put_D(bb, mk.apply_masking_model(band[:, 0::2], band[:, 1::2], S * sens_corr,
-                                                 params, use_k))
-        else:
-            raw = consts.coding in bm.RAW_CODINGS  # the mega route takes the raw codings
-            mega = self._mega_bands(shapes, all_ch, params) if raw else []
-            for bb in mega:
-                gi, gn = bands[bb]
-                if want_D:
-                    fn = bf.band_fused_d if use_k else bf.band_fused_d_plain
-                    put_D(bb, *fn(gi, gn, luts[bb], muls[bb], consts))
-                else:
-                    sums = bf.band_fused_sums(gi, gn, luts[bb], muls[bb], consts, use_k)
-                    Q_cols[bb] = bm.pooled_norm(sums, *shapes[bb], self.beta)
-            rest = [bb for bb in range(n_bands - 1) if bb not in mega]
-            d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
-                       if want_D else None)
-            for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
-                                      gn=True):
-                # One pass from gi and gn: the expand and the coding are
-                # inside the kernel.
-                sel = [rest[i] for i in sel]
-                args = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
-                        luts[sel], [muls[bb] for bb in sel], consts)
-                if want_D:
-                    fn = bp.band_pooled_d if use_k else bp.band_pooled_d_plain
-                    Ds, sums = fn(*args)
+            def put_D(bb, D, sums=None):
+                """Band bb's Q column, from the kernel's pooled sums where given,
+                and its heatmap and dump bands."""
+                Q_cols[bb] = (mk.lp_norm(D, self.beta, dim=(-2, -1), normalize=True, keepdim=False)
+                              if sums is None else bm.pooled_norm(sums, *shapes[bb], self.beta))
+                if heatmap:
+                    maps.bands[bb] = maps.band(D, muls[bb])
+                if dump is not None:
+                    dump["D_bands"][bb] = D * maps.w_ch / muls[bb]
+
+            if consts is None:
+                x0, x1 = self.csf.lut_range()
+                for bb in range(n_bands - 1):
+                    band = LaplacianPyramid.get_band(bands, bb)
+                    # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w)
+                    S = CsfLut.apply(L_bkg_pyr[bb], luts[bb], x0, x1, use_k).movedim(0, 1)[:, :, 0]
+                    put_D(bb, mk.apply_masking_model(band[:, 0::2], band[:, 1::2], S * sens_corr,
+                                                     params, use_k))
+            else:
+                raw = consts.coding in bm.RAW_CODINGS  # the mega route takes the raw codings
+                mega = self._mega_bands(shapes, all_ch, params) if raw else []
+                for bb in mega:
+                    gi, gn = bands[bb]
+                    if want_D:
+                        fn = bf.band_fused_d if use_k else bf.band_fused_d_plain
+                        put_D(bb, *fn(gi, gn, luts[bb], muls[bb], consts))
+                    else:
+                        sums = bf.band_fused_sums(gi, gn, luts[bb], muls[bb], consts, use_k)
+                        Q_cols[bb] = bm.pooled_norm(sums, *shapes[bb], self.beta)
+                rest = [bb for bb in range(n_bands - 1) if bb not in mega]
+                d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
+                           if want_D else None)
+                for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
+                                          gn=True):
+                    # One pass from gi and gn: the expand and the coding are
+                    # inside the kernel.
+                    sel = [rest[i] for i in sel]
+                    args = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
+                            luts[sel], [muls[bb] for bb in sel], consts)
+                    if want_D:
+                        fn = bp.band_pooled_d if use_k else bp.band_pooled_d_plain
+                        Ds, sums = fn(*args)
+                        for j, bb in enumerate(sel):
+                            put_D(bb, Ds[j], sums[j])
+                        del Ds
+                        continue
+                    sums = bp.band_pooled_sums(*args, use_k)
                     for j, bb in enumerate(sel):
-                        put_D(bb, Ds[j], sums[j])
-                    del Ds
-                    continue
-                sums = bp.band_pooled_sums(*args, use_k)
-                for j, bb in enumerate(sel):
-                    Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
+                        Q_cols[bb] = bm.pooled_norm(sums[j], *shapes[bb], self.beta)
 
-        Q_cols[-1], D = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
-        Q = torch.stack(Q_cols, dim=-1)
+        with spans.span("cvvdp.baseband"):
+            Q_cols[-1], D = self._baseband(bands[-1], L_bkg_pyr[-1], all_ch, sens_corr)
+            Q = torch.stack(Q_cols, dim=-1)
         if dump is not None:
             dump["D_bands"][-1] = D * maps.w_ch
         if not heatmap:

@@ -62,6 +62,7 @@ from ..ops.kernels import masking_fused as bm
 from ..ops.kernels import pyramid_reduce as prd
 from ..ops.pyramid import K5, _reduce_1d, expand_rows, gausspyr_reduce, reduce_slab_plain
 from ..ops.temporal import get_temporal_filters
+from ..utils import spans
 from .launch import rank_device
 
 # Rows each rank takes from its neighbours for a slab reduce (the 5-tap
@@ -557,11 +558,16 @@ def agreed_block_N(metric, pix_loc: int, N_frames: int, mesh: Mesh) -> int:
 def predict_video_source(metric, vid_source, mesh: Mesh):
     """Score a video source (an image is the one-frame case) under ``mesh``:
     every rank reads its pairs and rows of each block, and all get the same
-    ``(Q_jod, stats)``. ``stats`` holds ``Q_per_ch``, ``block_N_frames``,
-    ``block_loop_s``, the block loop's wall time on this rank, and
-    ``block_s``, each block's (the device synchronised after each); for an
-    image with a heatmap metric also ``heatmap``, the host's float16 map
-    (a video's is refused, as ``shard_video_fn`` refuses it)."""
+    ``(Q_jod, stats)``. ``stats`` holds ``Q_per_ch``, ``block_N_frames``
+    and ``block_loop_s``, the block loop's wall time on this rank (the
+    device synchronised once, at its end); for an image with a heatmap
+    metric also ``heatmap``, the host's float16 map (a video's is refused,
+    as ``shard_video_fn`` refuses it)."""
+    with spans.request("cvvdp.predict") as root:
+        return _predict_video_source(metric, vid_source, mesh, root)
+
+
+def _predict_video_source(metric, vid_source, mesh: Mesh, root):
     h, w, N = vid_source.get_video_size()
     B = vid_source.get_batch_size()
     if vid_source.test_video.shape[0] != vid_source.reference_video.shape[0]:
@@ -577,22 +583,14 @@ def predict_video_source(metric, vid_source, mesh: Mesh):
     def global_shape(raw):
         return (B,) + tuple(raw.shape[1:3]) + (h, w)
 
-    block_s = []
-
-    def lap(t):
-        if metric.device.type == "cuda":
-            torch.cuda.synchronize(metric.device)
-        block_s.append(time.time() - t)
-        return time.time()
-
-    t0 = t = time.time()
+    t0 = time.time()
     heatmap = None
     if N == 1:
         raws = [block(s, 0, 1) for s in ("test", "reference")]
         fn = shard_scoring_fn(metric, vid_source, met_cs, global_shape(raws[0]), raws[0].dtype,
                               mesh)
-        (Q_per_ch, heatmap), block_N = fn(*raws), 1
-        lap(t)
+        with spans.span("cvvdp.block"):
+            (Q_per_ch, heatmap), block_N = fn(*raws), 1
     else:
         _check_metric(metric, video=True)
         _temporal_taps(metric, vid_source)  # the block model reads filter_len
@@ -604,16 +602,19 @@ def predict_video_source(metric, vid_source, mesh: Mesh):
             raws = [block(s, ff, block_N) for s in ("test", "reference")]
             fn = shard_video_fn(metric, vid_source, met_cs, global_shape(raws[0]),
                                 raws[0].dtype, mesh, first=tails is None)
-            Q, t_t, t_r = fn(*raws) if tails is None else fn(*tails, *raws)
+            with spans.span("cvvdp.block"):
+                Q, t_t, t_r = fn(*raws) if tails is None else fn(*tails, *raws)
             tails = (t_t, t_r)
             del raws
             Q_blocks.append(Q[:, :, :cur])
-            t = lap(t)
         Q_per_ch = torch.cat(Q_blocks, dim=2)
+    root.set(frames=N, block_N=block_N)
+    if metric.device.type == "cuda":
+        torch.cuda.synchronize(metric.device)
     loop_s = time.time() - t0
     Q_jod = metric.do_pooling_and_jods(Q_per_ch)
     stats = {"Q_per_ch": Q_per_ch.cpu().numpy(), "block_N_frames": block_N,
-             "block_loop_s": loop_s, "block_s": block_s, "width": w, "height": h, "N_frames": N}
+             "block_loop_s": loop_s, "width": w, "height": h, "N_frames": N}
     if heatmap is not None:
         stats["heatmap"] = heatmap.cpu().numpy()
     return Q_jod, stats
@@ -648,7 +649,7 @@ def score_rank(rank: int, world: int, spec: dict) -> dict:
     default): it returns the loss and its slab's gradient. Returns the JOD,
     Q_per_ch, this rank's launches of every kernel wrapper, block length,
     set-up seconds (the mesh's groups, the metric, the kernel library and
-    one collective on each group), block-loop seconds and each block's, and
+    one collective on each group), block-loop seconds and
     peak device memory; with a heatmap the host's float16 map."""
     import shutil
     import tempfile
@@ -697,7 +698,7 @@ def score_rank(rank: int, world: int, spec: dict) -> dict:
         Q, stats = predict_video_source(m, vs, mesh)
         out.update(jod=np.asarray(Q.cpu()), Q_per_ch=stats["Q_per_ch"],
                    block_N=stats["block_N_frames"], block_loop_s=stats["block_loop_s"],
-                   block_s=stats["block_s"], heatmap=stats.get("heatmap"))
+                   heatmap=stats.get("heatmap"))
     out.update(setup_s=setup_s, route=m.sharded_route,
                launches={k: fn.launches for k, fn in counters.items()},
                peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)

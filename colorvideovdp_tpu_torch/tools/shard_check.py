@@ -11,10 +11,10 @@ twice on card 0 (``cvvdp.predict``, cold then warm), then through
 ``run_ranks`` with ``sharding.score_rank``: NCCL with one rank per card when
 there are enough cards, else gloo ranks sharing them. ``gpu_mem`` is set for
 ``--block-frames`` frame blocks on each rank. Prints the card(s), the
-backend, each rank's JODs, set-up, block loop and each block's time and
-peak memory against single-device, then a JSON line; exits 1 if any rank's
-JOD is more than 1e-4 from single-device or its blocks are not
-``--block-frames`` long. ``--cpu`` rehearses on the CPU (gloo).
+backend, each rank's JODs, set-up and block loop time and peak memory
+against single-device, then a JSON line; exits 1 if any rank's JOD is more
+than 1e-4 from single-device or its blocks are not ``--block-frames``
+long. ``--cpu`` rehearses on the CPU (gloo).
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def main(argv=None) -> int:
         worst = max(worst, float(np.abs(jod - single).max()))
         print(f"shard_check: rank {r['rank']} (b {r['b']}, s {r['s']}) on {r['device']}: JOD "
               f"{jod.tolist()}, blk {r['block_N']}, set-up {r['setup_s']:.3f} s, block loop "
-              f"{r['block_loop_s']:.3f} s (blocks {[round(t, 3) for t in r['block_s']]}), peak "
+              f"{r['block_loop_s']:.3f} s, peak "
               f"{r['peak_bytes'] / 2**30:.2f} GiB, route {r['route']}, launches {r['launches']}",
               flush=True)
     ok = worst <= JOD_TOL and blocks_ok
@@ -118,7 +118,6 @@ def main(argv=None) -> int:
                       "max_abs_djod": worst, "wall_s": wall, "ok": ok,
                       "setup_s": [r["setup_s"] for r in res],
                       "block_loop_s": [r["block_loop_s"] for r in res],
-                      "block_s": [r["block_s"] for r in res],
                       "peak_gib": [r["peak_bytes"] / 2**30 for r in res]}))
     return 0 if ok else 1
 
