@@ -25,7 +25,10 @@ Phase 2  every kernel against its plain PyTorch version on the card, at the
          every row. The ingest kernel also on uint16 and
          float16 frames, its code-value table route against the same frames
          as float32 (v / 255, v / 65535 correctly rounded, float16 widened)
-         through the per-sample path, bit for bit. The reduce at every
+         through the per-sample path, bit for bit; on channel-last uint16
+         raws at the 4K clip cells' 23-frame block, bit for bit the planar
+         launch and against plain, device time in turns with planar. The
+         reduce at every
          level of the 4K pyramid, each from the kernel's previous level, bit
          for bit, timed beside its bound. The one-pass pooled band
          kernel (``band_pooled``)
@@ -40,7 +43,9 @@ Phase 3  the 4K HDR clip (3840x2160, 32 frames, 30 fps, seed 7,
          raw bands, the two JODs must agree within 1e-3, the JOD must be
          within 0.01 of 7.8784, the value the reference metric gives, and
          within 1e-4 of 7.877874, the port's JOD before the one-pass band
-         kernel. Then the host relayout of the input arrays and the block
+         kernel. Then the clip as FHWC with the kernels: blocks uploaded
+         channel-last, the HWCF run's launches, its JOD and ``Q_per_ch``
+         bit for bit. Then the host relayout of the input arrays and the block
          loop are timed apart, and the warm block loop's device time is
          split per kernel (``torch.profiler``), and one warm block's stages
          (ingest, decomposition, band kernel launches, baseband and pooling)
@@ -281,6 +286,9 @@ from colorvideovdp_tpu_torch.tools.kernel_times import call_ms as time_ms
 CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 PORT_JOD = 7.877874  # the port's JOD for it before the one-pass band kernel
 PORT_JOD_TOL = 1e-4
+# The block length of the benchmark's 4K clip cells (32-frame uint16 clips,
+# one 80 GB card): the shape of phase 2's channel-last ingest check.
+FHWC_BLK = 23
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_pooled": 1e-4,
        "csf_lut": 1e-5, "band_pooled_d": 1e-5, "blur_adjoint": 1e-5,
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
@@ -3084,7 +3092,38 @@ def main():
                   max(rel_err_per(a, b, 1) for a, b in zip(out_t, out_p)), TOL["ingest"])
             del out_p
         del out_t
-    del tails, raws, args, src
+    del src
+    # Channel-last raws, as a 4K FHWC clip's block reaches the kernel: the
+    # benchmark's uint16 23-frame block laid out (H, W, C) a frame, against
+    # the plain version and bit for bit the planar launch of the same
+    # values, timed in turns with it (these launches are not counted).
+    planar = [torch.randint(-32768, 32768, (1, FHWC_BLK, 3, H, W), dtype=torch.int16,
+                            device=dev, generator=gen) for _ in range(2)]
+    cl = [r.permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3) for r in planar]
+    if not (ingest._is_channel_last(cl[0]) and not cl[0].is_contiguous()):
+        raise AssertionError(f"not a channel-last layout: strides {cl[0].stride()}")
+    out_cl = ingest.ingest(*tails, *cl, dm, filt)
+    check(f"ingest channel-last {tuple_str(cl[0].shape)} vs the planar launch, bit for bit",
+          max(max_abs(a, b) for a, b in zip(out_cl, ingest.ingest(*tails, *planar, dm, filt))),
+          0.0)
+    out_p = ingest.ingest_plain(*tails, *cl, dm, filt)
+    err = max(rel_err_per(a, b, 1) for a, b in zip(out_cl, out_p))
+    check(f"ingest channel-last {tuple_str(cl[0].shape)} vs plain", err, TOL["ingest"])
+    del out_cl, out_p
+    def launch(rs):
+        ingest.ingest(*tails, *rs, dm, filt)  # device_ms keeps what this returns: nothing
+
+    turns = {"planar": [], "channel_last": []}
+    for order in ("planar", "channel_last", "channel_last", "planar"):
+        rs = planar if order == "planar" else cl
+        turns[order].append(device_ms(lambda: launch(rs), 10))
+    rows["ingest"]["channel_last"] = dict(shape=tuple_str(cl[0].shape), dtype="uint16",
+                                          max_rel_err=err, device_ms=turns["channel_last"],
+                                          planar_device_ms=turns["planar"])
+    log(f"  ingest {tuple_str(cl[0].shape)} uint16 device ms in turns: planar "
+        f"{turns['planar'][0]:.3f}, channel-last {turns['channel_last'][0]:.3f}, "
+        f"{turns['channel_last'][1]:.3f}, planar {turns['planar'][1]:.3f}")
+    del tails, raws, args, planar, cl
     torch.cuda.empty_cache()
 
     # The reduce at every level of the 4K pyramid, each from the kernel's
@@ -3359,12 +3398,12 @@ def main():
         torch.cuda.synchronize()
         dt = time.time() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
-        results[fused] = (jod, launches)
+        results[fused] = (jod, launches, stats)
         log(f"phase 3: {'kernels' if fused else 'plain  '}: JOD {jod:.6f}, blk {stats['block_N_frames']}, "
             f"{N / dt:.2f} frames/s ({dt:.3f} s), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
-    jod_k, launches = results[True]
-    jod_p, _ = results[False]
+    jod_k, launches, stats_k = results[True]
+    jod_p, _, _ = results[False]
     for k in score_path:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
@@ -3379,6 +3418,29 @@ def main():
     log(f"phase 3: |JOD kernels - plain| = {abs(jod_k - jod_p):.2e}, "
         f"|JOD - {CLIP_JOD}| = {abs(jod_k - CLIP_JOD):.2e}, |JOD - {PORT_JOD}| = "
         f"{abs(jod_k - PORT_JOD):.2e}")
+    # The same clip as FHWC, the layout of the channel-last cells: its blocks
+    # go to the card as they lie and the ingest kernel reads them
+    # channel-last, with the HWCF run's launches and, bit for bit, its JOD
+    # and Q_per_ch.
+    V_fhwc = [np.ascontiguousarray(v.transpose(3, 0, 1, 2)) for v in (V_test, V_ref)]
+    mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()  # the block length follows the free memory, as above
+    torch.cuda.synchronize()
+    t0 = time.time()
+    Q, stats = mv.predict(*V_fhwc, dim_order="FHWC", frames_per_second=fps)
+    jod_cl = float(Q)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    fhwc_launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"phase 3: FHWC kernels: JOD {jod_cl:.6f}, blk {stats['block_N_frames']}, "
+        f"{N / dt:.2f} frames/s ({dt:.3f} s), launches {fhwc_launches}")
+    if fhwc_launches != launches:
+        raise AssertionError(f"FHWC launches {fhwc_launches} vs HWCF {launches}")
+    if not (jod_cl == jod_k and np.array_equal(stats["Q_per_ch"], stats_k["Q_per_ch"])):
+        raise AssertionError(f"FHWC JOD {jod_cl} or Q_per_ch differ from HWCF's ({jod_k})")
+    del V_fhwc
     # Where the end-to-end time goes: the host relayout of the input arrays
     # into frame-major blocks against the block loop (uploads included).
     for fused in (True, False):
@@ -3633,7 +3695,8 @@ def main():
                              f"{sorted(counters)} differ")
     line = []
     for k, (f, rep) in kernels.items():
-        by_path = {"score_4k_video": launches[k], "train_fhd_image": train_launches[k],
+        by_path = {"score_4k_video": launches[k], "score_4k_fhwc_video": fhwc_launches[k],
+                   "train_fhd_image": train_launches[k],
                    "heatmap_4k_video_720p_image": heat_launches[k],
                    **{p: c[k] for p, c in config_launches.items()},
                    **{p: c[k] for p, c in ml_launches.items()},

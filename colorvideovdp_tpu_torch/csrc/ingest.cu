@@ -2,9 +2,11 @@
 // DKL) -> temporal FIR.
 //
 // Replaces colorvideovdp_tpu/ops/kernels/ingest.py `make_ingest_fn`
-// (`_ingest_kernel`) in its three modes. The blk new frames come in as raw
-// planes (uint8, uint16 bits, float16 or float32; 3 colour channels, or 1
-// luminance channel broadcast to all three DKL channels); the fl-1 slots
+// (`_ingest_kernel`) in its three modes. The blk new frames come in raw
+// (uint8, uint16 bits, float16 or float32; 3 colour channels, or 1
+// luminance channel broadcast to all three DKL channels), each frame dense
+// as planes (C, H, W) or channel-last (H, W, C): a sample's offset in its
+// frame is c * cstride + pixel * pstride, (hw, 1) or (1, C); the fl-1 slots
 // before them (the temporal padding) come, by mode:
 //   tail       the fl-1 DKL frames carried from the previous block;
 //   replicate  the first new frame, converted once and reused (the first
@@ -88,6 +90,7 @@ struct IngestParams {
   float filt[4 * INGEST_MAX_FL];   // time-reversed taps, (4, fl)
   int fl, blk, mode;
   long long hw;
+  long long cstride, pstride;      // a raw sample's channel and pixel strides
 };
 
 // A source sample as the kernels hold it: its bits (float16 as its 16-bit
@@ -241,23 +244,24 @@ __global__ void eotf_table_kernel(const __grid_constant__ IngestParams P,
 
 // The slots' sources, shared by both kernels. pad_t / pad_r: the DKL tails
 // (float, (B, 3, fl-1, hw)) in tail mode, the raw head frames (B, fl-1,
-// channels, hw) in head mode, unused in replicate mode.
+// channels x hw, laid out as the raws) in head mode, unused in replicate
+// mode.
 template <int SRC>
 struct Slots {
   using U = typename Src<SRC>::bits;
   const IngestParams& P;
   const float* tab;
-  const U* raw;    // this source's (blk, channels, hw) new frames
+  const U* raw;    // this source's blk new frames of channels x hw samples
   const void* pad;
   long long pix, b;
 
-  // Frame fr of a (frames, channels, hw) raw plane set -> the pixel's triplet.
+  // Frame fr of raw frames of channels x hw samples -> the pixel's triplet.
   __device__ __forceinline__ void convert(const U* frames, int fr, float (&dkl)[3]) const {
     const int nc = P.channels;
+    const U* px = frames + (long long)fr * nc * P.hw + pix * P.pstride;
     U code[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      code[c] = c < nc ? frames[((long long)fr * nc + c) * P.hw + pix] : (U)0;
+    for (int c = 0; c < 3; ++c) code[c] = c < nc ? px[c * P.cstride] : (U)0;
     pixel_to_metric<SRC>(P, tab, code, dkl);
   }
 
@@ -432,7 +436,9 @@ static cudaError_t launch(dim3 threads, long long hw, int batch, int fl, cudaStr
 
 // mode: PadMode. pad_t / pad_r: tails (B, 3, fl-1, H, W) float32 in tail
 // mode, raw heads (B, fl-1, channels, H, W) of src_type in head mode, null in
-// replicate mode; raws: (B, blk, channels, H, W) of src_type (SrcType); out:
+// replicate mode; raws: (B, blk, channels, H, W) of src_type (SrcType),
+// each frame's samples at c * cstride + pixel * pstride (planar: hw, 1;
+// channel-last: 1, channels), the heads laid out as the raws; out:
 // (B, 8, blk, H, W); new tails: (B, 3, fl-1, H, W). consts: the 10 display
 // constants of IngestParams in order; M: 9 floats; log_lms: 0 for DKLd65 (M
 // is RGB -> DKL), 1 for logLMS_DKLd65 (M is RGB -> LMS2006 and M2, 9 floats,
@@ -442,14 +448,16 @@ static cudaError_t launch(dim3 threads, long long hw, int batch, int fl, cudaStr
 CVVDP_API int cvvdp_ingest(int mode, const void* pad_t, const void* pad_r,
                            const void* raw_t, const void* raw_r, float* out,
                            float* ntail_t, float* ntail_r, int batch, int blk, int channels,
-                           int fl, long long hw, int src_type, int eotf_code,
+                           int fl, long long hw, long long cstride, long long pstride,
+                           int src_type, int eotf_code,
                            const float* consts, const float* M, int log_lms,
                            const float* M2, const float* filt, float* table, void* stream) {
   if (fl < 2 || fl > INGEST_MAX_FL || blk < 1 || batch < 1 || batch > 65535 ||
       (channels != 1 && channels != 3) || eotf_code < EOTF_SRGB || eotf_code > EOTF_GAMMA ||
       mode < MODE_TAIL || mode > MODE_HEAD || (mode != MODE_REPLICATE && (!pad_t || !pad_r)) ||
       src_type < SRC_U8 || src_type > SRC_F32 ||
-      (table && (src_type == SRC_F32 || log_lms)))
+      (table && (src_type == SRC_F32 || log_lms)) ||
+      !((cstride == hw && pstride == 1) || (cstride == 1 && pstride == channels)))
     return (int)cudaErrorInvalidValue;
   IngestParams P;
   P.eotf = eotf_code;
@@ -465,6 +473,8 @@ CVVDP_API int cvvdp_ingest(int mode, const void* pad_t, const void* pad_r,
   P.blk = blk;
   P.mode = mode;
   P.hw = hw;
+  P.cstride = cstride;
+  P.pstride = pstride;
   cudaStream_t st = (cudaStream_t)stream;
   if (table) {
     const int n = src_type == SRC_U8 ? 256 : 65536;

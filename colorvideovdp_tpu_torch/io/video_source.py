@@ -47,11 +47,28 @@ def reshuffle_dims(a: np.ndarray, in_dims: str, out_dims: str = "BCFHW") -> np.n
     return a.reshape(out_sh)
 
 
+def _memory_order(a: np.ndarray) -> tuple:
+    """The axes of ``a`` from the outermost in memory to the innermost."""
+    return tuple(int(k) for k in np.argsort([-s for s in a.strides], kind="stable"))
+
+
+def _is_dense(a: np.ndarray) -> bool:
+    """Whether ``a``'s elements fill its memory without gaps or overlaps, in
+    some order of its axes."""
+    return a.transpose(_memory_order(a)).flags.c_contiguous
+
+
 def upload(a: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device`` as it is, uint16 as its int16 bits (the
-    dtype ladder and the unpacks read them back)."""
-    with spans.span("cvvdp.upload", bytes=a.nbytes):
-        a = np.ascontiguousarray(a)
+    dtype ladder and the unpacks read them back). A dense array goes over in
+    its memory order, one copy, and keeps its strides on the device (a
+    channel-last block stays channel-last; the span counts ``channel_last``
+    = 1 for any order but C order); any other array is made dense first,
+    keeping its axes' memory order."""
+    with spans.span("cvvdp.upload", bytes=a.nbytes) as sp:
+        if not _is_dense(a):
+            a = np.array(a, order="K")
+        sp.set(channel_last=int(not a.flags.c_contiguous))
         if a.dtype == np.uint16:
             a = a.view(np.int16)
         return torch.from_numpy(a).to(device)
@@ -201,26 +218,43 @@ class video_source_array(video_source_dm):
         return self.apply_dm_and_color_transform(raw, colorspace)
 
     def _bfchw(self, which: str) -> np.ndarray:
+        """One side as (B, F, C, H, W): a view where each batch item lies in
+        memory frame after frame with each frame's C, H and W dense (FCHW,
+        FHWC, HWC, BHWC, ...), else a planar copy (``cvvdp.relayout``)."""
         if which not in self._raw_fmajor:
             src = self.test_video if which == "test" else self.reference_video
-            with spans.span("cvvdp.relayout", bytes=src.nbytes):
-                self._raw_fmajor[which] = np.ascontiguousarray(np.transpose(src, (0, 2, 1, 3, 4)))
+            fmajor = np.transpose(src, (0, 2, 1, 3, 4))
+            item = fmajor[0]
+            if not (_is_dense(item) and (item.shape[0] == 1 or _memory_order(item)[0] == 0)):
+                with spans.span("cvvdp.relayout", bytes=src.nbytes):
+                    fmajor = np.ascontiguousarray(fmajor)
+            self._raw_fmajor[which] = fmajor
         return self._raw_fmajor[which]
 
     def get_raw_block(self, which: str, start: int, count: int, batch=slice(None),
                       rows=slice(None)) -> np.ndarray:
-        """Raw source-dtype frames (B, count, C, H, W); short tails are padded
-        by repeating the last frame (the metric trims the padded outputs).
-        ``batch`` and ``rows`` select one rank's pairs and rows under a mesh."""
+        """Raw source-dtype frames (B, count, C, H, W) in the source's memory
+        order; short tails are padded by repeating the last frame (the metric
+        trims the padded outputs). ``batch`` and ``rows`` select one rank's
+        pairs and rows under a mesh."""
         src = self._bfchw(which)
         end = min(start + count, src.shape[1])
         with spans.span("cvvdp.read", frames=count, padded=count - (end - start)):
             block = src[batch, start:end, :, rows]
             if end - start < count:
-                pad = np.repeat(block[:, -1:], count - (end - start), axis=1)
-                block = np.concatenate([block, pad], axis=1)
+                # Padded in memory order, so a channel-last block stays one.
+                order = _memory_order(block)
+                mem = block.transpose(order)
+                f = order.index(1)
+                last = mem[(slice(None),) * f + (slice(-1, None),)]
+                pad = np.repeat(last, count - (end - start), axis=f)
+                block = np.concatenate([mem, pad], axis=f).transpose(np.argsort(order))
             return block
 
     def get_raw_frame_list(self, which: str, indices) -> np.ndarray:
-        """Arbitrary raw frames (B, len(indices), C, H, W): the symmetric head."""
-        return np.ascontiguousarray(self._bfchw(which)[:, list(indices)])
+        """Arbitrary raw frames (B, len(indices), C, H, W) in the source's
+        memory order: the symmetric head."""
+        src = self._bfchw(which)
+        order = _memory_order(src)
+        frames = np.take(src.transpose(order), list(indices), axis=order.index(1))
+        return frames.transpose(np.argsort(order))

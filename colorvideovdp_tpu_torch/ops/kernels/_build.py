@@ -43,8 +43,8 @@ SIGNATURES = {
     "cvvdp_blur": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     "cvvdp_pyramid_reduce": [_P, _P, _I, _I, _I, _P, _P],
     "cvvdp_pyramid_reduce_slab": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "cvvdp_ingest": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _I,
-                     _P, _P, _P, _P],
+    "cvvdp_ingest": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _P,
+                     _P, _I, _P, _P, _P, _P],
     "cvvdp_band_masking_tiles": [_I, _I, _I, _P, _P],
     "cvvdp_interleave": [_P, _P, _P, _L, _P],
     "cvvdp_deinterleave": [_P, _P, _P, _L, _P],
@@ -151,14 +151,14 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32):
-    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype`` on
-    one device."""
+def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32, contiguous=True):
+    """Raise unless every tensor is a CUDA tensor of ``dtype`` on one device,
+    and a contiguous one unless ``contiguous`` is False."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: expected CUDA tensors on one device, got {t.device}")
         if t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")

@@ -46,7 +46,10 @@ _TABLE_SIZES = {torch.uint8: 256, torch.int16: 65536, torch.uint16: 65536,
 
 def raw_to_float(x: torch.Tensor) -> torch.Tensor:
     """Source dtype ladder -> float32 (true division; int16 carries uint16
-    bits, the upload format for uint16 content)."""
+    bits, the upload format for uint16 content), in C order: a channel-last
+    upload is made planar first, so the plain colour chain after it runs as
+    on planar frames."""
+    x = x.contiguous()
     if x.dtype == torch.uint8:
         return x.to(torch.float32) / 255.0
     if x.dtype in (torch.int16, torch.uint16):
@@ -57,8 +60,9 @@ def raw_to_float(x: torch.Tensor) -> torch.Tensor:
 
 
 def raw_to_met(dm, raw: torch.Tensor, colorspace: str = "DKLd65") -> torch.Tensor:
-    """Raw (B, F, C, H, W) frames -> (B, 3, F, H, W) in the metric colour
-    space; luminance-only content is broadcast into all three channels."""
+    """Raw (B, F, C, H, W) frames, planar or channel-last, -> (B, 3, F, H, W)
+    in the metric colour space; luminance-only content is broadcast into all
+    three channels."""
     I = dm.source_2_target_colorspace(raw_to_float(raw).transpose(1, 2), colorspace)
     if I.shape[1] == 1:
         I = I.expand(-1, 3, -1, -1, -1)
@@ -163,20 +167,44 @@ def _display_consts(dm):
                           np.float32)
 
 
+def _is_channel_last(x: torch.Tensor) -> bool:
+    """Whether (B, F, C, H, W) ``x`` lies in memory as a dense (B, F, H, W, C)
+    array."""
+    B, F, C, H, W = x.shape
+    want = (F * H * W * C, H * W * C, 1, W * C, C)
+    return all(n == 1 or s == w for n, s, w in zip(x.shape, x.stride(), want))
+
+
+def _raw_layout(*xs):
+    """The kernel's (channel stride, pixel stride) for the (B, F, C, H, W)
+    raws (and heads) ``xs``, and the tensors it reads: as they lie where all
+    are planar (hw, 1) or all channel-last (1, C), else made contiguous on
+    the device."""
+    if all(_is_channel_last(x) for x in xs) and not all(x.is_contiguous() for x in xs):
+        return (1, xs[0].shape[2]), xs
+    H, W = xs[0].shape[3:]
+    return (H * W, 1), [x.contiguous() for x in xs]
+
+
 def _launch(mode, pad_t, pad_r, raw_t, raw_r, dm, filt, colorspace):
     """Check the raws and launch ``cvvdp_ingest`` in ``mode``; the caller has
-    checked the pads. Returns (R, next tail_t, next tail_r)."""
+    checked the pads. Planar and channel-last raws (and raw heads) are read
+    where they lie. Returns (R, next tail_t, next tail_r)."""
     if colorspace not in _COLORSPACES or not isinstance(dm, vvdp_display_photo_eotf) \
             or _eotf_name(dm) not in _EOTF_CODES:
         raise ValueError(f"ingest: no kernel for colour space {colorspace} "
                          f"and display {type(dm).__name__} (EOTF {dm.EOTF})")
     if raw_t.dtype not in _SRC_TYPES:
         raise ValueError(f"ingest: unsupported frame dtype {raw_t.dtype}")
-    _build.require_cuda("ingest", raw_t, raw_r, dtype=raw_t.dtype)
+    _build.require_cuda("ingest", raw_t, raw_r, dtype=raw_t.dtype, contiguous=False)
     B, blk, C, H, W = raw_t.shape
     fl = filt.shape[1]
     if C not in (1, 3) or tuple(raw_r.shape) != tuple(raw_t.shape) or filt.shape[0] != 4:
         raise ValueError("ingest: shape mismatch between raws and taps")
+    if mode == _HEAD:
+        (cstride, pstride), (raw_t, raw_r, pad_t, pad_r) = _raw_layout(raw_t, raw_r, pad_t, pad_r)
+    else:
+        (cstride, pstride), (raw_t, raw_r) = _raw_layout(raw_t, raw_r)
     eotf, consts = _display_consts(dm)
     log_lms = _COLORSPACES[colorspace]
     M = np.ascontiguousarray(dm.rgb2lms() if log_lms else dm.rgb2dkl())
@@ -193,7 +221,7 @@ def _launch(mode, pad_t, pad_r, raw_t, raw_r, dm, filt, colorspace):
         mode, None if pad_t is None else pad_t.data_ptr(),
         None if pad_r is None else pad_r.data_ptr(), raw_t.data_ptr(), raw_r.data_ptr(),
         out.data_ptr(), new_t.data_ptr(), new_r.data_ptr(), B, blk, C, fl, H * W,
-        _SRC_TYPES[raw_t.dtype], _EOTF_CODES[eotf],
+        cstride, pstride, _SRC_TYPES[raw_t.dtype], _EOTF_CODES[eotf],
         consts.ctypes.data, M.ctypes.data, log_lms, M2.ctypes.data, filt.ctypes.data,
         None if table is None else table.data_ptr(), _build.stream_handle(dev))
     _build.check_cuda(rc, "cvvdp_ingest")
@@ -234,7 +262,7 @@ def ingest_head(head_t, head_r, raw_t, raw_r, dm, filt, colorspace="DKLd65"):
     if raw_t.device.type == "cpu":
         return ingest_first_plain(raw_t, raw_r, dm, filt, colorspace, head_t, head_r)
     filt = np.ascontiguousarray(filt, np.float32)
-    _build.require_cuda("ingest", head_t, head_r, dtype=raw_t.dtype)
+    _build.require_cuda("ingest", head_t, head_r, dtype=raw_t.dtype, contiguous=False)
     B, _, C, H, W = raw_t.shape
     for head in (head_t, head_r):
         if tuple(head.shape) != (B, filt.shape[1] - 1, C, H, W):

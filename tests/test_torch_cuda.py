@@ -224,6 +224,93 @@ def test_ingest_table_route_matches_float_path(dev, display, mode):
                 assert _rel_planes(a, b) <= tol
 
 
+def _channel_last(x):
+    """(B, F, C, H, W) ``x``'s values laid out as a dense (B, F, H, W, C)
+    array."""
+    return x.permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float16, torch.float32])
+@pytest.mark.parametrize("C", [1, 3])
+def test_ingest_reads_channel_last_raws_as_planar(dev, dtype, C):
+    """Tail, replicate and head modes on channel-last raws (and heads) give
+    the planar launch's bits, for uint8, uint16 bits, float16 and float32 at
+    fl = 9 (the register window) and fl = 15 (the shared-memory ring); heads
+    laid out unlike the raws are made planar first, to the same bits."""
+    m = ct.cvvdp(display_name="standard_hdr_pq", device="cuda")
+    dm = m.display_photometry
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shape = (2, 4, C, 36, 64)
+
+    def raw():
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, shape, dtype=dtype, device=dev, generator=gen)
+        if dtype == torch.int16:
+            return torch.randint(-32768, 32768, shape, dtype=dtype, device=dev, generator=gen)
+        return torch.rand(shape, device=dev, generator=gen).to(dtype)
+
+    for fps in (30.0, 50.0):
+        F_taps, _ = get_temporal_filters(fps, m.sigma_tf, m.beta_tf, m.temp_filter)
+        filt = np.stack([f[::-1] for f in F_taps])
+        fl = filt.shape[1]
+        assert fl == (9 if fps == 30.0 else 15)
+        raws = [raw(), raw()]
+        heads = [r[:, 1:2].expand(-1, fl - 1, -1, -1, -1).contiguous() for r in raws]
+        tails = [torch.rand((2, 3, fl - 1, 36, 64), device=dev, generator=gen) * 50
+                 for _ in range(2)]
+        cl_raws = [_channel_last(r) for r in raws]
+        cl_heads = [_channel_last(h) for h in heads]
+        assert C == 1 or not any(r.is_contiguous() for r in cl_raws + cl_heads)
+        runs = [(ing.ingest(*tails, *raws, dm, filt), ing.ingest(*tails, *cl_raws, dm, filt)),
+                (ing.ingest_replicate(*raws, dm, filt), ing.ingest_replicate(*cl_raws, dm, filt)),
+                (ing.ingest_head(*heads, *raws, dm, filt),
+                 ing.ingest_head(*cl_heads, *cl_raws, dm, filt)),
+                (ing.ingest_head(*heads, *raws, dm, filt),
+                 ing.ingest_head(*heads, *cl_raws, dm, filt))]
+        for planar, channel_last in runs:
+            for a, b in zip(planar, channel_last):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["4k-fhwc", "fhd-hwc"])
+def test_predict_channel_last_equals_planar(dev, case):
+    """A 4K FHWC uint16 clip in two blocks (the second padded) and an FHD HWC
+    uint8 image score as their FCHW / CHW arrays, bit for bit, with no host
+    relayout for either layout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from colorvideovdp_tpu_torch.utils import spans
+
+    display, H, W, F, dtype = {"4k-fhwc": ("standard_hdr_pq", 2160, 3840, 12, torch.int16),
+                               "fhd-hwc": ("standard_fhd", 1080, 1920, 1, torch.uint8)}[case]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lo, hi = (-32768, 32768) if dtype == torch.int16 else (0, 256)
+    ref = torch.randint(lo, hi, (F, 3, H, W), dtype=dtype, device=dev, generator=gen)
+    noise = torch.randint(-1500, 1500, ref.shape, device=dev, generator=gen)
+    test = (ref.to(torch.int32) + noise).clamp(lo, hi - 1).to(dtype)
+    np_dtype = np.uint16 if dtype == torch.int16 else np.uint8
+    planar = [x.cpu().numpy().view(np_dtype) for x in (test, ref)]
+    hwc = [np.ascontiguousarray(x.transpose(0, 2, 3, 1)) for x in planar]
+    m = ct.cvvdp(display_name=display, device="cuda")
+    if F > 1:
+        m.gpu_mem = m.block_gpu_mem(H * W, 8, 30)
+        orders, args = ("FCHW", "FHWC"), (planar, hwc)
+    else:
+        orders, args = ("CHW", "HWC"), ([x[0] for x in planar], [x[0] for x in hwc])
+    out = []
+    for order, (t, r) in zip(orders, args):
+        spans.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            q, stats = m.predict(t, r, dim_order=order, frames_per_second=30)
+        assert not [s for s in spans.recorded() if s.name == "cvvdp.relayout"]
+        ups = [s.attrs["channel_last"] for s in spans.recorded() if s.name == "cvvdp.upload"]
+        assert ups and set(ups) == {int(order.endswith("HWC"))}
+        out.append((torch.as_tensor(q).cpu().numpy(), stats["Q_per_ch"]))
+        assert stats["block_N_frames"] == (8 if F > 1 else 1)
+    spans.clear()
+    assert np.array_equal(out[0][0], out[1][0]) and np.array_equal(out[0][1], out[1][1])
+
+
 @pytest.mark.parametrize("C", [4, 3])
 def test_band_masking_d_kernel(dev, C):
     """The D mode against its plain version at unaligned sizes: one wide band,

@@ -545,3 +545,94 @@ def test_scored_block_is_freed_before_the_next(tmp_path, monkeypatch, route):
     vs = yuv_t.video_source_yuv_file(test, ref, display_photometry="standard_hdr_pq")
     m.predict_video_source(vs if route == "blocks" else _PerFrame(vs))
     assert len(alive) == 3
+
+
+def _in_order(x, order):
+    """(B, C, F, H, W) ``x`` as a C-order array in ``order``, the axes it
+    lacks of size 1."""
+    full = "BCFHW"
+    missing = [k for k, d in enumerate(full) if d not in order]
+    t = x.transpose([full.index(d) for d in order] + missing)
+    return np.ascontiguousarray(t.reshape(t.shape[:len(order)]))
+
+
+CHANNEL_LAST = ("FHWC", "HWC", "BHWC")
+
+
+@pytest.mark.parametrize("order", ["FHWC", "HWC", "BHWC", "FCHW", "BCFHW", "HWCF"])
+def test_blocks_keep_the_callers_memory_order(order):
+    """Frame-major arrays reach the upload as views in their own memory
+    order: a channel-last full block shares the caller's memory and keeps
+    channel-last strides, as do the padded trailing block and the head
+    frames; no ``cvvdp.relayout`` span opens except where the frame axis is
+    not outermost (HWCF, BCFHW), whose relayout is still a profiler event;
+    the uploads count ``channel_last``; every block holds the planar values."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from colorvideovdp_tpu_torch.io.video_source import upload, video_source_array
+    from colorvideovdp_tpu_torch.ops.kernels import ingest as ing
+    from colorvideovdp_tpu_torch.utils import spans
+
+    B = 2 if "B" in order else 1
+    F = 5 if "F" in order else 1
+    rng = np.random.default_rng(3)
+    x = {s: rng.integers(0, 65536, (B, 3, F, H, W), dtype=np.uint16) for s in ("t", "r")}
+    arrays = {s: _in_order(v, order) for s, v in x.items()}
+    planar = x["t"].transpose(0, 2, 1, 3, 4)  # (B, F, C, H, W)
+    channel_last = order in CHANNEL_LAST
+    blk = 3 if F > 1 else 1
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        vs = video_source_array(arrays["t"], arrays["r"], 30, dim_order=order,
+                                display_photometry="standard_hdr_pq")
+        full = vs.get_raw_block("test", 0, blk)
+        dev = [upload(full, "cpu")]
+        blocks = [full]
+        if F > 1:
+            blocks.append(vs.get_raw_block("test", blk, blk))  # 2 frames + 1 padded
+            blocks.append(vs.get_raw_frame_list("test", [2, 1, 0, 1]))
+            dev += [upload(b, "cpu") for b in blocks[1:]]
+    rec = spans.recorded()
+    spans.clear()
+    events = {e.name() for e in prof.profiler.kineto_results.events()}
+    relayouts = [s for s in rec if s.name == "cvvdp.relayout"]
+    assert len(relayouts) == (0 if order in CHANNEL_LAST + ("FCHW",) else 1)
+    assert ("cvvdp.relayout" in events) == bool(relayouts)
+    ups = [s.attrs["channel_last"] for s in rec if s.name == "cvvdp.upload"]
+    assert ups == [int(channel_last)] * len(dev)
+    assert np.shares_memory(full, arrays["t"]) == (order in CHANNEL_LAST + ("FCHW",))
+    for b, t in zip(blocks, dev):
+        assert (b.strides[2] == b.itemsize) == channel_last
+        assert ing._is_channel_last(t) == channel_last
+        assert t.is_contiguous() != channel_last
+    np.testing.assert_array_equal(blocks[0], planar[:, :blk])
+    if F > 1:
+        np.testing.assert_array_equal(blocks[1], planar[:, [3, 4, 4]])
+        np.testing.assert_array_equal(blocks[2], planar[:, [2, 1, 0, 1]])
+        np.testing.assert_array_equal(dev[1].view(torch.uint16).numpy(), planar[:, [3, 4, 4]])
+
+
+@pytest.mark.parametrize("order,padding", [("FHWC", "replicate"), ("FHWC", "symmetric"),
+                                           ("HWC", "replicate"), ("BHWC", "replicate")])
+def test_channel_last_scores_equal_planar(order, padding):
+    """The plain route scores channel-last content (a two-block FHWC clip
+    with a padded trailing block under both temporal paddings, an HWC image,
+    a BHWC batch) bit for bit as the same content in planar order."""
+    planar_order = order.replace("HWC", "CHW")
+    B = 2 if "B" in order else 1
+    F = N if "F" in order else 1
+    rng = np.random.default_rng(4)
+    ref = rng.integers(0, 65536, (B, 3, F, H, W), dtype=np.uint16)
+    noise = rng.integers(-3000, 3000, ref.shape)
+    test = np.clip(ref.astype(np.int32) + noise, 0, 65535).astype(np.uint16)
+    m = ct.cvvdp(display_name="standard_hdr_pq", device="cpu", temp_padding=padding)
+    m.gpu_mem = m.block_gpu_mem(H * W, 3, 24)
+    out = {}
+    for o in (order, planar_order):
+        q, stats = m.predict(_in_order(test, o), _in_order(ref, o), dim_order=o,
+                             frames_per_second=24)
+        out[o] = (np.asarray(q), stats["Q_per_ch"])
+    if F > 1:
+        assert stats["block_N_frames"] == 3
+    assert np.array_equal(out[order][0], out[planar_order][0])
+    assert np.array_equal(out[order][1], out[planar_order][1])

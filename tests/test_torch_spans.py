@@ -1,9 +1,10 @@
 """The port's spans (``colorvideovdp_tpu_torch/utils/spans.py``) on the CPU:
 nothing recorded with the profiler off; under ``torch.profiler`` the tree
-of a two-block FHWC ``predict`` (its request, the relayouts, the prefetch
-worker's read, the uploads' bytes), each leaf span as a ``record_function``
-event of the profile at the span's own time, and the loss's backward
-holding its recompute."""
+of a two-block FHWC ``predict`` (its request, no relayout, the prefetch
+worker's read, the uploads' bytes and channel-last counts), each leaf span
+as a ``record_function`` event of the profile at the span's own time (the
+relayout's in an HWCF ``predict``), and the loss's backward holding its
+recompute."""
 
 from __future__ import annotations
 
@@ -46,6 +47,11 @@ def _loss_step(m):
 def _predict(m):
     test, ref = _clip()
     m.predict(test, ref, dim_order="FHWC", frames_per_second=FPS)
+
+
+def _predict_hwcf(m):
+    test, ref = (np.ascontiguousarray(x.transpose(1, 2, 3, 0)) for x in _clip())
+    m.predict(test, ref, dim_order="HWCF", frames_per_second=FPS)
 
 
 @pytest.fixture
@@ -101,7 +107,8 @@ def test_predict_records_its_tree(traced_predict):
             p = by_index[s.parent]
             assert p.start <= s.start and s.end <= p.end, (p, s)
     names = [s.name for s in rec]
-    assert names.count("cvvdp.relayout") == 2
+    # FHWC blocks go to the device as they lie: no host relayout.
+    assert names.count("cvvdp.relayout") == 0
     assert names.count("cvvdp.block") == 2
     assert names.count("cvvdp.prefetch_submit") == names.count("cvvdp.prefetch_wait") == 1
     for s in rec:
@@ -113,14 +120,20 @@ def test_predict_records_its_tree(traced_predict):
     assert sorted((s.attrs["frames"], s.attrs["padded"]) for s in worker) == [(BLK, 2)] * 2
     ups = [s for s in rec if s.name == "cvvdp.upload"]
     assert len(ups) == 4 and sum(s.attrs["bytes"] for s in ups) == sum(uploaded)
+    assert [s.attrs["channel_last"] for s in ups] == [1] * 4
     assert sum(uploaded) == 2 * 2 * BLK * H * W * 3 * 2
 
 
 def test_leaf_spans_are_profiler_events(traced_predict):
-    rec, events, _ = traced_predict
+    fhwc, fhwc_events, _ = traced_predict
+    spans.clear()
+    # HWCF keeps the host relayout, the one leaf an FHWC request skips.
+    hwcf, hwcf_events = _profiled(_predict_hwcf, _metric())
+    rec, events = fhwc + hwcf, fhwc_events + hwcf_events
     main = threading.get_ident()
     leaves = [s for s in rec if s.name in spans.LEAVES and s.thread == main]
     assert {s.name for s in leaves} == spans.LEAVES
+    assert "cvvdp.relayout" not in {s.name for s in fhwc}
     # The prefetch worker's profiler reads off: its reads are in memory only.
     assert len(events) == len(leaves)
     assert not {e[0] for e in events} - spans.LEAVES
