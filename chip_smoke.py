@@ -1174,7 +1174,9 @@ def phase_ml(m, fps, record, counters, gen):
         return run
 
     pix = H * W
-    gpu_mem = (1.6e9 + pix * (fl - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
+    # gpu_mem for 8-frame blocks under the ML metrics' block model.
+    mem_a, mem_b, mem_c = cvt.cvvdp_ml_transformer.mem_model
+    gpu_mem = (mem_a + pix * (fl - 1) * mem_b + pix * (mem_b + mem_c) * (blk + 0.5)) / 1e9
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
     V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
     rng = np.random.RandomState(5)

@@ -353,18 +353,28 @@ class cvvdp(vq_metric):
     # ------------------------------------------------------------------
     # Scoring
 
+    # The reference metric's memory model of a block, (a, b, c) in
+    # total = a + pix (N + fl - 1) b + pix N c bytes.
+    mem_model = (1.6e9, 16, 320)
+
+    def _device_free(self) -> int:
+        """The device memory a block may take: what ``mem_get_info`` reports
+        free."""
+        return torch.cuda.mem_get_info(self.device)[0]
+
     def estimate_block_N(self, pix_cnt, N_frames, share=1):
-        """Frames per block from the reference metric's memory model:
-        total = a + pix (N + fl - 1) b + pix N c, a = 1.6e9, b = 16, c = 320.
-        ``share``: the number of ranks that divide the device's memory."""
+        """Frames per block from the memory model ``mem_model``:
+        total = a + pix (N + fl - 1) b + pix N c (the reference metric's a =
+        1.6e9, b = 16, c = 320). ``share``: the number of ranks that divide
+        the device's memory."""
         if self.device.type == "cuda":
-            mem_avail = torch.cuda.mem_get_info(self.device)[0]
+            mem_avail = self._device_free()
             if self.gpu_mem is not None:
                 mem_avail = min(mem_avail, self.gpu_mem * 1e9)
         else:
             mem_avail = HOST_MEM_BUDGET if self.gpu_mem is None else self.gpu_mem * 1e9
         mem_avail /= share
-        a, b, c = 1.6e9, 16, 320
+        a, b, c = self.mem_model
         max_frames = int(math.floor(
             (mem_avail - a - pix_cnt * (self.filter_len - 1) * b) / (pix_cnt * (b + c))))
         return max(1, min(max_frames, N_frames))
@@ -374,7 +384,7 @@ class cvvdp(vq_metric):
         share)`` gives ``block_N``-frame blocks (N >= block_N) of a video at
         ``fps``, when the device has that much free."""
         fl = len(get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)[0][0])
-        a, b, c = 1.6e9, 16, 320
+        a, b, c = self.mem_model
         return share * (a + pix_cnt * (fl - 1) * b + pix_cnt * (b + c) * (block_N + 0.5)) / 1e9
 
     def _ensure_pyramids(self, width, height):
@@ -634,8 +644,12 @@ class cvvdp(vq_metric):
                                "(masking produced NaN/Inf)")
 
     def _heatmap_frames(self, hm, context) -> np.ndarray:
-        """One block's heatmap as the host's float16 frames (``_heatmap_map``)."""
-        return self._heatmap_map(hm, context).cpu().numpy()
+        """One block's heatmap as the host's float16 frames (``_heatmap_map``).
+        The copy waits for the device, so the span is the map's wall time."""
+        with spans.span("cvvdp.heatmap") as sp:
+            out = self._heatmap_map(hm, context).cpu().numpy()
+            sp.set(bytes=out.nbytes)
+            return out
 
     def _heatmap_map(self, hm, context) -> torch.Tensor:
         """One block's heatmap as float16 on the device: the raw map

@@ -13,7 +13,17 @@ mirror-indexed head frames for symmetric padding), as the JAX package's
 first-block step does; later blocks carry tails (``ingest``). The bands go
 through the CSF LUT kernel and ``masking.apply_masking_model`` (the blur
 kernel inside); the networks are plain ``torch.matmul`` products, as the JAX
-package leaves them to XLA.
+package leaves them to XLA. Each band's head output, what the JOD loses to
+the band, comes back as ``stats["delta_per_band"]`` (B, bands), read back
+with the JOD.
+
+Blocks are sized by ``cvvdp.estimate_block_N`` with the trunk's own memory
+model (``cvvdp_ml_base.mem_model``, measured on an H100), counting the
+memory the caching allocator holds unused as free. Spans (``utils/
+spans.py``): ``cvvdp.block`` with ``cvvdp.ingest``, ``cvvdp.pyramid`` and
+``cvvdp.bands`` inside, then ``cvvdp.ml.head`` (counts ``tokens``, the
+tokens through the head with the class tokens, and ``bands``) and
+``cvvdp.readback``.
 
 Weights: the published checkpoints are not in the repository. They are read
 from a ``cvvdp_ml.npz`` in the checkpoint's flat key layout
@@ -40,6 +50,7 @@ from ..ops.feature_pooling import feature_pooling
 from ..ops.kernels import ingest as ing
 from ..ops.pyramid import LaplacianPyramid
 from ..ops.temporal import get_temporal_filters
+from ..utils import spans
 from ..utils.config import VVDP_DATA, config_files
 from .base import no_tf32, register_metric, vq_exception
 from .cvvdp import cvvdp
@@ -328,6 +339,22 @@ class cvvdp_ml_base(cvvdp):
 
     # The family's directory under vvdp_data (its cvvdp_parameters.json).
     family = None
+    # The trunk's memory model of a block (``cvvdp.estimate_block_N``),
+    # from its peak on an H100 (4K, cvvdp_ml_transformer, blocks of 1 to 29
+    # frames): 2.587 GB + 2.078 GB a frame, so b + c = 250.6 bytes a
+    # pixel-frame and a = 1.53e9 beside the tails' b (fl - 1) term. c = 250
+    # leaves 6% over the measured 234.6 for the caching allocator's rounding;
+    # the reference metric's c = 320 held a 4K block to 29 frames.
+    mem_model = (1.6e9, 16, 250)
+
+    def _device_free(self) -> int:
+        """The free memory ``mem_get_info`` reports and the memory the
+        caching allocator holds unused: after a clip the allocator keeps its
+        blocks, which ``mem_get_info`` no longer counts free, and the next
+        clip would be sized to what is left beside them."""
+        dev = self.device
+        return (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
 
     def __init__(self, random_init=False, disabled_features=None, **kwargs):
         self.random_init = random_init
@@ -405,7 +432,8 @@ class cvvdp_ml_base(cvvdp):
         use_k = self.enable_fused_kernels
         n_bands = self.lpyr.get_band_count()
         params = self._masking_params()
-        bands, L_bkg_pyr = self.lpyr.decompose(R, use_kernel=use_k)
+        with spans.span("cvvdp.pyramid"):
+            bands, L_bkg_pyr = self.lpyr.decompose(R, use_kernel=use_k)
         rho_band = list(self.lpyr.get_freqs())
         rho_band[n_bands - 1] = 0.1
         sens_corr = 10.0 ** (self.sensitivity_correction / 20.0)
@@ -413,21 +441,22 @@ class cvvdp_ml_base(cvvdp):
         omegas = [self.omega[0 if cc < 3 else 1] for cc in range(all_ch)]
         channels = [cc if cc < 3 else 0 for cc in range(all_ch)]
 
-        features = []
-        for bb in range(n_bands):
-            band = LaplacianPyramid.get_band(bands, bb)
-            T_f, R_f = band[:, 0::2], band[:, 1::2]
-            S = self.csf.sensitivity_multi_channel([float(rho_band[bb])] * all_ch, omegas,
-                                                   L_bkg_pyr[bb], channels, use_kernel=use_k)
-            # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w)
-            S = S.movedim(0, 1)[:, :, 0] * sens_corr
-            if bb == n_bands - 1:
-                D = torch.abs(T_f - R_f) * S
-            else:
-                D = mk.apply_masking_model(T_f, R_f, S, params, use_k)
-            features.append(feature_pooling(torch.abs(T_f) * S, torch.abs(R_f) * S, D,
-                                            feature_size))
-            del band, T_f, R_f, S, D
+        with spans.span("cvvdp.bands"):
+            features = []
+            for bb in range(n_bands):
+                band = LaplacianPyramid.get_band(bands, bb)
+                T_f, R_f = band[:, 0::2], band[:, 1::2]
+                S = self.csf.sensitivity_multi_channel([float(rho_band[bb])] * all_ch, omegas,
+                                                       L_bkg_pyr[bb], channels, use_kernel=use_k)
+                # (all_ch, B, 1, F, h, w) -> (B, all_ch, F, h, w)
+                S = S.movedim(0, 1)[:, :, 0] * sens_corr
+                if bb == n_bands - 1:
+                    D = torch.abs(T_f - R_f) * S
+                else:
+                    D = mk.apply_masking_model(T_f, R_f, S, params, use_k)
+                features.append(feature_pooling(torch.abs(T_f) * S, torch.abs(R_f) * S, D,
+                                                feature_size))
+                del band, T_f, R_f, S, D
         return features, None, None
 
     @no_tf32()
@@ -435,7 +464,13 @@ class cvvdp_ml_base(cvvdp):
         """Score a video source; returns (Q_jod, stats). The first video block
         pads in the ingest kernel ("replicate" or "head" mode), later blocks
         carry tails. Packed sources (``.yuv``, decoded video files) are
-        unpacked on the device; a source must have ``get_raw_block``."""
+        unpacked on the device; a source must have ``get_raw_block``.
+        ``stats["delta_per_band"]`` holds each band's head output, (B, bands)
+        float32: the JOD is 10 less their sum."""
+        with spans.request("cvvdp.predict") as root:
+            return self._predict_video_source(vid_source, root)
+
+    def _predict_video_source(self, vid_source, root):
         if not hasattr(vid_source, "get_raw_block"):
             raise NotImplementedError("the ML metrics read sources with get_raw_block only")
         h, w, N_frames = vid_source.get_video_size()
@@ -444,45 +479,46 @@ class cvvdp_ml_base(cvvdp):
         is_image = N_frames == 1
         dm = vid_source.dm_photometry
         met_cs = self.met_colorspace()
-        use_k = self.enable_fused_kernels
         sources = ("test", "reference")
 
         if is_image:
             block_N = 1
+            root.set(frames=1, block_N=1)
             raws = [self._raw(vid_source, vid_source.get_raw_block(s, 0, 1)) for s in sources]
-            T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
-                    for raw in raws)
-            features = self._process_block(ing.interleave_tr(T, R), temp_ch=1, is_image=True)[0]
+            with spans.span("cvvdp.block"):
+                with spans.span("cvvdp.ingest"):
+                    T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
+                            for raw in raws)
+                    R = ing.interleave_tr(T, R)
+                features = self._process_block(R, temp_ch=1, is_image=True)[0]
         else:
             fps = vid_source.get_frames_per_second()
             self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
             self.filter_len = int(self.F[0].shape[0])
             filt = np.stack([f[::-1] for f in self.F])
             block_N = self.estimate_block_N(h * w * batch_sz, N_frames)
+            root.set(frames=N_frames, block_N=block_N)
             feats, tails = [], None
             for ff in range(0, N_frames, block_N):
                 cur = min(block_N, N_frames - ff)
                 raws = [self._raw(vid_source, vid_source.get_raw_block(s, ff, block_N)) for s in sources]
-                if tails is not None:
-                    fn = ing.ingest if use_k else ing.ingest_plain
-                    R, *tails = fn(*tails, *raws, dm, filt, met_cs)
-                elif self.temp_padding == "replicate":
-                    fn = ing.ingest_replicate if use_k else ing.ingest_first_plain
-                    R, *tails = fn(*raws, dm, filt, met_cs)
-                else:
-                    idx = [self._get_symmetric_frame_index(fi, N_frames)
-                           for fi in range(-self.filter_len + 1, 0)]
-                    heads = [self._raw(vid_source, vid_source.get_raw_frame_list(s, idx)) for s in sources]
-                    if use_k:
-                        R, *tails = ing.ingest_head(*heads, *raws, dm, filt, met_cs)
-                    else:
-                        R, *tails = ing.ingest_first_plain(*raws, dm, filt, met_cs, *heads)
-                f_block = self._process_block(R, temp_ch=2, is_image=False)[0]
-                del R
-                feats.append([f[:, :cur] for f in f_block])
+                with spans.span("cvvdp.block"):
+                    with spans.span("cvvdp.ingest"):
+                        R, tails = self._ingest_block(vid_source, raws, tails, dm, filt, met_cs,
+                                                      N_frames)
+                    del raws
+                    f_block = self._process_block(R, temp_ch=2, is_image=False)[0]
+                    del R
+                    feats.append([f[:, :cur] for f in f_block])
             features = [torch.cat(b, dim=1) if len(b) > 1 else b[0] for b in zip(*feats)]
 
-        Q_jod = self.do_pooling_and_jods(features)
+        tokens = sum(f.shape[0] * f.shape[1] * (f.shape[2] * f.shape[3] + self.class_tokens)
+                     for f in features)
+        with spans.span("cvvdp.ml.head", tokens=tokens, bands=len(features)):
+            deltas = self.band_deltas(features)
+            Q_jod = self.jod_of_deltas(deltas)
+        with spans.span("cvvdp.readback"):
+            delta_host = torch.stack([d.expand(batch_sz) for d in deltas], dim=-1).cpu().numpy()
         stats = {
             "rho_band": self.lpyr.get_freqs(),
             "frames_per_second": vid_source.get_frames_per_second(),
@@ -490,8 +526,50 @@ class cvvdp_ml_base(cvvdp):
             "height": h,
             "N_frames": N_frames,
             "block_N_frames": block_N,
+            "delta_per_band": delta_host,
         }
         return torch.squeeze(Q_jod), stats
+
+    def _ingest_block(self, vid_source, raws, tails, dm, filt, met_cs, N_frames):
+        """(R, tails) of one video block: the first block padded inside the
+        ingest kernel, later blocks after the carried tails."""
+        use_k = self.enable_fused_kernels
+        if tails is not None:
+            fn = ing.ingest if use_k else ing.ingest_plain
+            R, *tails = fn(*tails, *raws, dm, filt, met_cs)
+        elif self.temp_padding == "replicate":
+            fn = ing.ingest_replicate if use_k else ing.ingest_first_plain
+            R, *tails = fn(*raws, dm, filt, met_cs)
+        else:
+            idx = [self._get_symmetric_frame_index(fi, N_frames)
+                   for fi in range(-self.filter_len + 1, 0)]
+            heads = [self._raw(vid_source, vid_source.get_raw_frame_list(s, idx))
+                     for s in ("test", "reference")]
+            if use_k:
+                R, *tails = ing.ingest_head(*heads, *raws, dm, filt, met_cs)
+            else:
+                R, *tails = ing.ingest_first_plain(*raws, dm, filt, met_cs, *heads)
+        return R, tails
+
+    # Tokens a band's head takes beyond its tiles, per frame (the
+    # transformer's class token).
+    class_tokens = 0
+
+    def band_deltas(self, features) -> list:
+        """Each band's head output, in band order: what the JOD loses to
+        the band, (B,) each (a scalar for ``cvvdp_ml``)."""
+        raise NotImplementedError
+
+    @staticmethod
+    def jod_of_deltas(deltas):
+        """10 less each band's delta, subtracted in band order."""
+        Q_JOD = deltas[0].new_full(deltas[0].shape, 10.0)
+        for d in deltas:
+            Q_JOD = Q_JOD - d
+        return Q_JOD
+
+    def do_pooling_and_jods(self, features):
+        return self.jod_of_deltas(self.band_deltas(features))
 
     def _head_features(self, f, is_image):
         """The heads' input: sqrt(|var|) for the three variances, a zero
@@ -515,10 +593,10 @@ class cvvdp_ml(cvvdp_ml_base):
     def _build_nets(self):
         return {"feature_net": (MLP(2 * 4, [24] * 3 + [1], device="meta"), 0)}
 
-    def do_pooling_and_jods(self, features):
+    def band_deltas(self, features):
         no_bands = len(features)
         is_image = features[0].shape[4] == 3
-        Q_JOD = 10.0
+        deltas = []
         for bb, f in enumerate(features):
             fD = self._head_features(f, is_image)[..., 4:]
             D_all = self.feature_net(fD.reshape(fD.shape[:4] + (-1,)))
@@ -526,8 +604,8 @@ class cvvdp_ml(cvvdp_ml_base):
                 D_all = D_all * float(self.baseband_weight.reshape(-1)[0])
             if is_image:
                 D_all = D_all * self.image_int
-            Q_JOD = Q_JOD - D_all.reshape(-1).mean() / no_bands
-        return torch.as_tensor(Q_JOD)
+            deltas.append(D_all.reshape(-1).mean() / no_bands)
+        return deltas
 
     def full_name(self):
         return "ColorVideoVDP-ML"
@@ -545,11 +623,11 @@ class cvvdp_ml_saliency(cvvdp_ml):
         return {"feature_net": (MLP(2 * 4, [24] * 3 + [1], device="meta"), 0),
                 "att_net": (MLP(4 * 4, [48] * 4 + [1], device="meta"), 1)}
 
-    def do_pooling_and_jods(self, features):
+    def band_deltas(self, features):
         no_bands = len(features)
         batch_sz = features[0].shape[0]
         is_image = features[0].shape[4] == 3
-        Q_JOD = torch.full((batch_sz,), 10.0, device=features[0].device)
+        deltas = []
         for bb, f in enumerate(features):
             f = self._head_features(f, is_image)
             f_TR = f[..., 0:4].reshape(f.shape[:4] + (-1,))
@@ -560,8 +638,8 @@ class cvvdp_ml_saliency(cvvdp_ml):
                 D_all = D_all * float(self.baseband_weight.reshape(-1)[0])
             if is_image:
                 D_all = D_all * self.image_int
-            Q_JOD = Q_JOD - D_all.reshape(batch_sz, -1).mean(dim=1)
-        return Q_JOD
+            deltas.append(D_all.reshape(batch_sz, -1).mean(dim=1))
+        return deltas
 
     def full_name(self):
         return "ColorVideoVDP-ML-Saliency"
@@ -574,6 +652,7 @@ class cvvdp_ml_transformer(cvvdp_ml):
     """ViT-style regression head over all 24 per-tile features."""
 
     family = "cvvdp_ml_transformer"
+    class_tokens = 1
 
     def __init__(self, dim=256, **kwargs):
         self._dim = dim
@@ -583,10 +662,9 @@ class cvvdp_ml_transformer(cvvdp_ml):
         return {"transformer_net": (RegressionTransformer(24, self._dim, depth=4, heads=8,
                                                           device="meta"), 0)}
 
-    def do_pooling_and_jods(self, features):
-        batch_sz = features[0].shape[0]
+    def band_deltas(self, features):
         is_image = features[0].shape[4] == 3
-        Q_JOD = torch.full((batch_sz,), 10.0, device=features[0].device)
+        deltas = []
         for bb, f in enumerate(features):
             f = self._head_features(f, is_image)
             f_all = torch.cat([f[..., 0:4].reshape(f.shape[:4] + (-1,)),
@@ -596,8 +674,8 @@ class cvvdp_ml_transformer(cvvdp_ml):
                 delta = delta * float(self.baseband_weight.reshape(-1)[0])
             if is_image:
                 delta = delta * self.image_int
-            Q_JOD = Q_JOD - delta
-        return Q_JOD
+            deltas.append(delta)
+        return deltas
 
     def full_name(self):
         return "ColorVideoVDP-ML-Transformer"

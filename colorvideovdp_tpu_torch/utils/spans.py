@@ -41,7 +41,7 @@ MAX_SPANS = 1 << 18
 LEAVES = frozenset({
     "cvvdp.relayout", "cvvdp.read", "cvvdp.prefetch_submit", "cvvdp.prefetch_wait",
     "cvvdp.upload", "cvvdp.ingest", "cvvdp.pyramid", "cvvdp.bands", "cvvdp.baseband",
-    "cvvdp.readback"})
+    "cvvdp.readback", "cvvdp.ml.head", "cvvdp.heatmap"})
 
 _profiler_enabled = torch.autograd._profiler_enabled
 _tls = threading.local()

@@ -79,9 +79,10 @@ def write_npz(directory, flat):
 
 
 def port_gpu_mem(blk, pix, fl=9):
-    """gpu_mem (GB) that gives ``blk``-frame blocks under the port's memory
-    model (``cvvdp.estimate_block_N``: a = 1.6e9, b = 16, c = 320)."""
-    return (1.6e9 + pix * (fl - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
+    """gpu_mem (GB) that gives ``blk``-frame blocks under the ML metrics'
+    memory model (``cvvdp_ml_base.mem_model`` in ``cvvdp.estimate_block_N``)."""
+    a, b, c = ml_t.cvvdp_ml_base.mem_model
+    return (a + pix * (fl - 1) * b + pix * (b + c) * (blk + 0.5)) / 1e9
 
 
 # ---------------------------------------------------------------------------

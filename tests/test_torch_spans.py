@@ -3,8 +3,9 @@ nothing recorded with the profiler off; under ``torch.profiler`` the tree
 of a two-block FHWC ``predict`` (its request, no relayout, the prefetch
 worker's read, the uploads' bytes and channel-last counts), each leaf span
 as a ``record_function`` event of the profile at the span's own time (the
-relayout's in an HWCF ``predict``), and the loss's backward holding its
-recompute."""
+relayout's in an HWCF ``predict``), the loss's backward holding its
+recompute, the ML metric's blocks and head with its token count, and the
+heatmap's span with its bytes."""
 
 from __future__ import annotations
 
@@ -49,6 +50,19 @@ def _predict(m):
     m.predict(test, ref, dim_order="FHWC", frames_per_second=FPS)
 
 
+def _ml_metric():
+    m = ct.cvvdp_ml_transformer(display_name="standard_hdr_pq", device="cpu", random_init=True,
+                                dim=32)
+    m.gpu_mem = m.block_gpu_mem(H * W, BLK, FPS)
+    return m
+
+
+def _heatmap_metric():
+    m = ct.cvvdp(display_name="standard_hdr_pq", device="cpu", heatmap="supra-threshold")
+    m.gpu_mem = m.block_gpu_mem(H * W, BLK, FPS)
+    return m
+
+
 def _predict_hwcf(m):
     test, ref = (np.ascontiguousarray(x.transpose(1, 2, 3, 0)) for x in _clip())
     m.predict(test, ref, dim_order="HWCF", frames_per_second=FPS)
@@ -62,7 +76,8 @@ def fresh():
 
 
 @pytest.mark.parametrize("run, setup", [(_predict, _metric),
-                                        (_loss_step, lambda: ct.cvvdp(device="cpu"))])
+                                        (_loss_step, lambda: ct.cvvdp(device="cpu")),
+                                        (_predict, _ml_metric), (_predict, _heatmap_metric)])
 def test_profiler_off_records_nothing(fresh, run, setup):
     run(setup())
     assert spans.recorded() == []
@@ -132,7 +147,8 @@ def test_leaf_spans_are_profiler_events(traced_predict):
     rec, events = fhwc + hwcf, fhwc_events + hwcf_events
     main = threading.get_ident()
     leaves = [s for s in rec if s.name in spans.LEAVES and s.thread == main]
-    assert {s.name for s in leaves} == spans.LEAVES
+    # The ML head's and the heatmap's leaves open on their own paths (below).
+    assert {s.name for s in leaves} == spans.LEAVES - {"cvvdp.ml.head", "cvvdp.heatmap"}
     assert "cvvdp.relayout" not in {s.name for s in fhwc}
     # The prefetch worker's profiler reads off: its reads are in memory only.
     assert len(events) == len(leaves)
@@ -170,3 +186,51 @@ def test_list_is_bounded(fresh, monkeypatch):
     rec = spans.recorded()
     assert [s.attrs["k"] for s in rec] == [2, 3, 4, 5] and spans.dropped() == 2
     assert [s.index for s in rec] == [2, 3, 4, 5]
+
+
+def _tree(rec):
+    by_index = {s.index: s for s in rec}
+    for s in rec:
+        if s.parent >= 0:
+            p = by_index[s.parent]
+            assert p.start <= s.start and s.end <= p.end, (p, s)
+    return by_index
+
+
+def _leaf_events_match(rec, events, name):
+    mine = [s for s in rec if s.name == name]
+    ev = sorted((e for e in events if e[0] == name), key=lambda e: e[1])
+    assert len(mine) == len(ev) >= 1
+    for s, e in zip(mine, ev):
+        assert abs(e[1] - s.start) <= 2_000_000, (s, e)
+    return mine
+
+
+def test_ml_predict_records_blocks_and_head(fresh):
+    m = _ml_metric()
+    rec, events = _profiled(_predict, m)
+    by_index = _tree(rec)
+    root, = [s for s in rec if s.name == "cvvdp.predict"]
+    assert root.attrs == {"frames": F, "block_N": BLK}
+    blocks = [s for s in rec if s.name == "cvvdp.block"]
+    assert len(blocks) == 2 and all(s.parent == root.index for s in blocks)
+    for name in ("cvvdp.ingest", "cvvdp.pyramid", "cvvdp.bands"):
+        steps = [s for s in rec if s.name == name]
+        assert len(steps) == 2 and {by_index[s.parent].name for s in steps} == {"cvvdp.block"}
+    head = _leaf_events_match(rec, events, "cvvdp.ml.head")
+    back = _leaf_events_match(rec, events, "cvvdp.readback")
+    assert head[0].parent == back[0].parent == root.index and head[0].end <= back[0].start
+    # Tokens: a class token and the tiles of every band, per frame.
+    fs = int(np.ceil(m.pix_per_deg))
+    tiles = sum(-(-h // fs) * -(-w // fs) for h, w in m.lpyr.pyr_shape)
+    bands = m.lpyr.get_band_count()
+    assert head[0].attrs == {"tokens": F * (tiles + bands), "bands": bands}
+
+
+def test_heatmap_span_holds_the_maps_bytes(fresh):
+    rec, events = _profiled(_predict, _heatmap_metric())
+    by_index = _tree(rec)
+    maps = _leaf_events_match(rec, events, "cvvdp.heatmap")
+    assert len(maps) == 2 and {by_index[s.parent].name for s in maps} == {"cvvdp.block"}
+    assert [s.attrs["bytes"] for s in maps] == [3 * BLK * H * W * 2, 3 * (F - BLK) * H * W * 2]
+    assert not [s for s in rec if s.parent in {m.index for m in maps}]
