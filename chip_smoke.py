@@ -280,6 +280,7 @@ import time
 import numpy as np
 import torch
 
+from colorvideovdp_tpu_torch.tools.clips import FrameByFrame
 from colorvideovdp_tpu_torch.tools.kernel_times import blur_backward_split, device_ms, timing_row
 from colorvideovdp_tpu_torch.tools.kernel_times import call_ms as time_ms
 
@@ -287,8 +288,13 @@ CLIP_JOD = 7.8784  # the reference metric's JOD for the 4K HDR clip
 PORT_JOD = 7.877874  # the port's JOD for it before the one-pass band kernel
 PORT_JOD_TOL = 1e-4
 # The block length of the benchmark's 4K clip cells (32-frame uint16 clips,
-# one 80 GB card): the shape of phase 2's channel-last ingest check.
-FHWC_BLK = 23
+# one block on an 80 GB card): the shape of phase 2's channel-last ingest
+# check.
+FHWC_BLK = 32
+# The pinned block of phase 3's split loop: the clip's block under the
+# reference metric's memory model on an 80 GB card, against the one block
+# the pooled route's model gives it.
+SPLIT_BLK = 23
 TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_pooled": 1e-4,
        "csf_lut": 1e-5, "band_pooled_d": 1e-5, "blur_adjoint": 1e-5,
        "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
@@ -399,12 +405,12 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     H, W, N, blk = 2160, 3840, 12, 8
     Hi, Wi = 720, 1280
     t_phase = time.time()
-    # gpu_mem for 8-frame blocks under the port's block model (estimate_block_N:
-    # a = 1.6e9, b = 16, c = 320 bytes per pixel).
+    # gpu_mem for 8-frame blocks on the heatmap's route (estimate_block_N with
+    # the reference metric's model, a = 1.6e9, b = 16, c = 320 bytes per
+    # pixel); the pooled-only run below takes its own blocks.
     pix = H * W
-    gpu_mem = (1.6e9 + pix * (m.filter_len - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
-    probe = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
-                      gpu_mem=gpu_mem)
+    probe = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True, heatmap="raw")
+    gpu_mem = probe.gpu_mem = probe.block_gpu_mem(pix, blk, fps)
     probe.filter_len = m.filter_len
     if probe.estimate_block_N(pix, N) != blk:
         raise AssertionError(f"gpu_mem {gpu_mem} does not give {blk}-frame blocks")
@@ -676,7 +682,6 @@ def phase_configs(m, fps, rows, record, counters, gen):
             ("weber_g0_ref", dict(contrast="weber_g0_ref")), ("log", dict(contrast="log")),
             ("texture", dict(masking_model="mult-transducer-texture")))}
         pix = H * W
-        gpu_mem = (1.6e9 + pix * (m.filter_len - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
         launches = {}
 
         # The contrast-band mode against its plain version at the 4K shapes of
@@ -899,8 +904,10 @@ def phase_configs(m, fps, rows, record, counters, gen):
             jods = {}
             for fused in (True, False):
                 mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
-                               gpu_mem=gpu_mem, config_paths=cfg[name])
+                               config_paths=cfg[name])
                 mv.enable_fused_kernels = fused
+                # 8-frame blocks on this metric's route.
+                mv.gpu_mem = mv.block_gpu_mem(pix, blk, fps)
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
@@ -1334,15 +1341,15 @@ def phase_mega(m, fps, record, counters, gen):
     # predict with the mega route, pooled and with a raw heatmap, against
     # plain and against the default route.
     pix = H * W
-    gpu_mem = (1.6e9 + pix * (m.filter_len - 1) * 16 + pix * 336 * (blk + 0.5)) / 1e9
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
     V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
     res = {}
     for hm in (None, "raw"):
         for mega, fused in ((True, True), (True, False), (False, True)):
-            mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
-                           heatmap=hm, gpu_mem=gpu_mem)
+            mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True, heatmap=hm)
             mv.use_band_mega, mv.enable_fused_kernels = mega, fused
+            # 8-frame blocks on this metric's route.
+            mv.gpu_mem = mv.block_gpu_mem(pix, blk, fps)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1769,7 +1776,7 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     log(f"phase 11: BFCHW clip written in {time.time() - t0:.1f} s")
     n_cards = torch.cuda.device_count()
     share = 1 if n_cards >= n_sp else n_sp
-    gpu_mem = m.block_gpu_mem(H // n_sp * W, blk, fps, share)
+    gpu_mem = m.block_gpu_mem(H // n_sp * W, blk, fps, share, reference_model=True)
     spec = dict(test=paths[0], reference=paths[1], dim_order="BFCHW", fps=fps,
                 display_name="standard_hdr_pq", gpu_mem=gpu_mem)
     log(f"phase 11: {n_cards} card(s): {'one rank per card, NCCL' if share == 1 else 'two gloo ranks on card 0'}, "
@@ -2093,19 +2100,6 @@ def write_yuv_pair(dirname, V_test, V_ref, fps):
     """``write_yuv`` of the test and the reference. Returns the (test,
     reference) paths."""
     return [write_yuv(dirname, tag, V, fps) for tag, V in (("test", V_test), ("ref", V_ref))]
-
-
-class FrameByFrame:
-    """A source with its raw-block methods hidden, so that the metric reads it
-    through ``get_test_frame``."""
-
-    def __init__(self, inner):
-        self.inner = inner
-
-    def __getattr__(self, name):
-        if name in ("get_raw_block", "get_raw_frame_list", "unpack_raw_block"):
-            raise AttributeError(name)
-        return getattr(self.inner, name)
 
 
 def phase_files(V_test, V_ref, fps, counters, smi, tmp):
@@ -2485,7 +2479,8 @@ def phase_cli(files, fps, counters, smi, tmp, have):
         raise AssertionError(f"phase 13: the console printed {printed}, the CLI {q['cvvdp']}")
 
     # The heatmap through the CLI, in one block on both sides, and the API's
-    # heatmap written by np2vid.
+    # heatmap written by np2vid (gpu_mem on the heatmap's route).
+    m_api.do_heatmap = True
     gpu_mem = m_api.block_gpu_mem(H * W, N, fps)
     out = os.path.join(tmp, "cli_heatmap")
     walls["cli heatmap"], launches = run_cli(
@@ -2520,6 +2515,8 @@ def phase_cli(files, fps, counters, smi, tmp, have):
 
     # The channel dumps on the FHD pair (one block), kernels and plain.
     jod_fhd, _, _, m_fhd = api(fhd)
+    # Dumps take the heatmap's D route and its block model.
+    m_fhd.do_heatmap = True
     gpu_mem = m_fhd.block_gpu_mem(Hf * Wf, Nf, fps_fhd)
     dumped, jods = {}, {}
     for fused in (True, False):
@@ -2909,6 +2906,8 @@ def block_loop_split(cvt, vs, N, pix, fps, split_blk):
 
     probe = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
     _, t_split, b_split = loop(probe.block_gpu_mem(pix, split_blk, fps))
+    if b_split != split_blk:
+        raise AssertionError(f"phase 3: gpu_mem pinned {b_split}-frame blocks, not {split_blk}")
     mv, t_full, blk = loop()
     log(f"phase 3: block loop from an emptied allocator cache: {t_split:.3f} s in "
         f"{b_split}-frame blocks, {t_full:.3f} s in {blk}-frame blocks")
@@ -3463,7 +3462,7 @@ def main():
             f"block loop {t_loop:.3f} s = {N / t_loop:.2f} frames/s "
             f"({st['block_N_frames']}-frame blocks)")
         if fused:
-            block_loop_split(cvt, vs, N, H * W, fps, st["block_N_frames"])
+            block_loop_split(cvt, vs, N, H * W, fps, SPLIT_BLK)
     # Phase 12's content: the clip's first FILE_FRAMES frames.
     V_files = (V_test[..., :FILE_FRAMES].copy(), V_ref[..., :FILE_FRAMES].copy())
     del V_test, V_ref, vs

@@ -354,19 +354,57 @@ class cvvdp(vq_metric):
     # Scoring
 
     # The reference metric's memory model of a block, (a, b, c) in
-    # total = a + pix (N + fl - 1) b + pix N c bytes.
+    # total = a + pix (N + fl - 1) b + pix N c bytes: every route but the
+    # pooled route on the card (``_block_mem_model``).
     mem_model = (1.6e9, 16, 320)
+    # The pooled route's model on the card, from its peak on an H100
+    # (``tools/block_memory.py``: 4K blocks of 1 to 32 frames in every
+    # contrast coding alike, and of 32 to 160 frames; FHD blocks of 1 to 160):
+    # 44.0 bytes a pixel-frame for uint16 arrays, 56.0 for float32 arrays and
+    # for a packed 10-bit 4:2:0 .yuv pair (its float32 unpack), plus the tails,
+    # 3.189 GB at 4K and 0.80 GB at FHD: fl - 1 = 8 frames of both sides' 3
+    # float32 channels, the old and the new alive across the ingest, so
+    # b = 48 (the fixed term fits at 3-5 MB). c = 12 puts b + c 6% over 56.0
+    # for the caching allocator's rounding: a 32-frame 4K block is 19.2 GB
+    # (measured 18.05), a 160-frame one 82.5 GB (measured 77.5). The
+    # reference model's c = 320 held a 32-frame 4K clip to 23-frame blocks of
+    # an H100.
+    pooled_mem_model = (0.1e9, 48, 12)
 
     def _device_free(self) -> int:
-        """The device memory a block may take: what ``mem_get_info`` reports
-        free."""
-        return torch.cuda.mem_get_info(self.device)[0]
+        """The device memory a block may take: the free memory
+        ``mem_get_info`` reports and the memory the caching allocator holds
+        unused. After a clip the allocator keeps its blocks, which
+        ``mem_get_info`` no longer counts free, and the next clip would be
+        sized to what is left beside them."""
+        dev = self.device
+        return (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
 
-    def estimate_block_N(self, pix_cnt, N_frames, share=1):
-        """Frames per block from the memory model ``mem_model``:
-        total = a + pix (N + fl - 1) b + pix N c (the reference metric's a =
-        1.6e9, b = 16, c = 320). ``share``: the number of ranks that divide
-        the device's memory."""
+    def _block_mem_model(self, reference_model=False):
+        """(a, b, c) of the route this metric's blocks take:
+        ``pooled_mem_model`` where every interior band takes the one-pass
+        pooled kernel on the card, else ``mem_model``. ``reference_model``:
+        the caller's loop keeps ``mem_model`` whatever the metric's state: the
+        mesh, and a source read frame by frame (its float32 frames and the
+        plain temporal filter peak at 127.6 bytes a pixel-frame, which the
+        reference model covers)."""
+        pooled = (self.pooled_mem_model is not None and not reference_model
+                  and self.device.type == "cuda" and self.enable_fused_kernels
+                  and not self.do_heatmap and not self.dump_channels
+                  and not self.use_band_mega and self._masking_params().fusable())
+        return self.pooled_mem_model if pooled else self.mem_model
+
+    def estimate_block_N(self, pix_cnt, N_frames, share=1, reference_model=False):
+        """Frames per block from the route's memory model
+        (``_block_mem_model``): total = a + pix (N + fl - 1) b + pix N c.
+        ``share``: the number of ranks that divide the device's memory.
+        On the pooled route, where a large card holds long blocks (about 160
+        4K frames on an H100) and block boundaries enter no output, the clip
+        is spread evenly over the blocks it needs, so that the padded
+        trailing block takes fewer frames than there are blocks; a user's
+        ``gpu_mem`` pins the largest block that memory holds
+        (``block_gpu_mem``)."""
         if self.device.type == "cuda":
             mem_avail = self._device_free()
             if self.gpu_mem is not None:
@@ -374,17 +412,23 @@ class cvvdp(vq_metric):
         else:
             mem_avail = HOST_MEM_BUDGET if self.gpu_mem is None else self.gpu_mem * 1e9
         mem_avail /= share
-        a, b, c = self.mem_model
+        model = self._block_mem_model(reference_model)
+        a, b, c = model
         max_frames = int(math.floor(
             (mem_avail - a - pix_cnt * (self.filter_len - 1) * b) / (pix_cnt * (b + c))))
-        return max(1, min(max_frames, N_frames))
+        block_N = max(1, min(max_frames, N_frames))
+        if model is self.pooled_mem_model and self.gpu_mem is None:
+            block_N = -(-N_frames // -(-N_frames // block_N))
+        return block_N
 
-    def block_gpu_mem(self, pix_cnt, block_N, fps, share=1):
+    def block_gpu_mem(self, pix_cnt, block_N, fps, share=1, reference_model=False):
         """The ``gpu_mem`` (GB) under which ``estimate_block_N(pix_cnt, N,
-        share)`` gives ``block_N``-frame blocks (N >= block_N) of a video at
-        ``fps``, when the device has that much free."""
+        share, reference_model)`` gives ``block_N``-frame blocks (N >=
+        block_N) of a video at ``fps``, when the device has that much free.
+        The route is the metric's as it stands: set its heatmap, dumps and
+        kernels first."""
         fl = len(get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)[0][0])
-        a, b, c = self.mem_model
+        a, b, c = self._block_mem_model(reference_model)
         return share * (a + pix_cnt * (fl - 1) * b + pix_cnt * (b + c) * (block_N + 0.5)) / 1e9
 
     def _ensure_pyramids(self, width, height):
@@ -465,10 +509,11 @@ class cvvdp(vq_metric):
         if dump:
             dump.open(vid_source.get_frames_per_second())
 
-        blocks = (self._raw_blocks if hasattr(vid_source, "get_raw_block")
-                  else self._frame_blocks)
+        per_frame = not hasattr(vid_source, "get_raw_block")
+        blocks = self._frame_blocks if per_frame else self._raw_blocks
         Q_blocks = []
-        block_N = 1 if is_image else self.estimate_block_N(h * w * batch_sz, N_frames)
+        block_N = 1 if is_image else self.estimate_block_N(h * w * batch_sz, N_frames,
+                                                           reference_model=per_frame)
         root.set(frames=N_frames, block_N=block_N)
         for ff, cur, R, temp_ch in blocks(vid_source, N_frames, block_N, batch_sz, met_cs):
             dumped = {} if dump else None

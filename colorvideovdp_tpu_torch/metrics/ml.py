@@ -346,15 +346,9 @@ class cvvdp_ml_base(cvvdp):
     # leaves 6% over the measured 234.6 for the caching allocator's rounding;
     # the reference metric's c = 320 held a 4K block to 29 frames.
     mem_model = (1.6e9, 16, 250)
-
-    def _device_free(self) -> int:
-        """The free memory ``mem_get_info`` reports and the memory the
-        caching allocator holds unused: after a clip the allocator keeps its
-        blocks, which ``mem_get_info`` no longer counts free, and the next
-        clip would be sized to what is left beside them."""
-        dev = self.device
-        return (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
-                - torch.cuda.memory_allocated(dev))
+    # The trunk takes no pooled route: its blocks follow ``mem_model`` on
+    # every route.
+    pooled_mem_model = None
 
     def __init__(self, random_init=False, disabled_features=None, **kwargs):
         self.random_init = random_init

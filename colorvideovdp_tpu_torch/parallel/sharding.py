@@ -547,8 +547,10 @@ def agreed_block_N(metric, pix_loc: int, N_frames: int, mesh: Mesh) -> int:
     """Frames per block: ``estimate_block_N`` on this rank's pixels with its
     share of the device's memory (the free memory over the ranks that share
     the device), then the least over all ranks (``all_reduce`` MIN), so that
-    every rank runs the same blocks."""
-    n = metric.estimate_block_N(pix_loc, N_frames, share=ranks_on_device(metric.device))
+    every rank runs the same blocks. The mesh's blocks follow the reference
+    metric's memory model (``cvvdp._block_mem_model``)."""
+    n = metric.estimate_block_N(pix_loc, N_frames, share=ranks_on_device(metric.device),
+                                reference_model=True)
     if not dist.is_initialized():
         return n
     t = torch.tensor([n], dtype=torch.int64, device=metric.device)

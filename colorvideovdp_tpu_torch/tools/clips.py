@@ -14,3 +14,16 @@ def hdr_clip(H: int, W: int, N: int, rng: np.random.RandomState):
     noise = (rng.randn(H, W, 3, N) * 8).astype(np.int16)
     V_test = np.clip(V_ref.astype(np.int16) + noise, 0, 255).astype(np.uint8)
     return V_test, V_ref
+
+
+class FrameByFrame:
+    """A source with its raw-block methods hidden, so that the metric reads it
+    through ``get_test_frame``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        if name in ("get_raw_block", "get_raw_frame_list", "unpack_raw_block"):
+            raise AttributeError(name)
+        return getattr(self.inner, name)

@@ -1,16 +1,19 @@
 """Time the port's 4K scoring path on the card.
 
     python3 colorvideovdp_tpu_torch/tools/path_times.py [--reps N] [--block-frames B]
-        [--contrast CODING]
+        [--contrast CODING] [--frames F]
 
 Run as a script with ``PYTHONPATH`` naming a checkout's root, it measures that
 checkout's package: two checkouts compared in one call on one card take turns
 (A, B, B, A). It uses only the package's public entry points and
 ``ops.kernels.counted_wrappers()``. It scores the 4K HDR clip of
 ``chip_smoke.py`` phase 3 (3840x2160, 32 frames, 30 fps, ``tools/clips.py``
-content of seed 7, ``standard_hdr_pq``) through ``cvvdp.predict`` as (1, F,
-3, H, W) "BFCHW" arrays, so no host relayout is timed, in blocks of
-``--block-frames`` (``gpu_mem`` from ``cvvdp.block_gpu_mem``), and reports
+content of seed 7, ``standard_hdr_pq``; ``--frames`` repeats it to that
+length) through ``cvvdp.predict`` as (1, F, 3, H, W) "BFCHW" arrays, so no
+host relayout is timed, in blocks of ``--block-frames`` (``gpu_mem`` from
+``cvvdp.block_gpu_mem``, each run from an emptied allocator cache) or, with
+0, in the blocks the metric chooses itself (the allocator's cache held from
+run to run, as in a service that scores clip after clip), and reports
 the wall time of each warm run, the JOD, the kernels' launches, the peak
 device memory of the timed runs, and from ``torch.profiler``
 (``profile_device``, which ``chip_smoke.py`` also uses) the device time of
@@ -62,6 +65,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--block-frames", type=int, default=27)
     ap.add_argument("--contrast", default=None)
+    ap.add_argument("--frames", type=int, default=32)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("path_times: CUDA is not available")
@@ -92,13 +96,17 @@ def main(argv=None) -> int:
 def _clip_times(args, cvt, counters, hdr_clip, cfg):
     """The timed runs of the 4K clip (BFCHW, fixed blocks) with the
     configuration at ``cfg`` (None: the default)."""
-    H, W, N, fps = 2160, 3840, 32, 30.0
-    V_test, V_ref = hdr_clip(H, W, N, np.random.RandomState(7))
-    V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
-    probe = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
-                      config_paths=cfg)
-    gpu_mem = probe.block_gpu_mem(H * W, args.block_frames, fps)
-    del probe
+    H, W, N, fps = 2160, 3840, args.frames, 30.0
+    V_test, V_ref = hdr_clip(H, W, 32, np.random.RandomState(7))
+    V_test, V_ref = (np.ascontiguousarray(np.concatenate([v] * -(-N // 32), axis=3)[..., :N]
+                                          .transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
+    pinned = args.block_frames > 0
+    gpu_mem = None
+    if pinned:
+        probe = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
+                          config_paths=cfg)
+        gpu_mem = probe.block_gpu_mem(H * W, args.block_frames, fps)
+        del probe
 
     def score():
         m = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True, gpu_mem=gpu_mem,
@@ -110,7 +118,8 @@ def _clip_times(args, cvt, counters, hdr_clip, cfg):
     times = []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(args.reps):
-        torch.cuda.empty_cache()
+        if pinned:
+            torch.cuda.empty_cache()
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
@@ -120,10 +129,12 @@ def _clip_times(args, cvt, counters, hdr_clip, cfg):
         times.append(round(time.time() - t0, 4))
     launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.empty_cache()
+    if pinned:
+        torch.cuda.empty_cache()
     rows, busy, wall = profile_device(score)
     top = {name[:100]: [round(ms, 3), count] for ms, count, name in rows[:12]}
-    return {"jod": jod, "block_frames": blk, "seconds": times, "launches": launches,
+    return {"jod": jod, "frames": N, "block_frames": blk, "padded_frames": -(-N // blk) * blk - N,
+            "seconds": times, "launches": launches,
             "peak_gib": round(peak, 3), "profiled_seconds": round(wall, 4),
             "device_busy_ms": round(busy, 3), "device_ms_by_kernel": top}
 

@@ -86,7 +86,7 @@ def main(argv=None) -> int:
     # The ranks that share a device divide its memory (the host: all of them).
     share = args.ranks if device == "cpu" else (1 if cards >= args.ranks
                                                 else -(-args.ranks // cards))
-    gpu_mem = m.block_gpu_mem((H // n_sp) * W, args.block_frames, fps, share)
+    gpu_mem = m.block_gpu_mem((H // n_sp) * W, args.block_frames, fps, share, reference_model=True)
     del m, Q1
     tmp = tempfile.mkdtemp(prefix="cvvdp_shard_check_")
     try:

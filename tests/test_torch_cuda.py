@@ -532,12 +532,11 @@ def test_heatmap_kernels_match_plain(dev, hm_type):
     if hm_type == "threshold-image":
         hm_type, test, ref, kw = "threshold", test[..., 0], ref[..., 0], dict(dim_order="HWC")
     pix = 96 * 320
-    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 5.5) / 1e9  # 5-frame blocks
     out = []
     for fused in (True, False):
-        m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=hm_type,
-                     gpu_mem=gpu_mem)
+        m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=hm_type)
         m.enable_fused_kernels = fused
+        m.gpu_mem = m.block_gpu_mem(pix, 5, 30)  # 5-frame blocks on this route
         old = bm.band_masking_d.launches, bm.band_masking_d_noblur.launches
         before = bp.band_pooled_d.launches
         Q, st = m.predict(test, ref, **kw)
@@ -550,8 +549,9 @@ def test_heatmap_kernels_match_plain(dev, hm_type):
     assert np.abs(hm_k - hm_p).max() <= 1.1e-3
     assert abs(q_k - q_p) <= 1e-4
     # The Q columns come from the D mode's pooled sums: the pooled-only JOD.
-    q_0, _ = ct.cvvdp(display_name="standard_4k", device="cuda", gpu_mem=gpu_mem).predict(
-        test, ref, **kw)
+    m = ct.cvvdp(display_name="standard_4k", device="cuda")
+    m.gpu_mem = m.block_gpu_mem(pix, 5, 30)
+    q_0, _ = m.predict(test, ref, **kw)
     assert float(q_0) == q_k
 
 
@@ -631,13 +631,13 @@ def test_configurations_kernels_match_plain(dev, tmp_path, over):
     test = np.clip(ref.astype(np.int16) + (rng.randn(*ref.shape) * 10).astype(np.int16),
                    0, 255).astype(np.uint8)
     pix = 96 * 320
-    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 5.5) / 1e9  # 5-frame blocks
     contrast_mode = "contrast" in over
     counter = bp.band_pooled if contrast_mode else lut.csf_lut
     out = []
     for fused in (True, False):
-        m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp, gpu_mem=gpu_mem)
+        m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp)
         m.enable_fused_kernels = fused
+        m.gpu_mem = m.block_gpu_mem(pix, 5, 30)  # 5-frame blocks on this route
         before = (counter.launches, ing.ingest.launches, bl.blur.launches,
                   bm.band_masking_contrast.launches)
         Qv, _ = m.predict(test, ref, dim_order="HWCF", frames_per_second=30)
@@ -751,7 +751,6 @@ def test_ml_metrics_kernels_match_plain(dev, family, case):
     if case == "image":
         test, ref, kw = test[..., 0], ref[..., 0], dict(dim_order="HWC")
     pix = 96 * 320
-    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 3.5) / 1e9  # 3-frame blocks
     first = ing.ingest_head if case == "symmetric" else ing.ingest_replicate
     counters = [pyramid_reduce, lut.csf_lut, bl.blur]
     if case != "image":
@@ -759,8 +758,9 @@ def test_ml_metrics_kernels_match_plain(dev, family, case):
     weights = None
     jods = []
     for fused in (True, False):
-        m = cls(display_name="standard_4k", device="cuda", random_init=True, gpu_mem=gpu_mem,
+        m = cls(display_name="standard_4k", device="cuda", random_init=True,
                 temp_padding="symmetric" if case == "symmetric" else "replicate")
+        m.gpu_mem = m.block_gpu_mem(pix, 3, 30)  # 3-frame blocks under the ML model
         weights = weights or _responsive_ml_weights(m, 9)
         m.load_weights(weights)
         m.enable_fused_kernels = fused
@@ -814,13 +814,12 @@ def test_band_mega_route_kernels_match_plain(dev, heatmap):
     test = np.clip(ref.astype(np.int16) + (rng.randn(*ref.shape) * 10).astype(np.int16),
                    0, 255).astype(np.uint8)
     pix = 96 * 512
-    gpu_mem = (1.6e9 + pix * 8 * 16 + pix * 336 * 5.5) / 1e9  # 5-frame blocks
     fn = bf.band_fused_d if heatmap else bf.band_fused
     out = {}
     for mega, fused in ((True, True), (True, False), (False, True)):
-        m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=heatmap,
-                     gpu_mem=gpu_mem)
+        m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=heatmap)
         m.use_band_mega, m.force_fused, m.enable_fused_kernels = mega, True, fused
+        m.gpu_mem = m.block_gpu_mem(pix, 5, 30)  # 5-frame blocks on this route
         before = fn.launches
         Q, st = m.predict(test, ref, dim_order="HWCF", frames_per_second=30)
         assert st["block_N_frames"] == 5
@@ -1218,8 +1217,8 @@ def test_file_route_kernels_match_plain(dev, tmp_path, route):
         if route == "per-frame":
             vs = _HideRaw(vs)  # read frame by frame
         m = ct.cvvdp(display_name="standard_hdr_pq", device="cuda")
-        m.gpu_mem = m.block_gpu_mem(192 * 320, 4, 30)
         m.enable_fused_kernels = fused
+        m.gpu_mem = m.block_gpu_mem(192 * 320, 4, 30, reference_model=route == "per-frame")
         before = (ing.ingest.launches, prd.pyramid_reduce.launches, bp.band_pooled.launches)
         Q, st = m.predict_video_source(vs)
         assert st["block_N_frames"] == 4
@@ -1283,8 +1282,8 @@ def test_dump_route_kernels_match_plain(dev, tmp_path, monkeypatch):
     for fused in (True, False):
         m = ct.cvvdp(display_name="standard_hdr_pq", device="cuda",
                      dump_channels=dc.DumpChannels())
-        m.gpu_mem = m.block_gpu_mem(136 * 242, 3, 30)
         m.enable_fused_kernels = fused
+        m.gpu_mem = m.block_gpu_mem(136 * 242, 3, 30)
         _Frames.frames = {}
         before = bp.band_pooled_d.launches
         Q, st = m.predict_video_source(video_source_file(*names,

@@ -132,7 +132,7 @@ def test_sharded_video_1x2_matches_jax_predict(tmp_path):
                     0, 255).astype(np.uint8)
     m = ct.cvvdp(display_name="standard_hdr_pq", device="cpu")
     # gpu_mem for 4-frame blocks, with the host's memory split by the 2 ranks.
-    gpu_mem = m.block_gpu_mem((H // 2) * W, 4, fps, share=2)
+    gpu_mem = m.block_gpu_mem((H // 2) * W, 4, fps, share=2, reference_model=True)
     spec = _spec(tmp_path, "vid", V_test, V_ref, "HWCF", fps, "standard_hdr_pq", 1,
                  gpu_mem=gpu_mem, temp_padding="replicate")
     res = run_ranks(sh.score_rank, 2, (spec,), timeout_s=600, device="cpu")
@@ -225,12 +225,37 @@ def test_rank_device_has_one_source():
         sh.score_rank(0, 1, {"device": "cpu"})
 
 
-def test_block_gpu_mem_inverts_the_block_model():
-    m = ct.cvvdp(display_name="standard_hdr_pq", device="cpu")
-    m.filter_len = len(get_temporal_filters(30.0, m.sigma_tf, m.beta_tf, m.temp_filter)[0][0])
-    for pix, blk, share in ((1080 * 3840, 16, 2), (64 * 256, 4, 1), (540 * 3840, 8, 4)):
-        m.gpu_mem = m.block_gpu_mem(pix, blk, 30.0, share)
-        assert m.estimate_block_N(pix, 64, share=share) == blk
+def test_block_gpu_mem_inverts_the_block_model(monkeypatch, tmp_path):
+    """On every route: the CPU, and on a card (its memory queries patched to
+    a large free memory) the pooled route, the heatmap's, the dumps', the
+    mesh's, a per-frame source's, the generic chain's, the plain versions',
+    the mega route's and the ML trunk's."""
+    from colorvideovdp_tpu_torch.dump_channels import DumpChannels
+    from colorvideovdp_tpu_torch.metrics.ml import cvvdp_ml_transformer
+    from colorvideovdp_tpu_torch.utils.config import write_parameters
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (1e12, 1e12))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev=None: 0)
+    texture = write_parameters(str(tmp_path), masking_model="mult-transducer-texture")
+    routes = {"cpu": {}, "pooled": {}, "heatmap": dict(heatmap="raw"),
+              "dumps": dict(dump_channels=DumpChannels()), "mesh": {}, "per-frame": {},
+              "generic": dict(config_paths=texture), "plain": {}, "mega": {}, "ml": {}}
+    for route, kw in routes.items():
+        cls = cvvdp_ml_transformer if route == "ml" else ct.cvvdp
+        if route == "ml":
+            kw = dict(random_init=True)
+        m = cls(display_name="standard_hdr_pq", device="cpu", **kw)
+        if route != "cpu":
+            m.device = torch.device("cuda")
+        m.enable_fused_kernels = route != "plain"
+        m.use_band_mega = route == "mega"
+        kw = dict(reference_model=route in ("mesh", "per-frame"))
+        m.filter_len = len(get_temporal_filters(30.0, m.sigma_tf, m.beta_tf, m.temp_filter)[0][0])
+        for pix, blk, share in ((1080 * 3840, 16, 2), (64 * 256, 4, 1), (540 * 3840, 8, 4),
+                                (2160 * 3840, 32, 1)):
+            m.gpu_mem = m.block_gpu_mem(pix, blk, 30.0, share, **kw)
+            assert m.estimate_block_N(pix, 64, share=share, **kw) == blk, route
 
 
 def test_mesh_and_heatmap_guards():
