@@ -33,17 +33,19 @@ Phase 2  every kernel against its plain PyTorch version on the card, at the
          for bit, timed beside its bound. The one-pass pooled band
          kernel (``band_pooled``)
          at 4K band 0 and at the launch that stacks the narrow bands,
-         against its plain version and bit for bit against the previous
-         route (the plain expand + ``band_masking``), timed in turns with
-         it.
+         against its plain version, timed.
 Phase 3  the 4K HDR clip (3840x2160, 32 frames, 30 fps, seed 7,
          standard_hdr_pq) through ``cvvdp.predict`` with the kernels, then
          with ``enable_fused_kernels = False``. Every kernel must have
-         launched, ``band_pooled`` and not ``band_masking`` for the pooled
-         raw bands, the two JODs must agree within 1e-3, the JOD must be
+         launched (the ingest kernel's replicate mode for the first block,
+         tail mode for any later one; ``band_pooled`` for the raw bands),
+         the two JODs must agree within 1e-3, the JOD must be
          within 0.01 of 7.8784, the value the reference metric gives, and
          within 1e-4 of 7.877874, the port's JOD before the one-pass band
-         kernel. Then the clip as FHWC with the kernels: blocks uploaded
+         kernel. The clip again with the first block's padding formed in
+         plain PyTorch (frame 0 converted by ``raw_to_met``, then tail mode):
+         JOD and ``Q_per_ch`` within 1e-5 of the replicate mode's. Then the
+         clip as FHWC with the kernels: blocks uploaded
          channel-last, the HWCF run's launches, its JOD and ``Q_per_ch``
          bit for bit. Then the host relayout of the input arrays and the block
          loop are timed apart, and the warm block loop's device time is
@@ -63,16 +65,13 @@ Phase 5  a training step at full width: ``get_loss_fn(1080, 1920)`` on
          5) both ways, and the peak memory; with the kernels, the device
          time of ``Blur.backward`` within a step (CUDA events around each
          call) and the step's device time by kernel (``torch.profiler``).
-Phase 6  the heatmap. First the D modes against their plain versions at
-         the shapes of the runs below: 4K band 0 at the block length, the
-         launch that takes the smallest 4K bands together (C = 4), and band 0
-         and the 6-row band of a 1280x720 image (C = 3; the 6-row band takes
-         no masking blur): the one-pass kernel's D mode (``band_pooled_d``,
-         the heatmap's route) bit for bit against the previous route, the
-         plain expand + ``band_masking_d`` (``band_masking_d_noblur`` on the
-         6-row band), with sums bit for bit those of ``band_pooled``, timed
-         in turns with it; the previous route's kernels against plain as its
-         yardstick. Then
+Phase 6  the heatmap. First the one-pass kernel's D mode
+         (``band_pooled_d``, the heatmap's route) against its plain version
+         at the shapes of the runs below: 4K band 0 at the block length, the
+         launch that takes the smallest 4K bands together (C = 4), and band 0,
+         the 6-row band and all bands of a 1280x720 image (C = 3; the 6-row
+         band takes no masking blur), with sums bit for bit those of
+         ``band_pooled``, timed. Then
          ``predict`` with heatmap="raw" and "supra-threshold" on 12 frames of
          the phase-3 content (3840x2160, standard_hdr_pq; 32 frames cut to 12
          to fit the time limit) with ``gpu_mem`` set for 8-frame blocks, so
@@ -81,22 +80,16 @@ Phase 6  the heatmap. First the D modes against their plain versions at
          with the kernels, then plain: equal block lengths, heatmaps within
          1.1e-3 (one float16 quantum and a rounding), JODs within 1e-3, and
          the 4K JOD with a heatmap within 1e-4 of the pooled-only JOD;
-         ``band_pooled_d`` must have launched and ``band_masking_d`` /
-         ``band_masking_d_noblur`` not.
+         ``band_pooled_d`` must have launched.
 Phase 7  the non-default configurations, each a copy of the default
          cvvdp_parameters.json with one or two keys changed, written to a
          temporary directory and passed as ``config_paths``. First the
-         log-LMS mode of the ingest kernel at 8 frames of 4K; the previous
-         contrast-band route's kernel (``band_masking_contrast`` / ``_d``,
-         kept as a yardstick) against its plain version, pooled and D, at
-         4K band 0 (1, 8, 8, 2160, 3840) of the weber_g0_ref decomposition
-         and at the launch that takes its smallest bands. Then the one-pass
-         kernel's contrast-band codings (``band_pooled`` / ``band_pooled_d``
-         with weber_g0_ref and with log, from each band's level and the
-         next) against their plain versions and against that previous
-         route (the plain contrast bands and fields + the yardstick), at
-         4K band 0 and the smallest-bands launch, timed in turns with it at
-         band 0 (D with log, and over the 720p log heatmap's bands); the
+         log-LMS mode of the ingest kernel at 8 frames of 4K. Then the
+         one-pass kernel's contrast-band codings (``band_pooled`` /
+         ``band_pooled_d`` with weber_g0_ref and with log, from each band's
+         level and the next) against their plain versions at 4K band 0
+         (1, 8, 8, 2160, 3840) and the smallest-bands launch, timed at band
+         0 (D with log, and over the 720p log heatmap's bands); the
          blur kernel at the texture models' 33 taps on (3, 1080, 1920).
          Then ``predict`` on 12 frames of the phase-3 content (BFCHW,
          8-frame blocks) with contrast weber_g0_ref and with log, kernels
@@ -107,12 +100,12 @@ Phase 7  the non-default configurations, each a copy of the default
          mult-transducer-texture (the generic chain: CSF LUT and 33-tap blur
          kernels); and a ``get_loss_fn(1080, 1920)`` step of 2 pairs with
          weber_g0_ref: loss within 1e-4, gradient within 1e-4 of max|g|.
-         The yardstick must launch on none of these paths.
 
 Phase 8  the ColorVideoVDP-ML metrics. First the ingest kernel's first-block
          modes, "replicate" and "head", against their plain version
-         (``ingest_first_plain``) and against tail mode fed the tails that
-         ``cvvdp`` forms, at (1, 8, 3, 2160, 3840) uint8 on standard_hdr_pq.
+         (``ingest_first_plain``) and against tail mode fed their padding
+         converted in plain PyTorch, at (1, 8, 3, 2160, 3840) uint8 on
+         standard_hdr_pq.
          Then ``predict`` with ``cvvdp_ml_saliency`` and
          ``cvvdp_ml_transformer`` (dim 256, depth 4, 8 heads) on the phase-6
          12-frame 4K content (BFCHW, ``gpu_mem`` for 8-frame blocks: a first
@@ -126,21 +119,14 @@ Phase 8  the ColorVideoVDP-ML metrics. First the ingest kernel's first-block
          time, peak memory and the split between trunk, feature pooling and
          head.
 
-Phase 9  the band mega-kernel route (``use_band_mega``). First the pooled
-         mode (``band_fused``, the one-pass kernel for the one band) and its
-         D mode (``band_fused_d``), against their plain versions and against
-         the raw-pair route fed the plain expand, at 4K band 0
-         (1, 8, 8, 2160, 3840) and at an off-grid 1081x1921 band; its time
-         beside the default route's (plain expand + ``band_masking``).
-         Then ``predict`` on the phase-6 12-frame 4K content (BFCHW, 8-frame
-         blocks) with ``use_band_mega``, pooled and with heatmap "raw",
-         kernels then plain, against the default route: JODs within 1e-3
-         (kernels vs plain) and 1e-4 (vs the default route), the heatmap
-         within 1.1e-3; the fused mode must launch once per block (band 0,
-         the one 4K band the gate admits). Then a B = 1
-         ``get_loss_fn(2160, 3840)`` step on standard_4k with
-         ``use_band_mega``: loss within 1e-4 and gradient within 1e-4 of
-         max|g| against plain and against the default route.
+Phase 9  the one-pass kernel on one band: ``band_pooled`` and
+         ``band_pooled_d`` against their plain versions at 4K band 0
+         (1, 8, 8, 2160, 3840) and at an off-grid 1081x1921 band, the D
+         mode's sums bit for bit the pooled mode's, timed. Then a B = 1
+         ``get_loss_fn(2160, 3840)`` step on standard_4k: loss within 1e-4
+         and gradient within 1e-4 of max|g| against plain, ``band_pooled``
+         launched once a band group in the forward and once in the
+         checkpointed block's recompute.
 Phase 10 the interleave micro-benchmark
          (``colorvideovdp_tpu_torch/tools/interleave_bench.py``) at its shape
          (48, 2160, 3840): interleave, concat and de-interleave bit for bit
@@ -152,25 +138,24 @@ Phase 11 multi-device scoring (``colorvideovdp_tpu_torch/parallel``). First
          the reduce kernel's slab mode (``pyramid_reduce_slab``, bit for bit)
          and the one-pass kernel's halo mode (``band_pooled_halo``, from gi
          slabs and the rows of gn their expand reads; pooled sums within
-         1e-4 relative of its plain version and bit for bit those of the
-         previous route, the slab of the plain expand +
-         ``band_masking_halo``, itself held to its plain version) at every
+         1e-4 relative of its plain version) at every
          launch shape the sharded run gives them, rank 0's and rank 1's:
          16-frame blocks of 4K on a (1, 2) mesh, the slab reduce at levels
          0-2 (level 0 (128, 1096, 3840)) and the halo mode at bands 0-3 as
          ``band_groups`` packs them; timed at level 0 and the first halo
-         launch, the halo mode in turns with the previous route, with their
-         bounds and each halo exchange's bytes; each launch's two ranks'
+         launch, with their bounds and each halo exchange's bytes; each launch's two ranks'
          halo sums against the whole bands'. Then the phase-3 clip (BFCHW,
-         so no host relayout) through ``shard_video_fn`` on a (1, 2) mesh
+         so no host relayout) through the sharded ``predict_video_source``
+         (``parallel/sharding.py``, the metric's block producer on each
+         rank's slab) on a (1, 2) mesh
          via ``run_ranks``: NCCL
          with one rank per card where there are two or more cards, else two
          gloo ranks sharing card 0, ``gpu_mem`` set for the same 16-frame
          blocks (each rank's must be 16 frames). The JOD must be within 0.01
          of 7.8784 and within 1e-4 of phase 3's, on every rank, and both new
          modes, ingest (replicate and tail), reduce, the one-pass band
-         kernel and the CSF LUT must have launched on every rank, and
-         ``band_masking_halo`` on none. Each rank's set-up (groups,
+         kernel and the CSF LUT must have launched on every rank. Each
+         rank's set-up (groups,
          metric, kernel library, one collective per group) is timed apart
          from its block loop, and each block is timed. Between the two,
          the halo mode in the weber_g0_ref and log codings and its D mode
@@ -196,7 +181,7 @@ Phase 12 file sources: the first 12 frames of the phase-3 clip as a
          about 300 MB a file in a temporary directory, removed at the end)
          through ``video_source_file`` and ``predict_video_source``, with
          the kernels and plain (JODs within 1e-3; ingest, the reduce,
-         ``band_pooled`` and the CSF LUT launched, no yardstick); one
+         ``band_pooled`` and the CSF LUT launched); one
          block's host read, upload and unpack on the card timed; the
          array route fed the port's own unpacked float32 frames within
          1e-4 of the file route; a FHD crop (8 frames at 24 fps): 4 frames
@@ -256,11 +241,6 @@ instructions a second, half the non-tensor float32 peak of 67 TFLOP/s,
 which counts an FMA as two; both from the published H100 SXM figures at
 700 W.
 
-The previous routes' kernels (``band_masking``, ``band_masking_d``,
-``band_masking_d_noblur``, ``band_masking_contrast``, ``_contrast_d``,
-``band_masking_halo``) are yardsticks: a launch of any of them on any path
-fails the run.
-
 Any failure raises (non-zero exit). The last line of standard output is a
 JSON object naming the device; the line before it is the card's name and
 power limit, and the one before that lists the kernels.
@@ -295,13 +275,12 @@ FHWC_BLK = 32
 # reference metric's memory model on an 80 GB card, against the one block
 # the pooled route's model gives it.
 SPLIT_BLK = 23
-TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_masking": 1e-4, "band_pooled": 1e-4,
+TOL = {"ingest": 1e-5, "pyramid_reduce": 1e-6, "band_pooled": 1e-4,
        "csf_lut": 1e-5, "band_pooled_d": 1e-5, "blur_adjoint": 1e-5,
-       "csf_lut_bwd": 1e-5, "blur": 1e-5, "band_masking_d": 1e-5, "band_masking_d_noblur": 1e-5,
-       "band_masking_contrast": 1e-4, "band_masking_contrast_d": 1e-5,
-       "ingest_replicate": 1e-5, "ingest_head": 1e-5, "band_fused": 1e-4, "band_fused_d": 1e-5,
+       "csf_lut_bwd": 1e-5, "blur": 1e-5,
+       "ingest_replicate": 1e-5, "ingest_head": 1e-5,
        "interleave": 0.0, "concat": 0.0, "deinterleave": 0.0,
-       "pyramid_reduce_slab": 0.0, "band_masking_halo": 1e-4, "band_pooled_halo": 1e-4,
+       "pyramid_reduce_slab": 0.0, "band_pooled_halo": 1e-4,
        "band_pooled_d_halo": 1e-5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # Float32 instructions a second outside the tensor cores: the data sheet's 67
@@ -319,14 +298,8 @@ LOSS_TOL, GRAD_TOL = 1e-4, 1e-4
 HEATMAP_TOL, HEATMAP_JOD_TOL = 1.1e-3, 1e-4
 # ML metrics (phase 8): kernels against plain.
 ML_JOD_TOL = 1e-3
-# The mega-kernel route (phase 9): JOD against the default route.
-MEGA_JOD_TOL = 1e-4
 # Multi-device scoring (phase 11): JOD against single-device scoring.
 SHARD_JOD_TOL = 1e-4
-# The previous routes' kernels, kept as the one-pass kernel's yardsticks:
-# they must launch on no path.
-YARDSTICKS = ("band_masking", "band_masking_d", "band_masking_d_noblur", "band_masking_contrast",
-              "band_masking_contrast_d", "band_masking_halo")
 
 
 def log(*args):
@@ -386,16 +359,13 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
 
 
-# The kernels the heatmap path launches (phase 6); the previous route's D
-# modes, band_masking_d and band_masking_d_noblur, must not launch there.
+# The kernels the heatmap path launches (phase 6).
 HEAT_PATH = ("ingest", "pyramid_reduce", "csf_lut", "band_pooled_d")
-HEAT_OFF_PATH = ("band_masking_d", "band_masking_d_noblur")
 
 
 def phase_heatmap(m, fps, rows, record, counters, gen):
     """Phase 6; returns the kernels' launch counts of the heatmap run."""
     import colorvideovdp_tpu_torch as cvt
-    from colorvideovdp_tpu_torch.ops import pyramid as pyr
     from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
@@ -415,50 +385,18 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     if probe.estimate_block_N(pix, N) != blk:
         raise AssertionError(f"gpu_mem {gpu_mem} does not give {blk}-frame blocks")
 
-    # The D modes against their plain versions, and band_pooled_d bit for bit
-    # against the previous route, the plain expand + band_masking_d (or
-    # band_masking_d_noblur on a band without the blur), with sums bit for
-    # bit those of band_pooled (these launches are not counted).
-    def hold_d(name, fn, args, shape_note):
-        D_k = fn(*args)
-        D_p = masking_fused.band_masking_d_plain(*args)
-        err = max(rel_err_per(a, b, 1) for a, b in zip(D_k, D_p))
-        abs_err = max(max_abs(a, b) for a, b in zip(D_k, D_p))
-        check(f"{name} {shape_note}", err, TOL[name])
-        return D_k, err, abs_err
-
-    def previous_d(a):
-        """The previous route of a band_pooled_d launch, band by band."""
-        out = []
-        for j, (gi, gn) in enumerate(zip(a[0], a[1])):
-            fn = (masking_fused.band_masking_d if a[4].params.blurs(*gi.shape[-2:])
-                  else masking_fused.band_masking_d_noblur)
-            out += fn([gi], [pyr.gausspyr_expand(gn, gi.shape[-2:])], a[2][j:j + 1],
-                      [a[3][j]], a[4])
-        return out
-
+    # The D mode against its plain version, with sums bit for bit those of
+    # band_pooled (these launches are not counted).
     def hold_pooled_d(a, note):
         """(rel. error, abs. error) of band_pooled_d against its plain
-        version, after the bit-for-bit checks against the previous route and
-        the pooled mode."""
+        version, after the bit-for-bit check against the pooled mode."""
         Ds, sums = bp.band_pooled_d(*a)
-        check(f"band_pooled_d {note} D vs the previous route (plain expand + "
-              "band_masking_d)", max(max_abs(x, y) for x, y in zip(Ds, previous_d(a))), 0.0)
         check(f"band_pooled_d {note} sums vs band_pooled", max_abs(sums, bp.band_pooled(*a)),
               0.0)
         D_p, _ = bp.band_pooled_d_plain(*a)
         err = max(rel_err_per(x, y, 1) for x, y in zip(Ds, D_p))
         check(f"band_pooled_d {note} vs plain", err, TOL["band_pooled_d"])
         return err, max(max_abs(x, y) for x, y in zip(Ds, D_p))
-
-    def turns(a, note):
-        """band_pooled_d timed in turns with the previous route (route,
-        kernel, kernel, route); returns the kernel's mean."""
-        t = [time_ms(lambda: previous_d(a)), time_ms(lambda: bp.band_pooled_d(*a)),
-             time_ms(lambda: bp.band_pooled_d(*a)), time_ms(lambda: previous_d(a))]
-        log(f"  band_pooled_d {note}: kernel {t[1]:.3f}/{t[2]:.3f} ms, previous route (plain "
-            f"expand + band_masking_d) {t[0]:.3f}/{t[3]:.3f} ms")
-        return (t[1] + t[2]) / 2
 
     def pooled_d_bound(a, Ds):
         # Bytes: gi's 2C planes and gn's 2C quarter planes read once, the
@@ -472,59 +410,34 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     filt = np.stack([f[::-1] for f in F_taps])
     raws = [torch.randint(0, 256, (1, blk, 3, H, W), dtype=torch.uint8, device=dev,
                           generator=gen) for _ in range(2)]
-    tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, m.filter_len - 1, -1, -1)
-             .contiguous() for r in raws]
-    R = ingest.ingest(tails[0], tails[1], raws[0], raws[1], dm, filt)[0]
-    del raws, tails
+    R = ingest.ingest_replicate(raws[0], raws[1], dm, filt)[0]
+    del raws
     m._ensure_pyramids(W, H)
     consts, luts = m._band_tables(4)
     gn0 = prd.pyramid_reduce(R)
-    E0 = pyr.gausspyr_expand(gn0, (H, W))
-    band0 = ([R], [E0], luts[0:1], [1.0], consts)
-    D_k, err_wide, abs_wide = hold_d("band_masking_d", masking_fused.band_masking_d, band0,
-                                     f"4K band 0 {tuple(R.shape)}")
-    k_wide = time_ms(lambda: masking_fused.band_masking_d(*band0))
-    p_wide = time_ms(lambda: masking_fused.band_masking_d_plain(*band0))
-    # Per pixel and channel about 90 operations: contrast + LUT ~20, the
-    # 2 x 13-tap blur 52, the transducer ~18.
-    b_wide = bound(nbytes(R, E0, luts[0:1]) + nbytes(*D_k), 90 * R.numel() // 2)
-    del D_k, E0, band0
     a0 = ([R], [gn0], luts[0:1], [1.0], consts)
     errs_pd = [hold_pooled_d(a0, f"4K band 0 {tuple(R.shape)}")]
-    k_pd = turns(a0, "4K band 0")
+    k_pd = time_ms(lambda: bp.band_pooled_d(*a0))
     p_pd = time_ms(lambda: bp.band_pooled_d_plain(*a0))
     b_pd = pooled_d_bound(a0, bp.band_pooled_d(*a0)[0])
+    log(f"  band_pooled_d 4K band 0: kernel {k_pd:.3f} ms")
     del a0, gn0
     torch.cuda.empty_cache()
     bands, _ = m.lpyr.decompose(R, raw_pairs=True, use_kernel=False)
     shapes = [b[0].shape[-2:] for b in bands[:-1]]
     blurs = [consts.params.blurs(int(h), int(w)) for h, w in shapes]
-    groups = masking_fused.band_groups(shapes, 1, 4, blk, blurs)
     groups_pd = masking_fused.band_groups(shapes, 1, 4, blk, blurs, gn=True)
-    log(f"phase 6: launches per 4K block: band_masking_d {groups}, band_pooled_d {groups_pd}")
-    stacked = groups[-1]
-    gis = [bands[bb][0] for bb in stacked]
-    Es = [pyr.gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(stacked, gis)]
-    stack = (gis, Es, luts[stacked[0]:stacked[-1] + 1], [2.0] * len(stacked), consts)
-    _, err_stack, _ = hold_d("band_masking_d", masking_fused.band_masking_d, stack,
-                             f"4K bands {stacked} {[tuple(g.shape[-2:]) for g in gis]}")
-    b_stack = bound(nbytes(*gis, *Es, stack[2]) + nbytes(*gis) // 2,
-                    90 * sum(g.numel() for g in gis) // 2)
-    log(f"  band_masking_d 4K stacked launch: kernel "
-        f"{time_ms(lambda: masking_fused.band_masking_d(*stack)):.3f} ms, plain "
-        f"{time_ms(lambda: masking_fused.band_masking_d_plain(*stack)):.3f} ms, "
-        f"bound {b_stack[0]:.4f} ms ({b_stack[1]})")
-    del gis, Es, stack
+    log(f"phase 6: band_pooled_d launches per 4K block: {groups_pd}")
     sel = groups_pd[-1]
     a_st = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
             luts[sel[0]:sel[-1] + 1].contiguous(), [1.0 if bb == 0 else 2.0 for bb in sel],
             consts)
     note = f"4K bands {sel} {[tuple(g.shape[-2:]) for g in a_st[0]]}"
     errs_pd.append(hold_pooled_d(a_st, note))
-    k_st = turns(a_st, f"4K bands {sel}")
+    k_st = time_ms(lambda: bp.band_pooled_d(*a_st))
     b_st = pooled_d_bound(a_st, bp.band_pooled_d(*a_st)[0])
-    log(f"  band_pooled_d 4K stacked launch: bound {b_st[0]:.4f} ms ({b_st[1]}, "
-        f"{100 * b_st[0] / k_st:.1f}% of it)")
+    log(f"  band_pooled_d 4K stacked launch: kernel {k_st:.3f} ms, bound {b_st[0]:.4f} ms "
+        f"({b_st[1]}, {100 * b_st[0] / k_st:.1f}% of it)")
     del R, bands, a_st
 
     # C = 3: a seeded 1280x720 image pair on standard_4k, as the image step forms it.
@@ -546,43 +459,25 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     if not noblur:
         raise AssertionError(f"no band without the blur in {shapes_i}")
 
-    def band_args(bb):
-        gi = bands_i[bb][0]
-        return ([gi], [pyr.gausspyr_expand(bands_i[bb][1], gi.shape[-2:])],
-                luts_i[bb:bb + 1], [1.0 if bb == 0 else 2.0], consts_i)
-
     def pooled_d_args(sel):
         return ([bands_i[bb][0] for bb in sel], [bands_i[bb][1] for bb in sel],
                 luts_i[sel[0]:sel[-1] + 1].contiguous(), [1.0 if bb == 0 else 2.0 for bb in sel],
                 consts_i)
 
-    a0 = band_args(0)
-    _, err_i0, _ = hold_d("band_masking_d", masking_fused.band_masking_d, a0,
-                          f"720p band 0 {tuple(a0[0][0].shape)}")
-    record("band_masking_d", max(err_wide, err_stack, err_i0), abs_wide, k_wide, p_wide,
-           b_wide)
-    an = band_args(noblur[0])
-    D_n, err_n, abs_n = hold_d("band_masking_d_noblur", masking_fused.band_masking_d_noblur,
-                               an, f"720p band {noblur[0]} {tuple(an[0][0].shape)}")
-    # The same ~90 operations less the blur's 52.
-    record("band_masking_d_noblur", err_n, abs_n,
-           time_ms(lambda: masking_fused.band_masking_d_noblur(*an)),
-           time_ms(lambda: masking_fused.band_masking_d_plain(*an)),
-           bound(nbytes(*an[0], *an[1], an[2]) + nbytes(*D_n), 38 * an[0][0].numel() // 2))
     # band_pooled_d on the 720p bands: band 0, the band without the blur
-    # alone (row 6's shape), and every band in one launch (both kinds).
+    # alone, and every band in one launch (both kinds).
     all_i = list(range(len(shapes_i)))
     for sel, note in (([0], "720p band 0"), ([noblur[0]], f"720p band {noblur[0]}"),
                       (all_i, f"720p bands {all_i}")):
         a = pooled_d_args(sel)
         errs_pd.append(hold_pooled_d(a, f"{note} {[tuple(g.shape) for g in a[0]]}"))
         if sel == [noblur[0]]:
-            turns(a, note)
             b_n = pooled_d_bound(a, bp.band_pooled_d(*a)[0])
-            log(f"  band_pooled_d {note}: bound {b_n[0]:.6f} ms ({b_n[1]}), plain "
+            log(f"  band_pooled_d {note}: kernel {time_ms(lambda: bp.band_pooled_d(*a)):.3f} "
+                f"ms, bound {b_n[0]:.6f} ms ({b_n[1]}), plain "
                 f"{time_ms(lambda: bp.band_pooled_d_plain(*a)):.3f} ms")
     record("band_pooled_d", max(e for e, _ in errs_pd), errs_pd[0][1], k_pd, p_pd, b_pd)
-    del Ri, bands_i, a0, an, D_n, a
+    del Ri, bands_i, a
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -627,9 +522,6 @@ def phase_heatmap(m, fps, rows, record, counters, gen):
     for k in HEAT_PATH:
         if heat_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the heatmap path")
-    for k in HEAT_OFF_PATH:
-        if heat_launches[k] != 0:
-            raise AssertionError(f"the heatmap's raw bands went through {k}")
     for hm_type, *_ in runs:
         (jk, hk, bk), (jp, hp, bp) = out[(True, hm_type)], out[(False, hm_type)]
         d_hm = float(np.abs(hk.astype(np.float32) - hp.astype(np.float32)).max())
@@ -668,8 +560,6 @@ def phase_configs(m, fps, rows, record, counters, gen):
     from colorvideovdp_tpu_torch.ops.kernels import blur as blr
     from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
     from colorvideovdp_tpu_torch.ops.kernels.pyramid_reduce import pyramid_reduce as prd_reduce
-    from colorvideovdp_tpu_torch.ops.pyramid import (LaplacianPyramid, gausspyr_expand,
-                                                     interior_contrast)
     from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
     from colorvideovdp_tpu_torch.utils.config import write_parameters
 
@@ -684,8 +574,9 @@ def phase_configs(m, fps, rows, record, counters, gen):
         pix = H * W
         launches = {}
 
-        # The contrast-band mode against its plain version at the 4K shapes of
-        # the weber_g0_ref decomposition (these launches are not counted).
+        # The log-LMS mode of the ingest kernel, then the contrast-band
+        # codings of the one-pass kernel at the 4K shapes (these launches are
+        # not counted).
         mg = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
                        config_paths=cfg["weber_g0_ref"])
         dm = mg.display_photometry
@@ -711,87 +602,22 @@ def phase_configs(m, fps, rows, record, counters, gen):
             f"{b_log[0]:.3f} ms ({b_log[1]}, {100 * b_log[0] / k_log:.1f}% of it)")
         R_log = out_k[0]  # the log coding's 4K block
         del out_k, out_p, args, log_tails
-        tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, fl - 1, -1, -1).contiguous()
-                 for r in raws]
-        R = ingest.ingest(*tails, *raws, dm, filt)[0]
-        del raws, tails
+        R = ingest.ingest_replicate(*raws, dm, filt)[0]
+        del raws
         mg._ensure_pyramids(W, H)
         consts, luts = mg._band_tables(4)
-        bands, L_bkg = mg.lpyr.decompose(R, raw_pairs=False, use_kernel=False)
-
-        def contrast_args(sel):
-            return ([LaplacianPyramid.get_band(bands, bb) for bb in sel],
-                    [L_bkg[bb] for bb in sel], luts[sel[0]:sel[-1] + 1], consts)
-
-        def hold(sel):
-            a = contrast_args(sel)
-            ones = [1.0] * len(sel)
-            s_k = masking_fused.band_masking_contrast(*a)
-            s_p = masking_fused.band_masking_plain(*a[:3], ones, consts, True)
-            q_k, q_p = ([masking_fused.pooled_norm(s[j], *x.shape[-2:], mg.beta)
-                         for j, x in enumerate(a[0])] for s in (s_k, s_p))
-            err_s = max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_p))
-            D_k = masking_fused.band_masking_contrast_d(*a)
-            D_p = masking_fused.band_masking_d_plain(*a[:3], ones, consts, True)
-            err_d = max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_p))
-            abs_s = max(max_abs(x, y) for x, y in zip(q_k, q_p))
-            abs_d = max(max_abs(x, y) for x, y in zip(D_k, D_p))
-            note = f"bands {sel} {[tuple(x.shape[-2:]) for x in a[0]]}"
-            check(f"band_masking_contrast {note}", err_s, TOL["band_masking_contrast"])
-            check(f"band_masking_contrast_d {note}", err_d, TOL["band_masking_contrast_d"])
-            return a, D_k, err_s, err_d, abs_s, abs_d
-
-        shapes = [b.shape[-2:] for b in bands[:-1]]
-        groups = masking_fused.band_groups(shapes, 1, 4, blk, contrast=True)
-        log(f"phase 7: contrast-band launches per 4K block: {groups}")
-        a_s, _, err_ss, err_ds, _, _ = hold(groups[-1])
-        n_s = sum(x.numel() for x in a_s[0]) // 2
-        b_s = bound(nbytes(*a_s[0], *a_s[1], a_s[2]) + 4 * 4 * blk * len(a_s[0]), 90 * n_s)
-        ones = [1.0] * len(a_s[0])
-        log(f"  band_masking_contrast smallest-bands launch: kernel "
-            f"{time_ms(lambda: masking_fused.band_masking_contrast(*a_s)):.3f} ms, plain "
-            f"{time_ms(lambda: masking_fused.band_masking_plain(*a_s[:3], ones, consts, True)):.3f}"
-            f" ms, bound {b_s[0]:.4f} ms ({b_s[1]})")
-        del a_s
-        a0, D0, err_s0, err_d0, abs_s0, abs_d0 = hold([0])
-        # Per pixel and channel about 90 operations: contrast + LUT ~16, the
-        # 2 x 13-tap blur 52, transducer and pooling ~22.
-        n0 = a0[0][0].numel() // 2
-        record("band_masking_contrast", max(err_s0, err_ss), abs_s0,
-               time_ms(lambda: masking_fused.band_masking_contrast(*a0)),
-               time_ms(lambda: masking_fused.band_masking_plain(*a0[:3], [1.0], consts, True)),
-               bound(nbytes(*a0[0], *a0[1], a0[2]) + 4 * 4 * blk, 90 * n0))
-        record("band_masking_contrast_d", max(err_d0, err_ds), abs_d0,
-               time_ms(lambda: masking_fused.band_masking_contrast_d(*a0)),
-               time_ms(lambda: masking_fused.band_masking_d_plain(*a0[:3], [1.0], consts, True)),
-               bound(nbytes(*a0[0], *a0[1], a0[2]) + nbytes(*D0), 90 * n0))
-        del a0, D0, bands, L_bkg
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
 
         # The contrast-band codings of the one-pass kernel (the route of both
         # contrasts): from each 4K band's level gi and the next level gn, the
-        # coding formed per sample. Against their plain versions, and against
-        # the previous route (plain interior_contrast on gi and the plain
-        # expand of gn, the band gain, then band_masking_contrast(_d)), at
-        # band 0 and the launch that takes the smallest bands; timed in
-        # turns with that route at 4K band 0 (pooled, both codings; D with
-        # log), and D over the 720p log heatmap's bands in one launch.
+        # coding formed per sample. Against their plain versions at band 0
+        # and the launch that takes the smallest bands; timed at 4K band 0
+        # (pooled, both codings; D with log), and D over the 720p log
+        # heatmap's bands in one launch.
         ml_ = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True,
                         config_paths=cfg["log"])
         ml_._ensure_pyramids(W, H)
         coding_consts = {"weber_g0_ref": consts, "log": ml_._band_tables(4)[0]}
         n_lv = len(mg.lpyr.pyr_shape)
-
-        def previous_contrast(a, d_out=False):
-            out = [interior_contrast(gi, gausspyr_expand(gn, gi.shape[-2:]), a[4].coding)
-                   for gi, gn in zip(a[0], a[1])]
-            xs, Ls = [b * mul for (b, _), mul in zip(out, a[3])], [L for _, L in out]
-            if not d_out:
-                return masking_fused.band_masking_contrast(xs, Ls, a[2], a[4])
-            # The D mode takes one blur flag a launch: a launch a band.
-            return [masking_fused.band_masking_contrast_d([x], [L], a[2][i:i + 1], a[4])[0]
-                    for i, (x, L) in enumerate(zip(xs, Ls))]
 
         def pooled_bound(a, extra=0):
             # As band_pooled's (phase 2): gi's 2C planes and gn's 2C quarter
@@ -819,62 +645,38 @@ def phase_configs(m, fps, rows, record, counters, gen):
                      luts[sel[0]:sel[-1] + 1].contiguous(),
                      [1.0 if bb == 0 else 2.0 for bb in sel], kc)
                 note = f"{coding} bands {sel} {[tuple(x.shape[-2:]) for x in a[0]]}"
-                s_k, s_p, s_r = bp.band_pooled(*a), bp.band_pooled_plain(*a), previous_contrast(a)
+                s_k, s_p = bp.band_pooled(*a), bp.band_pooled_plain(*a)
                 D_k, s_d = bp.band_pooled_d(*a)
                 D_p, _ = bp.band_pooled_d_plain(*a)
-                D_r = previous_contrast(a, d_out=True)
-                q_k, q_p, q_r = ([masking_fused.pooled_norm(x[j], *gi.shape[-2:], mg.beta)
-                                  for j, gi in enumerate(a[0])] for x in (s_k, s_p, s_r))
+                q_k, q_p = ([masking_fused.pooled_norm(x[j], *gi.shape[-2:], mg.beta)
+                             for j, gi in enumerate(a[0])] for x in (s_k, s_p))
                 errs.append(max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_p)))
                 abs_errs.append(max(max_abs(x, y) for x, y in zip(q_k, q_p)))
                 check(f"band_pooled {note} vs plain", errs[-1], TOL["band_pooled"])
-                check(f"band_pooled {note} vs the previous route",
-                      max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_r)), TOL["band_pooled"])
-                log(f"  band_pooled {note}: max |kernel - previous route| {max_abs(s_k, s_r):.3e}"
-                    f" (sums), bit-equal {bool(torch.equal(s_k, s_r))}")
                 check(f"band_pooled_d {note} sums vs band_pooled", max_abs(s_d, s_k), 0.0)
                 check(f"band_pooled_d {note} vs plain",
                       max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_p)), TOL["band_pooled_d"])
-                check(f"band_pooled_d {note} vs the previous route",
-                      max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_r)), TOL["band_pooled_d"])
-                log(f"  band_pooled_d {note}: max |D kernel - previous route| "
-                    f"{max(max_abs(x, y) for x, y in zip(D_k, D_r)):.3e}, bit-equal "
-                    f"{all(torch.equal(x, y) for x, y in zip(D_k, D_r))}")
                 if sel == [0]:
-                    turns = [time_ms(lambda: previous_contrast(a)), time_ms(lambda: bp.band_pooled(*a)),
-                             time_ms(lambda: bp.band_pooled(*a)), time_ms(lambda: previous_contrast(a))]
                     b_c = pooled_bound(a)
-                    k_ms = (turns[1] + turns[2]) / 2
+                    k_ms = time_ms(lambda: bp.band_pooled(*a))
                     modes_p[coding] = dict(
-                        shape=tuple_str(a[0][0].shape), ms=k_ms, turns_ms=turns,
-                        was_ms=(turns[0] + turns[3]) / 2,
+                        shape=tuple_str(a[0][0].shape), ms=k_ms,
                         plain_ms=time_ms(lambda: bp.band_pooled_plain(*a)), bound_ms=b_c[0],
-                        bound_by=b_c[1], max_abs_err=abs_errs[-1],
-                        bit_equal_to_previous_route=bool(torch.equal(s_k, s_r)))
-                    log(f"  band_pooled {coding} 4K band 0: kernel {turns[1]:.3f}/{turns[2]:.3f} ms, "
-                        f"previous route (plain contrast + band_masking_contrast) {turns[0]:.3f}/"
-                        f"{turns[3]:.3f} ms, plain {modes_p[coding]['plain_ms']:.3f} ms, bound "
-                        f"{b_c[0]:.4f} ms ({b_c[1]}, {100 * b_c[0] / k_ms:.1f}% of it)")
+                        bound_by=b_c[1], max_abs_err=abs_errs[-1])
+                    log(f"  band_pooled {coding} 4K band 0: kernel {k_ms:.3f} ms, plain "
+                        f"{modes_p[coding]['plain_ms']:.3f} ms, bound {b_c[0]:.4f} ms ({b_c[1]}, "
+                        f"{100 * b_c[0] / k_ms:.1f}% of it)")
                     if coding == "log":
-                        turns = [time_ms(lambda: previous_contrast(a, True)),
-                                 time_ms(lambda: bp.band_pooled_d(*a)),
-                                 time_ms(lambda: bp.band_pooled_d(*a)),
-                                 time_ms(lambda: previous_contrast(a, True))]
                         b_d = pooled_bound(a, nbytes(*D_k))
-                        k_ms = (turns[1] + turns[2]) / 2
+                        k_ms = time_ms(lambda: bp.band_pooled_d(*a))
                         modes_d["log"] = dict(
-                            shape=tuple_str(a[0][0].shape), ms=k_ms, turns_ms=turns,
-                            was_ms=(turns[0] + turns[3]) / 2,
+                            shape=tuple_str(a[0][0].shape), ms=k_ms,
                             plain_ms=time_ms(lambda: bp.band_pooled_d_plain(*a)),
                             bound_ms=b_d[0], bound_by=b_d[1],
-                            max_abs_err=max(max_abs(x, y) for x, y in zip(D_k, D_p)),
-                            bit_equal_to_previous_route=all(
-                                torch.equal(x, y) for x, y in zip(D_k, D_r)))
-                        log(f"  band_pooled_d log 4K band 0: kernel {turns[1]:.3f}/{turns[2]:.3f} "
-                            f"ms, previous route (plain contrast + band_masking_contrast_d) "
-                            f"{turns[0]:.3f}/{turns[3]:.3f} ms, bound {b_d[0]:.4f} ms ({b_d[1]}, "
-                            f"{100 * b_d[0] / k_ms:.1f}% of it)")
-                del a, s_k, s_p, s_r, D_k, D_p, D_r, s_d
+                            max_abs_err=max(max_abs(x, y) for x, y in zip(D_k, D_p)))
+                        log(f"  band_pooled_d log 4K band 0: kernel {k_ms:.3f} ms, bound "
+                            f"{b_d[0]:.4f} ms ({b_d[1]}, {100 * b_d[0] / k_ms:.1f}% of it)")
+                del a, s_k, s_p, D_k, D_p, s_d
                 torch.cuda.empty_cache()
             modes_p[coding]["max_rel_err"] = max(errs)
             del levels
@@ -961,9 +763,7 @@ def phase_configs(m, fps, rows, record, counters, gen):
             raise AssertionError("band_pooled_d was not launched on the log heatmap path")
 
         # The log heatmap's D launch at its shapes: every interior band of
-        # the 720p image in one band_pooled_d launch (C = 3), in turns with
-        # the previous route (one band_masking_contrast_d launch per blur
-        # group, fed the plain contrast bands).
+        # the 720p image in one band_pooled_d launch (C = 3).
         mh = cvt.cvvdp(display_name="standard_4k", device="cuda", quiet=True,
                        config_paths=cfg["log"])
         mh._ensure_pyramids(1280, 720)
@@ -973,38 +773,17 @@ def phase_configs(m, fps, rows, record, counters, gen):
             g720.append(prd_reduce(g720[-1]))
         sel = list(range(len(g720) - 1))
         a = (g720[:-1], g720[1:], luts_h, [1.0] + [2.0] * (len(sel) - 1), kh)
-        blurs = [kh.params.blurs(*x.shape[-2:]) for x in a[0]]
-
-        def previous_720(a=a):
-            out = [interior_contrast(gi, gausspyr_expand(gn, gi.shape[-2:]), "log")
-                   for gi, gn in zip(a[0], a[1])]
-            xs = [b * mul for (b, _), mul in zip(out, a[3])]
-            Ds = []
-            for grp in masking_fused.band_groups([x.shape[-2:] for x in xs], 1, 3, 1, blurs,
-                                                 contrast=True):
-                Ds += masking_fused.band_masking_contrast_d(
-                    [xs[i] for i in grp], [out[i][1] for i in grp], a[2][grp[0]:grp[-1] + 1],
-                    a[4])
-            return Ds
-
         D_k, _ = bp.band_pooled_d(*a)
-        D_r = previous_720()
         D_p, _ = bp.band_pooled_d_plain(*a)
         check(f"band_pooled_d log 720p bands {[tuple(x.shape[-2:]) for x in a[0]]} vs plain",
               max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_p)), TOL["band_pooled_d"])
-        check("band_pooled_d log 720p bands vs the previous route",
-              max(rel_err_per(x, y, 1) for x, y in zip(D_k, D_r)), TOL["band_pooled_d"])
-        turns = [time_ms(previous_720), time_ms(lambda: bp.band_pooled_d(*a)),
-                 time_ms(lambda: bp.band_pooled_d(*a)), time_ms(previous_720)]
+        k_h = time_ms(lambda: bp.band_pooled_d(*a))
         b_h = pooled_bound(a, nbytes(*D_k))
-        modes_d["log_720p_image"] = dict(
-            shape=tuple_str(a[0][0].shape), ms=(turns[1] + turns[2]) / 2, turns_ms=turns,
-            was_ms=(turns[0] + turns[3]) / 2, bound_ms=b_h[0], bound_by=b_h[1],
-            bit_equal_to_previous_route=all(torch.equal(x, y) for x, y in zip(D_k, D_r)))
+        modes_d["log_720p_image"] = dict(shape=tuple_str(a[0][0].shape), ms=k_h,
+                                         bound_ms=b_h[0], bound_by=b_h[1])
         log(f"  band_pooled_d log 720p image, {len(sel)} bands in one launch: kernel "
-            f"{turns[1]:.3f}/{turns[2]:.3f} ms, previous route {turns[0]:.3f}/{turns[3]:.3f} ms, "
-            f"bit-equal {modes_d['log_720p_image']['bit_equal_to_previous_route']}")
-        del g720, a, D_k, D_r, D_p
+            f"{k_h:.3f} ms")
+        del g720, a, D_k, D_p
 
         # The generic chain: a FHD image with mult-transducer-texture.
         rng = np.random.RandomState(5)
@@ -1067,10 +846,6 @@ def phase_configs(m, fps, rows, record, counters, gen):
         if not g0t["blur_adjoint"] == g0t["blur"] > 0:
             raise AssertionError(f"weber_g0_ref training step: blur {g0t['blur']}, blur_adjoint "
                                  f"{g0t['blur_adjoint']} launches")
-        for path, counts in launches.items():
-            for k in ("band_masking_contrast", "band_masking_contrast_d"):
-                if counts[k]:
-                    raise AssertionError(f"{k}, the previous route, launched on the {path} path")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows["band_pooled"]["modes"] = modes_p
@@ -1130,7 +905,8 @@ def phase_ml(m, fps, record, counters, gen):
     fl = filt.shape[1]
 
     # The first-block modes against their plain version and against tail
-    # mode on the tails cvvdp forms (these launches are not counted).
+    # mode fed their padding converted in plain PyTorch, frame 0 repeated or
+    # the heads (these launches are not counted).
     raws = [torch.randint(0, 256, (1, blk, 3, H, W), dtype=torch.uint8, device=dev,
                           generator=gen) for _ in range(2)]
     heads = [torch.randint(0, 256, (1, fl - 1, 3, H, W), dtype=torch.uint8, device=dev,
@@ -1251,158 +1027,62 @@ def phase_ml(m, fps, record, counters, gen):
     return launches
 
 
-def phase_mega(m, fps, record, counters, gen):
-    """Phase 9; returns the kernels' launch counts per path."""
+def phase_one_band(m, fps, counters, gen):
+    """Phase 9; returns the kernels' launch counts of the 4K training step."""
     import colorvideovdp_tpu_torch as cvt
-    from colorvideovdp_tpu_torch.ops import pyramid as pyr
-    from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
+    from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
     from colorvideovdp_tpu_torch.ops.kernels import ingest, masking_fused
     from colorvideovdp_tpu_torch.ops.kernels import pyramid_reduce as prd
     from colorvideovdp_tpu_torch.ops.temporal import get_temporal_filters
 
     dev = torch.device("cuda")
-    H, W, N, blk = 2160, 3840, 12, 8
+    H, W, blk = 2160, 3840, 8
     t_phase = time.time()
-    launches = {}
 
-    # The fused mode against its plain version and against the default
-    # raw-pair route fed the plain expand (these launches are not counted):
-    # 4K band 0 of an 8-frame block, and an off-grid band called directly.
+    # The one-pass kernel on one band, pooled and D, against its plain
+    # versions (these launches are not counted): 4K band 0 of an 8-frame
+    # block, and an off-grid band.
     dm = m.display_photometry
     F_taps, _ = get_temporal_filters(fps, m.sigma_tf, m.beta_tf, m.temp_filter)
     filt = np.stack([f[::-1] for f in F_taps])
     raws = [torch.randint(0, 256, (1, blk, 3, H, W), dtype=torch.uint8, device=dev,
                           generator=gen) for _ in range(2)]
-    tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, m.filter_len - 1, -1, -1)
-             .contiguous() for r in raws]
-    gi = ingest.ingest(tails[0], tails[1], raws[0], raws[1], dm, filt)[0]
-    del raws, tails
+    gi = ingest.ingest_replicate(raws[0], raws[1], dm, filt)[0]
+    del raws
     m._ensure_pyramids(W, H)
     consts, luts = m._band_tables(4)
     cases = [("4K band 0", gi, prd.pyramid_reduce(gi), luts[0], 1.0)]
     g_off = torch.rand((1, 8, 2, 1081, 1921), device=dev, generator=gen) * 40 + 10
     cases.append(("off-grid", g_off, prd.pyramid_reduce(g_off), luts[1], 2.0))
-    errs = {"band_fused": [0.0, 0.0], "band_fused_d": [0.0, 0.0]}
     for note, g, gn, lut, mul in cases:
-        E = pyr.gausspyr_expand(gn, g.shape[-2:])
-        args = (g, gn, lut, mul, consts)
-        s_k = bf.band_fused(*args)
-        s_r = masking_fused.band_masking([g], [E], lut[None], [mul], consts)[0]
-        s_p = bf.band_fused_plain(*args)
+        args = ([g], [gn], lut[None].contiguous(), [mul], consts)
+        s_k, s_p = bp.band_pooled(*args)[0], bp.band_pooled_plain(*args)[0]
         h, w = g.shape[-2:]
-        q_k, q_r, q_p = (masking_fused.pooled_norm(x, h, w, m.beta) for x in (s_k, s_r, s_p))
-        D_k, sd_k = bf.band_fused_d(*args)
-        D_r = masking_fused.band_masking_d([g], [E], lut[None], [mul], consts)[0]
-        D_p, _ = bf.band_fused_d_plain(*args)
-        d_route = (max_abs(q_k, q_r), max_abs(D_k, D_r), max_abs(sd_k, s_k))
-        log(f"  mega {note} {tuple(g.shape)}: |fused - default route fed plain E| pooled "
-            f"{d_route[0]:.3e}, D {d_route[1]:.3e}; |D mode's sums - pooled mode's| "
-            f"{d_route[2]:.3e} (expected 0)")
-        check(f"band_fused {note} vs the default route", max(d_route), 0.0)
-        err_s, err_d = rel_err_per(q_k, q_p, 1), rel_err_per(D_k, D_p, 1)
-        check(f"band_fused {note}", err_s, TOL["band_fused"])
-        check(f"band_fused_d {note}", err_d, TOL["band_fused_d"])
-        for key, e, a in (("band_fused", err_s, max_abs(q_k, q_p)),
-                          ("band_fused_d", err_d, max_abs(D_k, D_p))):
-            errs[key] = [max(errs[key][0], e), max(errs[key][1], a)]
-        if note == "4K band 0":
-            args0, E0, D0 = args, E, D_k
-        del E, s_k, s_r, s_p, D_k, sd_k, D_r, D_p
-    del cases, g_off
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    g, gn, lut = args0[0], args0[1], args0[2]
-    # Bytes: the 2C planes of gi and the 2C quarter planes of gn read once,
-    # C pooled floats (or the C planes of D) written. Operations per pixel
-    # and channel about 115: the default route's ~95 plus the expand of two
-    # planes (~10 per sample each).
-    n_ops = 115 * g.numel() // 2
-    b_s = bound(nbytes(g, gn, lut) + 4 * 4 * blk, n_ops)
-    b_d = bound(nbytes(g, gn, lut, D0), n_ops)
-    del D0
-    route_s = time_ms(lambda: masking_fused.band_masking(
-        [g], [pyr.gausspyr_expand(gn, (H, W))], lut[None], [1.0], consts))
-    route_d = time_ms(lambda: masking_fused.band_masking_d(
-        [g], [pyr.gausspyr_expand(gn, (H, W))], lut[None], [1.0], consts))
-    k_s = time_ms(lambda: bf.band_fused(*args0))
-    k_d = time_ms(lambda: bf.band_fused_d(*args0))
-    expand_ms = time_ms(lambda: pyr.gausspyr_expand(gn, (H, W)))
-    log(f"phase 9: 4K band 0 {tuple(g.shape)}: fused pooled {k_s:.3f} ms, D {k_d:.3f} ms; "
-        f"default route (plain expand {expand_ms:.3f} ms + band_masking) pooled "
-        f"{route_s:.3f} ms, D {route_d:.3f} ms")
-    record("band_fused", *errs["band_fused"], k_s, time_ms(lambda: bf.band_fused_plain(*args0)),
-           b_s)
-    record("band_fused_d", *errs["band_fused_d"], k_d,
-           time_ms(lambda: bf.band_fused_d_plain(*args0)), b_d)
-    del args0, E0, g, gn, gi
+        q_k, q_p = (masking_fused.pooled_norm(x, h, w, m.beta) for x in (s_k, s_p))
+        (D_k,), sd_k = bp.band_pooled_d(*args)
+        (D_p,), _ = bp.band_pooled_d_plain(*args)
+        check(f"band_pooled_d {note} sums vs band_pooled", max_abs(sd_k[0], s_k), 0.0)
+        check(f"band_pooled {note} {tuple(g.shape)}", rel_err_per(q_k, q_p, 1),
+              TOL["band_pooled"])
+        check(f"band_pooled_d {note} {tuple(g.shape)}", rel_err_per(D_k, D_p, 1),
+              TOL["band_pooled_d"])
+        log(f"phase 9: {note} {tuple(g.shape)}: pooled {time_ms(lambda: bp.band_pooled(*args)):.3f}"
+            f" ms, D {time_ms(lambda: bp.band_pooled_d(*args)):.3f} ms")
+        del s_k, s_p, D_k, D_p, sd_k
+    del cases, g_off, gi
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # predict with the mega route, pooled and with a raw heatmap, against
-    # plain and against the default route.
-    pix = H * W
-    V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
-    V_test, V_ref = (np.ascontiguousarray(v.transpose(3, 2, 0, 1)[None]) for v in (V_test, V_ref))
-    res = {}
-    for hm in (None, "raw"):
-        for mega, fused in ((True, True), (True, False), (False, True)):
-            mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True, heatmap=hm)
-            mv.use_band_mega, mv.enable_fused_kernels = mega, fused
-            # 8-frame blocks on this metric's route.
-            mv.gpu_mem = mv.block_gpu_mem(pix, blk, fps)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in counters.values():
-                fn.launches = 0
-            t0 = time.time()
-            Q, st = mv.predict(V_test, V_ref, dim_order="BFCHW", frames_per_second=fps)
-            jod = float(Q)
-            torch.cuda.synchronize()
-            dt = time.time() - t0
-            counts = {k: fn.launches for k, fn in counters.items()}
-            path = f"mega_{'heatmap_' if hm else ''}4k_video"
-            if mega and fused:
-                launches[path] = counts
-            res[(hm, mega, fused)] = (jod, st.get("heatmap"), st["block_N_frames"])
-            log(f"phase 9: {'mega   ' if mega else 'default'} {'kernels' if fused else 'plain  '}"
-                f" heatmap {hm}: JOD {jod:.6f}, blk {st['block_N_frames']}, {dt:.3f} s, peak "
-                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-                f"{ {k: v for k, v in counts.items() if v} }")
-        (jk, hk, bk), (jp, hp, _), (jd, hd, _) = (res[(hm, True, True)], res[(hm, True, False)],
-                                                   res[(hm, False, True)])
-        key = "band_fused_d" if hm else "band_fused"
-        n_blocks = -(-N // bk)
-        log(f"phase 9: heatmap {hm}: |JOD mega kernels - plain| {abs(jk - jp):.2e}, "
-            f"|JOD mega - default route| {abs(jk - jd):.2e} (tolerance {MEGA_JOD_TOL:.0e}), "
-            f"{key} launches {launches[path][key]} for {n_blocks} blocks")
-        if not (math.isfinite(jk) and abs(jk - jp) <= 1e-3 and abs(jk - jd) <= MEGA_JOD_TOL):
-            raise AssertionError(f"mega route heatmap {hm}: JODs {jk}, {jp}, {jd} disagree")
-        if launches[path][key] != n_blocks:
-            raise AssertionError(f"{key} launched {launches[path][key]} times for {n_blocks} blocks")
-        if hm and any(launches[path][k] for k in HEAT_OFF_PATH):
-            raise AssertionError("the mega heatmap's raw bands went through band_masking_d")
-        if hm:
-            d_hm = max(float(np.abs(hk.astype(np.float32) - h2.astype(np.float32)).max())
-                       for h2 in (hp, hd))
-            log(f"phase 9: mega heatmap max |kernels - plain or default route| {d_hm:.3e} "
-                f"(tolerance {HEATMAP_TOL:.1e})")
-            if not d_hm <= HEATMAP_TOL:
-                raise AssertionError("mega route heatmap disagrees")
-    del V_test, V_ref, res
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-
-    # A 4K training step with the mega route.
+    # A 4K training step, kernels against plain.
     rng = np.random.RandomState(11)
     ref_np = rng.rand(1, 3, 1, H, W).astype(np.float32)
     test_np = np.clip(ref_np + rng.randn(*ref_np.shape).astype(np.float32) * 0.1, 0, 1)
     ref_t, test_t = torch.from_numpy(ref_np).to(dev), torch.from_numpy(test_np).to(dev)
     del ref_np, test_np
-    out = {}
-    for mega, fused in ((True, True), (True, False), (False, True)):
+    out, launches = {}, None
+    for fused in (True, False):
         mt = cvt.cvvdp(display_name="standard_4k", device="cuda", quiet=True)
-        mt.use_band_mega, mt.enable_fused_kernels = mega, fused
+        mt.enable_fused_kernels = fused
         loss_fn = mt.get_loss_fn(H, W)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1415,29 +1095,29 @@ def phase_mega(m, fps, record, counters, gen):
         (gx,) = torch.autograd.grad(v, x)
         torch.cuda.synchronize()
         dt = time.time() - t0
-        out[(mega, fused)] = (float(v.detach()), gx)
-        if mega and fused:
-            launches["mega_train_4k_image"] = {k: fn.launches for k, fn in counters.items()}
-        log(f"phase 9: 4K training step {'mega   ' if mega else 'default'} "
-            f"{'kernels' if fused else 'plain  '}: loss {float(v.detach()):.6f}, {dt:.3f} s, "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        out[fused] = (float(v.detach()), gx)
+        if fused:
+            launches = {k: fn.launches for k, fn in counters.items()}
+            groups = masking_fused.band_groups(mt.lpyr.pyr_shape[:-1], 1, 3, 1, gn=True)
+        log(f"phase 9: 4K training step {'kernels' if fused else 'plain  '}: loss "
+            f"{float(v.detach()):.6f}, {dt:.3f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del loss_fn, mt, x, v
-    (vk, gk) = out[(True, True)]
+    (vk, gk), (vp, gp) = out[True], out[False]
     if not (torch.isfinite(gk).all() and gk.abs().max() > 0):
-        raise AssertionError("mega training gradient is not finite and non-zero")
-    for key, name in (((True, False), "plain"), ((False, True), "the default route")):
-        d_loss = abs(vk - out[key][0])
-        d_grad = float((gk - out[key][1]).abs().max() / out[key][1].abs().max())
-        log(f"phase 9: mega training step vs {name}: |dloss| {d_loss:.3e}, max |dgrad| / max "
-            f"|grad| {d_grad:.3e} (tolerances {LOSS_TOL:.0e}, {GRAD_TOL:.0e})")
-        if not (d_loss <= LOSS_TOL and d_grad <= GRAD_TOL):
-            raise AssertionError(f"mega training step disagrees with {name}")
+        raise AssertionError("4K training gradient is not finite and non-zero")
+    d_loss = abs(vk - vp)
+    d_grad = float((gk - gp).abs().max() / gp.abs().max())
+    log(f"phase 9: 4K training step: |dloss| {d_loss:.3e}, max |dgrad| / max |grad| "
+        f"{d_grad:.3e} (tolerances {LOSS_TOL:.0e}, {GRAD_TOL:.0e})")
+    if not (d_loss <= LOSS_TOL and d_grad <= GRAD_TOL):
+        raise AssertionError("4K training step: kernels disagree with plain")
     # Once in the forward, once in the checkpointed block's recompute.
-    if launches["mega_train_4k_image"]["band_fused"] != 2:
-        raise AssertionError(f"band_fused launched {launches['mega_train_4k_image']['band_fused']}"
-                             " times on the training step, not 2")
+    if launches["band_pooled"] != 2 * len(groups):
+        raise AssertionError(f"band_pooled launched {launches['band_pooled']} times on the 4K "
+                             f"training step, not {2 * len(groups)}")
     log(f"phase 9: {time.time() - t_phase:.1f} s")
-    return launches
+    return {"train_4k_image": launches}
 
 
 def phase_interleave(record, counters):
@@ -1566,37 +1246,16 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
     # The one-pass kernel's halo mode (band_pooled_halo, the route) at every
     # launch it takes, C = 4, from gi slabs and the rows of gn their expand
     # reads (5 a side of a sharded gn, levels 1..n_red; a replicated gn
-    # whole), against its plain version and bit for bit against the
-    # previous route, the slab of the plain expand + band_masking_halo (the
-    # yardstick, also held against its own plain version); per group the two
-    # ranks' sums against the whole bands' band_pooled. Timed at the first
-    # launch on rank 0, in turns with the previous route on the device:
-    # expand_slab's work (the rank's rows of the expand from gn's rows and
-    # one neighbour row a side), E's halo rows joined, band_masking_halo.
+    # whole), against its plain version; per group the two ranks' sums
+    # against the whole bands' band_pooled. Timed at the first launch on
+    # rank 0.
     consts, luts = m._band_tables(4)
     gr = bp.GN_HALO_ROWS
 
     def gn_rows(gn, s, sharded):
         return halo_gn_slab(gn, s, n_sp, sharded)
 
-    def previous_E(gn, s, h, w, sharded):
-        """E's rows of rank s as expand_slab forms them, with their halo."""
-        h_loc = h // n_sp
-        hn = gn.shape[-2]
-        if sharded:
-            hn_loc = hn // n_sp
-            z = torch.zeros_like(gn[..., :1, :])
-            src = torch.cat([gn[..., s * hn_loc - 1:s * hn_loc, :] if s > 0 else z,
-                             gn[..., s * hn_loc:(s + 1) * hn_loc, :],
-                             gn[..., (s + 1) * hn_loc:(s + 1) * hn_loc + 1, :]
-                             if s < n_sp - 1 else z], -2)
-            row0 = s * hn_loc - 1
-        else:
-            src, row0 = gn, 0
-        y = torch.arange(s * h_loc, (s + 1) * h_loc, device=gn.device)
-        return pyr.expand_rows(src, row0, hn, y, w)
-
-    errs, abs_errs, errs_y, abs_y = [], [], [], []
+    errs, abs_errs = [], []
     for g, sel in enumerate(groups):
         gis = [torch.rand((1, 8, blk) + tuple(shapes[bb]), device=dev, generator=gen) * 20 + 30
                for bb in sel]
@@ -1604,7 +1263,6 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
         sharded = [bb + 1 <= n_red for bb in sel]
         muls = [1.0 if bb == 0 else 2.0 for bb in sel]
         whole = bp.band_pooled(gis, gns, luts[sel], muls, consts)
-        E_full = [pyr.gausspyr_expand(gn, gi.shape[-2:]) for gi, gn in zip(gis, gns)]
         total = 0
         for s in range(n_sp):
             xs = [slab(gi, s, "reflect") for gi in gis]
@@ -1615,35 +1273,14 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
             h_valids = [shapes[bb][0] // n_sp for bb in sel]
             args = (xs, ys, luts[sel], muls, consts, slabs)
             s_k, s_p = bp.band_pooled_halo(*args), bp.band_pooled_halo_plain(*args)
-            Es = [slab(E, s, "reflect") for E in E_full]
-            y_args = (xs, Es, luts[sel], muls, consts, h_valids)
-            s_r = bm.band_masking_halo(*y_args)
             errs.append(rel_err_per(s_k, s_p, 2))
             abs_errs.append(max_abs(s_k, s_p))
-            errs_y.append(rel_err_per(s_r, bm.band_masking_halo_plain(*y_args), 2))
-            abs_y.append(max_abs(s_r, bm.band_masking_halo_plain(*y_args)))
-            check(f"band_pooled_halo bands {sel} rank {s} vs the previous route", max_abs(s_k, s_r),
-                  0.0)
             total = total + s_k
             log(f"  band_pooled_halo bands {sel} rank {s} {[tuple(x.shape) for x in xs]}, gn "
                 f"{[tuple(y.shape[-2:]) for y in ys]} from rows {list(row0s)}: error vs plain "
-                f"{errs[-1]:.3e}; band_masking_halo vs its plain {errs_y[-1]:.3e}")
+                f"{errs[-1]:.3e}")
             if g == 0 and s == 0:
-                # Rank 0's E halo below: rank 1's first E rows (its own work).
-                E_below = [E[..., h_loc:h_loc + r, :] for E, h_loc in zip(E_full, h_valids)]
-
-                def previous_route():
-                    Eh = []
-                    for gn, gi, sh_, below in zip(gns, gis, sharded, E_below):
-                        E_own = previous_E(gn, 0, gi.shape[-2], gi.shape[-1], sh_)
-                        Eh.append(torch.cat([E_own[..., 1:r + 1, :].flip(-2), E_own, below], -2))
-                    return bm.band_masking_halo(xs, Eh, luts[sel], muls, consts, h_valids)
-
-                check("previous route as timed vs band_masking_halo on the slabs",
-                      max_abs(previous_route(), s_r), 0.0)
-                turns = [time_ms(previous_route), time_ms(lambda: bp.band_pooled_halo(*args)),
-                         time_ms(lambda: bp.band_pooled_halo(*args)), time_ms(previous_route)]
-                k_ms, was_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                k_ms = time_ms(lambda: bp.band_pooled_halo(*args))
                 p_ms = time_ms(lambda: bp.band_pooled_halo_plain(*args))
                 # gi's slab and gn's rows read once, the tables, C partials a
                 # tile of the owned rows and the sums written; ~115
@@ -1652,28 +1289,20 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
                                     for hv, x in zip(h_valids, xs))
                 b_pd = bound(nbytes(*xs, *ys, luts[sel], s_k) + 4 * 4 * n_tiles,
                              sum(115 * 4 * blk * hv * x.shape[-1] for hv, x in zip(h_valids, xs)))
-                y_ms = time_ms(lambda: bm.band_masking_halo(*y_args))
-                y_pms = time_ms(lambda: bm.band_masking_halo_plain(*y_args))
-                # As band_masking's bound (phase 2) on the slabs: gi and E read once.
-                b_halo = bound(2 * nbytes(*xs) + nbytes(luts[sel], s_r),
-                               sum(95 * x.numel() // 2 for x in xs))
-                log(f"  band_pooled_halo bands {sel} rank 0: kernel {turns[1]:.3f}/{turns[2]:.3f} "
-                    f"ms, previous route (expand_slab + E's halo rows + band_masking_halo) "
-                    f"{turns[0]:.3f}/{turns[3]:.3f} ms, band_masking_halo alone {y_ms:.3f} ms, "
-                    f"bound {b_pd[0]:.4f} ms ({b_pd[1]}, {100 * b_pd[0] / k_ms:.1f}% of it)")
+                log(f"  band_pooled_halo bands {sel} rank 0: kernel {k_ms:.3f} ms, bound "
+                    f"{b_pd[0]:.4f} ms ({b_pd[1]}, {100 * b_pd[0] / k_ms:.1f}% of it)")
                 for bb, x, y, sh_ in zip(sel, xs, ys, sharded):
                     C2, F_, w = x.shape[1], x.shape[2], x.shape[-1]
-                    e_bytes = 2 * r * w * C2 * F_ * 4
+                    i_bytes = 2 * r * w * C2 * F_ * 4
                     g_bytes = 2 * gr * y.shape[-1] * C2 * F_ * 4 if sh_ else 0
-                    log(f"  halo exchange of band {bb} a rank: E's 2 x {r} rows {e_bytes / 1e6:.3f}"
-                        f" MB, gn's {'2 x %d rows' % gr if sh_ else 'none (replicated)'} "
-                        f"{g_bytes / 1e6:.3f} MB, gi's 2 x {r} rows {e_bytes / 1e6:.3f} MB both")
+                    log(f"  halo exchange of band {bb} a rank: gi's 2 x {r} rows "
+                        f"{i_bytes / 1e6:.3f} MB, gn's "
+                        f"{'2 x %d rows' % gr if sh_ else 'none (replicated)'} "
+                        f"{g_bytes / 1e6:.3f} MB")
         check(f"band_pooled_halo bands {sel}: the ranks' sums against the whole bands",
               rel_err_per(total, whole, 2), TOL["band_pooled_halo"])
-        del gis, gns, E_full, xs, ys, Es, args, y_args, s_k, s_p, s_r, whole, total
+        del gis, gns, xs, ys, args, s_k, s_p, whole, total
     record("band_pooled_halo", max(errs), max(abs_errs), k_ms, p_ms, b_pd)
-    rows["band_pooled_halo"].update(was_ms=was_ms, turns_ms=turns)
-    record("band_masking_halo", max(errs_y), max(abs_y), y_ms, y_pms, b_halo)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1763,7 +1392,7 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
 
     hm_route = heatmap_halo_d(record, gen, n_sp, dev)
 
-    # The 4K clip through shard_video_fn on a (1, 2) mesh.
+    # The 4K clip through the sharded predict_video_source on a (1, 2) mesh.
     t0 = time.time()
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
     tmp = tempfile.mkdtemp(prefix="cvvdp_phase11_")
@@ -1800,9 +1429,6 @@ def phase_sharded(m, fps, rows, record, jod_single, gen):
         for k in SHARD_PATH:
             if rr["launches"][k] <= 0:
                 raise AssertionError(f"rank {rr['rank']}: kernel {k} was not launched")
-        if rr["launches"]["band_masking_halo"]:
-            raise AssertionError(f"rank {rr['rank']}: band_masking_halo, the previous route, "
-                                 "launched")
         if not abs(jod - jod_single) <= SHARD_JOD_TOL:
             raise AssertionError(f"rank {rr['rank']}: sharded JOD {jod} vs single-device "
                                  f"{jod_single}")
@@ -2015,8 +1641,6 @@ def sharded_configs(m, fps, V8, cfg_tmp, n_sp, gen, hm_route=None):
             for k in want_k[name]:
                 if rr["launches"][k] <= 0:
                     raise AssertionError(f"{name} rank {rr['rank']}: kernel {k} was not launched")
-            if any(rr["launches"][k] for k in YARDSTICKS):
-                raise AssertionError(f"{name} rank {rr['rank']}: a yardstick launched")
             peak = rr["peak_bytes"] / 2**30
             if name == "train":
                 d_loss = abs(rr["loss"] - ref["train"][0])
@@ -2068,6 +1692,14 @@ AUX_DB_TOL, AUX_SSIM_TOL = 1e-4, 1e-5
 # The kernels the file route launches (packed frames unpacked on the card go
 # through ingest as float32 frames); the per-frame route skips ingest.
 FILE_PATH = ("ingest", "pyramid_reduce", "band_pooled", "csf_lut")
+INGEST_MODES = ("ingest", "ingest_replicate", "ingest_head")
+
+
+def path_launches(launches, k):
+    """A path's launches of kernel ``k``, where "ingest" counts the ingest
+    kernel in every mode: a clip of one block takes only the first block's
+    mode (replicate, or head with symmetric padding)."""
+    return sum(launches[x] for x in INGEST_MODES) if k == "ingest" else launches[k]
 FRAME_PATH = ("pyramid_reduce", "band_pooled", "csf_lut")
 
 
@@ -2130,9 +1762,9 @@ def phase_files(V_test, V_ref, fps, counters, smi, tmp):
 
     def expect(name, launches, path, off=()):
         for k in path:
-            if launches[k] <= 0:
+            if path_launches(launches, k) <= 0:
                 raise AssertionError(f"phase 12: kernel {k} was not launched on {name}")
-        for k in YARDSTICKS + tuple(off):
+        for k in off:
             if launches[k] != 0:
                 raise AssertionError(f"phase 12: {k} launched on {name}: {launches}")
 
@@ -2405,11 +2037,8 @@ def phase_cli(files, fps, counters, smi, tmp, have):
 
     def expect(name, launches, path):
         for k in path:
-            if launches[k] <= 0:
+            if path_launches(launches, k) <= 0:
                 raise AssertionError(f"phase 13: kernel {k} was not launched on {name}")
-        for k in YARDSTICKS:
-            if launches[k] != 0:
-                raise AssertionError(f"phase 13: {k} launched on {name}: {launches}")
 
     def read_csv(path):
         with open(path, newline="") as f:
@@ -2449,7 +2078,7 @@ def phase_cli(files, fps, counters, smi, tmp, have):
             with open(os.path.join(out, f"{stem4k}_fmap.json")) as f:
                 if sorted(json.load(f)) != api_keys:
                     raise AssertionError("phase 13: the CLI's features are not the API's keys")
-        elif any(launches[k] for k in FILE_PATH):
+        elif any(path_launches(launches, k) for k in FILE_PATH):
             raise AssertionError(f"phase 13: the plain CLI run launched kernels: {launches}")
     q = res[True]
     log(f"phase 13: CLI on the 4K pair: {q} (kernels {walls['cli kernels']:.3f} s, plain "
@@ -2735,11 +2364,8 @@ def phase_calib(counters, smi):
             f"launches of worker 1/2 { {k: v for k, v in launches.items() if v} }; host read of "
             f"one .yuv pair's {CALIB_N} packed frames {1e3 * t_read:.1f} ms ({smi})")
         for k in CALIB_PATH:
-            if launches[k] <= 0:
+            if path_launches(launches, k) <= 0:
                 raise AssertionError(f"phase 14: kernel {k} was not launched by the extraction")
-        for k in YARDSTICKS:
-            if launches[k] != 0:
-                raise AssertionError(f"phase 14: {k} launched by the extraction: {launches}")
         if set(before) != want:
             raise AssertionError(f"phase 14: feature files {sorted(before)}, want {sorted(want)}")
         if written() != before or resumed:
@@ -2880,6 +2506,55 @@ def phase_calib(counters, smi):
     return {"calib": launches}
 
 
+def ingest_modes(first, stats):
+    """The ingest kernel's modes a video run launches: the first block's
+    mode, and tail mode where the clip takes more than one block."""
+    return (first,) + (("ingest",) if stats["N_frames"] > stats["block_N_frames"] else ())
+
+
+# The first block's padding (phase 3): the clip scored with the padding
+# formed in the ingest kernel's replicate mode, against the same clip with
+# frame 0 converted in plain PyTorch and handed to tail mode as the tails.
+FIRST_BLOCK_JOD_TOL, FIRST_BLOCK_Q_TOL = 1e-5, 1e-5
+
+
+def first_block_padding(cvt, ingest, V_test, V_ref, fps, jod_k, stats_k):
+    """Phase 3: the 4K clip's JOD and ``Q_per_ch`` (relative to the largest
+    value) with its first block padded by ``ingest_replicate`` (``jod_k``,
+    ``stats_k``) against tails formed by the plain ``raw_to_met``."""
+    replicate = ingest.ingest_replicate
+
+    def formed_tails(raw_t, raw_r, dm, filt, colorspace="DKLd65"):
+        fl = np.asarray(filt).shape[1]
+        tails = [ingest.raw_to_met(dm, r[:, :1], colorspace).expand(-1, -1, fl - 1, -1, -1)
+                 .contiguous() for r in (raw_t, raw_r)]
+        return ingest.ingest(*tails, raw_t, raw_r, dm, filt, colorspace)
+
+    ingest.ingest_replicate = formed_tails
+    before = (ingest.ingest.launches, replicate.launches)
+    try:
+        mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
+        torch.cuda.empty_cache()
+        Q, st = mv.predict(V_test, V_ref, dim_order="HWCF", frames_per_second=fps)
+    finally:
+        ingest.ingest_replicate = replicate
+    if (ingest.ingest.launches - before[0], replicate.launches - before[1]) != (
+            -(-st["N_frames"] // st["block_N_frames"]), 0):
+        raise AssertionError("phase 3: the formed-tails run did not take tail mode alone")
+    q_a, q_b = stats_k["Q_per_ch"], st["Q_per_ch"]
+    d_jod = abs(float(Q) - jod_k)
+    d_q = float(np.abs(q_a - q_b).max() / np.abs(q_b).max())
+    log(f"phase 3: first block padded in the kernel vs tails formed in plain PyTorch "
+        f"({stats_k['block_N_frames']}/{st['block_N_frames']}-frame blocks): |dJOD| "
+        f"{d_jod:.3e} (tolerance {FIRST_BLOCK_JOD_TOL:.0e}), max |dQ_per_ch| / max |Q_per_ch| "
+        f"{d_q:.3e} (tolerance {FIRST_BLOCK_Q_TOL:.0e}), max |dQ_per_ch| "
+        f"{float(np.abs(q_a - q_b).max()):.3e}")
+    if st["block_N_frames"] != stats_k["block_N_frames"]:
+        raise AssertionError("phase 3: the formed-tails run took other blocks")
+    if not (d_jod <= FIRST_BLOCK_JOD_TOL and d_q <= FIRST_BLOCK_Q_TOL):
+        raise AssertionError(f"phase 3: first-block padding gap {d_jod}, {d_q}")
+
+
 def block_loop_split(cvt, vs, N, pix, fps, split_blk):
     """Where phase 3's block loop spends its time. First the loop from an
     emptied allocator cache, at the split's blocks (pinned with ``gpu_mem``)
@@ -2922,18 +2597,15 @@ def block_loop_split(cvt, vs, N, pix, fps, split_blk):
         log("  (the profiler recorded no device time)")
 
     # One warm block of the loop, its stages timed with CUDA events.
-    fl = mv.filter_len
     dm = mv.display_photometry
     filt = np.ascontiguousarray(np.stack([f[::-1] for f in mv.F]), np.float32)
     raws = [mv._upload(vs.get_raw_block(s, 0, blk)) for s in ("test", "reference")]
-    tails = [ingest.raw_to_met(dm, r[:, :1]).expand(-1, -1, fl - 1, -1, -1).contiguous()
-             for r in raws]
     consts, luts = mv._band_tables(4)
     sens_corr = 10.0 ** (mv.sensitivity_correction / 20.0)
     for rep in range(2):  # the first is the warm-up
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        R = ingest.ingest(*tails, *raws, dm, filt)[0]
+        R = ingest.ingest_replicate(*raws, dm, filt)[0]
         ev[1].record()
         bands, L_bkg = mv.lpyr.decompose(R, raw_pairs=True, use_kernel=True)
         ev[2].record()
@@ -3131,7 +2803,7 @@ def main():
     # previous level, bit for bit, timed beside its bound (5 taps vertically
     # over (H/2, W), then 5 over (H/2, W/2): 7.5 H W operations a plane).
     m._ensure_pyramids(W, H)
-    x, y_k = R_k, None
+    x = R_k
     for lv in range(len(m.lpyr.pyr_shape) - 1):
         y = prd.pyramid_reduce(x)
         y_p = pyr.reduce_plain(x)
@@ -3142,7 +2814,6 @@ def main():
         log(f"  pyramid_reduce level {lv}: kernel {k_ms:.4f} ms, bound {b_lv[0]:.4f} ms "
             f"({b_lv[1]}, {100 * b_lv[0] / k_ms:.1f}% of it)")
         if lv == 0:
-            y_k = y
             err = float((y - y_p).abs().max()) / max(1.0, float(y_p.abs().max()))
             record("pyramid_reduce", err, max_abs(y, y_p), k_ms,
                    time_ms(lambda: pyr.reduce_plain(R_k)), b_lv)
@@ -3152,45 +2823,8 @@ def main():
 
     consts, luts = m._band_tables(4)
     bands, L_bkg = m.lpyr.decompose(R_k, raw_pairs=True, use_kernel=False)
-    groups = masking_fused.band_groups([b[0].shape[-2:] for b in bands[:-1]], 1, 4, blk)
-    log(f"  band_masking launches per block: {groups}")
-    E0 = pyr.gausspyr_expand(y_k, (H, W))
-    band0 = ([R_k], [E0], luts[0:1], [1.0], consts)
-    s_k = masking_fused.pooled_norm(masking_fused.band_masking(*band0), H, W, m.beta)
-    s_p = masking_fused.pooled_norm(masking_fused.band_masking_plain(*band0), H, W, m.beta)
-    err_wide = rel_err_per(s_k, s_p, 2)  # (band, B, C, F)
-    abs_wide = max_abs(s_k, s_p)
-    k_wide = time_ms(lambda: masking_fused.band_masking(*band0))
-    p_wide = time_ms(lambda: masking_fused.band_masking_plain(*band0))
-    del E0, y_k, band0
-    stacked = groups[-1]  # the launch that takes the smallest bands together
-    gis = [bands[bb][0] for bb in stacked]
-    Es = [pyr.gausspyr_expand(bands[bb][1], gi.shape[-2:]) for bb, gi in zip(stacked, gis)]
-    stack = (gis, Es, luts[stacked[0]:stacked[-1] + 1], [2.0] * len(stacked), consts)
-    sk = masking_fused.band_masking(*stack)
-    sp = masking_fused.band_masking_plain(*stack)
-    err_narrow = max(rel_err_per(masking_fused.pooled_norm(sk[j], *gi.shape[-2:], m.beta),
-                                 masking_fused.pooled_norm(sp[j], *gi.shape[-2:], m.beta), 1)
-                     for j, gi in enumerate(gis))
-    b_stack = bound(nbytes(*gis, *Es, stack[2]) + 4 * 4 * blk * len(gis),
-                    95 * sum(g.numel() for g in gis) // 2)
-    log(f"  band_masking stacked launch: bands {[tuple(g.shape[-2:]) for g in gis]}, "
-        f"error {err_narrow:.3e}, kernel {time_ms(lambda: masking_fused.band_masking(*stack)):.3f} ms, "
-        f"plain {time_ms(lambda: masking_fused.band_masking_plain(*stack)):.3f} ms, "
-        f"bound {b_stack[0]:.4f} ms ({b_stack[1]})")
-    log(f"  band_masking band 0 {tuple(R_k.shape)}: error {err_wide:.3e}")
-    # Per pixel and channel about 95 operations: contrast + LUT ~20, the
-    # 2 x 13-tap blur 52, transducer and pooling ~23.
-    record("band_masking", max(err_wide, err_narrow), abs_wide, k_wide, p_wide,
-           bound(2 * nbytes(R_k) + nbytes(luts[0:1]) + 4 * 4 * blk,
-                 95 * R_k.numel() // 2))
-    del gis, Es, stack, sk, sp
-    torch.cuda.empty_cache()
-
     # The one-pass pooled kernel at 4K band 0 of this block and at the launch
-    # that stacks the narrow bands: against its plain version, bit for bit
-    # against the previous route (the plain expand + band_masking), and
-    # timed in turns with it (route, kernel, kernel, route).
+    # that stacks the narrow bands: against its plain version, timed.
     groups_p = masking_fused.band_groups([b[0].shape[-2:] for b in bands[:-1]], 1, 4, blk,
                                          gn=True)
     occ = _build.library().cvvdp_band_pooled_occupancy((len(consts.taps) - 1) // 2, 4,
@@ -3202,39 +2836,32 @@ def main():
                 luts[sel[0]:sel[-1] + 1].contiguous(), [1.0 if bb == 0 else 2.0 for bb in sel],
                 consts)
 
-    def previous_route(a):
-        Es = [pyr.gausspyr_expand(gn, gi.shape[-2:]) for gi, gn in zip(a[0], a[1])]
-        return masking_fused.band_masking(a[0], Es, *a[2:])
-
     errs_p, abs_p, times_p = [], [], {}
     for note, sel in (("4K band 0", [0]), (f"4K bands {groups_p[-1]}", groups_p[-1])):
         a = pooled_args(sel)
-        s_k, s_r, s_p = bp.band_pooled(*a), previous_route(a), bp.band_pooled_plain(*a)
-        check(f"band_pooled {note} vs the previous route", max_abs(s_k, s_r), 0.0)
+        s_k, s_p = bp.band_pooled(*a), bp.band_pooled_plain(*a)
         q_k, q_p = ([masking_fused.pooled_norm(s[j], *gi.shape[-2:], m.beta)
                      for j, gi in enumerate(a[0])] for s in (s_k, s_p))
         errs_p.append(max(rel_err_per(x, y, 1) for x, y in zip(q_k, q_p)))
         abs_p.append(max(max_abs(x, y) for x, y in zip(q_k, q_p)))
         check(f"band_pooled {note}", errs_p[-1], TOL["band_pooled"])
-        turns = [time_ms(lambda: previous_route(a)), time_ms(lambda: bp.band_pooled(*a)),
-                 time_ms(lambda: bp.band_pooled(*a)), time_ms(lambda: previous_route(a))]
+        k_ms = time_ms(lambda: bp.band_pooled(*a))
         n_tiles = sum(-(-gi.shape[-2] // 32) * -(-gi.shape[-1] // 32) for gi in a[0]) * blk
         # Bytes: gi's 2C planes and gn's 2C quarter planes read once, the
         # tables, the C partial sums of each 32x32 tile and the sums written.
         # Operations: ~115 per pixel and channel, the halo recompute counted
-        # once (the route's ~95 plus the expand of two planes).
+        # once (contrast, LUT, the 2 x 13-tap blur, transducer and pooling
+        # ~95, plus the expand of two planes).
         b_p = bound(nbytes(*a[0], *a[1], a[2]) + 4 * 4 * n_tiles + nbytes(s_k),
                     115 * sum(gi.numel() for gi in a[0]) // 2)
-        times_p[note] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, b_p)
-        log(f"  band_pooled {note} {[tuple(gi.shape) for gi in a[0]]}: kernel {turns[1]:.3f}/"
-            f"{turns[2]:.3f} ms, previous route (plain expand + band_masking) {turns[0]:.3f}/"
-            f"{turns[3]:.3f} ms, bound {b_p[0]:.4f} ms ({b_p[1]}, "
-            f"{100 * b_p[0] / times_p[note][0]:.1f}% of it)")
+        times_p[note] = (k_ms, b_p)
+        log(f"  band_pooled {note} {[tuple(gi.shape) for gi in a[0]]}: kernel {k_ms:.3f} ms, "
+            f"bound {b_p[0]:.4f} ms ({b_p[1]}, {100 * b_p[0] / k_ms:.1f}% of it)")
         if note == "4K band 0":
             p0 = time_ms(lambda: bp.band_pooled_plain(*a))
-        del a, s_k, s_r, s_p
+        del a, s_k, s_p
         torch.cuda.empty_cache()
-    k0, _, b0 = times_p["4K band 0"]
+    k0, b0 = times_p["4K band 0"]
     record("band_pooled", max(errs_p), abs_p[0], k0, p0, b0)
 
     logL = L_bkg[-1].contiguous()  # the baseband's (1, 1, blk, 1, 1) log-luminance
@@ -3383,7 +3010,6 @@ def main():
     V_test, V_ref = clip_content(H, W, N, np.random.RandomState(7))
     log(f"phase 3: clip content made in {time.time() - t0:.1f} s")
     counters = counted_wrappers()
-    score_path = ("ingest", "pyramid_reduce", "band_pooled", "csf_lut")
     results = {}
     for fused in (True, False):
         mv = cvt.cvvdp(display_name="standard_hdr_pq", device="cuda", quiet=True)
@@ -3405,11 +3031,10 @@ def main():
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
     jod_k, launches, stats_k = results[True]
     jod_p, _, _ = results[False]
-    for k in score_path:
+    for k in ingest_modes("ingest_replicate", stats_k) + ("pyramid_reduce", "band_pooled",
+                                                          "csf_lut"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    if launches["band_masking"] != 0:
-        raise AssertionError("the pooled raw bands went through the expand + band_masking")
     if not abs(jod_k - jod_p) <= 1e-3:
         raise AssertionError(f"JOD kernels {jod_k} vs plain {jod_p}")
     if not abs(jod_k - CLIP_JOD) <= 0.01:
@@ -3419,6 +3044,7 @@ def main():
     log(f"phase 3: |JOD kernels - plain| = {abs(jod_k - jod_p):.2e}, "
         f"|JOD - {CLIP_JOD}| = {abs(jod_k - CLIP_JOD):.2e}, |JOD - {PORT_JOD}| = "
         f"{abs(jod_k - PORT_JOD):.2e}")
+    first_block_padding(cvt, ingest, V_test, V_ref, fps, jod_k, stats_k)
     # The same clip as FHWC, the layout of the channel-last cells: its blocks
     # go to the card as they lie and the ingest kernel reads them
     # channel-last, with the HWCF run's launches and, bit for bit, its JOD
@@ -3498,8 +3124,8 @@ def main():
     mt = cvt.cvvdp(display_name="standard_fhd", device="cuda", quiet=True)
     loss_fn = mt.get_loss_fn(Ht, Wt)
 
-    # The reduce and band masking kernels against their plain versions at
-    # the shapes this phase gives them: every pyramid level of the batch and
+    # The reduce and band kernels against their plain versions at the
+    # shapes this phase gives them: every pyramid level of the batch and
     # every band launch (these launches are not counted).
     with torch.no_grad():
         dmt = mt.display_photometry
@@ -3515,38 +3141,19 @@ def main():
         consts_t, luts_t = mt._band_tables(3)
         err = 0.0
         for sel in masking_fused.band_groups([b[0].shape[-2:] for b in bands_t[:-1]],
-                                             Bt, 3, 1):
-            gis = [bands_t[bb][0] for bb in sel]
-            Es = [pyr.gausspyr_expand(bands_t[bb][1], gi.shape[-2:])
-                  for bb, gi in zip(sel, gis)]
-            args = (gis, Es, luts_t[sel[0]:sel[-1] + 1],
-                    [1.0 if bb == 0 else 2.0 for bb in sel], consts_t)
-            sk, sp = masking_fused.band_masking(*args), masking_fused.band_masking_plain(*args)
-            err = max(err, max(rel_err_per(masking_fused.pooled_norm(sk[j], *gi.shape[-2:],
-                                                                     mt.beta),
-                                           masking_fused.pooled_norm(sp[j], *gi.shape[-2:],
-                                                                     mt.beta), 1)
-                               for j, gi in enumerate(gis)))
-        check(f"band_masking, every band of {tuple(Rt.shape)}", err, TOL["band_masking"])
-        err, d_route = 0.0, 0.0
-        for sel in masking_fused.band_groups([b[0].shape[-2:] for b in bands_t[:-1]],
                                              Bt, 3, 1, gn=True):
             gis = [bands_t[bb][0] for bb in sel]
             gns = [bands_t[bb][1] for bb in sel]
             args = (gis, gns, luts_t[sel[0]:sel[-1] + 1],
                     [1.0 if bb == 0 else 2.0 for bb in sel], consts_t)
             sk, sp = bp.band_pooled(*args), bp.band_pooled_plain(*args)
-            Es = [pyr.gausspyr_expand(gn, gi.shape[-2:]) for gi, gn in zip(gis, gns)]
-            d_route = max(d_route, max_abs(sk, masking_fused.band_masking(gis, Es, *args[2:])))
             err = max(err, max(rel_err_per(masking_fused.pooled_norm(sk[j], *gi.shape[-2:],
                                                                      mt.beta),
                                            masking_fused.pooled_norm(sp[j], *gi.shape[-2:],
                                                                      mt.beta), 1)
                                for j, gi in enumerate(gis)))
         check(f"band_pooled, every band of {tuple(Rt.shape)}", err, TOL["band_pooled"])
-        check(f"band_pooled, every band of {tuple(Rt.shape)}, vs the previous route", d_route,
-              0.0)
-        del Rt, bands_t, gis, gns, Es, args, sk, sp
+        del Rt, bands_t, gis, gns, args, sk, sp
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3588,8 +3195,6 @@ def main():
     for k in train_path:
         if train_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the training path")
-    if train_launches["band_masking"] != 0:
-        raise AssertionError("the training step's raw bands went through band_masking")
     if train_launches["blur_adjoint"] != train_launches["blur"]:
         raise AssertionError(f"the training step's blur backward did not take the adjoint kernel "
                              f"at every blur: {train_launches}")
@@ -3631,7 +3236,7 @@ def main():
     ml_launches = phase_ml(m, fps, record, counters, gen)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    mega_launches = phase_mega(m, fps, record, counters, gen)
+    one_band_launches = phase_one_band(m, fps, counters, gen)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     il_launches = phase_interleave(record, counters)
@@ -3660,32 +3265,18 @@ def main():
                            "colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:195"),
         "band_pooled": ("band_pooled.cu",
                         "colorvideovdp_tpu/ops/kernels/masking_fused.py:440"),
-        "band_masking": ("band_masking.cu",
-                         "colorvideovdp_tpu/ops/kernels/masking_fused.py:440"),
         "csf_lut": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:114"),
         "csf_lut_bwd": ("csf_lut.cu", "colorvideovdp_tpu/ops/kernels/csf_lut.py:156"),
         "blur": ("blur.cu", "colorvideovdp_tpu/ops/kernels/blur_halo.py:209"),
         "blur_adjoint": ("blur.cu", "colorvideovdp_tpu/ops/kernels/blur_halo.py:209"),
-        "band_masking_d": ("band_masking.cu",
-                           "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
-        "band_masking_d_noblur": ("band_masking.cu",
-                                  "colorvideovdp_tpu/ops/kernels/masking_fused.py:463"),
-        "band_masking_contrast": ("band_masking.cu",
-                                  "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
-        "band_masking_contrast_d": ("band_masking.cu",
-                                    "colorvideovdp_tpu/ops/kernels/masking_fused.py:403"),
         "ingest_replicate": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
         "ingest_head": ("ingest.cu", "colorvideovdp_tpu/ops/kernels/ingest.py:192"),
-        "band_fused": ("band_pooled.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
-        "band_fused_d": ("band_pooled.cu", "colorvideovdp_tpu/ops/kernels/band_fused.py:320"),
         "band_pooled_d": ("band_pooled.cu", "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
         "interleave": ("interleave.cu", "tools/interleave_bench.py:50"),
         "concat": ("interleave.cu", "tools/interleave_bench.py:77"),
         "deinterleave": ("interleave.cu", "tools/interleave_bench.py:109"),
         "pyramid_reduce_slab": ("pyramid_reduce.cu",
                                 "colorvideovdp_tpu/ops/kernels/pyramid_reduce.py:238"),
-        "band_masking_halo": ("band_masking.cu",
-                              "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
         "band_pooled_halo": ("band_pooled.cu",
                              "colorvideovdp_tpu/ops/kernels/masking_fused.py:352"),
         "band_pooled_d_halo": ("band_pooled.cu",
@@ -3701,36 +3292,25 @@ def main():
                    "heatmap_4k_video_720p_image": heat_launches[k],
                    **{p: c[k] for p, c in config_launches.items()},
                    **{p: c[k] for p, c in ml_launches.items()},
-                   **{p: c[k] for p, c in mega_launches.items()},
+                   **{p: c[k] for p, c in one_band_launches.items()},
                    **{p: c[k] for p, c in il_launches.items()},
                    **{p: c[k] for p, c in shard_launches.items()},
                    **{p: c[k] for p, c in file_launches.items()},
                    **{p: c[k] for p, c in cli_launches.items()},
                    **{p: c[k] for p, c in calib_launches.items()}}
-        if k in ("pyramid_reduce_slab", "band_masking_halo", "band_pooled_halo"):
+        if k in ("pyramid_reduce_slab", "band_pooled_halo"):
             n_main = shard_launches["sharded_4k_video"][k]
         elif k == "band_pooled_d_halo":
             n_main = shard_launches["sharded_hm_720p_image"][k]
         elif k in ("interleave", "concat", "deinterleave"):
             n_main = il_launches["interleave_bench"][k]
-        elif k == "band_fused":
-            n_main = mega_launches["mega_4k_video"][k]
-        elif k == "band_fused_d":
-            n_main = mega_launches["mega_heatmap_4k_video"][k]
         elif k in ("ingest_replicate", "ingest_head"):
             n_main = sum(c[k] for c in ml_launches.values())
-        elif k == "band_masking_contrast":
-            n_main = (config_launches["weber_g0_ref_4k_video"][k]
-                      + config_launches["log_4k_video"][k])
-        elif k == "band_masking_contrast_d":
-            n_main = config_launches["log_heatmap_720p_image"][k]
         elif k == "band_pooled":
             n_main = launches[k]
         else:
-            n_main = (heat_launches if k in ("band_pooled_d",) + HEAT_OFF_PATH else
+            n_main = (heat_launches if k == "band_pooled_d" else
                       train_launches if k in train_path else launches)[k]
-        if k in YARDSTICKS and any(by_path.values()):
-            raise AssertionError(f"{k}, a yardstick of the one-pass kernel, launched: {by_path}")
         line.append({"name": k, "route": "cuda", "source": src + f, "replaces": rep,
                      "launches": n_main, "launches_by_path": by_path, **rows[k]})
     print(json.dumps({"kernels": line}))

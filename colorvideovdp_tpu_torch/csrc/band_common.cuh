@@ -1,9 +1,7 @@
 // The band kernels' shared arithmetic: stage A on raw pairs and on contrast
 // bands, the expand tap,
-// the stage-B transducer and its epilogue, the block sums and stage C.
-// csrc/band_masking.cu (stages A, B and C, the halo and contrast-band modes)
-// and csrc/band_pooled.cu (the one-pass raw-band kernel, pooled and D) both
-// include it, so that the two give the same bits.
+// the stage-B transducer and its epilogue, the block sums and stage C, of
+// csrc/band_pooled.cu (the one-pass band kernel, pooled, D and halo).
 #pragma once
 
 #include "common.cuh"
@@ -86,8 +84,8 @@ __device__ __forceinline__ float masking_mq(float mb, float q, float eps_q) {
 }
 
 // D = soft_clamp(safe_pow(diff, p) / (1 + mix)).
-__device__ __forceinline__ float band_D(float df, float mix, float p, float eps_p,
-                                        float max_v) {
+__device__ __forceinline__ float masked_D(float df, float mix, float p, float eps_p,
+                                          float max_v) {
   const float du = (powf(df + BM_EPS, p) - eps_p) / (1.0f + mix);
   return max_v * du / (max_v + du);
 }

@@ -1,8 +1,8 @@
 // One-pass band masking of raw bands: expand, Weber contrast, CSF, masking
 // blur, transducer and pooling, from each band's Gaussian level gi and the
-// next level gn. It gives the bits of the raw-pair route of
-// csrc/band_masking.cu (stages A, B and C, or its D mode) fed
-// E = gausspyr_expand(gn), with E, M_pre and diff kept out of device memory.
+// next level gn: stage A (the contrast and CSF), stage B (the blur and the
+// transducer) and stage C (the pooled sums), with E = gausspyr_expand(gn),
+// M_pre and diff kept out of device memory.
 // Two modes of one kernel (the D_OUT template flag): pooled, where D never
 // reaches memory either, and D, which also stores each pixel's D for the
 // heatmap.
@@ -12,8 +12,8 @@
 //     (:440, stage A on raw pairs) + `fused_blur_transducer` (:352, pooled),
 //   colorvideovdp_tpu/ops/kernels/band_stack.py `make_band_stack` (:253, the
 //     narrow bands in one launch), and
-//   colorvideovdp_tpu/ops/kernels/band_fused.py `band_fused_tpu` (:320, the
-//     band mega-kernel, pooled and D).
+//   the JAX package's band mega-kernel (pooled and D) on the bands its gate
+//     admits.
 // and, in the D mode (ops/kernels/band_pooled.py band_pooled_d), the D
 // output of `fused_blur_transducer` (:352, pool_beta=None) on bands that take
 // the masking blur and `fused_masking_transducer` (:463) on bands whose blur
@@ -23,7 +23,8 @@
 // D, fed the bands and logL that the JAX package's decomposition writes
 // (colorvideovdp_tpu/ops/pyramid.py:488-579): here the contrast band, its
 // band gain and its adaptation field are formed per sample, rounded as the
-// pre-formed band route of csrc/band_masking.cu rounds them.
+// plain chain on the contrast band (ops/kernels/masking_fused.py) rounds
+// them.
 // The halo mode (per band geometry, every coding, pooled or with D)
 // replaces the halo'd shard mode of `fused_blur_transducer`
 // (`row_off`/`h_valid`, :219-227, :540-602) and, for a sharded heatmap,
@@ -41,8 +42,7 @@
 // Inputs per band (up to BM_MAX_BANDS in one launch, any sizes): gi
 // (B, 2C, F, h, w), test/reference channels interleaved, and gn
 // (B, 2C, F, ceil(h/2), ceil(w/2)). Output: one partial sum of safe_pow(D,
-// beta) per 32x32 tile and channel, in the slots and in the in-tile order of
-// band_masking.cu's stage B, then the same stage C (band_common.cuh
+// beta) per 32x32 tile and channel, then stage C (band_common.cuh
 // plane_sums): the (n_bands, B, C, F) pooled sums, deterministic, no float
 // atomics. The D mode also writes D (B, C, F, h, w) per band, each row of a
 // tile by one warp (coalesced), from the registers the pooled term is formed
@@ -468,7 +468,7 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
     if (more) issue_loads(P, N, nc, giw, gnw);
 
     // Stage B: the vertical taps over the grid's columns (rows in tap
-    // order, as common.cuh tile_blur_vpass), then per own pixel the
+    // order, each product added by mul_add_rn), then per own pixel the
     // horizontal taps, x 10^mask_c, the transducer and the channel mix.
     {
       const int ntap = 2 * r + 1;
@@ -514,7 +514,7 @@ __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
 #pragma unroll
         for (int dd = 0; dd < BM_MAX_C; ++dd) {
           if (dd >= C) continue;
-          const float Dv = band_D(dreg[k][dd], mix[k][dd], P.p, eps_p, P.max_v);
+          const float Dv = masked_D(dreg[k][dd], mix[k][dd], P.p, eps_p, P.max_v);
           if (D_OUT)  // D holds the owned rows [row_off, y_end): all rows of a whole band
             d.D[(((long long)J.b * C + dd) * P.F + J.f) * (d.y_end - d.row_off) * (long long)w +
                 (long long)(gy - d.row_off) * w + gx] = Dv;

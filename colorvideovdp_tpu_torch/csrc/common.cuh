@@ -63,61 +63,6 @@ __device__ __forceinline__ int reflect_clamp(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-// The shared-memory tile blur of csrc/blur.cu and stage B of
-// csrc/band_masking.cu, so the two blurs cannot drift apart. A block owns the
-// TH x TW output tile whose corner is (y0, x0) in an h x w plane.
-// tile_blur_vertical loads the tile plus its r-halo, (TH + 2r) x (TW + 2r),
-// into `sm` through the reflect, then sums the 2r + 1 vertical taps, in tap
-// order, into `tmp` (TH x (TW + 2r)). Every thread of the block must call it;
-// it ends with __syncthreads(). tile_blur_vpass is its second half, for a
-// caller that has filled `sm` itself. tile_blur_horizontal then sums the
-// horizontal taps for tile pixel (y, x). `taps` lies in shared memory.
-// With v_reflect false (a halo'd row slab, whose rows above and below the
-// owned rows are real neighbour rows) rows are not reflected, only clamped
-// into the plane.
-template <int TH, int TW>
-__device__ __forceinline__ void tile_blur_vpass(int r, const float* taps, const float* sm,
-                                                float* tmp) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const int SW = TW + 2 * r;
-  const int ntap = 2 * r + 1;
-  for (int idx = tid; idx < TH * SW; idx += nthr) {
-    const int y = idx / SW, x = idx % SW;
-    float acc = 0.0f;
-    for (int k = 0; k < ntap; ++k) acc = mul_add_rn(acc, taps[k], sm[(y + k) * SW + x]);
-    tmp[idx] = acc;
-  }
-  __syncthreads();
-}
-
-template <int TH, int TW>
-__device__ __forceinline__ void tile_blur_vertical(const float* __restrict__ plane, int h,
-                                                   int w, int y0, int x0, int r,
-                                                   const float* taps, float* sm,
-                                                   float* tmp, bool v_reflect = true) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const int SW = TW + 2 * r, SH = TH + 2 * r;
-  for (int idx = tid; idx < SH * SW; idx += nthr) {
-    const int yy = idx / SW, xx = idx % SW;
-    const int gy = v_reflect ? reflect_clamp(y0 - r + yy, h) : min(max(y0 - r + yy, 0), h - 1);
-    const int gx = reflect_clamp(x0 - r + xx, w);
-    sm[idx] = plane[(long long)gy * w + gx];
-  }
-  __syncthreads();
-  tile_blur_vpass<TH, TW>(r, taps, sm, tmp);
-}
-
-template <int TW>
-__device__ __forceinline__ float tile_blur_horizontal(const float* tmp, int r,
-                                                      const float* taps, int y, int x) {
-  const int SW = TW + 2 * r;
-  float acc = 0.0f;
-  for (int j = 0; j < 2 * r + 1; ++j) acc = mul_add_rn(acc, taps[j], tmp[y * SW + x + j]);
-  return acc;
-}
-
 // Asynchronous global -> shared copies (Ampere's cp.async, on Hopper too):
 // 16 bytes (both addresses 16-byte aligned) or 4 bytes, one commit group per
 // cp_async_commit; cp_async_wait<N> waits until at most N of the calling

@@ -10,20 +10,20 @@ pooled JOD plus ``stats["Q_per_ch"]``.
 
 Every contrast coding (weber_g1, weber_g1_ref, weber_g0_ref, log) and
 masking model of the JAX package runs. The band route follows the JAX
-package's configuration gate (``_process_block``): the band kernel on raw
-pairs for the calibrated default; the band kernel on contrast bands for the
-other contrasts with the default masking; the generic chain (CSF LUT kernel,
-then ``masking.apply_masking_model`` with the blur kernel) for every other
-masking model, clamp or with the cross-channel mix off. With
-``use_band_mega`` the raw bands that the JAX package's mega-kernel gate
-admits take ``ops/kernels/band_fused.py`` instead: the same one-pass kernel
-as the default raw route, with launch counters of its own; the same result.
+package's configuration gate (``_process_block``): with the default
+masking, every interior band takes the one-pass band kernel
+(``band_pooled``) from each band's level and the next, in every contrast
+coding; the generic chain (CSF LUT kernel, then
+``masking.apply_masking_model`` with the blur kernel) takes every other
+masking model, clamp or the cross-channel mix off. The bands that the JAX
+package can send to its band mega-kernel take the same one-pass kernel
+here, with the same result.
 
 ``heatmap`` ("raw", "threshold" or "supra-threshold") adds the per-pixel
 distortion map ``stats["heatmap"]``: every interior band takes a D-output
-mode (raw bands the one-pass kernel's, ``band_pooled_d``, whose pooled sums
-give the Q columns, so the JOD is the pooled-only JOD; contrast bands the band
-kernel's), the per-band maps are pooled over channels and
+mode (the one-pass kernel's, ``band_pooled_d``, whose pooled sums give the
+Q columns, so the JOD is the pooled-only JOD), the per-band maps are pooled
+over channels and
 collapsed by the Laplacian reconstruct, and the colour maps are drawn block by
 block on the device (``viz.py``). That path is forward-only.
 
@@ -43,8 +43,12 @@ Sources: a source with ``get_raw_block`` streams raw frame blocks (arrays,
 images, ``.mat``, OpenCV-decoded video); one that also has
 ``unpack_raw_block`` (``.yuv`` and natively decoded video files) hands
 packed planar blocks, unpacked on the device to display-encoded float32 RGB
-that goes through the ingest kernel as float32 frames; the host decodes the
-next block on a worker thread meanwhile. A source without
+that goes through the ingest kernel as float32 frames. ``_raw_blocks`` is
+the one block producer for such sources: it reads each block (the next one
+on a worker thread while this one is scored), uploads it and ingests it,
+the first block through the ingest kernel's first-block modes; ``cvvdp``,
+the ML metrics (``ml.py``) and the mesh (``parallel/sharding.py``) all
+score its blocks. A source without
 ``get_raw_block`` is read frame by frame through ``get_test_frame`` in the
 metric colour space, and its blocks skip the ingest kernel (the temporal
 filter in plain PyTorch). ``temp_resample`` resamples ``Q_per_ch``'s frame
@@ -69,7 +73,6 @@ from ..io.video_source import upload
 from ..ops import masking as mk
 from ..ops.csf import CastleCSF
 from ..ops.interp import interp1dim2, linspace32
-from ..ops.kernels import band_fused as bf
 from ..ops.kernels import band_pooled as bp
 from ..ops.kernels import ingest as ing
 from ..ops.kernels import masking_fused as bm
@@ -235,11 +238,6 @@ class cvvdp(vq_metric):
         self.debug = False
         # Kernels on the card when True; their plain versions when False.
         self.enable_fused_kernels = True
-        # The band mega-kernel route (``ops/kernels/band_fused.py``) for the
-        # interior raw bands its gate admits; ``force_fused`` lowers the
-        # gate's minimum width from 512 to 256, as in the JAX package.
-        self.use_band_mega = False
-        self.force_fused = False
         self.lpyr = None
         self._cache = {}
 
@@ -392,7 +390,7 @@ class cvvdp(vq_metric):
         pooled = (self.pooled_mem_model is not None and not reference_model
                   and self.device.type == "cuda" and self.enable_fused_kernels
                   and not self.do_heatmap and not self.dump_channels
-                  and not self.use_band_mega and self._masking_params().fusable())
+                  and self._masking_params().fusable())
         return self.pooled_mem_model if pooled else self.mem_model
 
     def estimate_block_N(self, pix_cnt, N_frames, share=1, reference_model=False):
@@ -469,18 +467,12 @@ class cvvdp(vq_metric):
             return ((abs(frame_ind) - 1) % (frame_count - 1)) + 1
         return frame_ind % (frame_count - 1)
 
-    def _initial_tails(self, vid_source, dm, raws, N_frames, met_cs):
-        """The first block's temporal padding as tails (B, 3, fl-1, H, W) in
-        the metric colour space: frame 0 repeated, or the mirror-indexed head
-        frames."""
-        fl = self.filter_len
-        if self.temp_padding == "replicate":
-            return [ing.raw_to_met(dm, raw[:, 0:1], met_cs).expand(-1, -1, fl - 1, -1, -1)
-                    .contiguous() for raw in raws]
-        idx = [self._get_symmetric_frame_index(fi, N_frames) for fi in range(-fl + 1, 0)]
-        return [ing.raw_to_met(dm, self._raw(vid_source,
-                                             vid_source.get_raw_frame_list(which, idx)),
-                               met_cs).contiguous() for which in ("test", "reference")]
+    def _temporal_filters(self, vid_source):
+        """Set the temporal filters (``F``, ``filter_len``) for the source's
+        frame rate; the block model reads ``filter_len``."""
+        fps = vid_source.get_frames_per_second()
+        self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
+        self.filter_len = int(self.F[0].shape[0])
 
     @no_tf32()
     def predict_video_source(self, vid_source):
@@ -501,9 +493,7 @@ class cvvdp(vq_metric):
             dmap_channels = 1 if self.heatmap == "raw" else 3
             heatmap = np.zeros((1, dmap_channels, N_frames, h, w), dtype=np.float16)
         if not is_image:
-            fps = vid_source.get_frames_per_second()
-            self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
-            self.filter_len = int(self.F[0].shape[0])
+            self._temporal_filters(vid_source)
 
         dump = self.dump_channels
         if dump:
@@ -573,16 +563,35 @@ class cvvdp(vq_metric):
         dump.set_diff_bands([host(b) for b in dumped["D_bands"]])
         dump.dump_diff()
 
-    def _raw_blocks(self, vid_source, N_frames, block_N, batch_sz, met_cs):
+    def _raw_blocks(self, vid_source, N_frames, block_N, batch_sz, met_cs, slab=None):
         """(first frame, frames, R, temp_ch) of each block of a raw-block
-        source: its frames through the ingest kernel (or its plain version),
-        the temporal tails carried between blocks. The next block is read on
-        a worker thread while this one is scored, except while symmetric
-        padding still reads head frames from the source."""
+        source, on the device: the one block producer of the single-device
+        metrics and the mesh. Each block is read (the next one on a worker
+        thread while this one is scored), uploaded (``_raw``) and ingested:
+        the first block through the ingest kernel's first-block modes,
+        ``ingest_replicate`` (frame 0 repeated) or, with symmetric padding,
+        ``ingest_head`` (the mirror-indexed head frames, read and uploaded
+        before the worker starts), and later blocks through ``ingest`` after the tails
+        carried between blocks; their plain versions without
+        ``enable_fused_kernels``. An image is converted and interleaved.
+
+        ``slab`` (batch slice, row slice): the blocks are a rank's pairs and
+        rows under a mesh (``parallel/sharding.py``), whose first block
+        repeats frame 0 whatever ``temp_padding`` says, as the JAX
+        package's sharded step does."""
         dm = vid_source.dm_photometry
+        sides = ("test", "reference")
+
+        def read(start, count):
+            if slab is None:
+                return [vid_source.get_raw_block(s, start, count) for s in sides]
+            # A read-only (memory-mapped) block is copied before torch wraps it.
+            return [np.require(vid_source.get_raw_block(s, start, count, batch=slab[0],
+                                                        rows=slab[1]), requirements=["C", "W"])
+                    for s in sides]
+
         if N_frames == 1:
-            raws = [self._raw(vid_source, vid_source.get_raw_block(s, 0, 1))
-                    for s in ("test", "reference")]
+            raws = [self._raw(vid_source, a) for a in read(0, 1)]
             with spans.span("cvvdp.block"):
                 with spans.span("cvvdp.ingest"):
                     T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
@@ -593,12 +602,13 @@ class cvvdp(vq_metric):
                 yield 0, 1, R, 1
             return
         filt = np.stack([f[::-1] for f in self.F])
-        fn = ing.ingest if self.enable_fused_kernels else ing.ingest_plain
-
-        def read(start):
-            # The source repeats its last frame to fill a trailing partial
-            # block; the padded frames' outputs are trimmed.
-            return [vid_source.get_raw_block(s, start, block_N) for s in ("test", "reference")]
+        use_k = self.enable_fused_kernels
+        heads = None
+        if self.temp_padding == "symmetric" and slab is None:
+            idx = [self._get_symmetric_frame_index(fi, N_frames)
+                   for fi in range(-self.filter_len + 1, 0)]
+            heads = [self._raw(vid_source, vid_source.get_raw_frame_list(s, idx))
+                     for s in sides]
 
         tails = None
         prefetch = None  # the future of this block's host arrays
@@ -608,24 +618,33 @@ class cvvdp(vq_metric):
                     with spans.span("cvvdp.prefetch_wait"):
                         host = prefetch.result()
                 else:
-                    host = read(ff)
+                    # The source repeats its last frame to fill a trailing
+                    # partial block; the padded frames' outputs are trimmed.
+                    host = read(ff, block_N)
                 nxt = ff + block_N
                 prefetch = None
-                if nxt < N_frames and (ff > 0 or self.temp_padding == "replicate"):
+                if nxt < N_frames:
                     task = spans.carried(read)  # the read's parent: this request
                     # Starting the worker hands it the interpreter lock: while
                     # its read runs a copy that keeps the lock, this thread
                     # waits here.
                     with spans.span("cvvdp.prefetch_submit"):
-                        prefetch = pool.submit(task, nxt)
+                        prefetch = pool.submit(task, nxt, block_N)
                 raws = [self._raw(vid_source, a) for a in host]
                 del host
                 with spans.span("cvvdp.block"):
                     with spans.span("cvvdp.ingest"):
-                        if tails is None:
-                            tails = self._initial_tails(vid_source, dm, raws, N_frames, met_cs)
-                        R, tails[0], tails[1] = fn(tails[0], tails[1], raws[0], raws[1], dm,
-                                                   filt, met_cs)
+                        if tails is not None:
+                            fn = ing.ingest if use_k else ing.ingest_plain
+                            R, *tails = fn(*tails, *raws, dm, filt, met_cs)
+                        elif heads is None:
+                            fn = ing.ingest_replicate if use_k else ing.ingest_first_plain
+                            R, *tails = fn(*raws, dm, filt, met_cs)
+                        elif use_k:
+                            R, *tails = ing.ingest_head(*heads, *raws, dm, filt, met_cs)
+                        else:
+                            R, *tails = ing.ingest_first_plain(*raws, dm, filt, met_cs, *heads)
+                        heads = None
                     del raws
                     # The consumer scores the block inside its span.
                     yield ff, min(block_N, N_frames - ff), R, 2
@@ -806,24 +825,10 @@ class cvvdp(vq_metric):
                     put_D(bb, mk.apply_masking_model(band[:, 0::2], band[:, 1::2], S * sens_corr,
                                                      params, use_k))
             else:
-                raw = consts.coding in bm.RAW_CODINGS  # the mega route takes the raw codings
-                mega = self._mega_bands(shapes, all_ch, params) if raw else []
-                for bb in mega:
-                    gi, gn = bands[bb]
-                    if want_D:
-                        fn = bf.band_fused_d if use_k else bf.band_fused_d_plain
-                        put_D(bb, *fn(gi, gn, luts[bb], muls[bb], consts))
-                    else:
-                        sums = bf.band_fused_sums(gi, gn, luts[bb], muls[bb], consts, use_k)
-                        Q_cols[bb] = bm.pooled_norm(sums, *shapes[bb], self.beta)
-                rest = [bb for bb in range(n_bands - 1) if bb not in mega]
-                d_blurs = ([params.blurs(int(h), int(w)) for h, w in (shapes[bb] for bb in rest)]
-                           if want_D else None)
-                for sel in bm.band_groups([shapes[bb] for bb in rest], B, all_ch, F, d_blurs,
-                                          gn=True):
+                d_blurs = [params.blurs(int(h), int(w)) for h, w in shapes] if want_D else None
+                for sel in bm.band_groups(shapes, B, all_ch, F, d_blurs, gn=True):
                     # One pass from gi and gn: the expand and the coding are
                     # inside the kernel.
-                    sel = [rest[i] for i in sel]
                     args = ([bands[bb][0] for bb in sel], [bands[bb][1] for bb in sel],
                             luts[sel], [muls[bb] for bb in sel], consts)
                     if want_D:
@@ -966,17 +971,6 @@ class cvvdp(vq_metric):
         del bands
         return (Q, sh.gather_batch(maps.heatmap(D), mesh),
                 sh.gather_batch(sh.gather_rows(R[:, 0].clone(), mesh), mesh))
-
-    def _mega_bands(self, shapes, all_ch, params):
-        """The interior raw bands that take the mega-kernel route: with
-        ``use_band_mega``, those the JAX package's gate admits
-        (``metrics/cvvdp.py:1413-1421``)."""
-        if not self.use_band_mega or params.pu_dilate == 0:
-            return []
-        min_w = 256 if self.force_fused else 512
-        return [bb for bb, (h, w) in enumerate(shapes)
-                if h > params.pu_padsize and w > params.pu_padsize
-                and bf.can_band_fused(all_ch, int(h), int(w), params.pu_kernel_size, min_w)]
 
     def do_pooling_and_jods(self, Q_per_ch):
         """Band/channel/frame pooling and the JOD mapping; Q_per_ch is

@@ -6,11 +6,9 @@ band loop, but every band is pooled into per-tile statistics (the mean and
 variance of S|T|, S|R| and D over ~1-visual-degree tiles,
 ``ops/feature_pooling.py``) instead of p-norms; the heads are an MLP gated by
 a saliency MLP (``cvvdp_ml_saliency``) or a ViT-style regression transformer
-(``cvvdp_ml_transformer``). Videos stream through the ingest kernel as in
-``cvvdp``, but the first block forms its temporal padding inside the kernel
-(``ingest_replicate`` for replicate padding, ``ingest_head`` from the raw
-mirror-indexed head frames for symmetric padding), as the JAX package's
-first-block step does; later blocks carry tails (``ingest``). The bands go
+(``cvvdp_ml_transformer``). Blocks come from ``cvvdp``'s block producer
+(``cvvdp._raw_blocks``: the first block padded in the ingest kernel, later
+blocks after the carried tails), as ``cvvdp``'s do. The bands go
 through the CSF LUT kernel and ``masking.apply_masking_model`` (the blur
 kernel inside); the networks are plain ``torch.matmul`` products, as the JAX
 package leaves them to XLA. Each band's head output, what the JOD loses to
@@ -47,9 +45,7 @@ import torch.nn.functional as F
 
 from ..ops import masking as mk
 from ..ops.feature_pooling import feature_pooling
-from ..ops.kernels import ingest as ing
 from ..ops.pyramid import LaplacianPyramid
-from ..ops.temporal import get_temporal_filters
 from ..utils import spans
 from ..utils.config import VVDP_DATA, config_files
 from .base import no_tf32, register_metric, vq_exception
@@ -455,10 +451,11 @@ class cvvdp_ml_base(cvvdp):
 
     @no_tf32()
     def predict_video_source(self, vid_source):
-        """Score a video source; returns (Q_jod, stats). The first video block
-        pads in the ingest kernel ("replicate" or "head" mode), later blocks
-        carry tails. Packed sources (``.yuv``, decoded video files) are
-        unpacked on the device; a source must have ``get_raw_block``.
+        """Score a video source; returns (Q_jod, stats). Its blocks come from
+        ``cvvdp``'s block producer (``_raw_blocks``: the next block read on a
+        worker thread, the first block padded in the ingest kernel, later
+        blocks after the carried tails); a source must have
+        ``get_raw_block``.
         ``stats["delta_per_band"]`` holds each band's head output, (B, bands)
         float32: the JOD is 10 less their sum."""
         with spans.request("cvvdp.predict") as root:
@@ -470,41 +467,18 @@ class cvvdp_ml_base(cvvdp):
         h, w, N_frames = vid_source.get_video_size()
         batch_sz = vid_source.get_batch_size()
         self._ensure_pyramids(w, h)
-        is_image = N_frames == 1
-        dm = vid_source.dm_photometry
-        met_cs = self.met_colorspace()
-        sources = ("test", "reference")
-
-        if is_image:
-            block_N = 1
-            root.set(frames=1, block_N=1)
-            raws = [self._raw(vid_source, vid_source.get_raw_block(s, 0, 1)) for s in sources]
-            with spans.span("cvvdp.block"):
-                with spans.span("cvvdp.ingest"):
-                    T, R = (ing.raw_to_met(dm, raw, met_cs).expand(batch_sz, -1, -1, -1, -1)
-                            for raw in raws)
-                    R = ing.interleave_tr(T, R)
-                features = self._process_block(R, temp_ch=1, is_image=True)[0]
-        else:
-            fps = vid_source.get_frames_per_second()
-            self.F, _ = get_temporal_filters(fps, self.sigma_tf, self.beta_tf, self.temp_filter)
-            self.filter_len = int(self.F[0].shape[0])
-            filt = np.stack([f[::-1] for f in self.F])
+        block_N = 1
+        if N_frames > 1:
+            self._temporal_filters(vid_source)
             block_N = self.estimate_block_N(h * w * batch_sz, N_frames)
-            root.set(frames=N_frames, block_N=block_N)
-            feats, tails = [], None
-            for ff in range(0, N_frames, block_N):
-                cur = min(block_N, N_frames - ff)
-                raws = [self._raw(vid_source, vid_source.get_raw_block(s, ff, block_N)) for s in sources]
-                with spans.span("cvvdp.block"):
-                    with spans.span("cvvdp.ingest"):
-                        R, tails = self._ingest_block(vid_source, raws, tails, dm, filt, met_cs,
-                                                      N_frames)
-                    del raws
-                    f_block = self._process_block(R, temp_ch=2, is_image=False)[0]
-                    del R
-                    feats.append([f[:, :cur] for f in f_block])
-            features = [torch.cat(b, dim=1) if len(b) > 1 else b[0] for b in zip(*feats)]
+        root.set(frames=N_frames, block_N=block_N)
+        feats = []
+        for _, cur, R, temp_ch in self._raw_blocks(vid_source, N_frames, block_N, batch_sz,
+                                                   self.met_colorspace()):
+            f_block = self._process_block(R, temp_ch=temp_ch, is_image=N_frames == 1)[0]
+            del R
+            feats.append([f[:, :cur] for f in f_block])
+        features = [torch.cat(b, dim=1) if len(b) > 1 else b[0] for b in zip(*feats)]
 
         tokens = sum(f.shape[0] * f.shape[1] * (f.shape[2] * f.shape[3] + self.class_tokens)
                      for f in features)
@@ -523,27 +497,6 @@ class cvvdp_ml_base(cvvdp):
             "delta_per_band": delta_host,
         }
         return torch.squeeze(Q_jod), stats
-
-    def _ingest_block(self, vid_source, raws, tails, dm, filt, met_cs, N_frames):
-        """(R, tails) of one video block: the first block padded inside the
-        ingest kernel, later blocks after the carried tails."""
-        use_k = self.enable_fused_kernels
-        if tails is not None:
-            fn = ing.ingest if use_k else ing.ingest_plain
-            R, *tails = fn(*tails, *raws, dm, filt, met_cs)
-        elif self.temp_padding == "replicate":
-            fn = ing.ingest_replicate if use_k else ing.ingest_first_plain
-            R, *tails = fn(*raws, dm, filt, met_cs)
-        else:
-            idx = [self._get_symmetric_frame_index(fi, N_frames)
-                   for fi in range(-self.filter_len + 1, 0)]
-            heads = [self._raw(vid_source, vid_source.get_raw_frame_list(s, idx))
-                     for s in ("test", "reference")]
-            if use_k:
-                R, *tails = ing.ingest_head(*heads, *raws, dm, filt, met_cs)
-            else:
-                R, *tails = ing.ingest_first_plain(*raws, dm, filt, met_cs, *heads)
-        return R, tails
 
     # Tokens a band's head takes beyond its tiles, per frame (the
     # transformer's class token).

@@ -45,17 +45,13 @@ SIGNATURES = {
     "cvvdp_pyramid_reduce_slab": [_P, _P, _I, _I, _I, _I, _P, _P],
     "cvvdp_ingest": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _P,
                      _P, _I, _P, _P, _P, _P],
-    "cvvdp_band_masking_tiles": [_I, _I, _I, _P, _P],
     "cvvdp_interleave": [_P, _P, _P, _L, _P],
     "cvvdp_deinterleave": [_P, _P, _P, _L, _P],
     "cvvdp_concat": [_P, _P, _P, _L, _I, _P],
-    "cvvdp_band_masking": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _I,
-                           _P, _F, _P, _F, _F, _P, _I, _F, _I, _P, _P, _P],
     "cvvdp_band_pooled": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _F,
                           _F, _P, _P, _F, _P, _F, _F, _P, _I, _F, _P, _P, _P],
     "cvvdp_band_pooled_occupancy": [_I, _I, _I],
 }
-RESTYPES = {"cvvdp_band_masking_tiles": _L}
 
 # Seconds the last build() took (0.0 when the cached library was current).
 last_build_seconds = 0.0
@@ -138,7 +134,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, _I)
+        fn.restype = _I
     return lib
 
 

@@ -8,19 +8,19 @@ plane: the expand of gn, the contrast in the metric's coding, the CSF LUT,
 the masking blur, the transducer and the pooling. Replaces the JAX package's
 pooled raw-pair route, ``colorvideovdp_tpu/ops/kernels/masking_fused.py``
 ``fused_csf_contrast_raw`` (:440) + ``fused_blur_transducer`` (:352),
-``band_stack.py`` ``make_band_stack`` (:253) and, for the ``use_band_mega``
-band, ``band_fused.py`` ``band_fused_tpu`` (:320), which XLA feeds the
-expand; here it is inside the kernel. Kernel: ``csrc/band_pooled.cu``,
-whose source note states its bound and design; its sums are, bit for bit,
-those of ``masking_fused.band_masking`` fed ``gausspyr_expand(gn)``.
+``band_stack.py`` ``make_band_stack`` (:253) and, for the bands its gate
+admits, the JAX package's band mega-kernel, which XLA feeds the expand;
+here it is inside the kernel, and every interior band of the metric takes
+it. Kernel: ``csrc/band_pooled.cu``, whose source note states its
+bound and design.
 
 The coding is ``BandConsts.coding``. The raw codings (weber_g1,
 weber_g1_ref) are the JAX package's raw-pair route. The contrast-band
 codings (weber_g0_ref, log) replace its route on pre-formed contrast bands,
 ``fused_csf_contrast`` (:403) + ``fused_blur_transducer``, fed the bands and
 fields its decomposition writes (``colorvideovdp_tpu/ops/pyramid.py
-:488-579``): here they are formed per sample, rounded as the port's
-pre-formed band route (``masking_fused.band_masking_contrast`` fed
+:488-579``): here they are formed per sample, rounded as the plain chain on
+the contrast band (``masking_fused.band_masking_plain(contrast=True)`` fed
 ``ops/pyramid.py`` ``interior_contrast`` x the band gain) rounds them.
 
 * ``band_pooled``: CPU tensors take ``band_pooled_plain``, the plain chain
@@ -32,11 +32,9 @@ pre-formed band route (``masking_fused.band_masking_contrast`` fed
   run's JOD is the pooled-only JOD. It replaces the JAX package's
   ``fused_blur_transducer`` with ``pool_beta=None`` (``masking_fused.py``
   :352) and, on bands whose blur is skipped, ``fused_masking_transducer``
-  (:463), which XLA feeds the expand; one launch takes both kinds. Its D
-  is, bit for bit, ``masking_fused.band_masking_d`` /
-  ``band_masking_d_noblur`` fed ``gausspyr_expand(gn)``; the plain version
-  ``band_pooled_d_plain`` is ``masking_fused._band_D_plain`` fed the expand
-  per frame chunk. Forward only.
+  (:463), which XLA feeds the expand; one launch takes both kinds. The
+  plain version ``band_pooled_d_plain`` is ``masking_fused._band_D_plain``
+  fed the expand per frame chunk. Forward only.
 * ``band_pooled_halo``: the halo mode, every coding: each band is one
   rank's row slab of a band sharded over image rows, gi with ``HALO_ROWS``
   neighbour rows on each side (``parallel/sharding.py`` ``halo_rows``) and
@@ -55,9 +53,8 @@ pre-formed band route (``masking_fused.band_masking_contrast`` fed
   launch of the kernel's D mode with the halo geometry; plain version
   ``band_pooled_d_halo_plain``. Forward only.
 * ``BandPooled`` / ``band_pooled_sums``: the same sums, differentiable in
-  every gi and gn (also ``band_fused.band_fused_sums``, which gives its own
-  counted launcher); the backward (``pooled_vjp``) recomputes the plain
-  chain through ``gausspyr_expand`` per frame chunk, as JAX's custom VJPs
+  every gi and gn; the backward (``pooled_vjp``) recomputes the plain chain
+  through ``gausspyr_expand`` per frame chunk, as JAX's custom VJPs
   recompute their plain implementations.
 """
 
@@ -366,19 +363,17 @@ def pooled_vjp(gi, gn, lut, mul, k: BandConsts, use_kernel: bool, g):
 
 class BandPooled(torch.autograd.Function):
     """Pooled sums (n_bands, B, C, F) of raw bands, differentiable in every
-    gi and gn: ``kernel`` (``band_pooled`` or a wrapper of it that counts its
-    own launches), or the plain version without ``use_kernel``, forward; the
-    backward is ``pooled_vjp`` per band."""
+    gi and gn: ``band_pooled``, or the plain version without ``use_kernel``,
+    forward; the backward is ``pooled_vjp`` per band."""
 
     @staticmethod
-    def forward(ctx, luts, muls, k, use_kernel, kernel, *gi_and_gn):
+    def forward(ctx, luts, muls, k, use_kernel, *gi_and_gn):
         n = len(gi_and_gn) // 2
         ctx.save_for_backward(luts, *gi_and_gn)
         ctx.args = (muls, k, use_kernel)
         x, y = list(gi_and_gn[:n]), list(gi_and_gn[n:])
-        if not use_kernel:
-            return band_pooled_plain(x, y, luts, muls, k)
-        return kernel(x, y, luts, muls, k)
+        fn = band_pooled if use_kernel else band_pooled_plain
+        return fn(x, y, luts, muls, k)
 
     @staticmethod
     @once_differentiable
@@ -388,13 +383,13 @@ class BandPooled(torch.autograd.Function):
         n = len(gi_and_gn) // 2
         grads = [pooled_vjp(gi, gn, luts[i], muls[i], k, use_kernel, g[i])
                  for i, (gi, gn) in enumerate(zip(gi_and_gn[:n], gi_and_gn[n:]))]
-        return (None, None, None, None, None, *[a for a, _ in grads], *[b for _, b in grads])
+        return (None, None, None, None, *[a for a, _ in grads], *[b for _, b in grads])
 
 
 def band_pooled_sums(gi_list, gn_list, luts: torch.Tensor, muls, k: BandConsts,
-                     use_kernel: bool = True, kernel=band_pooled):
+                     use_kernel: bool = True):
     """(n_bands, B, C, F) pooled sums through ``BandPooled``."""
-    return BandPooled.apply(luts, muls, k, use_kernel, kernel, *gi_list, *gn_list)
+    return BandPooled.apply(luts, muls, k, use_kernel, *gi_list, *gn_list)
 
 
 class BandPooledHalo(torch.autograd.Function):

@@ -1,65 +1,39 @@
-"""Band masking: CSF + contrast + mutual masking, pooled or per pixel.
+"""The interior band stage: its constants, its grouping into launches and its
+plain chains.
 
-Replaces five TPU kernels: ``colorvideovdp_tpu/ops/kernels/masking_fused.py``
-``fused_csf_contrast_raw`` (:440) and ``fused_blur_transducer`` (:352), run
-per wide band, ``fused_csf_contrast`` (:403), the same stage on contrast
-bands the decomposition has already formed, ``fused_masking_transducer``
-(:463), the transducer on a band whose blur is skipped, and ``band_stack.py``
-``make_band_stack`` (:253), which takes all narrow bands in one launch. Here
-one kernel takes any 1..8 bands. Kernel: ``csrc/band_masking.cu`` (stage A
-elementwise contrast + LUT, stage B tiled blur + transducer, then either tile
-sums and stage C's fixed-order reduction, or the per-pixel D map); it is
-bound by memory. ``band_groups`` picks which bands share a launch. It takes
-the band-kernel configuration only (``MaskingParams.fusable``).
+Every interior band of the metric goes through the one-pass band kernel,
+``band_pooled.py`` (``csrc/band_pooled.cu``), pooled, with D for the heatmap,
+or in the halo mode under a mesh. This module holds what that kernel and its
+callers share:
 
-Stage A has two input modes:
+* ``BandConsts``, the constants every band of one metric shares, and the
+  constants ``MAX_BANDS``, ``HALO_ROWS``, ``RAW_CODINGS``, ``CODINGS`` and
+  ``GROUP_BYTES``;
+* ``band_groups``, which splits the interior bands into launches, and
+  ``pooled_norm``, the lp_norm tail over the pooled sums;
+* the plain chains, the JAX package's band routes in plain PyTorch, which
+  ``band_pooled``'s plain versions and backward recompute and which the CPU
+  tests hold against the JAX kernels
+  (``colorvideovdp_tpu/ops/kernels/masking_fused.py``
+  ``fused_csf_contrast_raw`` :440, ``fused_csf_contrast`` :403,
+  ``fused_blur_transducer`` :352, ``fused_masking_transducer`` :463;
+  ``band_stack.py`` ``make_band_stack`` :253):
 
-* raw pairs (``band_masking``, ``band_masking_d``, ``band_masking_d_noblur``):
-  the raw Gaussian level ``gi`` and the expanded next level ``E``, both
-  (B, 2C, F, h, w) with test/reference channels interleaved; the Weber
-  contrast (weber_g1, weber_g1_ref) is formed in the kernel. The metric's
-  raw bands take ``band_pooled`` (pooled) and ``band_pooled_d`` (D, for the
-  heatmap) instead (``csrc/band_pooled.cu``, the expand inside, the same
-  bits); ``band_masking``, ``band_masking_d`` and ``band_masking_d_noblur``
-  stay as their yardsticks, and ``band_masking`` shares its stages with the
-  halo mode.
-* contrast bands (``band_masking_contrast``, ``band_masking_contrast_d``): the
-  band (B, 2C, F, h, w) as the non-raw decomposition gives it, interleaved and
-  at full band gain, and its adaptation field ``logL`` (B, 1, F, h, w). The
-  JAX package takes this route (``make_fused_mult_mutual``) for every
-  interior band off the raw-pair route: the weber_g0_ref and log contrasts.
-  The metric forms those codings in ``band_pooled`` from gi and gn instead
-  (``BandConsts.coding``); these two stay as its yardsticks.
+  - raw pairs, the band's Gaussian level ``gi`` and the expanded next level
+    ``E``, both (B, 2C, F, h, w) with test/reference channels interleaved:
+    ``raw_stage_a_plain`` (stage A, the Weber contrast and CSF),
+    ``_band_D_plain`` (D), ``_band_sums_plain`` (the pooled sums);
+  - contrast bands, the band (B, 2C, F, h, w) at full band gain and its
+    adaptation field ``logL`` (B, 1, F, h, w): ``csf_contrast_plain`` and
+    ``_band_D_contrast_plain`` (``make_fused_mult_mutual``'s chain);
+  - the halo mode's stage B on a rank's row slab with ``HALO_ROWS``
+    neighbour rows on each side: ``halo_D_plain`` and ``halo_pool_plain``
+    (``fused_blur_transducer``'s ``row_off`` / ``h_valid`` mode);
+  - over lists of bands, per frame chunk: ``band_masking_plain`` (pooled),
+    ``band_masking_d_plain`` (D) and ``band_masking_halo_plain`` (halo).
 
-Two output modes share stages A and B and one plain chain per input mode
-(``_band_D_plain``, ``_band_D_contrast_plain``):
-
-* pooled: sum(safe_pow(D, beta)) over each image plane, (n_bands, B, C, F);
-  D never reaches memory. ``BandMasking`` makes it differentiable: its
-  backward recomputes the plain chain and returns its vector-Jacobian
-  product, as the custom VJPs of the JAX package do
-  (``masking_fused.py:649-661``, ``:745-757``, ``band_stack.py:289-304``).
-  With the kernels on, that recompute runs the CSF LUT and blur kernels with
-  their own backward rules, as JAX's recompute reaches its Pallas LUT and
-  blur.
-* halo (``band_masking_halo``, pooled, raw pairs): each band is one rank's
-  row slab of a band sharded over image rows (``parallel/sharding.py``), with
-  ``HALO_ROWS`` neighbour rows above and below; the slab's blur reads them as
-  they are, and only the owned rows are pooled. The counterpart of the halo'd
-  shard mode of ``fused_blur_transducer`` (``row_off``/``h_valid``, JAX
-  ``masking_fused.py:553-602``). The caller sums the ranks' sums. Forward
-  only; the plain version is ``band_masking_halo_plain``. The sharded
-  route takes ``band_pooled_halo`` (gi slabs and gn rows, the expand
-  inside) instead; this one stays as its yardstick.
-* D: the distortion map D, (B, C, F, h, w) per band, for the heatmap
-  (forward only). The JAX package runs ``fused_blur_transducer(pool_beta=
-  None)`` on bands its fused blur takes and ``blur_fn`` +
-  ``fused_masking_transducer`` on the rest; the port's stage B blurs
-  in-kernel at every size, so on raw pairs the second kernel is the same
-  launch on bands whose blur ``phase_uncertainty`` skips (h or w <=
-  ``pu_padsize``, ``band_masking_d_noblur``), which ``band_groups`` keeps
-  apart. ``band_masking_contrast_d`` takes either kind, one kind per launch.
-  (``band_pooled_d`` takes both kinds in one launch.)
+``use_kernel`` runs the CSF LUT and blur kernels inside a chain, as the JAX
+package's recompute reaches its Pallas LUT and blur.
 """
 
 from __future__ import annotations
@@ -68,28 +42,26 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from ..blur import _blur_1d, gaussian_kernel1d
 from ..clip import clip
 from ..masking import (_EPS, MaskingParams, _pow_static, _safe_pow_static,
                        apply_masking_model, clamp_diffs, mask_pool, safe_pow)
-from . import _build
 from .blur import Blur
 from .csf_lut import CsfLut
 
 MAX_BANDS = 8
-# The contrast codings of the band kernels: the raw codings, whose Weber
-# contrast band_masking.cu forms from gi and E, then those it takes as
-# pre-formed contrast bands; band_pooled.cu forms all four from gi and gn.
+# The contrast codings of the band kernel: the raw codings, the Weber
+# contrast of gi and E, then those the JAX package forms as contrast bands;
+# band_pooled.cu forms all four from gi and gn.
 RAW_CODINGS = ("weber_g1", "weber_g1_ref")
 CODINGS = RAW_CODINGS + ("weber_g0_ref", "log")
 # Consecutive interior bands share one launch while the memory the launch
-# holds stays within this budget: per band the expanded next level E (2C
-# planes; a contrast band's logL, 1 plane) and the kernel's M_pre and diff
-# scratch (C planes each), float32. A ``band_pooled`` launch holds no
-# scratch; its bands count what it reads, gi's 2C planes and the next
-# level's 2C quarter planes, in place. The D modes add D (C planes).
+# holds stays within this budget, float32: a ``band_pooled`` band counts
+# what it reads, gi's 2C planes and the next level's 2C quarter planes; the
+# D modes add D (C planes). (Bands fed E, the expanded next level, count
+# E's 2C planes, or a contrast band's logL plane, and M_pre and diff
+# scratch of C planes each.)
 # Small bands then share a launch (their time is launch latency), and a band
 # whose share alone exceeds the budget runs by itself.
 GROUP_BYTES = 1 << 28
@@ -265,18 +237,29 @@ def band_masking_d_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConst
             for i, (gi, E) in enumerate(zip(gi_list, E_list))]
 
 
+def band_masking_halo_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts,
+                            h_valids):
+    """Plain version of the halo mode: (n_bands, B, C, F) pooled sums over
+    each slab's owned rows."""
+    return torch.stack([
+        torch.cat([halo_pool_plain(*raw_stage_a_plain(gi[:, :, fs], E[:, :, fs], luts[i],
+                                                      muls[i], k), k, h_valids[i])
+                   for fs in _frame_chunks(gi)], dim=2)
+        for i, (gi, E) in enumerate(zip(gi_list, E_list))])
+
+
 def band_groups(shapes, B: int, C: int, F: int, d_blurs=None, contrast: bool = False,
                 gn: bool = False):
     """Split the interior bands, given by their (h, w), into launches:
     lists of consecutive band indices. ``d_blurs``, the bands' blur flags,
     asks for the D mode: each band then also holds its D output (C planes),
-    and a band whose flag differs from the previous band's starts a new
-    launch, so that a band without blur runs as ``band_masking_d_noblur``.
-    ``contrast``: the bands are contrast bands, which hold one logL plane in
-    place of E's 2C planes. ``gn``: raw bands for ``band_pooled`` (or
-    ``band_pooled_d`` with ``d_blurs``), which reads the next level's 2C
-    quarter planes in place of E's 2C planes and takes bands with and
-    without the blur in one launch."""
+    and, for bands fed E, a band whose flag differs from the previous
+    band's starts a new launch. ``contrast``: the bands are contrast bands,
+    which hold one logL plane in place of E's 2C planes. ``gn``: raw bands
+    for ``band_pooled`` (or ``band_pooled_d`` with ``d_blurs``), which reads
+    the next level's 2C quarter planes in place of E's 2C planes and takes
+    bands with and without the blur in one launch; every caller in the
+    package groups so."""
     planes = 2 * C + (1 if contrast else C / 2 if gn else 2 * C) + (0 if d_blurs is None else C)
     groups, cur, used = [], [], 0
     for i, (h, w) in enumerate(shapes):
@@ -294,229 +277,3 @@ def band_groups(shapes, B: int, C: int, F: int, d_blurs=None, contrast: bool = F
 def pooled_norm(sums: torch.Tensor, h: int, w: int, beta: float) -> torch.Tensor:
     """lp_norm tail over the pooled sums: safe_pow(sum / (h w), 1 / beta)."""
     return _safe_pow_static(sums / float(h * w), 1.0 / float(beta))
-
-
-def _launch(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, d_out: bool,
-            contrast: bool = False, h_valids=None):
-    """One ``cvvdp_band_masking`` launch over the given bands on the card:
-    the (n_bands, B, C, F) pooled sums, or with ``d_out`` the list of D.
-    ``contrast``: the lists hold contrast bands and their logL. ``h_valids``
-    (the halo mode, pooled only): each band is a row slab of h_valid owned
-    rows with ``HALO_ROWS`` neighbour rows above and below."""
-    n = len(gi_list)
-    if not 1 <= n <= MAX_BANDS or len(E_list) != n or len(muls) != n:
-        raise ValueError(f"band_masking: 1..{MAX_BANDS} bands, got {n}")
-    B, C2, F = gi_list[0].shape[:3]
-    C = C2 // 2
-    _build.require_cuda("band_masking", luts, *gi_list, *E_list)
-    if tuple(luts.shape[:2]) != (n, C) or C > 4 or len(k.taps) > 17:
-        raise ValueError("band_masking: table or channel count mismatch")
-    dims = np.zeros((n, 2), np.int32)
-    halo = np.zeros((n, 2), np.int32)
-    for i, (gi, E) in enumerate(zip(gi_list, E_list)):
-        h, w = gi.shape[-2:]
-        e_shape = (B, 1, F, h, w) if contrast else gi.shape
-        if tuple(E.shape) != tuple(e_shape) or tuple(gi.shape[:3]) != (B, C2, F):
-            raise ValueError("band_masking: band/second input shape mismatch")
-        dims[i] = gi.shape[-2:]
-        halo[i] = (0, dims[i][0]) if h_valids is None else (HALO_ROWS, h_valids[i])
-    dev = gi_list[0].device
-    sizes = [B * C * F * int(h) * int(w) for h, w in dims]
-    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    mpre = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
-    diff = torch.empty(int(offs[-1]), dtype=torch.float32, device=dev)
-    Ds = ([torch.empty((B, C, F, int(h), int(w)), dtype=torch.float32, device=dev)
-           for h, w in dims] if d_out else [None] * n)
-    ptrs = np.array([[gi.data_ptr(), E.data_ptr(), mpre.data_ptr() + 4 * int(o),
-                      diff.data_ptr() + 4 * int(o), 0 if D is None else D.data_ptr()]
-                     for gi, E, o, D in zip(gi_list, E_list, offs[:-1], Ds)], np.int64)
-    blur = np.array([int(k.params.blurs(int(h), int(w))) for h, w in dims], np.int32)
-    muls_a = np.asarray(muls, np.float32)
-    lib = _build.library()
-    if d_out:
-        partials = out = None
-    else:
-        n_tiles = lib.cvvdp_band_masking_tiles(n, B, F, dims.ctypes.data, halo.ctypes.data)
-        partials = torch.empty(n_tiles * C, dtype=torch.float32, device=dev)
-        out = torch.empty((n, B, C, F), dtype=torch.float32, device=dev)
-    ch_gain = np.ascontiguousarray(k.ch_gain, np.float32)
-    qs = np.ascontiguousarray(k.qs, np.float32)
-    xcm = np.ascontiguousarray(k.xcm, np.float32)
-    taps = np.ascontiguousarray(k.taps, np.float32)
-    rc = lib.cvvdp_band_masking(
-        n, B, C, F, luts.shape[2], ptrs.ctypes.data, dims.ctypes.data, halo.ctypes.data,
-        muls_a.ctypes.data,
-        blur.ctypes.data, luts.data_ptr(), k.x0, (luts.shape[2] - 1) / (k.x1 - k.x0),
-        ch_gain.ctypes.data, k.sens_corr, int(k.ref_only), int(contrast), qs.ctypes.data, k.p,
-        xcm.ctypes.data, k.max_v, k.blur_scale, taps.ctypes.data, len(taps), k.beta, int(d_out),
-        None if partials is None else partials.data_ptr(),
-        None if out is None else out.data_ptr(), _build.stream_handle(dev))
-    _build.check_cuda(rc, "cvvdp_band_masking")
-    return Ds if d_out else out
-
-
-def band_masking(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
-    """CPU tensors take ``band_masking_plain``; CUDA tensors launch the
-    kernel over all the given bands at once: (n_bands, B, C, F) pooled sums."""
-    if gi_list[0].device.type == "cpu":
-        return band_masking_plain(gi_list, E_list, luts, muls, k)
-    out = _launch(gi_list, E_list, luts, muls, k, d_out=False)
-    band_masking.launches += 1
-    return out
-
-
-band_masking.launches = 0
-
-
-def band_masking_halo_plain(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts,
-                            h_valids):
-    """Plain version of the halo mode: (n_bands, B, C, F) pooled sums over
-    each slab's owned rows."""
-    return torch.stack([
-        torch.cat([halo_pool_plain(*raw_stage_a_plain(gi[:, :, fs], E[:, :, fs], luts[i],
-                                                      muls[i], k), k, h_valids[i])
-                   for fs in _frame_chunks(gi)], dim=2)
-        for i, (gi, E) in enumerate(zip(gi_list, E_list))])
-
-
-def band_masking_halo(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, h_valids):
-    """The halo mode on raw pairs: each gi and E (B, 2C, F, h_valid +
-    2 HALO_ROWS, w) is a rank's row slab with its neighbour rows; returns the
-    (n_bands, B, C, F) pooled sums over the owned rows, for the caller to sum
-    over the ranks. CPU tensors take ``band_masking_halo_plain``."""
-    if any(gi.shape[-2] != hv + 2 * HALO_ROWS for gi, hv in zip(gi_list, h_valids)):
-        raise ValueError("band_masking_halo: each slab needs HALO_ROWS rows on each side")
-    if gi_list[0].device.type == "cpu":
-        return band_masking_halo_plain(gi_list, E_list, luts, muls, k, h_valids)
-    _check_blur("band_masking_halo", gi_list, k, True)
-    out = _launch(gi_list, E_list, luts, muls, k, d_out=False, h_valids=h_valids)
-    band_masking_halo.launches += 1
-    return out
-
-
-band_masking_halo.launches = 0
-
-
-def _check_blur(name, gi_list, k: BandConsts, want: bool):
-    if any(k.params.blurs(*gi.shape[-2:]) != want for gi in gi_list):
-        raise ValueError(f"{name}: every band must {'' if want else 'not '}take the blur")
-
-
-def band_masking_d(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
-    """The D mode on bands that take the masking blur (the JAX package's
-    ``fused_blur_transducer`` with ``pool_beta=None``): a list of D
-    (B, C, F, h, w). CPU tensors take ``band_masking_d_plain``."""
-    if gi_list[0].device.type == "cpu":
-        return band_masking_d_plain(gi_list, E_list, luts, muls, k)
-    _check_blur("band_masking_d", gi_list, k, True)
-    Ds = _launch(gi_list, E_list, luts, muls, k, d_out=True)
-    band_masking_d.launches += 1
-    return Ds
-
-
-band_masking_d.launches = 0
-
-
-def band_masking_d_noblur(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts):
-    """The D mode on bands whose blur ``phase_uncertainty`` skips (the JAX
-    package's ``fused_masking_transducer`` on M x 10^mask_c): a list of D.
-    CPU tensors take ``band_masking_d_plain``."""
-    if gi_list[0].device.type == "cpu":
-        return band_masking_d_plain(gi_list, E_list, luts, muls, k)
-    _check_blur("band_masking_d_noblur", gi_list, k, False)
-    Ds = _launch(gi_list, E_list, luts, muls, k, d_out=True)
-    band_masking_d_noblur.launches += 1
-    return Ds
-
-
-band_masking_d_noblur.launches = 0
-
-
-def band_masking_contrast(bands, logLs, luts: torch.Tensor, k: BandConsts):
-    """Pooled sums (n_bands, B, C, F) of contrast bands (the JAX package's
-    ``fused_csf_contrast`` + ``fused_blur_transducer``). CPU tensors take
-    ``band_masking_plain(..., contrast=True)``."""
-    ones = [1.0] * len(bands)
-    if bands[0].device.type == "cpu":
-        return band_masking_plain(bands, logLs, luts, ones, k, contrast=True)
-    out = _launch(bands, logLs, luts, ones, k, d_out=False, contrast=True)
-    band_masking_contrast.launches += 1
-    return out
-
-
-band_masking_contrast.launches = 0
-
-
-def band_masking_contrast_d(bands, logLs, luts: torch.Tensor, k: BandConsts):
-    """D of contrast bands that share one blur flag (the JAX package's
-    ``make_fused_mult_mutual``: ``fused_csf_contrast``, then the blur and
-    ``fused_masking_transducer``): a list of D (B, C, F, h, w). CPU tensors
-    take ``band_masking_d_plain(..., contrast=True)``."""
-    ones = [1.0] * len(bands)
-    if bands[0].device.type == "cpu":
-        return band_masking_d_plain(bands, logLs, luts, ones, k, contrast=True)
-    _check_blur("band_masking_contrast_d", bands, k, k.params.blurs(*bands[0].shape[-2:]))
-    Ds = _launch(bands, logLs, luts, ones, k, d_out=True, contrast=True)
-    band_masking_contrast_d.launches += 1
-    return Ds
-
-
-band_masking_contrast_d.launches = 0
-
-
-def band_D(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True,
-           contrast: bool = False):
-    """D of one ``band_groups`` launch (all its bands share the blur flag):
-    the kernel that fits the group, or the plain version without
-    ``use_kernel``. Forward only."""
-    if not use_kernel:
-        return band_masking_d_plain(gi_list, E_list, luts, muls, k, contrast)
-    if contrast:
-        return band_masking_contrast_d(gi_list, E_list, luts, k)
-    fn = band_masking_d if k.params.blurs(*gi_list[0].shape[-2:]) else band_masking_d_noblur
-    return fn(gi_list, E_list, luts, muls, k)
-
-
-class BandMasking(torch.autograd.Function):
-    """Pooled band sums, differentiable in every input: ``band_masking`` or
-    ``band_masking_contrast`` (or the plain version without ``use_kernel``)
-    forward; the backward recomputes the band's plain chain per band and frame
-    chunk and returns its vector-Jacobian product."""
-
-    @staticmethod
-    def forward(ctx, luts, muls, k, use_kernel, contrast, *gi_and_E):
-        n = len(gi_and_E) // 2
-        ctx.save_for_backward(luts, *gi_and_E)
-        ctx.args = (muls, k, use_kernel, contrast)
-        x, y = list(gi_and_E[:n]), list(gi_and_E[n:])
-        if not use_kernel:
-            return band_masking_plain(x, y, luts, muls, k, contrast)
-        if contrast:
-            return band_masking_contrast(x, y, luts, k)
-        return band_masking(x, y, luts, muls, k)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        luts, *gi_and_E = ctx.saved_tensors
-        muls, k, use_kernel, contrast = ctx.args
-        n = len(gi_and_E) // 2
-        d_gi, d_E = [], []
-        for i, (gi, E) in enumerate(zip(gi_and_E[:n], gi_and_E[n:])):
-            a, b = torch.zeros_like(gi), torch.zeros_like(E)
-            for fs in _frame_chunks(gi):
-                with torch.enable_grad():
-                    gi_c = gi[:, :, fs].detach().requires_grad_()
-                    E_c = E[:, :, fs].detach().requires_grad_()
-                    s = _band_sums_plain(gi_c, E_c, luts[i], muls[i], k, use_kernel, contrast)
-                    a[:, :, fs], b[:, :, fs] = torch.autograd.grad(s, (gi_c, E_c), g[i, :, :, fs])
-            d_gi.append(a)
-            d_E.append(b)
-        return (None, None, None, None, None, *d_gi, *d_E)
-
-
-def band_sums(gi_list, E_list, luts: torch.Tensor, muls, k: BandConsts, use_kernel: bool = True,
-              contrast: bool = False):
-    """(n_bands, B, C, F) pooled sums through ``BandMasking``; ``contrast``:
-    the lists hold contrast bands and their logL (``muls`` unused)."""
-    return BandMasking.apply(luts, muls, k, use_kernel, contrast, *gi_list, *E_list)

@@ -4,9 +4,13 @@
 Counterpart of ``colorvideovdp_tpu/parallel/sharding.py``, written for
 ``torch.distributed`` as SPMD code: every rank runs the same program on its
 own slab, and the collectives are explicit. A rank holds the raw blocks of
-its pairs and rows, (B / n_batch, F, 3, H / n_space, W). Its steps:
+its pairs and rows, (B / n_batch, F, 3, H / n_space, W), which the metric's
+block producer (``cvvdp._raw_blocks``) reads, uploads and ingests as it does
+on one device. Its steps:
 
-* ingest: row-local, no collectives (the ingest kernel on the slab);
+* ingest: row-local, no collectives (the ingest kernel on the slab); the
+  first block repeats frame 0 whatever ``temp_padding`` says, as the JAX
+  package's sharded step does;
 * each pyramid level that the JAX package's ``can_reduce_slab`` admits is
   reduced as a halo'd slab (``sharded_reduce``: 8 rows from each neighbour,
   the slab mode of the reduce kernel, then the vertical edge fixes on the
@@ -42,8 +46,8 @@ over the channels on its rows, then gathered. The collectives are
 same step: each halo row's gradient goes back to its owner, a gathered
 level keeps the rank's rows, the space group's sum passes its gradient to
 every rank's term unchanged, and a replicated level read by a halo band
-(``_Partial``) sums the ranks' gradients. ``use_band_mega``, channel dumps
-and a video's heatmap raise under a mesh.
+(``_Partial``) sums the ranks' gradients. Channel dumps and a video's
+heatmap raise under a mesh.
 """
 
 from __future__ import annotations
@@ -61,7 +65,6 @@ from ..ops.kernels import band_pooled as bp
 from ..ops.kernels import masking_fused as bm
 from ..ops.kernels import pyramid_reduce as prd
 from ..ops.pyramid import K5, _reduce_1d, expand_rows, gausspyr_reduce, reduce_slab_plain
-from ..ops.temporal import get_temporal_filters
 from ..utils import spans
 from .launch import rank_device
 
@@ -436,8 +439,6 @@ def band_shardable(params, h: int, w: int, mesh: Mesh) -> bool:
 
 
 def _check_metric(metric, video: bool = False):
-    if metric.use_band_mega:
-        raise ValueError("use_band_mega takes no mesh (the JAX gate admits it without one)")
     if metric.dump_channels:
         raise ValueError("channel dumps take no mesh")
     if video and metric.do_heatmap:
@@ -487,51 +488,6 @@ def shard_loss_fn(metric, height: int, width: int, mesh: Mesh, remat: bool = Tru
     return metric.get_loss_fn(height, width, remat=remat, mesh=mesh)
 
 
-def _temporal_taps(metric, vid_source):
-    fps = vid_source.get_frames_per_second()
-    metric.F, _ = get_temporal_filters(fps, metric.sigma_tf, metric.beta_tf, metric.temp_filter)
-    metric.filter_len = int(metric.F[0].shape[0])
-    return np.stack([f[::-1] for f in metric.F])
-
-
-def shard_video_fn(metric, vid_source, met_colorspace, raw_shape, dtype, mesh: Mesh,
-                   first: bool):
-    """The video block step under ``mesh``: ``fn(raw_t, raw_r)`` for the first
-    block, ``fn(tail_t, tail_r, raw_t, raw_r)`` after it; both return
-    ``(Q_per_ch, tail_t, tail_r)``, Q the same on every rank and the tails
-    (B / n_batch, 3, fl - 1, H / n_space, W) this rank's rows. The ingest is
-    row-local (the ingest kernel on the slab). As in the JAX package
-    (``sharding.py:280-284``), the first block pads by repeating frame 0
-    whatever ``temp_padding`` says. ``dtype`` as in ``shard_scoring_fn``. A
-    heatmap metric is refused (the JAX package's step discards the map)."""
-    _check_metric(metric, video=True)
-    B, _, _, H, W = (int(v) for v in raw_shape)
-    _slices(mesh, B, H)
-    metric._ensure_pyramids(W, H)
-    dm = vid_source.dm_photometry
-    filt = _temporal_taps(metric, vid_source)
-    use_k = metric.enable_fused_kernels
-
-    def step(ingested):
-        R, tail_t, tail_r = ingested
-        Q = metric._process_block(R, temp_ch=2, is_image=False, mesh=mesh)[0]
-        return Q, tail_t, tail_r
-
-    if first:
-        first_fn = ing.ingest_replicate if use_k else ing.ingest_first_plain
-
-        def fn(raw_t, raw_r):
-            return step(first_fn(raw_t, raw_r, dm, filt, met_colorspace))
-
-        return fn
-    tail_fn = ing.ingest if use_k else ing.ingest_plain
-
-    def fn(tail_t, tail_r, raw_t, raw_r):
-        return step(tail_fn(tail_t, tail_r, raw_t, raw_r, dm, filt, met_colorspace))
-
-    return fn
-
-
 def ranks_on_device(device: torch.device) -> int:
     """How many ranks of the default group work on this rank's device (the
     host, for the CPU)."""
@@ -563,8 +519,8 @@ def predict_video_source(metric, vid_source, mesh: Mesh):
     ``(Q_jod, stats)``. ``stats`` holds ``Q_per_ch``, ``block_N_frames``
     and ``block_loop_s``, the block loop's wall time on this rank (the
     device synchronised once, at its end); for an image with a heatmap
-    metric also ``heatmap``, the host's float16 map (a video's is refused,
-    as ``shard_video_fn`` refuses it)."""
+    metric also ``heatmap``, the host's float16 map (a video's is
+    refused)."""
     with spans.request("cvvdp.predict") as root:
         return _predict_video_source(metric, vid_source, mesh, root)
 
@@ -575,41 +531,25 @@ def _predict_video_source(metric, vid_source, mesh: Mesh, root):
     if vid_source.test_video.shape[0] != vid_source.reference_video.shape[0]:
         raise ValueError("sharded scoring needs test and reference batches of one size")
     bs, hs = _slices(mesh, B, h)
-    met_cs = metric.met_colorspace()
-
-    def block(which, start, count):
-        raw = vid_source.get_raw_block(which, start, count, batch=bs, rows=hs)
-        # A read-only (memory-mapped) block is copied before torch wraps it.
-        return metric._upload(np.require(raw, requirements=["C", "W"]))
-
-    def global_shape(raw):
-        return (B,) + tuple(raw.shape[1:3]) + (h, w)
-
+    is_image = N == 1
+    _check_metric(metric, video=not is_image)
+    metric._ensure_pyramids(w, h)
     t0 = time.time()
-    heatmap = None
-    if N == 1:
-        raws = [block(s, 0, 1) for s in ("test", "reference")]
-        fn = shard_scoring_fn(metric, vid_source, met_cs, global_shape(raws[0]), raws[0].dtype,
-                              mesh)
-        with spans.span("cvvdp.block"):
-            (Q_per_ch, heatmap), block_N = fn(*raws), 1
-    else:
-        _check_metric(metric, video=True)
-        _temporal_taps(metric, vid_source)  # the block model reads filter_len
+    block_N = 1
+    if not is_image:
+        metric._temporal_filters(vid_source)
         block_N = agreed_block_N(metric, (bs.stop - bs.start) * (hs.stop - hs.start) * w,
                                  N, mesh)
-        Q_blocks, tails = [], None
-        for ff in range(0, N, block_N):
-            cur = min(block_N, N - ff)
-            raws = [block(s, ff, block_N) for s in ("test", "reference")]
-            fn = shard_video_fn(metric, vid_source, met_cs, global_shape(raws[0]),
-                                raws[0].dtype, mesh, first=tails is None)
-            with spans.span("cvvdp.block"):
-                Q, t_t, t_r = fn(*raws) if tails is None else fn(*tails, *raws)
-            tails = (t_t, t_r)
-            del raws
-            Q_blocks.append(Q[:, :, :cur])
-        Q_per_ch = torch.cat(Q_blocks, dim=2)
+    Q_blocks, heatmap = [], None
+    for _, cur, R, temp_ch in metric._raw_blocks(vid_source, N, block_N, bs.stop - bs.start,
+                                                 metric.met_colorspace(), slab=(bs, hs)):
+        Q, hm, context = metric._process_block(R, temp_ch=temp_ch, is_image=is_image,
+                                               heatmap=metric.do_heatmap, mesh=mesh)
+        del R
+        Q_blocks.append(Q[:, :, :cur])
+        if hm is not None:
+            heatmap = metric._heatmap_map(hm, context)
+    Q_per_ch = torch.cat(Q_blocks, dim=2) if len(Q_blocks) > 1 else Q_blocks[0]
     root.set(frames=N, block_N=block_N)
     if metric.device.type == "cuda":
         torch.cuda.synchronize(metric.device)

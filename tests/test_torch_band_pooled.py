@@ -9,7 +9,6 @@ fed its own ``gausspyr_expand(gn)``, as ``tests/test_torch_kernels.py``
 runs it. Inputs are seeded numpy arrays handed to both packages.
 """
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -117,11 +116,9 @@ def test_band_pooled_takes_several_bands_in_one_launch():
 
 def _route_spies(monkeypatch):
     """Record what the metric hands to ``band_pooled_sums`` and to
-    ``band_pooled_d``, every call of the previous route (``band_sums``,
-    ``band_masking``) and of the previous heatmap D mode, and the channel
-    count of every plain expand through ``ops/pyramid.py``."""
-    seen = {"pooled": [], "pooled_d": [], "expand": [], "band_sums": 0, "band_masking": 0,
-            "d": []}
+    ``band_pooled_d``, and the channel count of every plain expand through
+    ``ops/pyramid.py``."""
+    seen = {"pooled": [], "pooled_d": [], "expand": []}
     pooled = bp.band_pooled_sums
     pooled_d = bp.band_pooled_d
 
@@ -141,24 +138,9 @@ def _route_spies(monkeypatch):
         seen["expand"].append(int(x.shape[1]))
         return expand(x, *a, **kw)
 
-    def counting(key, fn):
-        def run(*a, **kw):
-            seen[key] += 1
-            return fn(*a, **kw)
-        return run
-
-    band_d = bm.band_masking_d
-
-    def spy_d(gis, Es, *args):
-        seen["d"].append([tuple(g.shape[-2:]) for g in gis])
-        return band_d(gis, Es, *args)
-
     monkeypatch.setattr(bp, "band_pooled_sums", spy_pooled)
     monkeypatch.setattr(bp, "band_pooled_d", spy_pooled_d)
     monkeypatch.setattr(pyr_t, "gausspyr_expand", spy_expand)
-    monkeypatch.setattr(bm, "band_sums", counting("band_sums", bm.band_sums))
-    monkeypatch.setattr(bm, "band_masking", counting("band_masking", bm.band_masking))
-    monkeypatch.setattr(bm, "band_masking_d", spy_d)
     return seen
 
 
@@ -171,10 +153,8 @@ def _want_pooled(m, B, F):
 def test_default_route_hands_gn_to_band_pooled(monkeypatch):
     """A 1-frame 64x96 score, one loss step and a raw heatmap: every pooled
     raw band group goes to ``band_pooled_sums`` with gn, none through a
-    plain expand and ``band_sums`` / ``band_masking``; the heatmap's raw
-    bands go to ``band_pooled_d`` with gn, not to ``band_masking_d`` fed the
-    expand (its only plain expands are the reconstruct's one-channel
-    maps)."""
+    plain expand; the heatmap's raw bands go to ``band_pooled_d`` with gn
+    (its only plain expands are the reconstruct's one-channel maps)."""
     seen = _route_spies(monkeypatch)
     rng = np.random.RandomState(3)
     ref = (rng.rand(64, 96, 3) * 255).astype(np.uint8)
@@ -184,7 +164,7 @@ def test_default_route_hands_gn_to_band_pooled(monkeypatch):
     m.predict(test, ref, dim_order="HWC")
     want = _want_pooled(m, 1, 1)
     assert seen["pooled"] == want and len(want) >= 1
-    assert (seen["expand"], seen["band_sums"], seen["band_masking"], seen["d"]) == ([], 0, 0, [])
+    assert seen["expand"] == []
 
     seen["pooled"].clear()
     x = torch.from_numpy(test.transpose(2, 0, 1)[None, :, None] / np.float32(255)).float()
@@ -194,13 +174,13 @@ def test_default_route_hands_gn_to_band_pooled(monkeypatch):
     (g,) = torch.autograd.grad(v, x)
     # Once in the forward, once in the checkpointed block's recompute.
     assert seen["pooled"] == want * 2
-    assert (seen["expand"], seen["band_sums"], seen["band_masking"]) == ([], 0, 0)
+    assert seen["expand"] == []
     assert torch.isfinite(g).all() and g.abs().max() > 0
 
     seen["pooled"].clear()
     mh = ct.cvvdp(display_name="standard_4k", device="cpu", heatmap="raw")
     mh.predict(test, ref, dim_order="HWC")
-    assert seen["pooled"] == [] and seen["band_sums"] == 0 and seen["d"] == []
+    assert seen["pooled"] == []
     shapes = [tuple(s) for s in mh.lpyr.pyr_shape[:-1]]
     blurs = [mh._masking_params().blurs(*s) for s in shapes]
     assert seen["pooled_d"] == [[(shapes[bb], ((shapes[bb][0] + 1) // 2,
@@ -233,24 +213,3 @@ def test_band_pooled_gradient_matches_jax():
     for g_t, g_j in ((dgi_t, dgi_j), (dgn_t, dgn_j)):
         g_j = np.asarray(g_j)
         assert np.abs(g_t.numpy() - g_j).max() <= 1e-3 * np.abs(g_j).max()
-
-
-def test_band_fused_shares_the_pooled_route():
-    """The mega route's pooled mode is ``band_pooled`` for one band, and its
-    gradient is the same recompute."""
-    C, (h, w) = 4, SHAPES[0]
-    gi, gn, lut = _inputs(C, h, w, seed=5)
-    k = dataclasses.replace(_consts(C, False))
-    from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
-
-    gi_t, gn_t, lut_t = torch.from_numpy(gi), torch.from_numpy(gn), torch.from_numpy(lut)
-    assert torch.equal(bf.band_fused(gi_t, gn_t, lut_t, 1.0, k),
-                       bp.band_pooled([gi_t], [gn_t], lut_t[None], [1.0], k)[0])
-    g = torch.from_numpy(np.random.RandomState(6).rand(1, C, 2).astype(np.float32))
-    a = [x.clone().requires_grad_() for x in (gi_t, gn_t)]
-    b = [x.clone().requires_grad_() for x in (gi_t, gn_t)]
-    ga = torch.autograd.grad(torch.sum(bf.band_fused_sums(*a, lut_t, 1.0, k) * g), a)
-    gb = torch.autograd.grad(torch.sum(bp.band_pooled_sums([b[0]], [b[1]], lut_t[None],
-                                                           [1.0], k)[0] * g), b)
-    for x, y in zip(ga, gb):
-        assert torch.equal(x, y)

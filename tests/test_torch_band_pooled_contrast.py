@@ -139,11 +139,9 @@ def test_coding_matches_jax_contrast_band_route(coding, C):
 
 def _route_spies(monkeypatch):
     """Record the gi/gn shapes and the coding handed to the one-pass
-    kernel's pooled and D entries, and count every call of the previous
-    contrast-band route (``band_sums``, ``band_masking_contrast`` and its D
-    mode) and of the backward's recompute."""
-    seen = {"pooled": [], "pooled_d": [], "vjp": [], "band_sums": 0, "contrast": 0,
-            "contrast_d": 0}
+    kernel's pooled and D entries, and the coding of the backward's
+    recompute."""
+    seen = {"pooled": [], "pooled_d": [], "vjp": []}
     pooled, pooled_d, vjp = bp.band_pooled_sums, bp.band_pooled_d, bp.pooled_vjp
 
     def spy(key, fn):
@@ -157,20 +155,9 @@ def _route_spies(monkeypatch):
         seen["vjp"].append(k.coding)
         return vjp(gi, gn, lut, mul, k, *a)
 
-    def counting(key, fn):
-        def run(*a, **kw):
-            seen[key] += 1
-            return fn(*a, **kw)
-        return run
-
     monkeypatch.setattr(bp, "band_pooled_sums", spy("pooled", pooled))
     monkeypatch.setattr(bp, "band_pooled_d", spy("pooled_d", pooled_d))
     monkeypatch.setattr(bp, "pooled_vjp", spy_vjp)
-    monkeypatch.setattr(bm, "band_sums", counting("band_sums", bm.band_sums))
-    monkeypatch.setattr(bm, "band_masking_contrast",
-                        counting("contrast", bm.band_masking_contrast))
-    monkeypatch.setattr(bm, "band_masking_contrast_d",
-                        counting("contrast_d", bm.band_masking_contrast_d))
     return seen
 
 
@@ -187,8 +174,7 @@ def test_metric_hands_gi_and_gn_to_band_pooled(monkeypatch, configs, coding):
     """A 64x96 image, one loss step and a raw heatmap under the coding: every
     interior band group goes to ``band_pooled_sums`` (the loss's backward to
     ``pooled_vjp``) or, for the heatmap, ``band_pooled_d`` as gi and gn with
-    the coding, and nothing to the previous route (``band_sums``,
-    ``band_masking_contrast`` / ``_d``)."""
+    the coding."""
     seen = _route_spies(monkeypatch)
     test, ref = _pair(64, 96, seed=3)
     m = ct.cvvdp(display_name="standard_4k", device="cpu", config_paths=configs[coding])
@@ -217,7 +203,6 @@ def test_metric_hands_gi_and_gn_to_band_pooled(monkeypatch, configs, coding):
     assert [b for _, b in seen["pooled_d"]] == [
         [(shapes[bb], ((shapes[bb][0] + 1) // 2, (shapes[bb][1] + 1) // 2)) for bb in sel]
         for sel in bm.band_groups(shapes, 1, 3, 1, blurs, gn=True)]
-    assert (seen["band_sums"], seen["contrast"], seen["contrast_d"]) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("coding", CODINGS)

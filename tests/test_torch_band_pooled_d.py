@@ -27,7 +27,6 @@ from colorvideovdp_tpu.ops import pyramid as pyr_j  # noqa: E402
 from colorvideovdp_tpu.ops.kernels import csf_lut as lut_j  # noqa: E402
 from colorvideovdp_tpu_torch.metrics import cvvdp as cvvdp_t  # noqa: E402
 from colorvideovdp_tpu_torch.ops import pyramid as pyr_t  # noqa: E402
-from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm  # noqa: E402
 
@@ -132,18 +131,6 @@ def test_band_pooled_d_takes_several_bands_in_one_launch():
         assert torch.equal(Ds[i], D1) and torch.equal(sums[i], s1[0])
 
 
-def test_band_fused_d_is_band_pooled_d():
-    """The mega route's D mode is ``band_pooled_d`` for one band."""
-    C, (h, w) = 4, SHAPES[1]
-    gi, gn, lut = _inputs(C, h, w, seed=7)
-    k = _consts(C, False)
-    gi_t, gn_t, lut_t = torch.from_numpy(gi), torch.from_numpy(gn), torch.from_numpy(lut)
-    D, s = bf.band_fused_d(gi_t, gn_t, lut_t, 2.0, k)
-    (D1,), s1 = bp.band_pooled_d([gi_t], [gn_t], lut_t[None], [2.0], k)
-    assert torch.equal(D, D1) and torch.equal(s, s1[0])
-    assert torch.equal(s, bf.band_fused(gi_t, gn_t, lut_t, 2.0, k))
-
-
 def _pair(kind):
     """A seeded 48x256 pair on standard_4k: one image (band 3 has 6 rows and
     takes no blur) or 7 frames, with the ``gpu_mem`` and keywords that make
@@ -162,22 +149,16 @@ def _pair(kind):
 
 
 def _route_spies(monkeypatch):
-    """Record each ``band_pooled_d`` launch's (gi, gn) shapes, calls of the
-    previous route's D modes, and the channel count of every plain expand
-    that goes through ``ops/pyramid.py`` (the heatmap's reconstruct)."""
-    seen = {"d": [], "old": 0, "expand": []}
+    """Record each ``band_pooled_d`` launch's (gi, gn) shapes and the
+    channel count of every plain expand that goes through
+    ``ops/pyramid.py`` (the heatmap's reconstruct)."""
+    seen = {"d": [], "expand": []}
     pooled_d = bp.band_pooled_d
 
     def spy_d(gis, gns, *args):
         seen["d"].append([(tuple(g.shape[-2:]), tuple(n.shape[-2:]))
                           for g, n in zip(gis, gns)])
         return pooled_d(gis, gns, *args)
-
-    def counting(fn):
-        def run(*a, **kw):
-            seen["old"] += 1
-            return fn(*a, **kw)
-        return run
 
     expand = pyr_t.gausspyr_expand
 
@@ -186,8 +167,6 @@ def _route_spies(monkeypatch):
         return expand(x, *a, **kw)
 
     monkeypatch.setattr(bp, "band_pooled_d", spy_d)
-    for name in ("band_masking_d", "band_masking_d_noblur", "band_D", "band_masking"):
-        monkeypatch.setattr(bm, name, counting(getattr(bm, name)))
     monkeypatch.setattr(pyr_t, "gausspyr_expand", spy_expand)
     return seen
 
@@ -195,10 +174,9 @@ def _route_spies(monkeypatch):
 @pytest.mark.parametrize("kind", ["image", "video"])
 def test_heatmap_route_hands_gn_to_band_pooled_d(monkeypatch, kind):
     """A raw heatmap: every raw band, with and without the blur, goes to
-    ``band_pooled_d`` with gn, as ``band_groups`` packs them, once a block;
-    never to ``band_masking_d``, ``band_masking_d_noblur`` or ``band_D``, and
-    the metric expands no raw band itself (the only plain expands are the
-    reconstruct's, of one-channel maps)."""
+    ``band_pooled_d`` with gn, as ``band_groups`` packs them, once a block,
+    and the metric expands no raw band itself (the only plain expands are
+    the reconstruct's, of one-channel maps)."""
     seen = _route_spies(monkeypatch)
     test, ref, gpu_mem, kw = _pair(kind)
     m = ct.cvvdp(display_name="standard_4k", device="cpu", heatmap="raw", gpu_mem=gpu_mem)
@@ -213,7 +191,6 @@ def test_heatmap_route_hands_gn_to_band_pooled_d(monkeypatch, kind):
     want = [[(shapes[bb], ((shapes[bb][0] + 1) // 2, (shapes[bb][1] + 1) // 2)) for bb in sel]
             for sel in bm.band_groups(shapes, 1, C, F, blurs, gn=True)]
     assert seen["d"] == want * n_blocks and len(want) >= 1
-    assert seen["old"] == 0
     assert seen["expand"] == [1] * (len(shapes) * n_blocks)
     assert not hasattr(cvvdp_t, "gausspyr_expand")
 
@@ -233,14 +210,14 @@ def test_raw_heatmap_jod_equals_pooled_only_jod(kind):
 
 
 def test_mega_heatmap_jod_equals_mega_pooled_jod():
-    """With ``use_band_mega`` (bands 0 and 1 of 96x512 pass the gate with
-    ``force_fused``), the raw heatmap's JOD is the pooled-only JOD."""
+    """At 96x512, where the JAX package's gate (``use_band_mega``,
+    ``force_fused``) sends bands 0 and 1 to its mega-kernel, the port's one
+    route gives a raw heatmap JOD that is the pooled-only JOD."""
     rng = np.random.RandomState(29)
     ref = (rng.rand(96, 512, 3) * 255).astype(np.uint8)
     test = np.clip(ref.astype(np.int16) + 9, 0, 255).astype(np.uint8)
     jods = []
     for hm in ("raw", None):
         m = ct.cvvdp(display_name="standard_4k", device="cpu", heatmap=hm)
-        m.use_band_mega = m.force_fused = True
         jods.append(float(m.predict(test, ref, dim_order="HWC")[0]))
     assert jods[0] == jods[1]

@@ -47,7 +47,6 @@ def route_metric(route, tmp_path):
     m = cls(display_name="standard_hdr_pq", device="cpu", **kw)
     m.device = torch.device("cuda")
     m.enable_fused_kernels = route != "plain"
-    m.use_band_mega = route == "mega"
     m.filter_len = len(get_temporal_filters(30.0, m.sigma_tf, m.beta_tf, m.temp_filter)[0][0])
     return m, dict(reference_model=route in ("mesh", "per-frame"))
 
@@ -67,7 +66,7 @@ def test_device_free_counts_the_allocator_cache(card, route, tmp_path):
 # the ML trunk its own (29).
 BLOCKS_BY_ROUTE = {"pooled": 32, "weber_g1_ref": 32, "weber_g0_ref": 32, "log": 32,
                    "heatmap": 23, "dumps": 23, "mesh": 23, "per-frame": 23, "generic": 23,
-                   "plain": 23, "mega": 23, "ml": 29}
+                   "plain": 23, "ml": 29}
 
 
 @pytest.mark.parametrize("route", sorted(BLOCKS_BY_ROUTE))

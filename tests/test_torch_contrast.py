@@ -146,11 +146,12 @@ def test_contrast_band_matches_make_fused_mult_mutual(jax_metrics, C, h, w):
                                    lambda M: mk_j.phase_uncertainty(M, params))
     D_j = np.asarray(fused(jnp.asarray(band[:, 0::2]), jnp.asarray(band[:, 1::2]),
                            jnp.asarray(logL)))
-    args = ([torch.from_numpy(band)], [torch.from_numpy(logL)], torch.from_numpy(luts[None]), k)
-    (D_t,) = bm.band_masking_contrast_d(*args)
+    args = ([torch.from_numpy(band)], [torch.from_numpy(logL)], torch.from_numpy(luts[None]),
+            [1.0], k)
+    (D_t,) = bm.band_masking_d_plain(*args, contrast=True)
     assert D_t.shape == D_j.shape == (1, C, 2, h, w)
     assert np.abs(D_t.numpy() - D_j).max() <= 2e-4 * max(1.0, np.abs(D_j).max())
-    sums = bm.band_masking_contrast(*args)[0]
+    sums = bm.band_masking_plain(*args, contrast=True)[0]
     assert torch.equal(sums, torch.sum((D_t + 1e-5) ** 2 - 1e-10, dim=(-2, -1)))
 
 

@@ -14,7 +14,6 @@ import torch
 import colorvideovdp_tpu_torch as ct
 from colorvideovdp_tpu_torch.ops import pyramid as pyr
 from colorvideovdp_tpu_torch.ops.blur import blur_adjoint_plain, blur_plain, gaussian_kernel1d
-from colorvideovdp_tpu_torch.ops.kernels import band_fused as bf
 from colorvideovdp_tpu_torch.ops.kernels import band_pooled as bp
 from colorvideovdp_tpu_torch.ops.kernels import blur as bl
 from colorvideovdp_tpu_torch.ops.kernels import csf_lut as lut
@@ -34,6 +33,12 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _ingest_launches():
+    """The ingest kernel's launches in all its modes: a clip of one block
+    takes only the first block's mode."""
+    return ing.ingest.launches + ing.ingest_replicate.launches + ing.ingest_head.launches
 
 
 def _rel(a, b):
@@ -127,26 +132,12 @@ def test_ingest_kernel_batch_channels_float(dev, B, C, dtype):
         assert _rel_planes(a, b) <= 1e-5
 
 
-@pytest.mark.parametrize("C", [4, 3])
-def test_band_masking_kernel(dev, C):
-    m = ct.cvvdp(display_name="standard_4k", device="cuda")
-    m._ensure_pyramids(512, 96)
-    consts, luts = m._band_tables(C)
-    shapes = [(96, 512), (48, 256), (16, 64), (8, 32), (5, 16)]
-    gis = [torch.rand(1, 2 * C, 3, h, w, device=dev) * 20 + 30 for h, w in shapes]
-    Es = [g + torch.randn_like(g) for g in gis]
-    for sel in ([0], [1], [2, 3, 4]):
-        args = ([gis[i] for i in sel], [Es[i] for i in sel], luts[sel[0]:sel[-1] + 1],
-                [2.0] * len(sel), consts)
-        assert _rel(bm.band_masking(*args), bm.band_masking_plain(*args)) <= 1e-4
-
-
 @pytest.mark.parametrize("C,ref_only", [(4, False), (3, False), (4, True)])
 def test_band_pooled_kernel(dev, C, ref_only):
-    """The one-pass pooled kernel against the previous route, the plain
-    expand + ``band_masking``, bit for bit, and against its plain version
-    within 1e-4: an odd 1081x1921 band of B = 2, and a stacked list of
-    narrow bands (the 4-row band takes no blur)."""
+    """The one-pass pooled kernel against its plain version and against the
+    plain chain fed the plain expand, within 1e-4: an odd 1081x1921 band of
+    B = 2, and a stacked list of narrow bands (the 4-row band takes no
+    blur)."""
     m = ct.cvvdp(display_name="standard_4k", device="cuda")
     m._ensure_pyramids(1921, 1081)
     consts, luts = m._band_tables(C)
@@ -161,8 +152,8 @@ def test_band_pooled_kernel(dev, C, ref_only):
         before = bp.band_pooled.launches
         s = bp.band_pooled(gis, gns, lt, muls, consts)
         assert bp.band_pooled.launches == before + 1
-        assert torch.equal(s, bm.band_masking(gis, Es, lt, muls, consts))
         assert _rel(s, bp.band_pooled_plain(gis, gns, lt, muls, consts)) <= 1e-4
+        assert _rel(s, bm.band_masking_plain(gis, Es, lt, muls, consts)) <= 1e-4
     with pytest.raises(ValueError):
         bp.band_pooled([gis[0]], [Es[0]], lt[:1], [2.0], consts)  # E in gn's slot
 
@@ -311,43 +302,13 @@ def test_predict_channel_last_equals_planar(dev, case):
     assert np.array_equal(out[0][0], out[1][0]) and np.array_equal(out[0][1], out[1][1])
 
 
-@pytest.mark.parametrize("C", [4, 3])
-def test_band_masking_d_kernel(dev, C):
-    """The D mode against its plain version at unaligned sizes: one wide band,
-    a multi-band group and a band of 4 rows without the masking blur."""
-    m = ct.cvvdp(display_name="standard_4k", device="cuda")
-    m._ensure_pyramids(517, 99)
-    consts, _ = m._band_tables(C)
-    shapes = [(99, 517), (50, 259), (25, 130), (13, 65), (7, 33), (4, 17)]
-    luts = torch.as_tensor(np.stack([
-        np.stack([m.csf.logS_of_logL(rho, m.omega[0 if cc < 3 else 1], cc if cc < 3 else 0)
-                  for cc in range(C)]) for rho in (8.0, 4.0, 2.0, 1.0, 0.5, 0.25)]), device=dev)
-    gis = [torch.rand(1, 2 * C, 3, h, w, device=dev) * 20 + 30 for h, w in shapes]
-    Es = [g + torch.randn_like(g) for g in gis]
-    for sel, fn in (([0], bm.band_masking_d), ([1, 2, 3, 4], bm.band_masking_d),
-                    ([5], bm.band_masking_d_noblur)):
-        args = ([gis[i] for i in sel], [Es[i] for i in sel], luts[sel[0]:sel[-1] + 1],
-                [1.0 if i == 0 else 2.0 for i in sel], consts)
-        before = fn.launches
-        Ds = fn(*args)
-        assert fn.launches == before + 1
-        for D, P in zip(Ds, bm.band_masking_d_plain(*args)):
-            assert D.shape == P.shape
-            assert _rel_planes(D, P) <= 1e-5
-    with pytest.raises(ValueError):
-        bm.band_masking_d_noblur([gis[0]], [Es[0]], luts[:1], [1.0], consts)
-    with pytest.raises(ValueError):
-        bm.band_masking_d([gis[5]], [Es[5]], luts[5:6], [2.0], consts)
-
-
 @pytest.mark.parametrize("C,ref_only", [(4, False), (3, False), (4, True)])
 def test_band_pooled_d_kernel(dev, C, ref_only):
-    """The one-pass kernel's D mode against the previous route, the plain
-    expand + ``band_masking_d`` (``band_masking_d_noblur`` on the band
-    without the blur), bit for bit, with sums bit for bit those of the
-    pooled mode, and against its plain version: an aligned 96x512 band, an
-    odd 1081x1921 band of B = 2, and one launch over narrow bands whose
-    4-row band takes no blur."""
+    """The one-pass kernel's D mode, with sums bit for bit those of the
+    pooled mode, against its plain version and against the plain chain fed
+    the plain expand: an aligned 96x512 band, an odd 1081x1921 band of
+    B = 2, and one launch over narrow bands whose 4-row band takes no
+    blur."""
     m = ct.cvvdp(display_name="standard_4k", device="cuda")
     m._ensure_pyramids(1921, 1081)
     consts, luts = m._band_tables(C)
@@ -366,9 +327,8 @@ def test_band_pooled_d_kernel(dev, C, ref_only):
         assert _rel(s, s_p) <= 1e-4
         for i, (g, gn) in enumerate(zip(gis, gns)):
             E = pyr.gausspyr_expand(gn, g.shape[-2:])
-            route = (bm.band_masking_d if consts.params.blurs(*g.shape[-2:])
-                     else bm.band_masking_d_noblur)
-            assert torch.equal(Ds[i], route([g], [E], lt[i:i + 1], [muls[i]], consts)[0])
+            D_e = bm.band_masking_d_plain([g], [E], lt[i:i + 1], [muls[i]], consts)[0]
+            assert _rel_planes(Ds[i], D_e) <= 1e-5
             assert _rel_planes(Ds[i], D_p[i]) <= 1e-5
     with pytest.raises(ValueError):
         bp.band_pooled_d([gis[0]], [gis[0]], lt[:1], [1.0], consts)  # gi in gn's slot
@@ -513,9 +473,9 @@ def test_metric_kernels_match_plain(dev, case):
     for fused in (True, False):
         m = ct.cvvdp(display_name="standard_hdr_pq", device="cuda")
         m.enable_fused_kernels = fused
-        before = ing.ingest.launches
+        before = _ingest_launches()
         Q, _ = m.predict(test, ref, dim_order=dims, frames_per_second=30)
-        assert (ing.ingest.launches > before) == fused
+        assert (_ingest_launches() > before) == fused
         jods.append(Q.double().cpu().numpy())
     assert np.abs(jods[0] - jods[1]).max() <= 1e-4, jods
 
@@ -537,11 +497,9 @@ def test_heatmap_kernels_match_plain(dev, hm_type):
         m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=hm_type)
         m.enable_fused_kernels = fused
         m.gpu_mem = m.block_gpu_mem(pix, 5, 30)  # 5-frame blocks on this route
-        old = bm.band_masking_d.launches, bm.band_masking_d_noblur.launches
         before = bp.band_pooled_d.launches
         Q, st = m.predict(test, ref, **kw)
         assert (bp.band_pooled_d.launches > before) == fused
-        assert (bm.band_masking_d.launches, bm.band_masking_d_noblur.launches) == old
         out.append((float(Q), st["heatmap"].astype(np.float32), st["block_N_frames"]))
     (q_k, hm_k, blk_k), (q_p, hm_p, blk_p) = out
     assert blk_k == blk_p == (1 if test.ndim == 3 else 5)
@@ -553,37 +511,6 @@ def test_heatmap_kernels_match_plain(dev, hm_type):
     m.gpu_mem = m.block_gpu_mem(pix, 5, 30)
     q_0, _ = m.predict(test, ref, **kw)
     assert float(q_0) == q_k
-
-
-@pytest.mark.parametrize("C", [4, 3])
-def test_band_masking_contrast_kernel(dev, C):
-    """The contrast-band mode (row 7) against its plain version at unaligned
-    sizes, pooled and D: one wide band, a multi-band group and a band of 4
-    rows without the masking blur."""
-    m = ct.cvvdp(display_name="standard_4k", device="cuda")
-    m._ensure_pyramids(517, 99)
-    consts, _ = m._band_tables(C)
-    shapes = [(99, 517), (50, 259), (25, 130), (13, 65), (4, 17)]
-    luts = torch.as_tensor(np.stack([
-        np.stack([m.csf.logS_of_logL(rho, m.omega[0 if cc < 3 else 1], cc if cc < 3 else 0)
-                  for cc in range(C)]) for rho in (8.0, 4.0, 2.0, 1.0, 0.25)]), device=dev)
-    bands = [torch.randn(1, 2 * C, 3, h, w, device=dev) * 0.3 for h, w in shapes]
-    logLs = [torch.rand(1, 1, 3, h, w, device=dev) * 4 - 1 for h, w in shapes]
-    for sel in ([0], [1, 2, 3], [4]):
-        args = ([bands[i] for i in sel], [logLs[i] for i in sel], luts[sel[0]:sel[-1] + 1],
-                consts)
-        before = bm.band_masking_contrast.launches, bm.band_masking_contrast_d.launches
-        sums = bm.band_masking_contrast(*args)
-        Ds = bm.band_masking_contrast_d(*args)
-        assert (bm.band_masking_contrast.launches, bm.band_masking_contrast_d.launches) == (
-            before[0] + 1, before[1] + 1)
-        ones = [1.0] * len(sel)
-        assert _rel(sums, bm.band_masking_plain(*args[:3], ones, consts, True)) <= 1e-4
-        for D, P in zip(Ds, bm.band_masking_d_plain(*args[:3], ones, consts, True)):
-            assert D.shape == P.shape
-            assert _rel_planes(D, P) <= 1e-5
-    with pytest.raises(ValueError):
-        bm.band_masking_contrast_d([bands[3], bands[4]], [logLs[3], logLs[4]], luts[3:5], consts)
 
 
 @pytest.mark.parametrize("display", ["standard_4k", "standard_hdr_pq"])
@@ -622,8 +549,8 @@ def test_blur_kernel_33_taps(dev):
                          ids=["weber_g0_ref", "log", "texture", "xchannel-off"])
 def test_configurations_kernels_match_plain(dev, tmp_path, over):
     """predict on a non-default configuration, kernels against plain: a video
-    in blocks of 5 + 2 and an image. The contrasts take the contrast-band
-    mode of the band kernel, the other two the generic chain (CSF LUT and
+    in blocks of 5 + 2 and an image. The contrasts take the one-pass band
+    kernel in their coding, the other two the generic chain (CSF LUT and
     blur kernels)."""
     cp = write_parameters(str(tmp_path), **over)
     rng = np.random.RandomState(6)
@@ -638,16 +565,14 @@ def test_configurations_kernels_match_plain(dev, tmp_path, over):
         m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp)
         m.enable_fused_kernels = fused
         m.gpu_mem = m.block_gpu_mem(pix, 5, 30)  # 5-frame blocks on this route
-        before = (counter.launches, ing.ingest.launches, bl.blur.launches,
-                  bm.band_masking_contrast.launches)
+        before = (counter.launches, ing.ingest.launches, bl.blur.launches)
         Qv, _ = m.predict(test, ref, dim_order="HWCF", frames_per_second=30)
         Qi, _ = m.predict(test[..., 0], ref[..., 0], dim_order="HWC")
-        after = (counter.launches, ing.ingest.launches, bl.blur.launches,
-                 bm.band_masking_contrast.launches)
+        after = (counter.launches, ing.ingest.launches, bl.blur.launches)
         grew = [a > b for a, b in zip(after, before)]
         # The generic chain blurs with the blur kernel; the band kernel in-kernel,
-        # from gi and gn for every coding (the contrast-band mode never launches).
-        assert grew == ([True, True, not contrast_mode, False] if fused else [False] * 4)
+        # from gi and gn for every coding.
+        assert grew == ([True, True, not contrast_mode] if fused else [False] * 3)
         out.append((float(Qv), float(Qi)))
     assert np.abs(np.subtract(out[0], out[1])).max() <= 1e-4 * max(1.0, abs(10 - out[1][1]))
 
@@ -662,11 +587,10 @@ def test_weber_g0_ref_loss_kernels_match_plain(dev, tmp_path):
         m = ct.cvvdp(display_name="standard_4k", device="cuda", config_paths=cp)
         m.enable_fused_kernels = fused
         x = torch.from_numpy(test).to(dev).requires_grad_()
-        before = bp.band_pooled.launches, bm.band_masking_contrast.launches
+        before = bp.band_pooled.launches
         v = m.get_loss_fn(96, 320)(x, torch.from_numpy(ref).to(dev))
         (g,) = torch.autograd.grad(v, x)
-        assert (bp.band_pooled.launches > before[0]) == fused
-        assert bm.band_masking_contrast.launches == before[1]
+        assert (bp.band_pooled.launches > before) == fused
         out.append((float(v.detach()), g))
     assert abs(out[0][0] - out[1][0]) <= 1e-4
     assert _rel(out[0][1], out[1][1]) <= 1e-4
@@ -774,86 +698,6 @@ def test_ml_metrics_kernels_match_plain(dev, family, case):
     assert abs(jods[0] - jods[1]) <= 1e-4 * max(1.0, abs(10.0 - jods[1])), jods
 
 
-@pytest.mark.parametrize("C,ref_only", [(4, False), (3, False), (4, True)])
-def test_band_fused_kernel(dev, C, ref_only):
-    """The band kernel's fused mode against the raw-pair route fed the plain
-    expand (bit for bit) and against its plain version, pooled and D, at
-    aligned, odd and small band sizes (the 4-row band takes no blur)."""
-    m = ct.cvvdp(display_name="standard_4k", device="cuda")
-    m._ensure_pyramids(512, 96)
-    consts, luts = m._band_tables(C)
-    consts = dataclasses.replace(consts, ref_only=ref_only)
-    for i, (h, w) in enumerate([(96, 512), (99, 517), (48, 256), (13, 65), (4, 17)]):
-        gi = torch.rand(2, 2 * C, 3, h, w, device=dev) * 20 + 30
-        gn = pyramid_reduce(gi)
-        E = pyr.gausspyr_expand(gn, (h, w))
-        lut_b, mul = luts[min(i, 1)], 1.0 if i == 0 else 2.0
-        before = (bf.band_fused.launches, bf.band_fused_d.launches)
-        s = bf.band_fused(gi, gn, lut_b, mul, consts)
-        D, s_d = bf.band_fused_d(gi, gn, lut_b, mul, consts)
-        assert (bf.band_fused.launches, bf.band_fused_d.launches) == (before[0] + 1,
-                                                                      before[1] + 1)
-        route_d = bm.band_masking_d if consts.params.blurs(h, w) else bm.band_masking_d_noblur
-        assert torch.equal(s, bm.band_masking([gi], [E], lut_b[None], [mul], consts)[0])
-        assert torch.equal(D, route_d([gi], [E], lut_b[None], [mul], consts)[0])
-        assert torch.equal(s_d, s)
-        assert _rel(s, bf.band_fused_plain(gi, gn, lut_b, mul, consts)) <= 1e-4
-        D_p, s_p = bf.band_fused_d_plain(gi, gn, lut_b, mul, consts)
-        assert _rel_planes(D, D_p) <= 1e-5 and _rel(s_d, s_p) <= 1e-4
-    with pytest.raises(ValueError):
-        bf.band_fused(gi, E, lut_b, 2.0, consts)  # E in gn's slot: wrong shape
-
-
-@pytest.mark.parametrize("heatmap", [None, "raw"])
-def test_band_mega_route_kernels_match_plain(dev, heatmap):
-    """predict with ``use_band_mega`` (``force_fused``: bands 0 and 1 of
-    96x512 pass the gate), kernels against plain and against the default
-    route; 7 frames in blocks of 5 and 2."""
-    rng = np.random.RandomState(6)
-    ref = (rng.rand(96, 512, 3, 7) * 255).astype(np.uint8)
-    test = np.clip(ref.astype(np.int16) + (rng.randn(*ref.shape) * 10).astype(np.int16),
-                   0, 255).astype(np.uint8)
-    pix = 96 * 512
-    fn = bf.band_fused_d if heatmap else bf.band_fused
-    out = {}
-    for mega, fused in ((True, True), (True, False), (False, True)):
-        m = ct.cvvdp(display_name="standard_4k", device="cuda", heatmap=heatmap)
-        m.use_band_mega, m.force_fused, m.enable_fused_kernels = mega, True, fused
-        m.gpu_mem = m.block_gpu_mem(pix, 5, 30)  # 5-frame blocks on this route
-        before = fn.launches
-        Q, st = m.predict(test, ref, dim_order="HWCF", frames_per_second=30)
-        assert st["block_N_frames"] == 5
-        assert fn.launches - before == (4 if mega and fused else 0)  # 2 bands x 2 blocks
-        out[(mega, fused)] = (float(Q), st.get("heatmap"))
-    (jk, hk), (jp, hp), (jd, hd) = out[(True, True)], out[(True, False)], out[(False, True)]
-    assert abs(jk - jp) <= 1e-4 and abs(jk - jd) <= 1e-5, (jk, jp, jd)
-    if heatmap:
-        assert np.abs(hk.astype(np.float32) - hp.astype(np.float32)).max() <= 1.1e-3
-        assert np.array_equal(hk, hd)
-
-
-def test_band_mega_loss_kernels_match_plain(dev):
-    """get_loss_fn with ``use_band_mega`` at 64x512 (band 0 passes the gate
-    with ``force_fused``): loss and gradient, kernels against plain and
-    against the default route."""
-    rng = np.random.RandomState(12)
-    ref = rng.rand(2, 3, 1, 64, 512).astype(np.float32)
-    test = np.clip(ref + rng.randn(*ref.shape).astype(np.float32) * 0.1, 0, 1)
-    out = {}
-    for mega, fused in ((True, True), (True, False), (False, True)):
-        m = ct.cvvdp(display_name="standard_4k", device="cuda")
-        m.use_band_mega, m.force_fused, m.enable_fused_kernels = mega, True, fused
-        x = torch.from_numpy(test).to(dev).requires_grad_()
-        before = bf.band_fused.launches
-        v = m.get_loss_fn(64, 512)(x, torch.from_numpy(ref).to(dev))
-        (g,) = torch.autograd.grad(v, x)
-        assert (bf.band_fused.launches > before) == (mega and fused)
-        out[(mega, fused)] = (float(v.detach()), g)
-    for key in ((True, False), (False, True)):
-        assert abs(out[(True, True)][0] - out[key][0]) <= 1e-4
-        assert _rel(out[(True, True)][1], out[key][1]) <= 1e-4
-
-
 @pytest.mark.parametrize("shape", [(2, 128, 512), (3, 5, 14), (1, 7, 6), (4, 33, 258)])
 def test_interleave_kernels(dev, shape):
     """Interleave, concat and de-interleave bit for bit against their plain
@@ -887,27 +731,6 @@ def test_reduce_slab_kernel(dev, shape, rows_odd):
     assert torch.equal(y, pyr.reduce_slab_plain(x, rows_odd))
 
 
-@pytest.mark.parametrize("C", [4, 3])
-def test_band_masking_halo_kernel(dev, C):
-    """The halo mode against its plain version: a 3-band launch of slabs with
-    odd and even owned rows and an unaligned width, and the halo mode fed a
-    slab with zero-padded halos against the whole band's pooled mode on the
-    interior."""
-    m = ct.cvvdp(display_name="standard_4k", device="cuda")
-    m._ensure_pyramids(517, 99)
-    consts, luts = m._band_tables(C)
-    r = bm.HALO_ROWS
-    h_valids, widths = [40, 17, 33], [517, 259, 130]
-    gis = [torch.rand(1, 2 * C, 3, hv + 2 * r, w, device=dev) * 20 + 30
-           for hv, w in zip(h_valids, widths)]
-    Es = [g + torch.randn_like(g) for g in gis]
-    args = (gis, Es, luts[0:3], [1.0, 2.0, 2.0], consts, h_valids)
-    before = bm.band_masking_halo.launches
-    got = bm.band_masking_halo(*args)
-    assert bm.band_masking_halo.launches == before + 1
-    assert _rel(got, bm.band_masking_halo_plain(*args)) <= 1e-4
-
-
 def _contrast_levels(C, B, shapes, coding, dev):
     """Seeded levels gi of the given shapes (log-like values for the log
     coding, luminance-like otherwise) and their reduces gn."""
@@ -917,9 +740,9 @@ def _contrast_levels(C, B, shapes, coding, dev):
     return gis, [pyramid_reduce(x) for x in gis]
 
 
-def _previous_contrast_route(gis, gns, muls, coding):
-    """The contrast bands and fields as the decomposition wrote them for the
-    contrast-band mode: plain ``interior_contrast`` x the band gain."""
+def _contrast_bands(gis, gns, muls, coding):
+    """The contrast bands and fields as the JAX package's decomposition
+    writes them: plain ``interior_contrast`` x the band gain."""
     out = [pyr.interior_contrast(g, pyr.gausspyr_expand(n, g.shape[-2:]), coding)
            for g, n in zip(gis, gns)]
     return [b * m for (b, _), m in zip(out, muls)], [L for _, L in out]
@@ -929,10 +752,10 @@ def _previous_contrast_route(gis, gns, muls, coding):
 @pytest.mark.parametrize("C", [4, 3])
 def test_band_pooled_contrast_codings_kernel(dev, C, coding):
     """The contrast-band codings of the one-pass kernel, pooled and D,
-    against the previous route (the plain contrast bands and fields +
-    ``band_masking_contrast`` / ``_d``) and against their plain versions:
-    an odd 1081x1921 band of B = 2, an aligned 96x512 band, and one launch
-    over narrow bands whose 4-row band takes no blur."""
+    against their plain versions and against the plain chain on the plain
+    contrast bands and fields: an odd 1081x1921 band of B = 2, an aligned
+    96x512 band, and one launch over narrow bands whose 4-row band takes no
+    blur."""
     m = ct.cvvdp(display_name="standard_4k", device="cuda")
     m._ensure_pyramids(1921, 1081)
     consts, luts = m._band_tables(C)
@@ -949,12 +772,14 @@ def test_band_pooled_contrast_codings_kernel(dev, C, coding):
                                                                       before[1] + 1)
         assert torch.equal(s_d, s)
         assert _rel(s, bp.band_pooled_plain(gis, gns, lt, muls, k)) <= 1e-4
-        bands, logLs = _previous_contrast_route(gis, gns, muls, coding)
-        assert _rel(s, bm.band_masking_contrast(bands, logLs, lt, k)) <= 1e-4
+        bands, logLs = _contrast_bands(gis, gns, muls, coding)
+        ones = [1.0] * len(shapes)
+        assert _rel(s, bm.band_masking_plain(bands, logLs, lt, ones, k, True)) <= 1e-4
         D_p, _ = bp.band_pooled_d_plain(gis, gns, lt, muls, k)
         for i, D in enumerate(Ds):
             assert _rel_planes(D, D_p[i]) <= 1e-5
-            D_r = bm.band_masking_contrast_d([bands[i]], [logLs[i]], lt[i:i + 1], k)[0]
+            D_r = bm.band_masking_d_plain([bands[i]], [logLs[i]], lt[i:i + 1], [1.0], k,
+                                          True)[0]
             assert _rel_planes(D, D_r) <= 1e-5
 
 
@@ -983,11 +808,11 @@ def _gn_rows(gn, s, n, sharded):
 
 @pytest.mark.parametrize("C", [4, 3])
 def test_band_pooled_halo_kernel(dev, C):
-    """The one-pass kernel's halo mode against its plain version and, bit
-    for bit, against the previous route (``band_masking_halo`` fed the slab
-    of the plain expand): a 2-band launch (a sharded gn, and a replicated one
-    with an unaligned width) on the first, a middle and the last of 4 slabs;
-    the slabs' sums add up to the whole bands' pooled sums."""
+    """The one-pass kernel's halo mode against its plain version and against
+    the plain halo chain fed the slab of the plain expand: a 2-band launch (a
+    sharded gn, and a replicated one with an unaligned width) on the first, a
+    middle and the last of 4 slabs; the slabs' sums add up to the whole
+    bands' pooled sums."""
     m = ct.cvvdp(display_name="standard_4k", device="cuda")
     m._ensure_pyramids(517, 256)
     consts, luts = m._band_tables(C)
@@ -1002,15 +827,14 @@ def test_band_pooled_halo_kernel(dev, C):
         xs = [_halo_slab(x, s, n, r) for x in gis]
         ys, row0s = zip(*[_gn_rows(gn, s, n, sh) for gn, sh in zip(gns, sharded)])
         slabs = [(s * (h // n), h, row0) for (h, _), row0 in zip(shapes, row0s)]
-        before = bp.band_pooled_halo.launches, bm.band_masking_halo.launches
+        before = bp.band_pooled_halo.launches
         got = bp.band_pooled_halo(xs, list(ys), lt, muls, consts, slabs)
-        assert (bp.band_pooled_halo.launches, bm.band_masking_halo.launches) == (
-            before[0] + 1, before[1])
+        assert bp.band_pooled_halo.launches == before + 1
         assert _rel(got, bp.band_pooled_halo_plain(xs, list(ys), lt, muls, consts, slabs)) <= 1e-4
         Es = [_halo_slab(pyr.gausspyr_expand(gn, x.shape[-2:]), s, n, r)
               for x, gn in zip(gis, gns)]
-        assert torch.equal(got, bm.band_masking_halo(xs, Es, lt, muls, consts,
-                                                     [h // n for h, _ in shapes]))
+        assert _rel(got, bm.band_masking_halo_plain(xs, Es, lt, muls, consts,
+                                                    [h // n for h, _ in shapes])) <= 1e-4
         total = total + got
     assert _rel(total, bp.band_pooled(gis, gns, lt, muls, consts)) <= 1e-5
     with pytest.raises(ValueError):  # gn rows that do not cover the slab's expand
@@ -1146,8 +970,7 @@ def test_sharded_heatmap_and_loss_on_the_card(dev, tmp_path, world, batch):
 def test_sharded_scoring_on_the_card(dev, tmp_path):
     """A 192x512 image and a 2-block 128x256 video on a (1, 2) mesh of two
     ranks on the card(s): the JODs of single-device scoring, and the slab
-    reduce and the one-pass kernel's halo mode launched on every rank (the
-    previous halo mode never)."""
+    reduce and the one-pass kernel's halo mode launched on every rank."""
     from colorvideovdp_tpu_torch.parallel import run_ranks
     from colorvideovdp_tpu_torch.parallel import sharding as sh
 
@@ -1169,7 +992,6 @@ def test_sharded_scoring_on_the_card(dev, tmp_path):
             assert abs(float(r["jod"]) - float(Q1)) <= 2e-4, (name, float(r["jod"]), float(Q1))
             assert r["launches"]["pyramid_reduce_slab"] > 0
             assert r["launches"]["band_pooled_halo"] > 0
-            assert r["launches"]["band_masking_halo"] == 0
 
 
 def _yuv_pair_files(tmp_path, h, w, n, seed=2):
@@ -1324,10 +1146,10 @@ def test_cli_kernels_match_plain(dev, tmp_path, monkeypatch):
         if not fused:
             monkeypatch.setitem(vq_metric_dict, "cvvdp", cvvdp_plain)
         res = str(tmp_path / f"res{int(fused)}.csv")
-        before = ing.ingest.launches
+        before = _ingest_launches()
         cli.run_on_args(cli.parse_args(["-t", names[0], "-r", names[1], "--display",
                                         "standard_hdr_pq", "--result", res, "-q"]))
-        assert (ing.ingest.launches > before) == fused
+        assert (_ingest_launches() > before) == fused
         with open(res) as f:
             jods.append(float(list(csv.reader(f))[1][2]))
     q_api, _ = ct.cvvdp(display_name="standard_hdr_pq", temp_padding="symmetric"

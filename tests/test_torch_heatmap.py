@@ -64,8 +64,8 @@ def _band_D_pair(metrics, C, h, w, seed):
                                        False, 2.0, pool_beta=None)
     D_j = np.asarray(fused(jnp.asarray(gi), jnp.asarray(E)))
     k = bm_t.BandConsts.make(mt._masking_params(), C, x0, x1, sens, False, 2.0)
-    (D_t,) = bm_t.band_D([torch.from_numpy(gi)], [torch.from_numpy(E)],
-                         torch.from_numpy(luts), [2.0], k)
+    (D_t,) = bm_t.band_masking_d_plain([torch.from_numpy(gi)], [torch.from_numpy(E)],
+                                       torch.from_numpy(luts), [2.0], k)
     return D_t.numpy(), D_j, k
 
 
@@ -100,7 +100,7 @@ def test_pooled_sums_are_the_D_mode_summed(metrics):
     gis = [torch.from_numpy((30 + 20 * rng.rand(1, 8, 3, h, w)).astype(np.float32))
            for h, w in shapes]
     Es = [g + torch.from_numpy(rng.randn(*g.shape).astype(np.float32)) for g in gis]
-    sums = bm_t.band_masking(gis, Es, luts[1:3], [2.0, 2.0], consts)
+    sums = bm_t.band_masking_plain(gis, Es, luts[1:3], [2.0, 2.0], consts)
     Ds = bm_t.band_masking_d_plain(gis, Es, luts[1:3], [2.0, 2.0], consts)
     for s, D in zip(sums, Ds):
         assert torch.equal(s, torch.sum((D + 1e-5) ** 2 - 1e-10, dim=(-2, -1)))

@@ -530,16 +530,21 @@ def test_scored_block_is_freed_before_the_next(tmp_path, monkeypatch, route):
     from colorvideovdp_tpu_torch.ops.kernels import ingest as ing
 
     test, ref = _yuv_pair(tmp_path, seed=5)
-    name = "ingest_plain" if route == "blocks" else "temporal_fir"
-    real, alive = getattr(ing, name), []
+    # The block producer's first block and later blocks (their plain
+    # versions on the CPU), or the per-frame route's filter.
+    names = ("ingest_first_plain", "ingest_plain") if route == "blocks" else ("temporal_fir",)
+    alive = []
 
-    def spy(*args, **kwargs):
-        assert all(r() is None for r in alive), "the previous block is still referenced"
-        out = real(*args, **kwargs)
-        alive.append(weakref.ref(out[0]))
-        return out
+    def spy(real):
+        def run(*args, **kwargs):
+            assert all(r() is None for r in alive), "the previous block is still referenced"
+            out = real(*args, **kwargs)
+            alive.append(weakref.ref(out[0]))
+            return out
+        return run
 
-    monkeypatch.setattr(ing, name, spy)
+    for name in names:
+        monkeypatch.setattr(ing, name, spy(getattr(ing, name)))
     m = ct.cvvdp(display_name="standard_hdr_pq", device="cpu")
     m.gpu_mem = m.block_gpu_mem(H * W, 2, 24)
     vs = yuv_t.video_source_yuv_file(test, ref, display_photometry="standard_hdr_pq")

@@ -142,8 +142,8 @@ def test_band_masking_wide_matches_fused_raw(metrics, C):
     q_j = np.asarray(fused(jnp.asarray(gi), jnp.asarray(E)))
 
     k = bm_t.BandConsts.make(mt._masking_params(), C, x0, x1, sens, False, 2.0)
-    sums = bm_t.band_masking([torch.from_numpy(gi)], [torch.from_numpy(E)],
-                             torch.from_numpy(luts), [2.0], k)
+    sums = bm_t.band_masking_plain([torch.from_numpy(gi)], [torch.from_numpy(E)],
+                                   torch.from_numpy(luts), [2.0], k)
     q_t = bm_t.pooled_norm(sums[0], 32, 256, 2.0).numpy()
     assert q_t.shape == q_j.shape == (1, C, 2)
     assert _rel(q_t, q_j) <= 1e-4
@@ -166,9 +166,9 @@ def test_band_masking_narrow_stack_matches_band_stack(metrics):
                                         [jnp.asarray(e) for e in Es])]
 
     k = bm_t.BandConsts.make(mt._masking_params(), C, x0, x1, 1.23, False, 2.0)
-    sums = bm_t.band_masking([torch.from_numpy(g) for g in gis],
-                             [torch.from_numpy(e) for e in Es],
-                             torch.from_numpy(luts), [2.0] * 3, k)
+    sums = bm_t.band_masking_plain([torch.from_numpy(g) for g in gis],
+                                   [torch.from_numpy(e) for e in Es],
+                                   torch.from_numpy(luts), [2.0] * 3, k)
     for i, (h, w) in enumerate(shapes):
         q_t = bm_t.pooled_norm(sums[i], h, w, 2.0).numpy()
         assert q_t.shape == q_j[i].shape

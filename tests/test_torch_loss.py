@@ -27,7 +27,6 @@ from colorvideovdp_tpu.ops.kernels.blur_halo import blur_tpu  # noqa: E402
 from colorvideovdp_tpu_torch.convert import params_from_jax  # noqa: E402
 from colorvideovdp_tpu_torch.ops.blur import blur_plain, gaussian_kernel1d  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels import csf_lut as lut_t  # noqa: E402
-from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels.blur import Blur  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels.pyramid_reduce import Reduce  # noqa: E402
 
@@ -189,31 +188,6 @@ def test_blur_backward_matches_autograd():
     (d_fn,) = torch.autograd.grad(Blur.apply(x, TAPS), x, g)
     (d_ref,) = torch.autograd.grad(blur_plain(x, TAPS), x, g)
     assert torch.equal(d_fn, d_ref)
-
-
-def test_band_masking_backward_matches_autograd(monkeypatch):
-    m = ct.cvvdp(display_name="standard_4k", device="cpu")
-    m._ensure_pyramids(64, 24)
-    consts, luts = m._band_tables(4)
-    rng = np.random.RandomState(12)
-    shapes = [(24, 64), (12, 32), (5, 16)]  # the last skips the blur
-    gis = [torch.from_numpy((rng.rand(1, 8, 3, h, w) * 20 + 30).astype(np.float32))
-           .requires_grad_() for h, w in shapes]
-    Es = [torch.from_numpy((rng.rand(1, 8, 3, h, w) * 20 + 30).astype(np.float32))
-          .requires_grad_() for h, w in shapes]
-    luts = luts[:3]
-    muls = [1.0, 2.0, 2.0]
-    # One frame per chunk, so the backward's chunk loop is exercised.
-    monkeypatch.setattr(bm, "_PLAIN_CHUNK_PIXELS", 24 * 64)
-    s = bm.band_sums(gis, Es, luts, muls, consts)
-    g = torch.from_numpy(rng.randn(*s.shape).astype(np.float32))
-    d_fn = torch.autograd.grad(s, gis + Es, g)
-    s_ref = torch.stack([bm._band_sums_plain(gi, E, luts[i], muls[i], consts)
-                         for i, (gi, E) in enumerate(zip(gis, Es))])
-    assert torch.allclose(s, s_ref, rtol=1e-6, atol=0)
-    d_ref = torch.autograd.grad(s_ref, gis + Es, g)
-    for a, b in zip(d_fn, d_ref):
-        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
 
 
 def test_gradcheck_blur_and_reduce():

@@ -46,23 +46,18 @@ Q_ml, _ = ct.cvvdp_ml_transformer(display_name="standard_4k", device="cpu",
                                   random_init=True).predict(
     test, ref, dim_order="HWCF", frames_per_second=30)
 assert np.isfinite(float(Q_ml)), float(Q_ml)
-from colorvideovdp_tpu_torch.ops.kernels import band_fused
-from colorvideovdp_tpu_torch.tools import interleave_bench
-seen = []
-fused_sums = band_fused.band_fused_sums
-band_fused.band_fused_sums = lambda *a: seen.append(a[0].shape) or fused_sums(*a)
-m = ct.cvvdp(display_name="standard_4k", device="cpu")
-m.use_band_mega = m.force_fused = True
-ref2 = (rng.rand(48, 256, 3) * 255).astype(np.uint8)
-Q_mega, _ = m.predict(np.clip(ref2.astype(np.int16) + 9, 0, 255).astype(np.uint8), ref2,
-                      dim_order="HWC")
-assert np.isfinite(float(Q_mega)) and len(seen) == 1, (float(Q_mega), seen)
-assert interleave_bench.main(["--cpu-check"]) == 0
 import torch
 from colorvideovdp_tpu_torch.ops.kernels import band_pooled, ingest
+from colorvideovdp_tpu_torch.tools import interleave_bench
 pooled = []
 band_pooled_sums = band_pooled.band_pooled_sums
 band_pooled.band_pooled_sums = lambda *a: pooled.append(len(a[0])) or band_pooled_sums(*a)
+ref2 = (rng.rand(48, 256, 3) * 255).astype(np.uint8)
+Q_wide, _ = ct.cvvdp(display_name="standard_4k", device="cpu").predict(
+    np.clip(ref2.astype(np.int16) + 9, 0, 255).astype(np.uint8), ref2, dim_order="HWC")
+assert np.isfinite(float(Q_wide)) and pooled, (float(Q_wide), pooled)
+assert interleave_bench.main(["--cpu-check"]) == 0
+pooled.clear()
 Q_pooled, _ = ct.cvvdp(display_name="standard_4k", device="cpu").predict(
     test[..., 0], ref[..., 0], dim_order="HWC")
 assert np.isfinite(float(Q_pooled)) and pooled, (float(Q_pooled), pooled)

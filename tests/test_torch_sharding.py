@@ -22,6 +22,7 @@ import torch  # noqa: E402
 
 import colorvideovdp_tpu as cj  # noqa: E402
 import colorvideovdp_tpu_torch as ct  # noqa: E402
+from colorvideovdp_tpu_torch.dump_channels import DumpChannels  # noqa: E402
 from colorvideovdp_tpu.ops.kernels.masking_fused import fused_blur_transducer  # noqa: E402
 from colorvideovdp_tpu_torch.ops import pyramid as pyr  # noqa: E402
 from colorvideovdp_tpu_torch.ops.kernels import masking_fused as bm  # noqa: E402
@@ -185,8 +186,8 @@ def test_halo_band_mode_matches_fused_blur_transducer():
         # Not to the bit: PyTorch's CPU log10/pow may differ by an ulp between
         # the vector body and the scalar tail of a thread's chunk, and the
         # chunks split a slab and the whole band at other elements.
-        slab = bm.band_masking_halo([halo(gi, "reflect")], [halo(E, "reflect")], luts[0:1],
-                                    [2.0], k, [H_loc])[0]
+        slab = bm.band_masking_halo_plain([halo(gi, "reflect")], [halo(E, "reflect")],
+                                          luts[0:1], [2.0], k, [H_loc])[0]
         assert float((slab - got).abs().max() / got.abs().max()) <= 1e-6
         total = total + slab
     whole = bm.band_masking_plain([gi], [E], luts[0:1], [2.0], k)[0]
@@ -228,9 +229,8 @@ def test_rank_device_has_one_source():
 def test_block_gpu_mem_inverts_the_block_model(monkeypatch, tmp_path):
     """On every route: the CPU, and on a card (its memory queries patched to
     a large free memory) the pooled route, the heatmap's, the dumps', the
-    mesh's, a per-frame source's, the generic chain's, the plain versions',
-    the mega route's and the ML trunk's."""
-    from colorvideovdp_tpu_torch.dump_channels import DumpChannels
+    mesh's, a per-frame source's, the generic chain's, the plain versions'
+    and the ML trunk's."""
     from colorvideovdp_tpu_torch.metrics.ml import cvvdp_ml_transformer
     from colorvideovdp_tpu_torch.utils.config import write_parameters
 
@@ -240,7 +240,7 @@ def test_block_gpu_mem_inverts_the_block_model(monkeypatch, tmp_path):
     texture = write_parameters(str(tmp_path), masking_model="mult-transducer-texture")
     routes = {"cpu": {}, "pooled": {}, "heatmap": dict(heatmap="raw"),
               "dumps": dict(dump_channels=DumpChannels()), "mesh": {}, "per-frame": {},
-              "generic": dict(config_paths=texture), "plain": {}, "mega": {}, "ml": {}}
+              "generic": dict(config_paths=texture), "plain": {}, "ml": {}}
     for route, kw in routes.items():
         cls = cvvdp_ml_transformer if route == "ml" else ct.cvvdp
         if route == "ml":
@@ -249,7 +249,6 @@ def test_block_gpu_mem_inverts_the_block_model(monkeypatch, tmp_path):
         if route != "cpu":
             m.device = torch.device("cuda")
         m.enable_fused_kernels = route != "plain"
-        m.use_band_mega = route == "mega"
         kw = dict(reference_model=route in ("mesh", "per-frame"))
         m.filter_len = len(get_temporal_filters(30.0, m.sigma_tf, m.beta_tf, m.temp_filter)[0][0])
         for pix, blk, share in ((1080 * 3840, 16, 2), (64 * 256, 4, 1), (540 * 3840, 8, 4),
@@ -259,9 +258,9 @@ def test_block_gpu_mem_inverts_the_block_model(monkeypatch, tmp_path):
 
 
 def test_mesh_and_heatmap_guards():
-    """A mesh needs the ranks it names; a video's heatmap, channel dumps and
-    the mega route take none (an image's heatmap does: shard_scoring_fn
-    returns it beside Q)."""
+    """A mesh needs the ranks it names; a video's heatmap and channel dumps
+    take none (an image's heatmap does: shard_scoring_fn and
+    predict_video_source return it beside Q)."""
     with pytest.raises(ValueError):
         sh.make_mesh(3)  # 1 rank does not split into 3 batch groups
     with pytest.raises(ValueError):
@@ -272,18 +271,24 @@ def test_mesh_and_heatmap_guards():
     img = np.random.RandomState(0).randint(0, 255, (16, 64, 3), dtype=np.uint8)
     vs = ct.video_source_array(img, img, 0, dim_order="HWC",
                                display_photometry=m.display_photometry)
+    clip = np.repeat(img[..., None], 4, axis=-1)
+    vs_video = ct.video_source_array(clip, clip, 30, dim_order="HWCF",
+                                     display_photometry=m.display_photometry)
     with pytest.raises(ValueError, match="heatmap"):
-        sh.shard_video_fn(m, vs, "DKLd65", (1, 4, 3, 16, 64), np.uint8, mesh, first=True)
+        sh.predict_video_source(m, vs_video, mesh)
     raws = [m._upload(vs.get_raw_block(s, 0, 1)) for s in ("test", "reference")]
     Q, hm = sh.shard_scoring_fn(m, vs, "DKLd65", (1, 1, 3, 16, 64), np.uint8, mesh)(*raws)
     assert hm.dtype == torch.float16 and tuple(hm.shape) == (1, 1, 1, 16, 64)
+    Q_p, st = sh.predict_video_source(m, vs, mesh)
+    assert torch.equal(Q_p, m.do_pooling_and_jods(Q))
+    assert np.array_equal(st["heatmap"], hm.numpy())
     with pytest.raises(ValueError, match="dumps"):
         m._process_block(torch.zeros(1, 6, 1, 16, 64), temp_ch=1, is_image=True, mesh=mesh,
                          dump={})
     m = ct.cvvdp(display_name="standard_4k", device="cpu")
     assert sh.shard_scoring_fn(m, vs, "DKLd65", (1, 1, 3, 16, 64), np.uint8, mesh)(*raws)[1] is None
-    m.use_band_mega = True
-    with pytest.raises(ValueError):
-        sh.shard_video_fn(m, vs, "DKLd65", (1, 4, 3, 16, 64), np.uint8, mesh, first=True)
-    with pytest.raises(ValueError):
+    m.dump_channels = DumpChannels()
+    with pytest.raises(ValueError, match="dumps"):
+        sh.predict_video_source(m, vs_video, mesh)
+    with pytest.raises(ValueError, match="dumps"):
         sh.shard_loss_fn(m, 16, 64, mesh)
